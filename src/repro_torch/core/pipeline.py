@@ -1,0 +1,84 @@
+"""Batch staging: prepare the next steps' batches ahead of the current one.
+
+``BatchPipeline`` is a lookahead buffer over an *indexed* producer
+``k -> host batch`` (the sync ``batch_source`` contract), as in
+``repro.core.pipeline``.  The buffer is warmed ``depth`` entries ahead;
+each ``get(k)`` returns the staged batch for step ``k`` and immediately
+stages ``k + depth``.  Batches are consumed in exactly the order produced,
+and a *stateful* producer is drawn from up to ``depth`` steps ahead of
+consumption in the same order as the reference, so a numpy rng source
+yields the same batches in both packages.  Producers signal exhaustion by
+raising ``StopIteration`` or ``IndexError``.
+
+Staging is ``torch.as_tensor(..., device=...)`` on PyTorch's current
+stream; pinned host buffers and a side copy stream are later work.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+__all__ = ["BatchPipeline", "device_batch"]
+
+
+def device_batch(batch: dict, device) -> dict:
+    """Copy every entry of a flat host batch dict to ``device``."""
+    return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+
+
+class BatchPipeline:
+    """Lookahead buffer over an indexed batch producer.
+
+    ``get`` is strictly sequential from ``start`` — a scheduler asked to
+    step out of order (or handed a different source) drops the pipeline and
+    builds a fresh one; ``next_index`` says what the pipeline expects.
+    """
+
+    def __init__(self, producer: Callable[[int], Any], transfer: Callable[[Any], Any],
+                 start: int = 1, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self._producer = producer
+        self._transfer = transfer
+        self._depth = depth
+        self._next_produce = start
+        self._next_get = start
+        self._exhausted = False
+        self._buf: collections.deque = collections.deque()
+        self._fill()
+
+    @property
+    def next_index(self) -> int:
+        """Index the next ``get`` must request."""
+        return self._next_get
+
+    @property
+    def exhausted(self) -> bool:
+        """True once the producer has signaled end-of-stream."""
+        return self._exhausted and not self._buf
+
+    def _fill(self) -> None:
+        while not self._exhausted and len(self._buf) < self._depth:
+            try:
+                host = self._producer(self._next_produce)
+            except (StopIteration, IndexError):
+                self._exhausted = True
+                return
+            self._buf.append(self._transfer(host))
+            self._next_produce += 1
+
+    def get(self, k: int):
+        """Staged batch for step ``k``; stages ``k + depth`` before returning."""
+        if k != self._next_get:
+            raise ValueError(
+                f"BatchPipeline is sequential: expected get({self._next_get}), got get({k})"
+            )
+        if not self._buf:
+            raise StopIteration(f"batch producer exhausted before index {k}")
+        batch = self._buf.popleft()
+        self._next_get += 1
+        self._fill()
+        return batch
