@@ -9,16 +9,24 @@ Phases, one result line each; any failure exits non-zero without the final
 1. device   card name and power limit (nvidia-smi), torch/CUDA versions and
             both TF32 flags; TF32 is then switched off for the whole run
             (cuDNN convolutions would otherwise run f32 in TF32).
-2. build    ``nvcc`` builds every kernel of the path from ``src/``, one
-            process per kernel, all at once.
+2. build    ``nvcc`` builds every kernel library from ``src/`` (four:
+            fused_sgd with sgd_update and normalized_update,
+            fused_transition, gossip_mix, cluster_agg), one process per
+            library, all at once.
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the leaf shapes of MnistCNN and CifarCNN stacked over
-            C=20 clients in D=4 clusters: f32 and bf16, alpha 0/1/2, static
-            factors and masked participation weights with a faulted mixing
-            matrix (ring with one link down).  Tolerances as the reference's
-            kernel tests: 1e-5 f32 transition, 1e-6 f32 SGD, 3e-2 bf16.
-            Then CUDA-event times of the kernel, the plain version and one
-            library call computing the same function, beside the bound.
+            C=20 clients in D=4 clusters, f32 and bf16.  Transition: alpha
+            0/1/2, static factors and masked participation weights with a
+            faulted mixing matrix (ring with one link down).  gossip_mix:
+            D=4, alpha 0/1/2, the ring P and an eq. 22 P_t, in place.
+            cluster_agg: C=20 -> D=4 and the async g=5 -> 1, masked weights.
+            normalized_update: R=5 rows with 1/theta per row, and R=1.
+            Tolerances as the reference's kernel tests: 1e-5 f32
+            transition, gossip and aggregation, 1e-6 f32 SGD and normalized
+            update, 3e-2 bf16.  Then CUDA-event times of the kernel, the
+            plain version and one library call computing the same function
+            (where there is one), beside the bound, at the shapes of the
+            path that runs the kernel.
 4. main     the main path: ``mnist-noniid-ring`` with ``tau2=2`` through
             ``build_scenario`` (which calls ``make_run``) on the default
             device, backend auto -> cuda, 10 iterations (local, intra and
@@ -29,6 +37,16 @@ Phases, one result line each; any failure exits non-zero without the final
 5. cifar    ``cifar-dirichlet-torus`` with the kernel backend: iterations/s
             and the split of one iteration into local gradient,
             ``sgd_update`` and transition.
+6. async    asynchronous SD-FEEL: ``straggler-bimodal-async`` through
+            ``build_scenario`` on the default device, backend auto -> cuda,
+            24 cluster events, launch counters zeroed just before and read
+            just after (normalized_update, cluster_agg and gossip_mix once
+            per leaf per event).  Held against the same run with the dense
+            backend on the card and on the CPU (identical event sequence,
+            1e-4 max abs on the cluster models, 1e-4 relative on the eval
+            loss).  Then warm events/s, the split of one event (client
+            deltas, normalized_update, cluster_agg, gossip_mix) and the
+            profiled device-busy share.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -47,6 +65,9 @@ SRC = HERE / "src"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data-sheet memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
 C, D, LR = 20, 4, 0.05
+G = C // D                  # clients per cluster: the async event's rows
+THETAS = (1.0, 3.0, 7.0, 8.0, 3.0)  # per-row eq. 19 factors 1/theta for R = G
+ASYNC_EVENTS = 24
 KERNELS = {
     "fused_transition": {
         "source": "src/repro_torch/kernels/fused_transition/csrc/fused_transition.cu",
@@ -56,7 +77,20 @@ KERNELS = {
         "source": "src/repro_torch/kernels/fused_sgd/csrc/sgd_update.cu",
         "replaces": "src/repro/kernels/fused_sgd/kernel.py:23",
     },
+    "gossip_mix": {
+        "source": "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix.cu",
+        "replaces": "src/repro/kernels/gossip_mix/kernel.py:29",
+    },
+    "cluster_agg": {
+        "source": "src/repro_torch/kernels/cluster_agg/csrc/cluster_agg.cu",
+        "replaces": "src/repro/kernels/cluster_agg/kernel.py:27",
+    },
+    "normalized_update": {
+        "source": "src/repro_torch/kernels/fused_sgd/csrc/normalized_update.cu",
+        "replaces": "src/repro/kernels/fused_sgd/kernel.py:29",
+    },
 }
+ASYNC_KERNELS = ("normalized_update", "cluster_agg", "gossip_mix")
 
 
 def fail(msg: str) -> None:
@@ -122,12 +156,42 @@ class Smoke:
             fn()
         return self.cuda_ms(graph.replay, reps=reps)
 
-    def stacked_leaves(self, model_cls, dtype, seed=0):
+    def stacked_leaves(self, model_cls, dtype, seed=0, rows=C):
         torch = self.torch
         shapes = {k: tuple(v.shape) for k, v in model_cls().init(torch.Generator()).items()}
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        return {k: torch.randn((C,) + s, generator=gen, device=self.dev).to(dtype)
+        return {k: torch.randn((rows,) + s, generator=gen, device=self.dev).to(dtype)
                 for k, s in shapes.items()}
+
+    def bound(self, byts, flops):
+        """(ms, what bounds it): the larger of bytes over the memory rate and
+        flops over the f32 peak."""
+        tb, to = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    def async_operands(self):
+        """Host-side operands of the async kernels: the ring P and an eq. 22
+        P_t (CPU f32, as the scheduler passes them), masked (C,) weights and
+        the per-row eq. 19 factors (device f32)."""
+        import numpy as np
+        from repro_torch.core import ClusterSpec, mixing_matrix, ring, staleness_mixing_matrix
+
+        torch = self.torch
+        rng = np.random.default_rng(1)
+        spec = ClusterSpec(C, tuple(i // G for i in range(C)), tuple(rng.uniform(0.5, 2.0, C)))
+        f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+        gaps = np.array([3.0, 0.0, 5.0, 1.0])  # cluster 1 fires
+        mixings = {"ring": f32(mixing_matrix(ring(D), spec.m_tilde())),
+                   "p_t": f32(staleness_mixing_matrix(ring(D), 1, gaps))}
+        mask = np.ones(C, bool)
+        mask[1::G] = mask[3::G] = False
+        w = np.where(mask, spec.data_sizes, 0.0)
+        tot = np.zeros(D)
+        np.add.at(tot, list(spec.assignments), w)
+        masked = f32(w / tot[list(spec.assignments)]).to(self.dev)
+        m_hat = f32(spec.m_hat()).to(self.dev)
+        inv = 1.0 / torch.tensor(THETAS, device=self.dev)
+        return mixings, masked, m_hat, inv
 
     def factors(self):
         import numpy as np
@@ -221,12 +285,14 @@ class Smoke:
                         main_err["sgd_update"] = max(main_err.get("sgd_update", 0.0), err)
                 print(f"  {mname} {str(dtype)[6:]}: transition (2 factor sets x alpha 0-2) and "
                       f"sgd_update agree with their plain versions", flush=True)
+        self.check_async_kernels(worst, main_err)
         print(f"max abs err over all cases: {json.dumps(worst)}", flush=True)
         self.detail["max_abs_err_all_cases"] = worst
 
         timings = {}
         for mname, mcls in (("mnist", MnistCNN), ("cifar", CifarCNN)):
             timings[mname] = self.time_kernels(mcls, factors["static"])
+            timings[mname].update(self.time_async_kernels(mcls))
             for kname, t in timings[mname].items():
                 print(f"  time {mname} f32 {kname}: " + ", ".join(
                     f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in t.items()
@@ -234,6 +300,134 @@ class Smoke:
         self.detail["timings_f32"] = timings
         for kname in KERNELS:
             self.record[kname] = dict(timings["mnist"][kname], max_abs_err=main_err[kname])
+
+    def check_async_kernels(self, worst: dict, main_err: dict) -> None:
+        """gossip_mix, cluster_agg and normalized_update against their plain
+        versions; fills ``worst`` (every case) and ``main_err`` (MnistCNN f32
+        at the async path's operands: P_t with alpha 1, g -> 1, R = 5)."""
+        torch = self.torch
+        from repro_torch.kernels import (
+            cluster_agg, cluster_agg_ref, gossip_mix, gossip_mix_ref, normalized_update,
+            normalized_update_ref,
+        )
+        from repro_torch.models import CifarCNN, MnistCNN
+
+        mixings, masked, m_hat, inv = self.async_operands()
+        for name in ASYNC_KERNELS:
+            worst[name] = 0.0
+
+        def hold(name, got, ref, tol, what, main):
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{name} {what}: max abs err {err} > {tol}")
+            worst[name] = max(worst[name], err)
+            if main:
+                main_err[name] = max(main_err.get(name, 0.0), err)
+
+        for mname, mcls in (("mnist", MnistCNN), ("cifar", CifarCNN)):
+            for dtype, tol, n_tol in ((torch.float32, 1e-5, 1e-6), (torch.bfloat16, 3e-2, 3e-2)):
+                main = (mname, dtype) == ("mnist", torch.float32)
+                ys = self.stacked_leaves(mcls, dtype, seed=2, rows=D)
+                ws = self.stacked_leaves(mcls, dtype, seed=3)
+                w0s = self.stacked_leaves(mcls, dtype, seed=4)
+                for k in ys:
+                    y = ys[k].reshape(D, -1)
+                    for pname, p in mixings.items():
+                        for alpha in (0, 1, 2):
+                            ref = gossip_mix_ref(y, p.to(self.dev), alpha)
+                            got = y.clone()
+                            gossip_mix(got, p, alpha, out=got)  # in place, as the path
+                            hold("gossip_mix", got, ref, tol, f"{mname} {dtype} {k} {pname} "
+                                 f"alpha={alpha}", main and pname == "p_t" and alpha == 1)
+                    w = ws[k].reshape(C, -1)
+                    hold("cluster_agg", cluster_agg(w, masked, D),
+                         cluster_agg_ref(w, masked, D), tol, f"{mname} {dtype} {k} C->D", False)
+                    hold("cluster_agg", cluster_agg(w[:G], masked[:G], 1),
+                         cluster_agg_ref(w[:G], masked[:G], 1), tol,
+                         f"{mname} {dtype} {k} g->1 masked", False)
+                    hold("cluster_agg", cluster_agg(w[:G], m_hat[:G], 1),
+                         cluster_agg_ref(w[:G], m_hat[:G], 1), tol,
+                         f"{mname} {dtype} {k} g->1", main)
+                    wf, w0 = w[:G], w0s[k].reshape(C, -1)[:G]
+                    hold("normalized_update", normalized_update(wf, w0, inv),
+                         normalized_update_ref(wf, w0, inv), n_tol, f"{mname} {dtype} {k} R=5",
+                         main)
+                    hold("normalized_update", normalized_update(wf[0], w0[0], 1.0 / 7.0),
+                         normalized_update_ref(wf[0], w0[0], 1.0 / 7.0), n_tol,
+                         f"{mname} {dtype} {k} R=1", False)
+                torch.cuda.synchronize()
+                print(f"  {mname} {str(dtype)[6:]}: gossip_mix (ring, P_t x alpha 0-2, in "
+                      f"place), cluster_agg (C->D, g->1, masked) and normalized_update "
+                      f"(R=5, R=1) agree with their plain versions", flush=True)
+
+    def time_async_kernels(self, mcls) -> dict:
+        """Times of the async path's kernels at its shapes: the (D, M) cluster
+        stack mixed in place with P_t (alpha 1), the fired cluster's (g, M)
+        deltas reduced with m^ to (1, M), and (g, M) normalized updates."""
+        torch = self.torch
+        from repro_torch.kernels import (
+            cluster_agg, cluster_agg_ref, gossip_mix, gossip_mix_ref, normalized_update,
+            normalized_update_ref,
+        )
+
+        mixings, _, m_hat, inv = self.async_operands()
+        p_t = mixings["p_t"]
+        p_dev = p_t.to(self.dev)
+        m_row = m_hat[:G].contiguous()
+        y = {k: w.reshape(D, -1) for k, w in self.stacked_leaves(mcls, torch.float32, 5,
+                                                                  rows=D).items()}
+        wf = {k: w.reshape(G, -1) for k, w in self.stacked_leaves(mcls, torch.float32, 6,
+                                                                   rows=G).items()}
+        w0 = {k: w.reshape(G, -1) for k, w in self.stacked_leaves(mcls, torch.float32, 7,
+                                                                   rows=G).items()}
+        agg_out = {k: torch.empty((1, w.shape[1]), device=self.dev) for k, w in wf.items()}
+        norm_out = {k: torch.empty_like(w) for k, w in wf.items()}
+        m_total = sum(w.shape[1] for w in y.values())
+        calls = {
+            "gossip_mix": {
+                "ms": lambda: [gossip_mix(v, p_t, 1, out=v) for v in y.values()],
+                "plain_ms": lambda: [gossip_mix_ref(v, p_dev, 1) for v in y.values()],
+                "library_ms": lambda: [torch.matmul(p_dev.T, v) for v in y.values()],
+            },
+            "cluster_agg": {
+                "ms": lambda: [cluster_agg(v, m_row, 1, out=agg_out[k]) for k, v in wf.items()],
+                "plain_ms": lambda: [cluster_agg_ref(v, m_row, 1) for v in wf.values()],
+                "library_ms": lambda: [torch.matmul(m_row[None], v) for v in wf.values()],
+            },
+            "normalized_update": {
+                "ms": lambda: [normalized_update(v, w0[k], inv, out=norm_out[k])
+                               for k, v in wf.items()],
+                "plain_ms": lambda: [normalized_update_ref(v, w0[k], inv) for k, v in wf.items()],
+                # no single PyTorch call computes (a - b) * s per row
+            },
+        }
+        bounds = {
+            "gossip_mix": self.bound(2 * D * m_total * 4, 2 * D * D * m_total),
+            "cluster_agg": self.bound((G + 1) * m_total * 4 + G * 4, 2 * G * m_total),
+            "normalized_update": self.bound(3 * G * m_total * 4 + G * 4, 2 * G * m_total),
+        }
+        # the largest leaf alone: the kernel's own rate, without launch gaps
+        big = max(y, key=lambda k: y[k].shape[1])
+        m_big = y[big].shape[1]
+        big_calls = {
+            "gossip_mix": (lambda: gossip_mix(y[big], p_t, 1, out=y[big]), 2 * D * m_big * 4),
+            "cluster_agg": (lambda: cluster_agg(wf[big], m_row, 1, out=agg_out[big]),
+                            (G + 1) * m_big * 4),
+            "normalized_update": (lambda: normalized_update(wf[big], w0[big], inv,
+                                                            out=norm_out[big]), 3 * G * m_big * 4),
+        }
+        out = {}
+        for kname, fns in calls.items():
+            t = {k: self.cuda_ms(fn) for k, fn in fns.items()}
+            t.update({f"graph_{k}": self.graph_ms(fn) for k, fn in fns.items()})
+            t.setdefault("library_ms", None)
+            t.setdefault("graph_library_ms", None)
+            bnd, by = bounds[kname]
+            fn, byts = big_calls[kname]
+            out[kname] = dict(t, bound_ms=bnd, bound_by=by, leaves=len(y), largest_leaf={
+                "leaf": big, "m": m_big, "graph_ms": self.graph_ms(fn),
+                "bound_ms": byts / HBM_BYTES_PER_S * 1e3})
+        return out
 
     def time_kernels(self, mcls, factors) -> dict:
         torch = self.torch
@@ -252,10 +446,6 @@ class Smoke:
         m_total = sum(w.shape[1] for w in leaves.values())
         factor_bytes = 4 * (vt.numel() + p.numel() + bt.numel())
 
-        def bound(byts, flops):
-            tb, to = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-            return (tb, "bytes") if tb >= to else (to, "operations")
-
         tr_calls = {
             "ms": lambda: [fused_transition(w, vt, p, bt, alpha, out=outs[k])
                            for k, w in leaves.items()],
@@ -269,9 +459,9 @@ class Smoke:
             "library_ms": lambda: [torch.add(w, grads[k], alpha=-LR)
                                    for k, w in leaves.items()],
         }
-        tr_bound, tr_by = bound(2 * nbytes + factor_bytes,
+        tr_bound, tr_by = self.bound(2 * nbytes + factor_bytes,
                                 2 * m_total * (2 * C * D + alpha * D * D))
-        sgd_bound, sgd_by = bound(3 * nbytes, 2 * m_total * C)
+        sgd_bound, sgd_by = self.bound(3 * nbytes, 2 * m_total * C)
         out = {}
         for kname, calls, bnd, by, moved in (
             ("fused_transition", tr_calls, tr_bound, tr_by, 2 * nbytes),
@@ -462,6 +652,111 @@ class Smoke:
                                 "peak_bytes": peak, "split": split, "profile": busy,
                                 "params": n_params}
 
+    def run_async(self, name, events, device=None, **overrides):
+        """(run, host seconds for ``events`` steps ending in a synchronize,
+        [(kind, cluster, iteration)], eval)."""
+        torch = self.torch
+        from repro_torch.scenarios import build_scenario
+
+        run = build_scenario(name, device=device, **overrides)
+        src = run.batch_source()
+        t0 = time.perf_counter()
+        seq = []
+        for _ in range(events):
+            ev = run.runtime.step(src)
+            seq.append((ev.kind, ev.cluster, ev.iteration))
+        if run.runtime.device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return run, dt, seq, run.runtime.evaluate(run.eval_batch)
+
+    def event_split(self, run) -> dict:
+        """CUDA-event times of the stages of one cluster event, each called as
+        the scheduler calls it, on the next event's cluster and batches."""
+        import numpy as np
+        from repro_torch.core import staleness_mixing_matrix
+        from repro_torch.kernels import cluster_agg, normalized_update
+
+        torch = self.torch
+        sched = run.runtime.scheduler
+        d = sched._queue[0][1]
+        g = len(sched._members[d])
+        batches = sched._gather(run.batch_source(), d)
+        w0, w = sched._local_steps(d, batches)
+        wf = {k: v.reshape(g, -1).contiguous() for k, v in w.items()}
+        w0f = {k: v.view(g, -1) for k, v in w0.items()}
+        inv, m_hat = sched._inv_thetas[d], sched._m_hats[d]
+        deltas = {k: normalized_update(wf[k], w0f[k], inv) for k in wf}
+        y = {k: v.clone() for k, v in sched.y.items()}
+        gaps = (sched.t - sched.last_update).astype(np.float64)
+        gaps[d] = 0.0
+        p_t = torch.as_tensor(staleness_mixing_matrix(sched.cfg.topology, d, gaps,
+                                                      sched.cfg.psi), dtype=torch.float32)
+        return {
+            "client_deltas_ms": self.cuda_ms(lambda: sched._local_steps(d, batches),
+                                             reps=5, warmup=2),
+            "normalized_update_ms": self.cuda_ms(
+                lambda: [normalized_update(wf[k], w0f[k], inv) for k in wf], reps=10),
+            "cluster_agg_ms": self.cuda_ms(
+                lambda: [cluster_agg(v, m_hat, 1) for v in deltas.values()], reps=10),
+            "gossip_mix_ms": self.cuda_ms(lambda: sched.backend.inter_cluster(y, p_t, 1),
+                                          reps=10),
+        }
+
+    def async_path(self):
+        torch = self.torch
+        from repro_torch.kernels import cluster_agg, gossip_mix, normalized_update
+
+        name = "straggler-bimodal-async"
+        counters = {"normalized_update": normalized_update, "cluster_agg": cluster_agg,
+                    "gossip_mix": gossip_mix}
+        for fn in counters.values():
+            fn.launches = 0
+        run, dt, events, (loss, acc) = self.run_async(name, ASYNC_EVENTS)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        sched = run.runtime.scheduler
+        if sched.backend.name != "cuda" or run.runtime.device.type != "cuda":
+            raise AssertionError(f"auto resolved to {sched.backend.name} on {run.runtime.device}")
+        leaves = len(sched.y)
+        expected = ASYNC_EVENTS * leaves  # one launch per leaf per cluster event
+        if any(n != expected for n in launches.values()):
+            raise AssertionError(f"async launches {launches}, expected {expected} each")
+        self.check_finite(sched.y, "async cuda run")
+        self.check_finite(run.runtime.global_params(), "async cuda run (consensus)")
+        print(f"async {name} on {run.runtime.device}, backend {sched.backend.name}: "
+              f"{ASYNC_EVENTS} events over clusters {[c for _, c, _ in events]}; launches "
+              f"{json.dumps(launches)} ({leaves} leaves); {ASYNC_EVENTS / dt:.3f} events/s cold "
+              f"({dt:.4f}s, first-call costs included); eval loss {loss:.6f} acc {acc:.4f}; "
+              f"clock {sched.clock:.6f}", flush=True)
+        for kname, n in launches.items():
+            self.record[kname]["launches"] = n
+
+        ref = {}
+        for label, device in (("dense on cuda", None), ("dense on cpu", "cpu")):
+            r, _, revents, (rloss, _) = self.run_async(name, ASYNC_EVENTS, device=device,
+                                                       backend="dense")
+            err = max((v.float().cpu() - r.runtime.scheduler.y[k].float().cpu())
+                      .abs().max().item() for k, v in sched.y.items())
+            rel = abs(rloss - loss) / abs(rloss)
+            same = revents == events
+            ref[label] = {"max_abs_y_diff": err, "eval_loss": rloss, "loss_rel_diff": rel,
+                          "same_events": same}
+            print(f"  vs {label}: same event sequence {same}; max abs y diff {err:.3e} "
+                  f"(tol 1e-4), eval loss {rloss:.6f} rel diff {rel:.3e} (tol 1e-4)", flush=True)
+            if not (same and err <= 1e-4 and rel <= 1e-4):
+                raise AssertionError(f"async kernel-backend run disagrees with {label}")
+
+        warm = self.warm_rate(run, ASYNC_EVENTS)
+        split = self.event_split(run)
+        busy = self.profile_steps(run, 8)
+        print(f"async warm: {warm:.3f} events/s over {ASYNC_EVENTS} more events; split "
+              + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
+              + f"; profiled 8 events: {json.dumps(busy)}", flush=True)
+        self.detail["async"] = {"launches": launches, "events": events,
+                                "events_per_s_cold": ASYNC_EVENTS / dt,
+                                "events_per_s_warm": warm, "split": split, "profile": busy,
+                                "eval_loss": loss, "eval_acc": acc, "references": ref}
+
     def run(self):
         torch = self.torch
         self.phase("device", self.device)
@@ -470,6 +765,7 @@ class Smoke:
             self.phase("kernels", self.kernels)
             self.phase("main", self.main_path)
             self.phase("cifar", self.cifar)
+            self.phase("async", self.async_path)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
         out = HERE / "chiprun_out"

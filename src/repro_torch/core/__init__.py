@@ -12,11 +12,13 @@ from .latency import LatencyModel, MNIST_LATENCY, CIFAR_LATENCY
 from .local_update import (
     build_local_update, build_sequential_local_update, fused_sgd_applicable,
 )
-from .pipeline import BatchPipeline, device_batch
+from .pipeline import BatchPipeline, device_batch, gather_client_batches
 from .runtime import (
-    FederationRuntime, Scheduler, StepEvent, SyncScheduler, TrainHistory,
+    AsyncScheduler, FederationRuntime, Scheduler, StepEvent, SyncScheduler, TrainHistory,
     make_run, register_scheduler, stacked_init, SCHEDULER_REGISTRY,
 )
+from .staleness import psi_constant, psi_exponential, psi_inverse, staleness_mixing_matrix
+from .async_engine import AsyncConfig, make_speeds
 
 __all__ = [
     "Topology", "ring", "star", "fully_connected", "chain", "partially_connected",
@@ -29,7 +31,9 @@ __all__ = [
     "resolve_device",
     "LatencyModel", "MNIST_LATENCY", "CIFAR_LATENCY",
     "build_local_update", "build_sequential_local_update", "fused_sgd_applicable",
-    "BatchPipeline", "device_batch",
-    "FederationRuntime", "Scheduler", "StepEvent", "SyncScheduler", "TrainHistory",
-    "make_run", "register_scheduler", "stacked_init", "SCHEDULER_REGISTRY",
+    "BatchPipeline", "device_batch", "gather_client_batches",
+    "AsyncScheduler", "FederationRuntime", "Scheduler", "StepEvent", "SyncScheduler",
+    "TrainHistory", "make_run", "register_scheduler", "stacked_init", "SCHEDULER_REGISTRY",
+    "psi_constant", "psi_exponential", "psi_inverse", "staleness_mixing_matrix",
+    "AsyncConfig", "make_speeds",
 ]

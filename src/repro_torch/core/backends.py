@@ -21,13 +21,19 @@ Registered implementations:
 ``DenseBackend``   Matrix products against the precomputed ``T_k``; works for
                    any ``ClusterSpec``/topology and is the reference of the
                    equivalence tests.  Returns new tensors.
-``CudaBackend``    The fused ``V P^alpha B`` CUDA kernel
-                   (``kernels/fused_transition``), the counterpart of the
-                   reference's ``PallasBackend``: one pass over each leaf, the
-                   (D, M) cluster intermediate kept in registers.  Requires
-                   contiguous uniform clusters.  **Overwrites** the leaves it
-                   is given and returns them.
+``CudaBackend``    The hand-written CUDA kernels, the counterpart of the
+                   reference's ``PallasBackend``: ``transition`` is the fused
+                   ``V P^alpha B`` kernel (``kernels/fused_transition``, one
+                   pass over each leaf, the (D, M) cluster intermediate kept
+                   in registers), ``intra_cluster`` the ``cluster_agg`` kernel
+                   and ``inter_cluster`` the ``gossip_mix`` kernel.  Requires
+                   contiguous uniform clusters.  ``transition`` and
+                   ``inter_cluster`` **overwrite** the leaves they are given
+                   and return them.
 =================  ==========================================================
+
+Every backend and ``resolve_backend`` take ``device=None``, which means
+``"cuda"`` and raises without a GPU (``core.device.resolve_device``).
 
 ``resolve_backend("auto", ...)`` picks ``cuda`` when the run's device is
 CUDA and the clusters are contiguous and uniform, ``dense`` otherwise.
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from .aggregation import apply_transition_dense, dense_gossip_reference
+from .device import resolve_device
 from .protocol import AggregationEvent, ClusterSpec
 
 __all__ = [
@@ -104,7 +111,7 @@ class DenseBackend:
     def __init__(self, clusters: ClusterSpec, p: np.ndarray, alpha: int, device=None):
         self.clusters = clusters
         self.alpha = alpha
-        dev = torch.device("cpu") if device is None else torch.device(device)
+        dev = resolve_device(device)
         self.device = dev
         # static path: P^alpha and T_k in float64 on the host, then f32
         self._t = {e: _f32(_t_matrix(clusters, p, alpha, e), dev) for e in ("intra", "inter")}
@@ -147,12 +154,15 @@ class DenseBackend:
 # ---------------------------------------------------------------------------
 
 class CudaBackend:
-    """The fused ``V P^alpha B`` CUDA kernel for the full transition.
+    """The hand-written CUDA kernels for the transition and its two factors.
 
     The counterpart of the reference's ``PallasBackend``.  ``transition``
-    overwrites the ``(C, ...)`` leaves it is given: each column of a leaf
-    belongs to one kernel thread, which reads it whole before writing it.
-    On CPU tensors the kernel wrapper takes its plain PyTorch version.
+    (``fused_transition``) overwrites the ``(C, ...)`` leaves it is given
+    and ``inter_cluster`` (``gossip_mix``) the ``(D, ...)`` leaves: each
+    column of a leaf belongs to one kernel thread, which reads it whole
+    before writing it.  ``intra_cluster`` (``cluster_agg``) returns new
+    ``(D, ...)`` leaves.  On CPU tensors the kernel wrappers take their
+    plain PyTorch versions.
     """
 
     name = "cuda"
@@ -165,23 +175,25 @@ class CudaBackend:
             )
         self.clusters = clusters
         self.alpha = alpha
-        dev = torch.device("cpu") if device is None else torch.device(device)
+        dev = resolve_device(device)
         self.device = dev
         self._vt = _f32(clusters.V().T, dev)   # (D, C)
         self._bt = _f32(clusters.B().T, dev)   # (C, D)
         self._p = _f32(p, dev)
 
     def intra_cluster(self, stacked: dict, weights: torch.Tensor) -> dict:
-        raise NotImplementedError(
-            "CudaBackend.intra_cluster needs the cluster_agg kernel, not ported yet "
-            "(ROADMAP.md queue 1, 'CudaBackend factors'; queue 2, cluster_agg)"
-        )
+        from ..kernels import cluster_agg_tree
+
+        w = torch.as_tensor(weights, dtype=torch.float32).to(self.device).contiguous()
+        return cluster_agg_tree(stacked, w, self.clusters.num_clusters)
 
     def inter_cluster(self, y: dict, p: torch.Tensor, alpha: int = 1) -> dict:
-        raise NotImplementedError(
-            "CudaBackend.inter_cluster needs the gossip_mix kernel, not ported yet "
-            "(ROADMAP.md queue 1, 'CudaBackend factors'; queue 2, gossip_mix)"
-        )
+        from ..kernels import gossip_mix_tree
+
+        # p stays where the caller built it: the kernel takes it by value from
+        # host memory, so a host P_t (the async path's) costs no device copy
+        return gossip_mix_tree(y, torch.as_tensor(p, dtype=torch.float32), alpha=alpha,
+                               inplace=True)
 
     def transition(self, stacked: dict, event: AggregationEvent,
                    weights: Optional[torch.Tensor] = None,
@@ -234,13 +246,14 @@ def resolve_backend(spec, clusters: ClusterSpec, p: np.ndarray, alpha: int,
     """Turn a backend spec into a bound instance.
 
     ``spec`` is a registered name, ``"auto"``, ``None`` (== auto), or an
-    already-constructed backend (returned as-is).
+    already-constructed backend (returned as-is).  ``device=None`` means
+    ``"cuda"`` and raises without a GPU.
     """
     if spec is None:
         spec = "auto"
     if not isinstance(spec, str):
         return spec
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     name = select_auto_backend(clusters, device) if spec == "auto" else spec
     if name not in BACKEND_REGISTRY:
         raise KeyError(

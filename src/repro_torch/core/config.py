@@ -8,10 +8,11 @@ The port's copy of ``repro.core.config``::
         num_clients=20, num_clusters=4, seed=0,
     )
 
-This slice runs the default fleet only: resident dense client state, full
-participation, no device profile, no faults, no device mesh.  ``validate``
-rejects every other ``FleetSpec`` value, ``exec.mesh`` and the schedulers
-not ported yet with ``NotImplementedError`` naming their ROADMAP item.
+The port runs resident dense client state, full participation, no faults
+and no device mesh; a device profile (``profile``/``profile_seed``) is taken
+by the async scheduler only.  ``validate`` rejects every other ``FleetSpec``
+value, ``exec.mesh`` and the schedulers not ported yet with
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,15 +25,16 @@ MODEL_KINDS = ("mnist-cnn", "cifar-cnn")
 
 # what is not ported yet, and where ROADMAP.md queues it
 _NOT_PORTED = {
-    "profile": "queue 1, 'Fleet axes' (hetero/ device profiles)",
-    "profile_seed": "queue 1, 'Fleet axes' (hetero/ device profiles)",
+    "profile": "queue 1, 'Fleet axes' (profile-paced sync scheduler)",
+    "profile_seed": "queue 1, 'Fleet axes' (profile-paced sync scheduler)",
     "participation": "queue 1, 'Fleet axes' (participation/)",
     "store": "queue 1, 'Fleet axes' (state/ client-state stores)",
     "faults": "queue 1, 'Fleet axes' (faults/)",
     "mesh": "queue 1, 'Multi-device and launch'",
     "round": "queue 1, 'Round engine' (RoundScheduler)",
-    "async": "queue 1, 'Async SD-FEEL'",
 }
+# fleet keys a scheduler of the port takes; every other non-default raises
+_PORTED_FLEET_KEYS = {"async": ("profile", "profile_seed")}
 
 
 def _model_registry() -> dict:
@@ -74,7 +76,8 @@ class DataSpec:
 
 @dataclasses.dataclass
 class FleetSpec:
-    """Who the clients are.  Only the default (all ``None``) is ported."""
+    """Who the clients are.  ``profile`` is ported for the async scheduler;
+    every other field runs at its default (``None``) only."""
 
     profile: Any = None
     profile_seed: Optional[int] = None
@@ -82,12 +85,25 @@ class FleetSpec:
     store: Any = None
     faults: Any = None
 
-    def require_default(self) -> None:
+    def resolve_profile(self, num_clients: int):
+        """Materialize the ``DeviceProfile`` (or None) for this fleet size."""
+        if self.profile is None:
+            return None
+        from ..hetero import sample_profile
+
+        return sample_profile(
+            self.profile, num_clients,
+            seed=0 if self.profile_seed is None else self.profile_seed,
+        )
+
+    def require_ported(self, scheduler: str) -> None:
+        """Raise ``NotImplementedError`` for a field ``scheduler`` cannot take yet."""
+        allowed = _PORTED_FLEET_KEYS.get(scheduler, ())
         for k in _FLEET_KEYS:
-            if getattr(self, k) is not None:
+            if k not in allowed and getattr(self, k) is not None:
                 raise NotImplementedError(
-                    f"fleet.{k}={getattr(self, k)!r} is not ported yet "
-                    f"(ROADMAP.md {_NOT_PORTED[k]}); only the default fleet runs"
+                    f"fleet.{k}={getattr(self, k)!r} is not ported yet for scheduler "
+                    f"{scheduler!r} (ROADMAP.md {_NOT_PORTED[k]})"
                 )
 
 
@@ -207,7 +223,7 @@ class RunConfig:
             v = getattr(self.exec, k)
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"exec.{k} must be an int >= 1, got {v!r}")
-        self.fleet.require_default()
+        self.fleet.require_ported(sched)
         if self.exec.mesh is not None:
             raise NotImplementedError(
                 f"exec.mesh is not ported yet (ROADMAP.md {_NOT_PORTED['mesh']})"

@@ -11,22 +11,35 @@ yields the same batches in both packages.  Producers signal exhaustion by
 raising ``StopIteration`` or ``IndexError``.
 
 Staging is ``torch.as_tensor(..., device=...)`` on PyTorch's current
-stream; pinned host buffers and a side copy stream are later work.
+stream; ``device_batch(..., non_blocking=True)`` (the async scheduler's
+prefetch) stages through pinned host memory instead.  A side copy stream is
+later work.
+
+``gather_client_batches`` draws the async scheduler's per-client batches
+from a ``ClientBatcher``-like source, as ``repro.core.pipeline`` does.
 """
 from __future__ import annotations
 
 import collections
-from typing import Any, Callable
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["BatchPipeline", "device_batch"]
+__all__ = ["BatchPipeline", "device_batch", "gather_client_batches"]
 
 
-def device_batch(batch: dict, device) -> dict:
-    """Copy every entry of a flat host batch dict to ``device``."""
-    return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+def device_batch(batch: dict, device, non_blocking: bool = False) -> dict:
+    """Copy every entry of a flat host batch dict to ``device``.
+
+    With ``non_blocking`` a CUDA copy is staged through pinned host memory
+    and queued on the current stream, so the host does not wait for it.
+    """
+    device = torch.device(device)
+    if not (non_blocking and device.type == "cuda"):
+        return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
+            for k, v in batch.items()}
 
 
 class BatchPipeline:
@@ -82,3 +95,21 @@ class BatchPipeline:
         self._next_get += 1
         self._fill()
         return batch
+
+
+def gather_client_batches(batch_source, clients: Sequence[int], count: int) -> dict:
+    """``count`` batches for each of ``clients``, entries (len(clients), count, ...).
+
+    Prefers the bulk ``next_batches(clients, count)`` method; a source with
+    only the per-call ``next_batch(client)`` is served by a loop that draws
+    in the same client-major order, so both consume a stateful source's
+    streams identically.  Host numpy in, host numpy out.
+    """
+    bulk: Optional[Callable] = getattr(batch_source, "next_batches", None)
+    if bulk is not None:
+        return bulk(list(clients), count)
+    per_client = []
+    for c in clients:
+        draws = [batch_source.next_batch(c) for _ in range(count)]
+        per_client.append({k: np.stack([np.asarray(b[k]) for b in draws]) for k in draws[0]})
+    return {k: np.stack([b[k] for b in per_client]) for k in per_client[0]}

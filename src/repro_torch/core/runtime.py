@@ -4,8 +4,9 @@ The port's ``repro.core.runtime``.  ``FederationRuntime`` owns what every
 regime shares — stacked-parameter init (Algorithm 1 line 1), evaluation of
 the consensus model, the Section V-B wall-clock accounting, eval cadence
 and ``TrainHistory`` — and delegates *how a step advances the federation*
-to a scheduler.  This slice ports ``SyncScheduler`` (Algorithm 1 / Lemma 1)
-on the default fleet; the round and async schedulers follow.
+to a scheduler.  Ported: ``SyncScheduler`` (Algorithm 1 / Lemma 1) on the
+default fleet, and ``AsyncScheduler`` (Section IV, Algorithm 2) with an
+optional device profile; the round scheduler follows.
 
 Everything runs eagerly on an explicit ``device``.  Entry points take
 ``device=None``, which means ``"cuda"``, and raise when there is no GPU and
@@ -17,8 +18,10 @@ the caller did not pass ``device="cpu"``::
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from typing import Callable, Optional, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from .backends import resolve_backend
@@ -26,6 +29,7 @@ from .config import RunConfig
 from .device import resolve_device
 from .latency import LatencyModel
 from .protocol import ClusterSpec, SDFEELConfig
+from .staleness import staleness_mixing_matrix
 from .topology import TOPOLOGIES, Topology
 
 __all__ = [
@@ -33,6 +37,7 @@ __all__ = [
     "StepEvent",
     "Scheduler",
     "SyncScheduler",
+    "AsyncScheduler",
     "FederationRuntime",
     "SCHEDULER_REGISTRY",
     "register_scheduler",
@@ -60,14 +65,17 @@ class TrainHistory:
 class StepEvent:
     """What one scheduler step did to the federation.
 
-    ``kind`` is the aggregation event ("local"/"intra"/"inter"),
-    ``iteration`` the protocol-iteration count after the step, ``dt`` the
-    Section V-B wall-clock the step consumed.
+    ``kind`` is the aggregation event ("local"/"intra"/"inter", or
+    "cluster" for an async cluster event), ``iteration`` the
+    protocol-iteration count after the step, ``dt`` the Section V-B
+    wall-clock the step consumed, ``cluster`` the cluster an async event
+    fired.
     """
 
     kind: str
     iteration: int
     dt: float = 0.0
+    cluster: Optional[int] = None
 
 
 def stacked_init(model, num_copies: int, seed, device) -> dict:
@@ -207,6 +215,186 @@ class SyncScheduler:
 
 
 # ---------------------------------------------------------------------------
+# Asynchronous event-driven scheduler (Section IV)
+# ---------------------------------------------------------------------------
+
+class AsyncScheduler:
+    """Priority-queue cluster events with staleness-aware mixing (Algorithm 2).
+
+    ``batch_source`` contract: an object with ``next_batch(client)`` and,
+    optionally, the bulk ``next_batches(clients, count)`` (a
+    ``repro_torch.data.ClientBatcher``); see ``pipeline.gather_client_batches``.
+
+    The state is the ``(D, ...)`` stack ``y`` of cluster models, updated in
+    place.  When cluster ``d`` fires, its ``g`` clients take ``theta_max``
+    masked SGD steps from ``y[d]`` (``torch.func.vmap(grad)`` over the
+    clients, a Python loop over the steps), then
+
+    * eq. 19: ``delta_i = (w_final - w_start) / theta_i``;
+    * eq. 20: ``y[d] <- y[d] + theta_bar * sum_i m^_i delta_i``;
+    * eq. 21-22: ``y <- y @ P_t`` through ``backend.inter_cluster``, with
+      ``P_t`` built on the host in float64 from the iteration gaps.
+
+    On the ``cuda`` backend eq. 19 runs through the ``normalized_update``
+    kernel (one factor ``1 / theta_i`` per client row) and eq. 20's reduction
+    through ``cluster_agg`` (the fired cluster's ``(g, M)`` stack to
+    ``(1, M)``); on ``dense`` both are the plain expressions the reference
+    writes.  The queue already names the next event when a step finishes,
+    so its batches are gathered and copied (non-blocking) right after the
+    current event's launches; ``prefetch=False`` draws the same streams.
+
+    Ported for resident state, full participation and no faults; a device
+    profile prices the queue (``hetero.FleetTiming``) and, with availability
+    below 1, stretches it with dropout retries.
+    """
+
+    name = "async"
+
+    def __init__(self, cfg, backend=None, prefetch: bool = True):
+        self.cfg = cfg
+        self.prefetch = prefetch
+        self._backend_spec = backend
+        self._prefetched = None
+
+    def bind(self, model, seed: int, device: torch.device) -> None:
+        from .topology import mixing_matrix
+
+        cfg = self.cfg
+        clusters = cfg.clusters
+        d_count = clusters.num_clusters
+        self.model = model
+        self.device = device
+        self.theta = cfg.theta()
+        self.iter_times = cfg.iter_times()
+        self._dropout = None
+        if cfg.profile is not None and np.any(cfg.profile.availability < 1.0):
+            from ..hetero import FleetTiming
+
+            self._dropout = FleetTiming(cfg.profile, cfg.alpha_latency).dropout_process(
+                clusters, seed=seed
+            )
+        self.y = stacked_init(model, d_count, seed, device)
+        self.t = 0
+        self.last_update = np.zeros(d_count, dtype=np.int64)  # t'(d)
+        self.clock = 0.0
+        self._queue = [(self.iter_times[j], j) for j in range(d_count)]
+        heapq.heapify(self._queue)
+        self._theta_max = int(self.theta.max())
+        self.backend = resolve_backend(
+            self._backend_spec, clusters, mixing_matrix(cfg.topology, clusters.m_tilde()), 1,
+            device=device,
+        )
+        self._use_kernels = self.backend.name == "cuda"
+        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+        self._m_tilde = f32(clusters.m_tilde())
+        m_hat = clusters.m_hat()
+        # per-cluster constants staged once instead of per event
+        self._members = [clusters.clients_of(j) for j in range(d_count)]
+        self._thetas = [f32(self.theta[idx]) for idx in self._members]
+        self._inv_thetas = [1.0 / t for t in self._thetas]  # eq. 19 factors, f32
+        self._m_hats = [f32(m_hat[idx]) for idx in self._members]
+        self._theta_bars = [torch.sum(m * t) for m, t in zip(self._m_hats, self._thetas)]
+        steps = torch.arange(self._theta_max, device=device)
+        # (theta_max, g) step masks: client i steps while s < theta_i
+        self._masks = [(steps[:, None] < t[None, :]).float() for t in self._thetas]
+        self._vgrad = torch.func.vmap(torch.func.grad(model.loss))
+
+    def _gather(self, batch_source, d: int, non_blocking: bool = False) -> dict:
+        """``theta_max`` batches per member of cluster ``d``, staged on the device."""
+        from .pipeline import device_batch, gather_client_batches
+
+        host = gather_client_batches(batch_source, self._members[d], self._theta_max)
+        return device_batch(host, self.device, non_blocking=non_blocking)
+
+    def _local_steps(self, d: int, batches: dict) -> tuple[dict, dict]:
+        """``(w_start, w_final)`` of cluster ``d``'s members, each ``(g, ...)``:
+        ``theta_max`` vmapped SGD steps, masked beyond each client's theta_i."""
+        lr = self.cfg.learning_rate
+        g = len(self._members[d])
+        mask = self._masks[d]
+        # w_start: y[d] for every member; contiguous, as the kernels stream rows
+        w0 = {k: y[d].expand((g,) + tuple(y.shape[1:])).contiguous() for k, y in self.y.items()}
+        w = w0
+        for s in range(self._theta_max):
+            grads = self._vgrad(w, {k: v[:, s] for k, v in batches.items()})
+            lm = lr * mask[s]  # (g,): lr on the steps a client still takes, else 0
+            w = {k: v - lm.view((g,) + (1,) * (v.dim() - 1)) * grads[k] for k, v in w.items()}
+        return w0, w
+
+    def _cluster_update(self, d: int, batches: dict) -> None:
+        """Eq. 19-20 for cluster ``d``: ``y[d]`` is overwritten in place."""
+        g = len(self._members[d])
+        w0, w = self._local_steps(d, batches)
+        theta_bar = self._theta_bars[d]
+        if self._use_kernels:
+            from ..kernels import cluster_agg, normalized_update
+
+            for k, y in self.y.items():
+                # vmap(grad) returns conv-kernel gradients as permuted views,
+                # and w_final inherits that layout from them: the kernels
+                # stream contiguous rows
+                wf = w[k].reshape(g, -1).contiguous()
+                delta = normalized_update(wf, w0[k].view(g, -1), self._inv_thetas[d])
+                r = cluster_agg(delta, self._m_hats[d], 1)
+                y[d].add_(theta_bar * r.view(y.shape[1:]))
+        else:
+            for k, y in self.y.items():
+                theta = self._thetas[d].view((g,) + (1,) * (y.dim() - 1))
+                delta = (w[k] - w0[k]) / theta
+                r = torch.einsum("c...,c->...", delta, self._m_hats[d])
+                y[d].add_(theta_bar * r)
+
+    def step(self, k: int, batch_source) -> StepEvent:
+        cfg = self.cfg
+        prev_clock = self.clock
+        self.clock, d = heapq.heappop(self._queue)
+        if (self._prefetched is not None and self._prefetched[0] is batch_source
+                and self._prefetched[1] == d):
+            batches = self._prefetched[2]
+        else:
+            batches = self._gather(batch_source, d)
+        self._prefetched = None
+
+        self._cluster_update(d, batches)
+        # staleness-aware inter-cluster mixing (eq. 21-22) via the backend
+        gaps = (self.t - self.last_update).astype(np.float64)
+        gaps[d] = 0.0
+        p_t = staleness_mixing_matrix(cfg.topology, d, gaps, cfg.psi)
+        self.y = self.backend.inter_cluster(
+            self.y, torch.as_tensor(p_t, dtype=torch.float32), 1
+        )
+        self.t += 1
+        self.last_update[d] = self.t
+
+        # next firing: service time, stretched by dropout retries when the
+        # profile says some of the cluster's devices are flaky
+        service = self.iter_times[d]
+        if self._dropout is not None:
+            service *= self._dropout.attempts(d)
+        heapq.heappush(self._queue, (self.clock + service, d))
+        if self.prefetch:
+            # the queue top is the next event: gather its batches while the
+            # device still runs this event's launches
+            nxt = self._queue[0][1]
+            self._prefetched = (batch_source, nxt,
+                                self._gather(batch_source, nxt, non_blocking=True))
+        return StepEvent(kind="cluster", iteration=self.t, dt=self.clock - prev_clock,
+                         cluster=d)
+
+    def global_params(self) -> dict:
+        """``sum_d m~_d y^(d)``: the consensus model."""
+        return {
+            k: torch.tensordot(self._m_tilde, y.float(), dims=([0], [0])).to(y.dtype)
+            for k, y in self.y.items()
+        }
+
+    def cluster_params(self) -> dict:
+        """Stacked ``(D, ...)`` per-cluster models: the async state itself,
+        overwritten by the next event (copy what must outlive it)."""
+        return self.y
+
+
+# ---------------------------------------------------------------------------
 # The runtime
 # ---------------------------------------------------------------------------
 
@@ -265,7 +453,8 @@ class FederationRuntime:
             if eval_batch is not None and (e % eval_every == 0 or e == num_steps):
                 loss, acc = self.evaluate(eval_batch)
                 hist.iterations.append(self.iteration)
-                hist.wallclock.append(self.clock)
+                # the async event queue keeps absolute finish times
+                hist.wallclock.append(getattr(self.scheduler, "clock", self.clock))
                 hist.loss.append(loss)
                 if acc is not None:
                     hist.accuracy.append(acc)
@@ -318,6 +507,43 @@ def _make_sync(s: dict) -> SyncScheduler:
         cfg, latency=s.pop("latency", None), backend=s.pop("backend", None),
         prefetch=s.pop("prefetch", True),
     )
+
+
+@register_scheduler("async")
+def _make_async(s: dict) -> AsyncScheduler:
+    from .async_engine import AsyncConfig, make_speeds
+    from .config import FleetSpec
+    from .staleness import psi_constant, psi_exponential, psi_inverse
+
+    clusters = _as_clusters(s)
+    topology = _as_topology(s.pop("topology", "ring"), clusters.num_clusters)
+    fleet = FleetSpec(profile=s.pop("profile", None), profile_seed=s.pop("profile_seed", None))
+    profile = fleet.resolve_profile(clusters.num_clients)
+    speeds = s.pop("speeds", None)
+    if speeds is None and profile is None:
+        speeds = make_speeds(
+            clusters.num_clients, s.pop("heterogeneity", 1.0), seed=s.pop("speed_seed", 0),
+        )
+    psi = s.pop("psi", psi_inverse)
+    if isinstance(psi, str):
+        psi = {
+            "staleness": psi_inverse,
+            "constant": psi_constant,
+            "exponential": psi_exponential(),
+        }[psi]
+    cfg = AsyncConfig(
+        clusters=clusters,
+        topology=topology,
+        speeds=None if speeds is None else np.asarray(speeds),
+        learning_rate=s.pop("learning_rate", 0.01),
+        theta_min=s.pop("theta_min", 1),
+        theta_max=s.pop("theta_max", 20),
+        min_batches=s.pop("min_batches", 4),
+        psi=psi,
+        alpha_latency=s.pop("latency", None),
+        profile=profile,
+    )
+    return AsyncScheduler(cfg, backend=s.pop("backend", None), prefetch=s.pop("prefetch", True))
 
 
 def make_run(scenario, device=None) -> FederationRuntime:

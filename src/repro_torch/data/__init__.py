@@ -1,6 +1,6 @@
 from .synthetic import SyntheticClassification, mnist_like, cifar_like
 from .partition import dirichlet_partition, skewed_label_partition, iid_partition
-from .loader import FederatedDataset
+from .loader import ClientBatcher, FederatedDataset
 
 __all__ = [
     "SyntheticClassification",
@@ -10,4 +10,5 @@ __all__ = [
     "skewed_label_partition",
     "iid_partition",
     "FederatedDataset",
+    "ClientBatcher",
 ]

@@ -1,13 +1,19 @@
-"""Fused SGD step ``w <- w - lr * g`` on tensors and parameter dicts.
+"""Fused SGD step and eq-19 normalized update on tensors and parameter dicts.
 
-Replaces ``repro/kernels/fused_sgd/kernel.py::_sgd_kernel`` (TPU, via
-``sgd_update_pallas``) with the CUDA kernel in ``csrc/sgd_update.cu``.
-Bound by bytes: ``3 * numel * itemsize`` (read w and g, write w) per call.
+* ``sgd_update``: ``w <- w - lr * g``; replaces
+  ``repro/kernels/fused_sgd/kernel.py::_sgd_kernel`` (TPU, via
+  ``sgd_update_pallas``) with the CUDA kernel in ``csrc/sgd_update.cu``.
+  Bound by bytes: ``3 * numel * itemsize`` (read w and g, write w).
+* ``normalized_update``: ``(w_final - w_start) * inv_theta``, one factor
+  per row; replaces ``_norm_update_kernel`` (via
+  ``normalized_update_pallas``) with ``csrc/normalized_update.cu``.  Bound
+  by bytes: ``3 * R * M * itemsize``.
 
-Dispatch is by the tensor's device: a CPU tensor takes the plain version
-(``ref.py``), a CUDA tensor launches the kernel or raises — there is no
-fallback.  ``sgd_update.launches`` counts kernel launches (CPU calls do
-not count).
+Both sources build into one library.  Dispatch is by the tensor's device: a
+CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches the
+kernel or raises — there is no fallback.  ``sgd_update.launches`` and
+``normalized_update.launches`` count kernel launches (CPU calls do not
+count).
 """
 from __future__ import annotations
 
@@ -17,9 +23,9 @@ import functools
 import torch
 
 from .._build import check, load, stream_of
-from .ref import sgd_update_ref
+from .ref import normalized_update_ref, sgd_update_ref
 
-__all__ = ["sgd_update", "sgd_update_tree"]
+__all__ = ["sgd_update", "sgd_update_tree", "normalized_update"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -31,7 +37,12 @@ def _bind():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, fn
+    norm = lib.normalized_update_launch
+    norm.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_void_p]
+    norm.restype = ctypes.c_int
+    return lib, fn, norm
 
 
 def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float,
@@ -59,7 +70,7 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float,
     for name, t in (("w", w), ("g", g), ("out", out)):
         if not t.is_contiguous():
             raise ValueError(f"sgd_update kernel needs a contiguous {name}")
-    lib, fn = _bind()
+    lib, fn, _ = _bind()
     rc = fn(w.data_ptr(), g.data_ptr(), out.data_ptr(), w.numel(), float(lr),
             _DTYPES[w.dtype], stream_of(w.device))
     check(lib, rc, "sgd_update")
@@ -68,6 +79,62 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float,
 
 
 sgd_update.launches = 0
+
+
+def normalized_update(w_final: torch.Tensor, w_start: torch.Tensor, inv_theta,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """``(w_final - w_start) * inv_theta`` computed in f32, stored in ``w_final.dtype``.
+
+    ``inv_theta`` is either an ``(R,)`` f32 tensor, one factor per row of
+    ``(R, ...)`` operands (the fired cluster's ``1 / theta_i``), or a float
+    for every element (the reference's flat signature, the ``R = 1`` case).
+    ``out`` (may alias an input) receives the result; otherwise a new tensor
+    is returned.  All tensors contiguous and alike.
+    """
+    if w_start.shape != w_final.shape or w_start.dtype != w_final.dtype \
+            or w_start.device != w_final.device:
+        raise ValueError(f"w_start {tuple(w_start.shape)}/{w_start.dtype}/{w_start.device} "
+                         f"does not match w_final {tuple(w_final.shape)}/{w_final.dtype}/"
+                         f"{w_final.device}")
+    if out is not None and (out.shape != w_final.shape or out.dtype != w_final.dtype
+                            or out.device != w_final.device):
+        raise ValueError("out must match w_final in shape, dtype and device")
+    per_row = isinstance(inv_theta, torch.Tensor)
+    if per_row:
+        if inv_theta.dim() != 1 or w_final.dim() < 1 or inv_theta.shape[0] != w_final.shape[0]:
+            raise ValueError(f"inv_theta {tuple(inv_theta.shape)} must hold one factor per "
+                             f"row of w_final {tuple(w_final.shape)}")
+        if inv_theta.device != w_final.device:
+            raise ValueError("w_final and inv_theta must lie on one device")
+    if w_final.device.type == "cpu":
+        res = normalized_update_ref(w_final, w_start, inv_theta)
+        return res if out is None else out.copy_(res)
+    if w_final.device.type != "cuda":
+        raise ValueError(f"normalized_update runs on cpu or cuda tensors, got {w_final.device}")
+    if w_final.dtype not in _DTYPES:
+        raise TypeError(f"normalized_update kernel supports float32/bfloat16, "
+                        f"got {w_final.dtype}")
+    if per_row and inv_theta.dtype != torch.float32:
+        raise TypeError(f"normalized_update kernel takes float32 inv_theta, got {inv_theta.dtype}")
+    if out is None:
+        out = torch.empty_like(w_final, memory_format=torch.contiguous_format)
+    checked = [("w_final", w_final), ("w_start", w_start), ("out", out)]
+    if per_row:
+        checked.append(("inv_theta", inv_theta))
+    for name, t in checked:
+        if not t.is_contiguous():
+            raise ValueError(f"normalized_update kernel needs a contiguous {name}")
+    rows = inv_theta.shape[0] if per_row else 1
+    lib, _, fn = _bind()
+    rc = fn(w_final.data_ptr(), w_start.data_ptr(), out.data_ptr(),
+            inv_theta.data_ptr() if per_row else None, 0.0 if per_row else float(inv_theta),
+            rows, w_final.numel() // rows, _DTYPES[w_final.dtype], stream_of(w_final.device))
+    check(lib, rc, "normalized_update")
+    normalized_update.launches += 1
+    return out
+
+
+normalized_update.launches = 0
 
 
 def sgd_update_tree(params: dict, grads: dict, lr: float, inplace: bool = False) -> dict:

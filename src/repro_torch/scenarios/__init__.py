@@ -1,11 +1,14 @@
 """Named scenario registry: one string == one full experimental setup.
 
-The port's ``repro.scenarios`` for the synchronous scenarios of this slice
-(``mnist-iid-ring``, ``mnist-noniid-ring``, ``mnist-noniid-star``,
-``cifar-dirichlet-torus``), with the reference's parameters::
+The port's ``repro.scenarios`` for the scenarios it runs, with the
+reference's parameters: the synchronous ``mnist-iid-ring``,
+``mnist-noniid-ring``, ``mnist-noniid-star``, ``cifar-dirichlet-torus``, and
+the asynchronous ``straggler-bimodal-async``, ``straggler-bimodal-vanilla``,
+``dropout-heavy``, ``exponential-hetero-async``::
 
     run = build_scenario("mnist-noniid-ring", tau2=2)   # on the GPU
     run.run(10)
+    build_scenario("straggler-bimodal-async", device="cpu", backend="cuda").run(12)
 
 ``build_scenario`` materializes the data environment (dataset, partition,
 eval batch) from numpy with the reference's rng streams, so a seed gives
@@ -14,7 +17,7 @@ the same data and batches in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 
@@ -34,18 +37,22 @@ class Scenario:
 
     name: str
     description: str
-    scheduler: str                      # "sync"
+    scheduler: str                      # "sync" | "async"
     dataset: str = "mnist"              # "mnist" | "cifar"
     partition: str = "label_skew"       # "iid" | "label_skew" | "dirichlet"
     partition_params: Optional[dict] = None
     topology: str = "ring"
     backend: str = "auto"
+    profile: Union[str, dict, None] = None   # repro_torch.hetero sampler spec
     num_clients: int = 20
     num_clusters: int = 4
     tau1: int = 5
     tau2: int = 1
     alpha: int = 1
     learning_rate: float = 0.05
+    psi: str = "staleness"              # async only
+    min_batches: int = 2                # async only
+    theta_max: int = 8                  # async only
     batch_size: int = 10
     num_samples: int = 2400
 
@@ -113,11 +120,18 @@ class Scenario:
             "latency": self._latency(),
             "seed": seed,
             "clusters": ClusterSpec(c, assign, ds.data_sizes()),
-            "tau1": self.tau1,
-            "tau2": self.tau2,
-            "alpha": self.alpha,
         }
+        if self.scheduler == "sync":
+            cfg.update(tau1=self.tau1, tau2=self.tau2, alpha=self.alpha)
+        if self.scheduler == "async":
+            cfg.update(psi=self.psi, min_batches=self.min_batches, theta_max=self.theta_max)
+        if self.profile is not None:
+            cfg["profile"] = self.profile
         cfg.update(overrides)
+        # the fleet sampler follows the run seed whether the profile came
+        # from the template or an override (unless explicitly pinned)
+        if cfg.get("profile") is not None:
+            cfg.setdefault("profile_seed", seed)
         return cfg, ds, eval_batch
 
     def build(self, device=None, **overrides) -> "ScenarioRun":
@@ -143,7 +157,13 @@ class ScenarioRun:
     seed: int
 
     def batch_source(self):
-        """``k -> stacked batch``, drawing from an rng seeded with the run seed."""
+        """The batch source of the scheduler's contract: a ``ClientBatcher``
+        for async, else ``k -> stacked batch`` from an rng seeded with the
+        run seed."""
+        if self.scenario.scheduler == "async":
+            from ..data import ClientBatcher
+
+            return ClientBatcher(self.dataset, self.batch_size, seed=self.seed)
         rng = np.random.default_rng(self.seed)
         return lambda k: self.dataset.stacked_batch(self.batch_size, rng)
 
@@ -205,4 +225,47 @@ register_scenario(Scenario(
     scheduler="sync", dataset="cifar", partition="dirichlet",
     partition_params={"beta": 0.5},
     topology="torus", learning_rate=0.02,
+))
+
+
+# ---------------------------------------------------------------------------
+# The asynchronous scenarios (paper §IV, Fig. 8-10), as registered in the reference
+# ---------------------------------------------------------------------------
+
+register_scenario(Scenario(
+    name="straggler-bimodal-async",
+    description="Staleness-aware async SD-FEEL under a bimodal straggler fleet "
+                "(Fig. 8-10 regime).",
+    scheduler="async", partition="label_skew",
+    partition_params={"classes_per_client": 2},
+    profile={"kind": "bimodal-straggler", "straggler_frac": 0.25, "speedup": 10.0},
+    psi="staleness",
+))
+
+register_scenario(Scenario(
+    name="straggler-bimodal-vanilla",
+    description="Same straggler fleet with staleness-oblivious constant mixing "
+                "(the vanilla-async baseline of Fig. 10a).",
+    scheduler="async", partition="label_skew",
+    partition_params={"classes_per_client": 2},
+    profile={"kind": "bimodal-straggler", "straggler_frac": 0.25, "speedup": 10.0},
+    psi="constant",
+))
+
+register_scenario(Scenario(
+    name="dropout-heavy",
+    description="Flaky fleet: uniform speeds, 60% device availability; dropout "
+                "retries stretch the async iteration gaps.",
+    scheduler="async", partition="iid",
+    profile={"kind": "uniform", "heterogeneity": 4.0, "availability": 0.6},
+    psi="staleness",
+))
+
+register_scenario(Scenario(
+    name="exponential-hetero-async",
+    description="Heavy-tailed exponential speed distribution (a few very fast "
+                "devices), staleness-aware async.",
+    scheduler="async", partition="iid",
+    profile={"kind": "exponential", "scale": 2.0},
+    psi="staleness",
 ))

@@ -89,12 +89,35 @@ def test_cuda_backend_guards():
     with pytest.raises(ValueError, match="contiguous uniform"):
         tcore.CudaBackend(ragged, np.eye(2), 1, device="cpu")
     be = tcore.CudaBackend(tcl, p, alpha, device="cpu")
-    with pytest.raises(NotImplementedError, match="cluster_agg"):
-        be.intra_cluster(params_from_numpy(tree, "cpu"), torch.from_numpy(weights))
-    with pytest.raises(NotImplementedError, match="gossip_mix"):
-        be.inter_cluster(params_from_numpy(tree, "cpu"), torch.eye(4), 1)
+    with pytest.raises(ValueError, match="inconsistent with C=8"):
+        be.intra_cluster(params_from_numpy(tree, "cpu"), torch.ones(6))
+    with pytest.raises(ValueError, match="inconsistent with D=4"):
+        be.inter_cluster({"w": torch.zeros(4, 3)}, torch.eye(3), 1)
     with pytest.raises(KeyError, match="unknown aggregation backend"):
         tcore.resolve_backend("pallas", tcl, p, alpha, device="cpu")
+
+
+@pytest.mark.parametrize("reference", ["dense", "pallas"])
+def test_cuda_factors_match_jax(reference):
+    """``CudaBackend.intra_cluster`` (cluster_agg) and ``inter_cluster``
+    (gossip_mix, in place) against the reference's factors, with masked
+    participation weights and a faulted mixing matrix."""
+    jcl, tcl, p, alpha, tree, weights, p_fault = _setup()
+    jb = (jcore.DenseBackend(jcl, p, alpha) if reference == "dense"
+          else jcore.PallasBackend(jcl, p, alpha, interpret=True, tile_m=128))
+    tb = tcore.CudaBackend(tcl, p, alpha, device="cpu")
+    y_ref = jb.intra_cluster(_jax_tree(tree), jnp.asarray(weights))
+    y = tb.intra_cluster(params_from_numpy(tree, "cpu"), torch.from_numpy(weights))
+    for k, v in params_to_numpy(y).items():
+        assert v.shape == (jcl.num_clusters,) + tree[k].shape[1:]
+        np.testing.assert_allclose(v, np.asarray(y_ref[k]), atol=ATOL)
+    for mix, a in ((p.astype(np.float32), 3), (p_fault, 1)):
+        mixed_ref = jb.inter_cluster(y_ref, jnp.asarray(mix), alpha=a)
+        mixed = tb.inter_cluster(y, torch.from_numpy(mix), alpha=a)
+        assert all(mixed[k] is y[k] for k in y)
+        for k, v in params_to_numpy(mixed).items():
+            np.testing.assert_allclose(v, np.asarray(mixed_ref[k]), atol=ATOL)
+        y_ref = mixed_ref
 
 
 def test_cuda_backend_transition_is_in_place():

@@ -3,20 +3,26 @@
 Imports torch and ``repro_torch`` only, so it also runs on a machine without
 JAX: ``PYTHONPATH=src python3 -m pytest -q tests/test_torch_cuda.py``.
 Each kernel is held against its plain PyTorch version on the same CUDA
-inputs (1e-5 f32 transition, 1e-6 f32 SGD, 3e-2 bf16, as the reference's
-kernel tests), and the kernel backend's training run against the dense
-backend's (1e-4 after several iterations: the transition's factored f32
-sums differ from the f64-formed T_k in the last bits).
+inputs (1e-5 f32 transition, gossip and cluster aggregation, 1e-6 f32 SGD
+and normalized update, 3e-2 bf16, as the reference's kernel tests), and the
+kernel backend's training runs against the dense backend's (1e-4 after
+several iterations or events: the kernels' f32 sums run in another order
+than the dense products, and the normalized update multiplies by
+``1 / theta`` where the dense path divides).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import ClusterSpec, build_local_update, chain, mixing_matrix, ring
-from repro_torch.core import resolve_backend
-from repro_torch.kernels import fused_transition, fused_transition_ref, sgd_update, sgd_update_ref
+from repro_torch.core import resolve_backend, staleness_mixing_matrix
+from repro_torch.kernels import (
+    cluster_agg, cluster_agg_ref, fused_transition, fused_transition_ref, gossip_mix,
+    gossip_mix_ref, normalized_update, normalized_update_ref, sgd_update, sgd_update_ref,
+)
 from repro_torch.models import MnistCNN
 from repro_torch.optim import sgd
+from repro_torch.scenarios import build_scenario
 
 RNG = np.random.default_rng(0)
 
@@ -75,6 +81,82 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         sgd_update(torch.zeros(4, 4, device=cuda).T, torch.zeros(4, 4, device=cuda).T, 0.1)
     with pytest.raises(ValueError, match="one device"):
         fused_transition(torch.zeros(20, 8, device=cuda), vt.cpu(), p, bt)
+    with pytest.raises(TypeError):
+        gossip_mix(torch.zeros(4, 8, dtype=torch.float64, device=cuda), torch.eye(4))
+    with pytest.raises(ValueError, match="D <= 16"):
+        gossip_mix(torch.zeros(17, 8, device=cuda), torch.eye(17))
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_mix(torch.zeros(8, 4, device=cuda).T, torch.eye(4))
+    with pytest.raises(ValueError, match="one device"):
+        cluster_agg(torch.zeros(20, 8, device=cuda), torch.ones(20), 4)
+    with pytest.raises(TypeError, match="float32 weights"):
+        cluster_agg(torch.zeros(20, 8, device=cuda), torch.ones(20, device=cuda).double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        normalized_update(torch.zeros(8, 5, device=cuda).T, torch.zeros(8, 5, device=cuda).T,
+                          torch.ones(5, device=cuda))
+    with pytest.raises(ValueError, match="one device"):
+        normalized_update(torch.zeros(5, 8, device=cuda), torch.zeros(5, 8, device=cuda),
+                          torch.ones(5))
+
+
+def _p_t(device, d=4, trigger=1):
+    gaps = RNG.integers(0, 6, d).astype(float)
+    gaps[trigger] = 0.0
+    return torch.tensor(staleness_mixing_matrix(ring(d), trigger, gaps), dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("alpha", [0, 1, 2])
+@pytest.mark.parametrize("m", [10, 333, 16_000])
+@pytest.mark.parametrize("mixing", ["ring", "p_t"])
+def test_gossip_mix_matches_plain_in_place(cuda, dtype, tol, alpha, m, mixing):
+    p = _p_t(cuda) if mixing == "p_t" else _factors("cpu")[1]
+    y = torch.tensor(RNG.normal(size=(4, m)), dtype=torch.float32, device=cuda).to(dtype)
+    ref = gossip_mix_ref(y, p.to(cuda), alpha)
+    n = gossip_mix.launches
+    out = gossip_mix(y, p, alpha=alpha)
+    torch.cuda.synchronize()
+    assert gossip_mix.launches == n + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    gossip_mix(y, p.to(cuda), alpha=alpha, out=y)  # in place, P read back from the card
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("m", [10, 333, 16_000])
+@pytest.mark.parametrize("c,d", [(20, 4), (5, 1)])
+def test_cluster_agg_matches_plain_and_skips_masked_rows(cuda, dtype, tol, m, c, d):
+    w = torch.tensor(RNG.normal(size=(c, m)), dtype=torch.float32, device=cuda).to(dtype)
+    wt = torch.tensor(RNG.uniform(0.1, 1.0, c), dtype=torch.float32, device=cuda)
+    wt[1::3] = 0.0  # masked participation
+    out = cluster_agg(w, wt, d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), cluster_agg_ref(w, wt, d).float(), atol=tol, rtol=0)
+    # a masked row contributes exactly nothing, whatever it holds
+    w[1::3] = float("nan")
+    assert torch.equal(cluster_agg(w, wt, d), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("m", [10, 333, 16_000])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_normalized_update_matches_plain(cuda, dtype, tol, m, offset):
+    theta = torch.tensor([1.0, 3.0, 7.0, 8.0, 2.0], device=cuda)
+    n = 5 * m + offset
+    wf = torch.tensor(RNG.normal(size=n), device=cuda).to(dtype)[offset:].view(5, m)
+    w0 = torch.tensor(RNG.normal(size=n), device=cuda).to(dtype)[offset:].view(5, m)
+    out = normalized_update(wf, w0, 1.0 / theta)
+    torch.cuda.synchronize()
+    ref = normalized_update_ref(wf, w0, 1.0 / theta)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    if dtype == torch.float32:  # no FMA contraction: equal bit for bit
+        assert torch.equal(out, ref)
+    flat = normalized_update(wf[0], w0[0], 1.0 / 7.0)
+    torch.testing.assert_close(flat.float(), normalized_update_ref(wf[0], w0[0], 1.0 / 7.0)
+                               .float(), atol=tol, rtol=0)
 
 
 @pytest.mark.cuda
@@ -95,3 +177,24 @@ def test_fused_local_step_and_transition_match_dense(cuda):
         results[name] = backend.transition(params, "inter")
     for k in w0:
         torch.testing.assert_close(results["cuda"][k], results["dense"][k], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_async_events_on_kernels_match_dense(cuda):
+    small = {"num_clients": 8, "num_clusters": 4, "num_samples": 400}
+    runs = {}
+    for backend in ("cuda", "dense"):
+        run = build_scenario("straggler-bimodal-async", device=cuda, backend=backend, **small)
+        assert run.runtime.scheduler.backend.name == backend
+        src = run.batch_source()
+        n = (normalized_update.launches, cluster_agg.launches, gossip_mix.launches)
+        events = [run.runtime.step(src).cluster for _ in range(6)]
+        launched = (normalized_update.launches - n[0], cluster_agg.launches - n[1],
+                    gossip_mix.launches - n[2])
+        runs[backend] = (run.runtime.scheduler.y, events, launched)
+    leaves = len(runs["cuda"][0])
+    assert runs["cuda"][2] == (6 * leaves,) * 3
+    assert runs["dense"][2] == (0, 0, 0)
+    assert runs["cuda"][1] == runs["dense"][1]
+    for k, v in runs["cuda"][0].items():
+        torch.testing.assert_close(v, runs["dense"][0][k], atol=1e-4, rtol=0)

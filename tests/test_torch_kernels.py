@@ -3,23 +3,30 @@
 On the CPU the port's wrappers take their plain PyTorch versions; here they
 are held against the JAX wrappers running the Pallas kernels in interpret
 mode, over the sweeps of ``tests/test_kernels.py`` (alpha 0-3, bf16, ragged
-leaves).  Tolerances as there: 1e-5 f32 transition, 1e-6 f32 SGD, 3e-2
-bf16.  ``test_torch_cuda.py`` holds each CUDA kernel against its plain
-version on the card.
+leaves).  Tolerances as there: 1e-5 f32 transition, gossip and cluster
+aggregation, 1e-6 f32 SGD and normalized update, 3e-2 bf16.
+``test_torch_cuda.py`` holds each CUDA kernel against its plain version on
+the card.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.core import ClusterSpec, mixing_matrix, ring
+from repro.core import ClusterSpec, mixing_matrix, ring, staleness_mixing_matrix
+from repro.kernels import cluster_agg as j_cluster_agg
+from repro.kernels import cluster_agg_tree as j_cluster_agg_tree
 from repro.kernels import fused_transition as j_fused_transition
 from repro.kernels import fused_transition_tree as j_fused_transition_tree
+from repro.kernels import gossip_mix as j_gossip_mix
+from repro.kernels import gossip_mix_tree as j_gossip_mix_tree
+from repro.kernels import normalized_update as j_normalized_update
 from repro.kernels import sgd_update as j_sgd_update
 from repro.kernels import sgd_update_tree as j_sgd_update_tree
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import (
-    fused_transition, fused_transition_tree, sgd_update, sgd_update_tree,
+    cluster_agg, cluster_agg_tree, fused_transition, fused_transition_tree, gossip_mix,
+    gossip_mix_tree, normalized_update, sgd_update, sgd_update_tree,
 )
 
 RNG = np.random.default_rng(0)
@@ -119,8 +126,95 @@ def test_wrappers_reject_bad_operands():
 
 
 def test_cpu_calls_do_not_count_launches():
-    before = (fused_transition.launches, sgd_update.launches)
+    wrappers = (fused_transition, sgd_update, gossip_mix, cluster_agg, normalized_update)
+    before = [f.launches for f in wrappers]
     vt, p, bt = (_t(a) for a in _factors(8, 4))
     fused_transition(torch.zeros(8, 16), vt, p, bt)
     sgd_update(torch.zeros(4), torch.zeros(4), 0.1)
-    assert (fused_transition.launches, sgd_update.launches) == before
+    gossip_mix(torch.zeros(4, 16), p, alpha=1)
+    cluster_agg(torch.zeros(8, 16), torch.ones(8), 4)
+    normalized_update(torch.zeros(5, 16), torch.zeros(5, 16), torch.ones(5))
+    assert [f.launches for f in wrappers] == before
+
+
+# -- the async path's kernels --------------------------------------------------
+
+def _mixing(kind, d, rng=RNG):
+    """The ring P (eq. 5) or an eq. 22 P_t with random gaps, f32."""
+    spec = ClusterSpec(d, tuple(range(d)), tuple(rng.uniform(0.5, 2.0, d)))
+    if kind == "ring":
+        return mixing_matrix(ring(d), spec.m_tilde()).astype(np.float32)
+    gaps = rng.integers(0, 6, d).astype(float)
+    gaps[1] = 0.0
+    return staleness_mixing_matrix(ring(d), 1, gaps).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["ring", "p_t"])
+@pytest.mark.parametrize("alpha", [0, 1, 2])
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_gossip_mix_matches_jax(d, alpha, kind):
+    p = _mixing(kind, d)
+    tree = {"w": RNG.normal(size=(d, 3, 7)).astype(np.float32),     # ragged: M = 21
+            "b": RNG.normal(size=(d, 512)).astype(np.float32)}
+    ref = j_gossip_mix_tree({k: jnp.asarray(v) for k, v in tree.items()}, jnp.asarray(p),
+                            alpha=alpha, interpret=True, tile_m=128)
+    tp = params_from_numpy(tree, "cpu")
+    out = gossip_mix_tree(tp, _t(p), alpha=alpha, inplace=True)
+    for k in tree:
+        assert out[k] is tp[k]
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=1e-5, err_msg=k)
+
+
+def test_gossip_mix_bf16():
+    p = _mixing("p_t", 4)
+    y = RNG.normal(size=(4, 512)).astype(np.float32)
+    ref = j_gossip_mix(jnp.asarray(y, jnp.bfloat16), jnp.asarray(p), alpha=2, interpret=True)
+    out = gossip_mix(_t(y, torch.bfloat16), _t(p), alpha=2)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=3e-2)
+
+
+@pytest.mark.parametrize("c,d", [(8, 2), (20, 4), (5, 1), (12, 12)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cluster_agg_matches_jax(c, d, masked):
+    w = RNG.normal(size=(c, 512)).astype(np.float32)
+    wt = RNG.uniform(0.1, 1.0, c).astype(np.float32)
+    if masked:  # participation masks give weights of exactly 0
+        wt[:: 3] = 0.0
+    ref = j_cluster_agg(jnp.asarray(w), jnp.asarray(wt), d, interpret=True, tile_m=256)
+    out = cluster_agg(_t(w), _t(wt), d)
+    assert out.shape == (d, 512)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_cluster_agg_tree_ragged_leaves():
+    tree = {"a": RNG.normal(size=(8, 3, 7)).astype(np.float32),
+            "b": RNG.normal(size=(8, 130)).astype(np.float32)}
+    wt = RNG.uniform(0.1, 1.0, 8).astype(np.float32)
+    ref = j_cluster_agg_tree({k: jnp.asarray(v) for k, v in tree.items()}, jnp.asarray(wt), 4,
+                             interpret=True, tile_m=64)
+    out = cluster_agg_tree(params_from_numpy(tree, "cpu"), _t(wt), 4)
+    for k in tree:
+        assert out[k].shape == (4,) + tree[k].shape[1:]
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=1e-5)
+
+
+def test_normalized_update_scalar_matches_jax():
+    wf, w0 = RNG.normal(size=2048).astype(np.float32), RNG.normal(size=2048).astype(np.float32)
+    ref = j_normalized_update(jnp.asarray(wf), jnp.asarray(w0), 1.0 / 7.0, interpret=True)
+    np.testing.assert_allclose(normalized_update(_t(wf), _t(w0), 1.0 / 7.0).numpy(),
+                               np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 3e-2)])
+def test_normalized_update_per_row(dtype, tol):
+    theta = np.array([1, 3, 7, 8, 2], np.float32)
+    wf = RNG.normal(size=(5, 3, 7)).astype(np.float32)
+    w0 = RNG.normal(size=(5, 3, 7)).astype(np.float32)
+    out = normalized_update(_t(wf, dtype), _t(w0, dtype), _t(1.0 / theta))
+    assert out.dtype == dtype and out.shape == wf.shape
+    wf_r, w0_r = (_t(a, dtype).float().numpy() for a in (wf, w0))
+    np.testing.assert_allclose(out.float().numpy(),
+                               (wf_r - w0_r) / theta[:, None, None], atol=tol)
+    with pytest.raises(ValueError, match="one factor per row"):
+        normalized_update(_t(wf), _t(w0), _t(1.0 / theta[:4]))

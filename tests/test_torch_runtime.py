@@ -107,13 +107,33 @@ def test_entry_points_default_to_cuda():
         tcore.FederationRuntime(tmodels.MnistCNN(), None)
 
 
+@pytest.mark.parametrize("entry", ["DenseBackend", "CudaBackend", "resolve_backend"])
+def test_backends_default_to_cuda(entry):
+    clusters, p = tcore.ClusterSpec.uniform(8, 4), tcore.mixing_matrix(tcore.ring(4))
+    if entry == "resolve_backend":
+        def build(dev):
+            return tcore.resolve_backend("cuda", clusters, p, 1, device=dev)
+    else:
+        def build(dev):
+            return getattr(tcore, entry)(clusters, p, 1, device=dev)
+    assert build("cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert build(None).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(None)
+
+
 @pytest.mark.parametrize("override", [
     {"participation": {"strategy": "uniform-k", "k": 2}},
     {"profile": {"kind": "uniform"}},
     {"store": {"kind": "host-offload", "k_max": 4}},
     {"faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
     {"mesh": "auto"},
-    {"scheduler": "async"},
+    {"scheduler": "round"},
+    # the reference's dropout-participation-async: async with availability sampling
+    {"scheduler": "async", "participation": "availability", "psi": "staleness",
+     "profile": {"kind": "uniform", "heterogeneity": 4.0, "availability": 0.7}},
 ])
 def test_non_default_fleet_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -134,10 +154,13 @@ def test_registered_scenarios_match_reference():
         ref = jscenarios.get_scenario(name)
         for field in ("scheduler", "dataset", "partition", "partition_params", "topology",
                       "backend", "num_clients", "num_clusters", "tau1", "tau2", "alpha",
-                      "learning_rate", "batch_size", "num_samples"):
+                      "learning_rate", "batch_size", "num_samples", "profile", "psi",
+                      "min_batches", "theta_max"):
             assert getattr(sc, field) == getattr(ref, field), (name, field)
     assert set(tscenarios.SCENARIOS) == {
-        "mnist-iid-ring", "mnist-noniid-ring", "mnist-noniid-star", "cifar-dirichlet-torus"
+        "mnist-iid-ring", "mnist-noniid-ring", "mnist-noniid-star", "cifar-dirichlet-torus",
+        "straggler-bimodal-async", "straggler-bimodal-vanilla", "dropout-heavy",
+        "exponential-hetero-async",
     }
 
 
@@ -153,7 +176,8 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 30
+    assert {"profiles.py", "timing.py"} <= {f.name for f in files if f.parent.name == "hetero"}
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
