@@ -9,10 +9,11 @@ Phases, one result line each; any failure exits non-zero without the final
 1. device   card name and power limit (nvidia-smi), torch/CUDA versions and
             both TF32 flags; TF32 is then switched off for the whole run
             (cuDNN convolutions would otherwise run f32 in TF32).
-2. build    ``nvcc`` builds every kernel library from ``src/`` (four:
+2. build    ``nvcc`` builds every kernel library from ``src/`` (five:
             fused_sgd with sgd_update and normalized_update,
-            fused_transition, gossip_mix, cluster_agg), one process per
-            library, all at once.
+            fused_transition, gossip_mix, cluster_agg, flash_attention with
+            its forward and backward kernels), one process per library, all
+            at once.
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the leaf shapes of MnistCNN and CifarCNN stacked over
             C=20 clients in D=4 clusters, f32 and bf16.  Transition: alpha
@@ -26,7 +27,15 @@ Phases, one result line each; any failure exits non-zero without the final
             update, 3e-2 bf16.  Then CUDA-event times of the kernel, the
             plain version and one library call computing the same function
             (where there is one), beside the bound, at the shapes of the
-            path that runs the kernel.
+            path that runs the kernel.  Flash attention forward and backward
+            against their plain versions at federated-lm-ring's (16, 64, 4,
+            4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's (1, 8192,
+            8, 4, 256) with window 4096 and cap 50, and a GQA case with hd 96
+            and a ragged S = 80, f32 and bf16 (2e-5 f32 and 3e-2 bf16
+            forward, as the reference's kernel tests; lse 1e-4; gradients
+            1e-4 f32 and 3e-2 bf16 relative to the largest reference entry),
+            then timed at both LM phases' shapes against
+            ``scaled_dot_product_attention``.
 4. main     the main path: ``mnist-noniid-ring`` with ``tau2=2`` through
             ``build_scenario`` (which calls ``make_run``) on the default
             device, backend auto -> cuda, 10 iterations (local, intra and
@@ -47,6 +56,24 @@ Phases, one result line each; any failure exits non-zero without the final
             loss).  Then warm events/s, the split of one event (client
             deltas, normalized_update, cluster_agg, gossip_mix) and the
             profiled device-busy share.
+7. lm       federated LM training: ``federated-lm-ring`` as registered
+            (reduced granite: d_model 256, 4 heads of 64, 2 layers, vocab
+            512, S = 64; C = 8 in D = 4, tau1 = tau2 = 2, alpha = 2, R = 2)
+            through ``build_scenario`` on the default device, backend auto
+            -> cuda, attn_impl cuda: 4 supersteps (32 iterations) and one
+            evaluate, launch counters zeroed just before and read just
+            after and held to their exact counts (the clients fold into one
+            attention launch per layer).  Held against the same run with
+            the dense backend and plain attention on the card and on the
+            CPU (1e-4 max abs on parameters and per-iteration losses, 1e-4
+            relative on the eval loss).  Then warm iterations/s, tokens/s,
+            the split of one iteration and the profiled busy share.
+8. lm-width the same scenario at granite-8b's published widths (d_model
+            4096, d_ff 14336, 32 heads, 8 KV heads of 128, vocab 49152,
+            S = 2048, bf16), cut to 2 layers, per-client batch 1 and no
+            evaluate: 2 supersteps, their rate, peak device memory and the
+            attention kernels' share; then one client's loss and gradients
+            with the flash kernels against the plain attention.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -64,6 +91,7 @@ HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data-sheet memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 C, D, LR = 20, 4, 0.05
 G = C // D                  # clients per cluster: the async event's rows
 THETAS = (1.0, 3.0, 7.0, 8.0, 3.0)  # per-row eq. 19 factors 1/theta for R = G
@@ -89,7 +117,31 @@ KERNELS = {
         "source": "src/repro_torch/kernels/fused_sgd/csrc/normalized_update.cu",
         "replaces": "src/repro/kernels/fused_sgd/kernel.py:29",
     },
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
+    },
+    "flash_attention_backward": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        # no TPU kernel: the reference differentiates its plain attention
+        "replaces": "none (gradient of src/repro/kernels/flash_attention/kernel.py:34)",
+    },
 }
+# (B, S, Hq, Hkv, hd, window, cap): federated-lm-ring's registered shape (C*B
+# = 8*2 folded), granite-8b's (C = 8, batch 1), gemma2-2b's local layer, and
+# a GQA case with hd 96 and a ragged S
+FLASH_SHAPES = {
+    "federated-lm-ring": (16, 64, 4, 4, 64, None, None),
+    "granite-8b": (8, 2048, 32, 8, 128, None, None),
+    "gemma2-2b": (1, 8192, 8, 4, 256, 4096, 50.0),
+    "gqa-hd96-ragged": (2, 80, 8, 2, 96, None, None),
+}
+LM_STEPS, LM_WIDTH_STEPS = 4, 2
+LM_WIDTH = dict(
+    arch_overrides=dict(num_layers=2, d_model=4096, d_ff=14336, num_heads=32, num_kv_heads=8,
+                        head_dim=128, dtype="bfloat16", attn_chunk=512),
+    vocab_size=49152, seq_len=2048, batch_size=1, num_samples=16,
+)
 ASYNC_KERNELS = ("normalized_update", "cluster_agg", "gossip_mix")
 
 
@@ -163,10 +215,10 @@ class Smoke:
         return {k: torch.randn((rows,) + s, generator=gen, device=self.dev).to(dtype)
                 for k, s in shapes.items()}
 
-    def bound(self, byts, flops):
+    def bound(self, byts, flops, peak=F32_FLOPS_PER_S):
         """(ms, what bounds it): the larger of bytes over the memory rate and
-        flops over the f32 peak."""
-        tb, to = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        flops over the peak of the inputs' type (f32 unless given)."""
+        tb, to = byts / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     def async_operands(self):
@@ -286,6 +338,7 @@ class Smoke:
                 print(f"  {mname} {str(dtype)[6:]}: transition (2 factor sets x alpha 0-2) and "
                       f"sgd_update agree with their plain versions", flush=True)
         self.check_async_kernels(worst, main_err)
+        self.check_flash(worst, main_err)
         print(f"max abs err over all cases: {json.dumps(worst)}", flush=True)
         self.detail["max_abs_err_all_cases"] = worst
 
@@ -298,8 +351,12 @@ class Smoke:
                     f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in t.items()
                 ), flush=True)
         self.detail["timings_f32"] = timings
+        flash = self.time_flash()
+        self.detail["timings_flash"] = flash
         for kname in KERNELS:
-            self.record[kname] = dict(timings["mnist"][kname], max_abs_err=main_err[kname])
+            t = flash["federated-lm-ring"] if kname in flash["federated-lm-ring"] else \
+                timings["mnist"]
+            self.record[kname] = dict(t[kname], max_abs_err=main_err[kname])
 
     def check_async_kernels(self, worst: dict, main_err: dict) -> None:
         """gossip_mix, cluster_agg and normalized_update against their plain
@@ -429,6 +486,135 @@ class Smoke:
                 "bound_ms": byts / HBM_BYTES_PER_S * 1e3})
         return out
 
+    def flash_inputs(self, shape, dtype, seed=0):
+        """q, k, v and an output gradient at ``shape``, standard normal."""
+        torch = self.torch
+        b, s, hq, hkv, hd = shape[:5]
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        mk = lambda *sh: torch.randn(sh, generator=gen, device=self.dev).to(dtype)
+        return mk(b, s, hq, hd), mk(b, s, hkv, hd), mk(b, s, hkv, hd), mk(b, s, hq, hd)
+
+    def check_flash(self, worst: dict, main_err: dict) -> None:
+        """Flash attention forward and backward against their plain versions
+        at every shape of ``FLASH_SHAPES``, f32 and bf16; ``main_err`` at
+        federated-lm-ring's f32 shape (the lm phase's)."""
+        torch = self.torch
+        from repro_torch.kernels import (
+            flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+            flash_attention_fwd_ref,
+        )
+
+        worst["flash_attention"] = worst["flash_attention_backward"] = 0.0
+        for sname, shape in FLASH_SHAPES.items():
+            window, cap = shape[5:]
+            for dtype, f_tol, g_tol in ((torch.float32, 2e-5, 1e-4),
+                                        (torch.bfloat16, 3e-2, 3e-2)):
+                q, k, v, dout = self.flash_inputs(shape, dtype)
+                out, lse = flash_attention_fwd(q, k, v, window, cap)
+                ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, window, cap)
+                torch.cuda.synchronize()
+                err = (out.float() - ref_out.float()).abs().max().item()
+                lse_err = (lse - ref_lse).abs().max().item()
+                del ref_out, ref_lse
+                if not (err <= f_tol and lse_err <= 1e-4):
+                    raise AssertionError(f"flash_attention {sname} {dtype}: max abs err {err} "
+                                         f"(tol {f_tol}), lse {lse_err} (tol 1e-4)")
+                grads = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+                refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, window, cap)
+                torch.cuda.synchronize()
+                g_err = 0.0
+                for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                    scale = max(1.0, r.float().abs().max().item())
+                    e = (g.float() - r.float()).abs().max().item()
+                    if not e <= g_tol * scale:
+                        raise AssertionError(f"flash_attention_backward {sname} {dtype} {name}: "
+                                             f"max abs err {e} > {g_tol} x {scale}")
+                    g_err = max(g_err, e)
+                del grads, refs, q, k, v, dout, out, lse
+                torch.cuda.empty_cache()
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+                worst["flash_attention_backward"] = max(worst["flash_attention_backward"], g_err)
+                if (sname, dtype) == ("federated-lm-ring", torch.float32):
+                    main_err["flash_attention"], main_err["flash_attention_backward"] = err, g_err
+                print(f"  flash {sname} {shape[:5]} window={window} cap={cap} "
+                      f"{str(dtype)[6:]}: forward max abs err {err:.3e} (tol {f_tol}), lse "
+                      f"{lse_err:.3e}; backward {g_err:.3e} (tol {g_tol} relative)", flush=True)
+
+    @staticmethod
+    def flash_work(shape, itemsize):
+        """(forward flops, backward flops, forward bytes, backward bytes) that
+        the function needs: 4 hd flops per live (query, key) pair forward,
+        2.5x that backward; each input read once, each output written once."""
+        b, s, hq, hkv, hd, window = shape[:6]
+        w = min(window or s, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w  # live pairs of one (b, head)
+        flops = 4 * b * hq * hd * pairs
+        qo, kv, lse = b * s * hq * hd * itemsize, b * s * hkv * hd * itemsize, b * hq * s * 4
+        return flops, 2.5 * flops, 2 * qo + 2 * kv + lse, 4 * qo + 4 * kv + lse
+
+    def time_flash(self) -> dict:
+        """Forward and backward times at the lm phase's shape (f32) and the
+        lm-width phase's (granite-8b, bf16): the kernel, the plain version
+        and ``scaled_dot_product_attention`` (causal, GQA), beside the bound.
+        Each also replayed from a CUDA graph, except the library backward:
+        that is ``autograd.grad`` of one retained autograd graph."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import (
+            flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+            flash_attention_fwd_ref,
+        )
+
+        out = {}
+        for sname, dtype in (("federated-lm-ring", torch.float32),
+                             ("granite-8b", torch.bfloat16)):
+            shape = FLASH_SHAPES[sname]
+            window, cap = shape[5:]
+            small = shape[1] <= 256
+            q, k, v, dout = self.flash_inputs(shape, dtype, seed=1)
+            o, lse = flash_attention_fwd(q, k, v, window, cap)
+            qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, dout))  # (B, H, S, hd)
+            leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+            lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+            calls = {
+                "flash_attention": {
+                    "ms": lambda: flash_attention_fwd(q, k, v, window, cap),
+                    "plain_ms": lambda: flash_attention_fwd_ref(q, k, v, window, cap),
+                    "library_ms": lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True),
+                },
+                "flash_attention_backward": {
+                    "ms": lambda: flash_attention_bwd(q, k, v, o, lse, dout, window, cap),
+                    "plain_ms": lambda: flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                                                window, cap),
+                    "library_ms": lambda: torch.autograd.grad(lib_out, leaves, gt,
+                                                              retain_graph=True),
+                },
+            }
+            flops_f, flops_b, bytes_f, bytes_b = self.flash_work(shape, q.element_size())
+            peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+            bounds = {"flash_attention": self.bound(bytes_f, flops_f, peak),
+                      "flash_attention_backward": self.bound(bytes_b, flops_b, peak)}
+            res = {}
+            for kname, fns in calls.items():
+                reps = 20 if small else 3
+                t = {key: self.cuda_ms(fn, reps=reps, warmup=1 if not small else 3)
+                     for key, fn in fns.items()}
+                for key, fn in fns.items():
+                    graphable = not (kname.endswith("backward") and key == "library_ms")
+                    t[f"graph_{key}"] = self.graph_ms(fn, reps=reps) if graphable else None
+                bnd, by = bounds[kname]
+                res[kname] = dict(t, bound_ms=bnd, bound_by=by, shape=list(shape[:5]),
+                                  window=window, cap=cap, dtype=str(dtype)[6:],
+                                  flops=flops_f if kname == "flash_attention" else flops_b)
+                print(f"  time flash {sname} {str(dtype)[6:]} {kname}: " + ", ".join(
+                    f"{key}={val:.6g}" if isinstance(val, float) else f"{key}={val}"
+                    for key, val in res[kname].items()), flush=True)
+            out[sname] = res
+            del q, k, v, dout, o, lse, qt, kt, vt, gt, leaves, lib_out, calls
+            torch.cuda.empty_cache()
+        return out
+
     def time_kernels(self, mcls, factors) -> dict:
         torch = self.torch
         from repro_torch.kernels import (
@@ -539,8 +725,10 @@ class Smoke:
         for name, a, b in spans:
             per_name[name] = per_name.get(name, 0.0) + (b - a) / 1e3
         top = sorted(per_name.items(), key=lambda r: -r[1])[:6]
+        flash_ms = sum(ms for name, ms in per_name.items() if "flash_" in name)
         return {"iters": iters, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "busy_ms_per_step": busy_ms / iters, "busy_share": busy_ms / wall_ms,
+                "flash_kernels_ms": flash_ms, "flash_share_of_busy": flash_ms / busy_ms,
                 "top_kernels_ms": [(k[:60], round(ms, 4)) for k, ms in top]}
 
     def iteration_split(self, run) -> dict:
@@ -757,6 +945,168 @@ class Smoke:
                                 "events_per_s_warm": warm, "split": split, "profile": busy,
                                 "eval_loss": loss, "eval_acc": acc, "references": ref}
 
+    def lm_counters(self) -> dict:
+        from repro_torch.kernels import (
+            flash_attention_bwd, flash_attention_fwd, fused_transition, sgd_update,
+        )
+
+        return {"flash_attention": flash_attention_fwd,
+                "flash_attention_backward": flash_attention_bwd,
+                "fused_transition": fused_transition, "sgd_update": sgd_update}
+
+    def run_lm(self, steps, device=None, **overrides):
+        """(run, host seconds for ``steps`` supersteps ending in a synchronize,
+        per-iteration losses on the host)."""
+        torch = self.torch
+        from repro_torch.scenarios import build_scenario
+
+        run = build_scenario("federated-lm-ring", device=device, **overrides)
+        src = run.batch_source()
+        t0 = time.perf_counter()
+        losses = [run.runtime.step(src).losses for _ in range(steps)]
+        if run.runtime.device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return run, dt, torch.cat(losses).float().cpu()
+
+    def lm_path(self):
+        """This slice's path: federated-lm-ring on the flash, SGD and
+        transition kernels, held to the dense backend with plain attention."""
+        torch = self.torch
+        counters = self.lm_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        run, dt, losses = self.run_lm(LM_STEPS)
+        loss, _ = run.runtime.evaluate(run.eval_batch)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        sched, cfg = run.runtime.scheduler, run.runtime.model.cfg
+        if sched.backend.name != "cuda" or run.runtime.device.type != "cuda" \
+                or cfg.attn_impl != "cuda":
+            raise AssertionError(f"auto resolved to {sched.backend.name} on "
+                                 f"{run.runtime.device} with attn_impl {cfg.attn_impl}")
+        iters = LM_STEPS * sched.iterations_per_step
+        leaves = len(sched.params)
+        transitions = LM_STEPS * sched.rounds_per_step * (sched.fl.tau2 + 1)
+        # one attention launch per layer per iteration (clients folded), plus
+        # the evaluate's forward; one kernel per leaf per SGD step / transition
+        expected = {"flash_attention": cfg.num_layers * (iters + 1),
+                    "flash_attention_backward": cfg.num_layers * iters,
+                    "fused_transition": transitions * leaves, "sgd_update": iters * leaves}
+        if launches != expected:
+            raise AssertionError(f"lm launches {launches}, expected {expected}")
+        self.check_finite(sched.params, "lm cuda run")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError("lm cuda run: non-finite losses")
+        c, b, s = sched.fl.num_clients, run.batch_size, run.eval_batch["tokens"].shape[1]
+        print(f"lm federated-lm-ring on {run.runtime.device}, backend {sched.backend.name}, "
+              f"attn_impl {cfg.attn_impl}: {LM_STEPS} supersteps = {iters} iterations "
+              f"(C={c}, b={b}, S={s}, {cfg.num_layers} layers, {leaves} leaves); launches "
+              f"{json.dumps(launches)} (expected exactly); {iters / dt:.3f} it/s cold "
+              f"({dt:.4f}s); losses first {losses[0]:.6f} last {losses[-1]:.6f}; eval loss "
+              f"{loss:.6f}", flush=True)
+        for kname in ("flash_attention", "flash_attention_backward"):
+            self.record[kname]["launches"] = launches[kname]
+
+        ref = {}
+        plain = {"backend": "dense", "arch_overrides": {"attn_impl": "plain"}}
+        for label, device in (("dense+plain on cuda", None), ("dense+plain on cpu", "cpu")):
+            r, _, rlosses = self.run_lm(LM_STEPS, device=device, **plain)
+            rloss, _ = r.runtime.evaluate(r.eval_batch)
+            err = max((w.float().cpu() - r.runtime.scheduler.params[k].float().cpu())
+                      .abs().max().item() for k, w in sched.params.items())
+            lerr = (losses - rlosses).abs().max().item()
+            rel = abs(rloss - loss) / abs(rloss)
+            ref[label] = {"max_abs_param_diff": err, "max_abs_loss_diff": lerr,
+                          "eval_loss": rloss, "loss_rel_diff": rel}
+            print(f"  vs {label}: max abs param diff {err:.3e} (tol 1e-4), per-iteration "
+                  f"losses {lerr:.3e} (tol 1e-4), eval loss {rloss:.6f} rel diff {rel:.3e} "
+                  f"(tol 1e-4)", flush=True)
+            if not (err <= 1e-4 and lerr <= 1e-4 and rel <= 1e-4):
+                raise AssertionError(f"lm kernel run disagrees with {label}")
+            del r
+
+        warm = self.warm_rate(run, LM_STEPS) * sched.iterations_per_step
+        split = self.iteration_split(run)
+        busy = self.profile_steps(run, 2)
+        tokens = warm * c * b * s
+        print(f"lm warm: {warm:.3f} it/s, {tokens:.1f} tokens/s over {LM_STEPS} more "
+              f"supersteps; split " + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
+              + f"; profiled 2 supersteps: {json.dumps(busy)}", flush=True)
+        self.detail["lm"] = {"launches": launches, "expected": expected,
+                             "it_per_s_cold": iters / dt, "it_per_s_warm": warm,
+                             "tokens_per_s_warm": tokens, "split": split, "profile": busy,
+                             "eval_loss": loss, "losses": losses.tolist(), "references": ref}
+
+    def lm_width(self):
+        """federated-lm-ring at granite-8b's published widths, cut in depth."""
+        torch = self.torch
+        counters = self.lm_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        run, dt, losses = self.run_lm(LM_WIDTH_STEPS, **LM_WIDTH)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        sched, cfg = run.runtime.scheduler, run.runtime.model.cfg
+        iters = LM_WIDTH_STEPS * sched.iterations_per_step
+        c, b, s = sched.fl.num_clients, run.batch_size, LM_WIDTH["seq_len"]
+        if launches["flash_attention"] != cfg.num_layers * iters or \
+                launches["flash_attention_backward"] != cfg.num_layers * iters:
+            raise AssertionError(f"lm-width launches {launches}")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError("lm-width run: non-finite losses")
+        n_params = sum(w[0].numel() for w in sched.params.values())
+        print(f"lm-width federated-lm-ring at granite-8b widths ({cfg.d_model} d_model, "
+              f"{cfg.d_ff} d_ff, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+              f"vocab {cfg.vocab_size}, S={s}, {cfg.dtype}); cuts: depth 36 -> "
+              f"{cfg.num_layers} layers, per-client batch 2 -> {b}, no evaluate (its 64 "
+              f"sequences would need 25.8 GB of f32 logits); {n_params} params per client x "
+              f"{c} clients; {iters} iterations in {dt:.3f}s = {iters / dt:.4f} it/s, "
+              f"{iters * c * b * s / dt:.1f} tokens/s (first-call costs included); launches "
+              f"{json.dumps(launches)}; peak device memory {peak / 2**30:.2f} GiB; losses "
+              f"{[round(x, 4) for x in losses.tolist()]}", flush=True)
+        warm_dt = 1.0 / self.warm_rate(run, 1)
+        busy = self.profile_steps(run, 1)
+        wiph = sched.iterations_per_step / warm_dt
+        print(f"lm-width warm: {wiph:.4f} it/s, {wiph * c * b * s:.1f} tokens/s (1 superstep, "
+              f"{warm_dt:.3f}s); profiled 1 superstep: {json.dumps(busy)}", flush=True)
+
+        # one client's loss and gradients: flash kernels against plain attention
+        import dataclasses
+        from repro_torch.models import CausalLM
+
+        p0 = {k: w[0] for k, w in sched.params.items()}
+        batch = {k: torch.as_tensor(v[0], device=self.dev)
+                 for k, v in run.batch_source()(0).items()}
+        got = {}
+        for impl in ("cuda", "plain"):
+            model = CausalLM(dataclasses.replace(cfg, attn_impl=impl))
+            g, l = torch.func.grad_and_value(model.loss)(p0, batch)
+            got[impl] = (l.item(), g)
+            del g
+        lrel = abs(got["cuda"][0] - got["plain"][0]) / abs(got["plain"][0])
+        # per leaf: the norm of the difference over the norm of the plain
+        # gradient (the largest over leaves), and the same with max norms
+        gerr = max(((got["cuda"][1][k].float() - g.float()).norm() / g.float().norm()).item()
+                   for k, g in got["plain"][1].items())
+        gmax = max((got["cuda"][1][k].float() - g.float()).abs().max().item()
+                   / max(g.float().abs().max().item(), 1e-30)
+                   for k, g in got["plain"][1].items())
+        print(f"  one client at width, attn_impl cuda vs plain: loss {got['cuda'][0]:.6f} vs "
+              f"{got['plain'][0]:.6f} (rel {lrel:.3e}, tol 1e-2); gradients |diff| / |plain| "
+              f"{gerr:.3e} (tol 5e-2: bf16 keeps 8 bits, and both paths round every "
+              f"activation to bf16, from sums taken in different orders), max-norm "
+              f"{gmax:.3e}", flush=True)
+        if not (lrel <= 1e-2 and gerr <= 5e-2):
+            raise AssertionError("lm-width: flash and plain attention disagree")
+        self.detail["lm_width"] = {
+            "launches": launches, "params_per_client": n_params, "peak_bytes": peak,
+            "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
+            "tokens_per_s_warm": wiph * c * b * s, "profile": busy,
+            "losses": losses.tolist(), "cuts": {"num_layers": [36, cfg.num_layers],
+                                                "batch_size": [2, b], "evaluate": False},
+            "cuda_vs_plain": {"loss_rel": lrel, "grad_rel_norm": gerr, "grad_rel_max": gmax}}
+
     def run(self):
         torch = self.torch
         self.phase("device", self.device)
@@ -766,6 +1116,8 @@ class Smoke:
             self.phase("main", self.main_path)
             self.phase("cifar", self.cifar)
             self.phase("async", self.async_path)
+            self.phase("lm", self.lm_path)
+            self.phase("lm-width", self.lm_width)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
         out = HERE / "chiprun_out"

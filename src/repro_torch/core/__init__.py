@@ -12,11 +12,13 @@ from .latency import LatencyModel, MNIST_LATENCY, CIFAR_LATENCY
 from .local_update import (
     build_local_update, build_sequential_local_update, fused_sgd_applicable,
 )
-from .pipeline import BatchPipeline, device_batch, gather_client_batches
+from .pipeline import BatchPipeline, device_batch, gather_client_batches, stack_window
 from .runtime import (
-    AsyncScheduler, FederationRuntime, Scheduler, StepEvent, SyncScheduler, TrainHistory,
-    make_run, register_scheduler, stacked_init, SCHEDULER_REGISTRY,
+    AsyncScheduler, FederationRuntime, RoundScheduler, Scheduler, StepEvent, SyncScheduler,
+    TrainHistory, make_run, register_scheduler, stacked_init, SCHEDULER_REGISTRY,
 )
+from .sdfeel import FLSpec, init_stacked
+from .round_engine import build_fl_round_step
 from .staleness import psi_constant, psi_exponential, psi_inverse, staleness_mixing_matrix
 from .async_engine import AsyncConfig, make_speeds
 
@@ -31,8 +33,10 @@ __all__ = [
     "resolve_device",
     "LatencyModel", "MNIST_LATENCY", "CIFAR_LATENCY",
     "build_local_update", "build_sequential_local_update", "fused_sgd_applicable",
-    "BatchPipeline", "device_batch", "gather_client_batches",
-    "AsyncScheduler", "FederationRuntime", "Scheduler", "StepEvent", "SyncScheduler",
+    "BatchPipeline", "device_batch", "gather_client_batches", "stack_window",
+    "FLSpec", "init_stacked", "build_fl_round_step",
+    "AsyncScheduler", "FederationRuntime", "RoundScheduler", "Scheduler", "StepEvent",
+    "SyncScheduler",
     "TrainHistory", "make_run", "register_scheduler", "stacked_init", "SCHEDULER_REGISTRY",
     "psi_constant", "psi_exponential", "psi_inverse", "staleness_mixing_matrix",
     "AsyncConfig", "make_speeds",

@@ -11,8 +11,8 @@ The port's copy of ``repro.core.config``::
 The port runs resident dense client state, full participation, no faults
 and no device mesh; a device profile (``profile``/``profile_seed``) is taken
 by the async scheduler only.  ``validate`` rejects every other ``FleetSpec``
-value, ``exec.mesh`` and the schedulers not ported yet with
-``NotImplementedError`` naming their ROADMAP item.
+value and ``exec.mesh`` with ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -31,7 +31,6 @@ _NOT_PORTED = {
     "store": "queue 1, 'Fleet axes' (state/ client-state stores)",
     "faults": "queue 1, 'Fleet axes' (faults/)",
     "mesh": "queue 1, 'Multi-device and launch'",
-    "round": "queue 1, 'Round engine' (RoundScheduler)",
 }
 # fleet keys a scheduler of the port takes; every other non-default raises
 _PORTED_FLEET_KEYS = {"async": ("profile", "profile_seed")}
@@ -211,10 +210,6 @@ class RunConfig:
         if self.model.instance is None and self.model.kind is None:
             raise ValueError("RunConfig.model needs a kind or an instance")
         sched = self.exec.scheduler
-        if sched in _NOT_PORTED and sched not in SCHEDULER_REGISTRY:
-            raise NotImplementedError(
-                f"scheduler {sched!r} is not ported yet (ROADMAP.md {_NOT_PORTED[sched]})"
-            )
         if sched not in SCHEDULER_REGISTRY:
             raise KeyError(
                 f"unknown scheduler {sched!r}; registered: {sorted(SCHEDULER_REGISTRY)}"

@@ -15,8 +15,10 @@ stream; ``device_batch(..., non_blocking=True)`` (the async scheduler's
 prefetch) stages through pinned host memory instead.  A side copy stream is
 later work.
 
-``gather_client_batches`` draws the async scheduler's per-client batches
-from a ``ClientBatcher``-like source, as ``repro.core.pipeline`` does.
+``stack_window`` stacks a round engine's window of iteration batches on a
+new leading axis.  ``gather_client_batches`` draws the async scheduler's
+per-client batches from a ``ClientBatcher``-like source, as
+``repro.core.pipeline`` does.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["BatchPipeline", "device_batch", "gather_client_batches"]
+__all__ = ["BatchPipeline", "device_batch", "gather_client_batches", "stack_window"]
 
 
 def device_batch(batch: dict, device, non_blocking: bool = False) -> dict:
@@ -40,6 +42,18 @@ def device_batch(batch: dict, device, non_blocking: bool = False) -> dict:
         return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
             for k, v in batch.items()}
+
+
+def stack_window(batch_source: Callable[[int], dict], start: int, count: int) -> dict:
+    """Stack batches ``start .. start + count - 1`` on a new leading axis
+    (host numpy when every entry is numpy, else torch)."""
+    batches = [batch_source(start + i) for i in range(count)]
+    out = {}
+    for k in batches[0]:
+        xs = [b[k] for b in batches]
+        out[k] = (np.stack(xs) if all(isinstance(x, np.ndarray) for x in xs)
+                  else torch.stack([torch.as_tensor(x) for x in xs]))
+    return out
 
 
 class BatchPipeline:

@@ -4,9 +4,10 @@ The port's ``repro.core.runtime``.  ``FederationRuntime`` owns what every
 regime shares — stacked-parameter init (Algorithm 1 line 1), evaluation of
 the consensus model, the Section V-B wall-clock accounting, eval cadence
 and ``TrainHistory`` — and delegates *how a step advances the federation*
-to a scheduler.  Ported: ``SyncScheduler`` (Algorithm 1 / Lemma 1) on the
-default fleet, and ``AsyncScheduler`` (Section IV, Algorithm 2) with an
-optional device profile; the round scheduler follows.
+to a scheduler.  Ported: ``SyncScheduler`` (Algorithm 1 / Lemma 1) and
+``RoundScheduler`` (whole Algorithm-1 rounds per step) on the default
+fleet, and ``AsyncScheduler`` (Section IV, Algorithm 2) with an optional
+device profile.
 
 Everything runs eagerly on an explicit ``device``.  Entry points take
 ``device=None``, which means ``"cuda"``, and raise when there is no GPU and
@@ -37,6 +38,7 @@ __all__ = [
     "StepEvent",
     "Scheduler",
     "SyncScheduler",
+    "RoundScheduler",
     "AsyncScheduler",
     "FederationRuntime",
     "SCHEDULER_REGISTRY",
@@ -69,13 +71,16 @@ class StepEvent:
     "cluster" for an async cluster event), ``iteration`` the
     protocol-iteration count after the step, ``dt`` the Section V-B
     wall-clock the step consumed, ``cluster`` the cluster an async event
-    fired.
+    fired.  ``losses`` (round steps: "round") is the ``(R * tau1 * tau2,)``
+    per-iteration mean loss, left on the device so a step never waits for
+    it; read it with ``float``/``.tolist()`` at logging boundaries.
     """
 
     kind: str
     iteration: int
     dt: float = 0.0
     cluster: Optional[int] = None
+    losses: Optional[torch.Tensor] = None
 
 
 def stacked_init(model, num_copies: int, seed, device) -> dict:
@@ -88,7 +93,7 @@ def stacked_init(model, num_copies: int, seed, device) -> dict:
     gen = torch.Generator().manual_seed(int(seed))
     w0 = model.init(gen)
     return {
-        k: v[None].expand((num_copies,) + tuple(v.shape)).contiguous().to(device)
+        k: v.to(device)[None].expand((num_copies,) + tuple(v.shape)).contiguous()
         for k, v in w0.items()
     }
 
@@ -212,6 +217,132 @@ class SyncScheduler:
             k: torch.tensordot(self._v, w.float(), dims=([0], [0])).to(w.dtype)
             for k, w in self.params.items()
         }
+
+
+# ---------------------------------------------------------------------------
+# Whole-round scheduler (the reference's compiled round engine)
+# ---------------------------------------------------------------------------
+
+def _impl_backend(impl: str) -> str:
+    """The backend the reference's ``FLSpec.impl`` names, as the port calls it."""
+    if impl == "gossip":
+        raise NotImplementedError(
+            "impl='gossip' (CollectiveBackend) is not ported yet "
+            "(ROADMAP.md queue 1, 'Multi-device and launch')"
+        )
+    return {"dense": "dense", "pallas": "cuda"}[impl]
+
+
+class RoundScheduler:
+    """One step == ``rounds_per_step`` full Algorithm-1 rounds of tau1*tau2 iterations.
+
+    ``batch_source`` contract: callable ``k -> stacked batch`` indexed by the
+    protocol iteration; step ``r`` consumes iterations ``(r-1)*R*tau1*tau2 +
+    1 .. r*R*tau1*tau2`` for ``R = rounds_per_step``, stacked by
+    ``pipeline.stack_window`` and staged by a ``BatchPipeline`` one step
+    ahead.  Each step runs ``round_engine.build_fl_round_step``: on the
+    ``cuda`` backend the stacked parameters are updated in place by the
+    ``sgd_update`` and ``fused_transition`` kernels.  ``StepEvent.losses``
+    stays on the device.
+
+    ``backend=None`` takes the one ``FLSpec.impl`` names (``dense`` by
+    default, as the reference's round engine); scenarios pass ``"auto"``.
+    Ported for resident state and full participation, without a profile,
+    faults or a mesh; ``RunConfig.validate`` rejects the rest.
+    """
+
+    name = "round"
+
+    def __init__(self, fl, optimizer=None, latency: Optional[LatencyModel] = None,
+                 backend=None, rounds_per_step: int = 1, prefetch: bool = True):
+        if rounds_per_step < 1:
+            raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
+        self.fl = fl
+        self.optimizer = optimizer
+        self.latency = latency
+        self.rounds_per_step = rounds_per_step
+        self.prefetch = prefetch
+        self.params: Optional[dict] = None
+        self.opt_state = None
+        self._backend_spec = backend
+        self._pipeline = None
+        self._pipeline_src = None
+        self._proto = fl.protocol()
+        # §V-B wall-clock of one full round, priced once
+        self._round_time = sum(
+            _event_time(latency, fl.alpha, self._proto.event_at(i))
+            for i in range(1, self.iterations_per_round + 1)
+        )
+
+    @property
+    def iterations_per_round(self) -> int:
+        return self.fl.tau1 * self.fl.tau2
+
+    @property
+    def iterations_per_step(self) -> int:
+        """Protocol iterations consumed by one (super)step."""
+        return self.iterations_per_round * self.rounds_per_step
+
+    def bind(self, model, seed: int, device: torch.device) -> None:
+        from .. import optim
+        from .round_engine import build_fl_round_step
+
+        fl = self.fl
+        self.model = model
+        self.device = device
+        opt = self.optimizer or optim.sgd(fl.learning_rate)
+        self.optimizer = opt
+        self.params = stacked_init(model, fl.num_clients, seed, device)
+        self.opt_state = opt.init(self.params)
+        clusters = self._proto.clusters
+        spec = self._backend_spec
+        self.backend = resolve_backend(
+            _impl_backend(fl.impl) if spec is None else spec, clusters, self._proto.P(),
+            fl.alpha, device=device,
+        )
+        self._round_step = build_fl_round_step(
+            model, opt, fl, backend=self.backend, rounds_per_step=self.rounds_per_step
+        )
+        self._m = torch.as_tensor(clusters.m(), dtype=torch.float32, device=device)
+        self._v = torch.as_tensor(clusters.V(), dtype=torch.float32, device=device)
+
+    def _superstep_batches(self, k: int, batch_source) -> dict:
+        from .pipeline import BatchPipeline, device_batch, stack_window
+
+        ips = self.iterations_per_step
+
+        def producer(step: int) -> dict:
+            return stack_window(batch_source, (step - 1) * ips + 1, ips)
+
+        def transfer(window: dict) -> dict:
+            return device_batch(window, self.device)
+
+        if not self.prefetch:
+            return transfer(producer(k))
+        if (self._pipeline is None or self._pipeline_src is not batch_source
+                or self._pipeline.next_index != k):
+            self._pipeline = BatchPipeline(producer, transfer, start=k)
+            self._pipeline_src = batch_source
+        return self._pipeline.get(k)
+
+    def step(self, k: int, batch_source) -> StepEvent:
+        stacked = self._superstep_batches(k, batch_source)
+        self.params, self.opt_state, losses = self._round_step(
+            self.params, self.opt_state, stacked
+        )
+        return StepEvent(kind="round", iteration=k * self.iterations_per_step,
+                         dt=self.rounds_per_step * self._round_time, losses=losses)
+
+    def global_params(self) -> dict:
+        """``sum_i m_i w^(i)`` in f32 (the reference's einsum promotes to f32)."""
+        return {k: torch.tensordot(self._m, w.float(), dims=([0], [0]))
+                for k, w in self.params.items()}
+
+    def cluster_params(self) -> dict:
+        """Stacked ``(D, ...)`` per-cluster models at the last round boundary
+        (steps end on the inter-cluster gossip), in f32."""
+        return {k: torch.tensordot(self._v, w.float(), dims=([0], [0]))
+                for k, w in self.params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +636,29 @@ def _make_sync(s: dict) -> SyncScheduler:
     )
     return SyncScheduler(
         cfg, latency=s.pop("latency", None), backend=s.pop("backend", None),
+        prefetch=s.pop("prefetch", True),
+    )
+
+
+@register_scheduler("round")
+def _make_round(s: dict) -> RoundScheduler:
+    from .sdfeel import FLSpec
+
+    fl = s.pop("fl", None)
+    if fl is None:
+        fl = FLSpec(
+            num_clients=s.pop("num_clients"),
+            num_clusters=s.pop("num_clusters"),
+            tau1=s.pop("tau1", 2),
+            tau2=s.pop("tau2", 1),
+            alpha=s.pop("alpha", 2),
+            learning_rate=s.pop("learning_rate", 0.01),
+            impl=s.pop("impl", "dense"),
+            topology=s.pop("topology", "ring"),
+        )
+    return RoundScheduler(
+        fl, optimizer=s.pop("optimizer", None), latency=s.pop("latency", None),
+        backend=s.pop("backend", None), rounds_per_step=s.pop("rounds_per_step", 1),
         prefetch=s.pop("prefetch", True),
     )
 

@@ -1,4 +1,4 @@
-from .synthetic import SyntheticClassification, mnist_like, cifar_like
+from .synthetic import FederatedLM, SyntheticClassification, SyntheticLM, cifar_like, mnist_like
 from .partition import dirichlet_partition, skewed_label_partition, iid_partition
 from .loader import ClientBatcher, FederatedDataset
 
@@ -6,6 +6,8 @@ __all__ = [
     "SyntheticClassification",
     "mnist_like",
     "cifar_like",
+    "SyntheticLM",
+    "FederatedLM",
     "dirichlet_partition",
     "skewed_label_partition",
     "iid_partition",

@@ -25,7 +25,7 @@ from pathlib import Path
 __all__ = ["load", "build_all", "check", "stream_of", "KERNELS"]
 
 _KERNEL_ROOT = Path(__file__).resolve().parent
-KERNELS = ("fused_sgd", "fused_transition", "gossip_mix", "cluster_agg")
+KERNELS = ("fused_sgd", "fused_transition", "gossip_mix", "cluster_agg", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,3 +1,5 @@
 from .cnn import MnistCNN, CifarCNN, param_count
+from .config import ArchConfig
+from .transformer import CausalLM
 
-__all__ = ["MnistCNN", "CifarCNN", "param_count"]
+__all__ = ["MnistCNN", "CifarCNN", "param_count", "ArchConfig", "CausalLM"]

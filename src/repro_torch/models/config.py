@@ -1,0 +1,237 @@
+"""Architecture configuration: the port's ``repro.models.config``.
+
+Every field and derived property of the reference's ``ArchConfig``, with
+``param_dtype``/``act_dtype`` as torch dtypes.  ``attn_impl`` differs:
+``"cuda"`` (the default) runs attention through the hand-written flash
+kernels (``kernels.flash_attention``), ``"plain"`` through
+``models.layers.blocked_causal_attention`` differentiated by autograd (the
+counterpart of the reference's ``"xla"``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Literal, Optional
+
+import torch
+
+__all__ = ["ArchConfig", "LayerKind"]
+
+LayerKind = Literal["attn", "mamba"]
+
+_VOCAB_PAD = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    num_heads: int = 0            # 0 => attention-free (pure SSM)
+    num_kv_heads: int = 0
+    head_dim: Optional[int] = None
+
+    # attention features
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None      # all attn layers (mixtral)
+    local_global_alternating: bool = False    # gemma2 local/global pattern
+    local_window: int = 4096
+    long_context_window: Optional[int] = None # long_500k variant for dense archs
+    use_post_norm: bool = False               # gemma2 sandwich norms
+    embed_scale: bool = False                 # gemma2 sqrt(d_model) embed scaling
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_layer_period: int = 1                 # jamba: MoE every 2nd layer
+    moe_capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+
+    # hybrid interleave (jamba): layer i is attention iff
+    # i % attn_layer_period == attn_layer_offset; otherwise mamba.
+    attn_layer_period: int = 0
+    attn_layer_offset: int = 0
+
+    # modality frontends
+    modality: Literal["text", "vision", "audio"] = "text"
+    num_codebooks: int = 1                    # musicgen: 4 EnCodec codebooks
+    frontend_tokens: int = 0                  # pixtral: # patch embeddings
+
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    activation_dtype: Optional[str] = None
+    remat: bool = True
+    remat_policy: Literal["full", "dots"] = "full"
+    attn_impl: Literal["cuda", "plain"] = "cuda"
+    attn_chunk: int = 512                      # blocked-attention tile (plain path)
+
+    # ------------------------------------------------------------------
+    def __post_init__(self):
+        if self.num_heads:
+            object.__setattr__(
+                self, "head_dim", self.head_dim or self.d_model // self.num_heads
+            )
+        if self.family in ("moe",) and not self.num_experts:
+            raise ValueError("moe family requires num_experts")
+        if self.attn_layer_period and self.num_heads == 0:
+            raise ValueError("hybrid needs attention heads")
+        if self.attn_impl not in ("cuda", "plain"):
+            raise ValueError(f"attn_impl must be 'cuda' or 'plain', got {self.attn_impl!r}")
+
+    # -- derived -------------------------------------------------------
+    @property
+    def padded_vocab(self) -> int:
+        v = self.vocab_size
+        return ((v + _VOCAB_PAD - 1) // _VOCAB_PAD) * _VOCAB_PAD
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return getattr(torch, self.activation_dtype or self.dtype)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def layer_kind(self, idx: int) -> LayerKind:
+        if self.family == "ssm":
+            return "mamba"
+        if self.attn_layer_period:
+            return "attn" if idx % self.attn_layer_period == self.attn_layer_offset else "mamba"
+        return "attn"
+
+    def is_moe_layer(self, idx: int) -> bool:
+        if not self.num_experts:
+            return False
+        return idx % self.moe_layer_period == self.moe_layer_period - 1
+
+    def window_for_layer(self, idx: int, long_context: bool = False) -> Optional[int]:
+        """Effective sliding window for attention layer ``idx`` (None = full)."""
+        if self.local_global_alternating:
+            if idx % 2 == 0:
+                return self.local_window
+            return self.long_context_window if long_context else None
+        if self.sliding_window is not None:
+            return self.sliding_window
+        if long_context and self.long_context_window is not None:
+            return self.long_context_window
+        return None
+
+    def is_subquadratic(self, long_context: bool = False) -> bool:
+        """True if decode KV state is bounded (o(seq_len)) on every layer."""
+        for i in range(self.scan_period):
+            if self.layer_kind(i) == "attn" and self.window_for_layer(i, long_context) is None:
+                return False
+        return True
+
+    @property
+    def scan_period(self) -> int:
+        """Layers per homogeneous block (the stack loops over L/period blocks)."""
+        period = 1
+        if self.attn_layer_period:
+            period = self.attn_layer_period
+        if self.local_global_alternating:
+            period = max(period, 2)
+        if self.num_experts and self.moe_layer_period > 1:
+            period = period * self.moe_layer_period // math.gcd(period, self.moe_layer_period)
+        return period
+
+    @property
+    def num_scan_blocks(self) -> int:
+        if self.num_layers % self.scan_period:
+            raise ValueError(
+                f"{self.name}: num_layers={self.num_layers} not divisible by "
+                f"scan_period={self.scan_period}"
+            )
+        return self.num_layers // self.scan_period
+
+    # -- approximate parameter counts ------------------------------------
+    def param_count(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.padded_vocab
+        total = v * d  # embeddings
+        if not self.tie_embeddings:
+            total += v * d
+        for i in range(self.num_layers):
+            kind = self.layer_kind(i)
+            if kind == "attn":
+                hd = self.head_dim or 0
+                total += d * self.num_heads * hd  # q
+                total += 2 * d * self.num_kv_heads * hd  # k, v
+                total += self.num_heads * hd * d  # o
+                if self.qkv_bias:
+                    total += (self.num_heads + 2 * self.num_kv_heads) * hd
+            else:
+                di, n, h = self.d_inner, self.ssm_state, self.ssm_heads
+                total += d * (2 * di + 2 * n + h)  # in_proj (z,x,B,C,dt)
+                total += self.ssm_conv * (di + 2 * n)  # conv
+                total += 3 * h + di  # A, D, dt_bias, norm
+                total += di * d  # out_proj
+            if f:
+                if self.is_moe_layer(i):
+                    total += self.num_experts * 3 * d * f + d * self.num_experts
+                else:
+                    total += 3 * d * f
+            total += 2 * d  # norms
+        return total
+
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (router top-k experts only)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        inactive = 0
+        for i in range(self.num_layers):
+            if self.is_moe_layer(i):
+                inactive += (self.num_experts - self.num_experts_per_tok) * 3 * d * f
+        return self.param_count() - inactive
+
+    # -- reduced smoke-test variant -------------------------------------
+    def reduced(self) -> "ArchConfig":
+        """2-scan-block, d_model<=512, <=4-expert variant of the same family."""
+        period = self.scan_period
+        heads = min(self.num_heads, 4) if self.num_heads else 0
+        kv = min(self.num_kv_heads, heads) if heads else 0
+        d_model = 256
+        return dataclasses.replace(
+            self,
+            num_layers=2 * period,
+            d_model=d_model,
+            d_ff=512 if self.d_ff else 0,
+            vocab_size=512,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=64 if heads else None,
+            num_experts=min(self.num_experts, 4),
+            num_experts_per_tok=min(self.num_experts_per_tok, 2),
+            ssm_state=min(self.ssm_state, 32) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else 64,
+            ssm_chunk=32,
+            local_window=64,
+            sliding_window=64 if self.sliding_window else None,
+            long_context_window=64 if self.long_context_window else None,
+            frontend_tokens=min(self.frontend_tokens, 16),
+            attn_chunk=64,
+            dtype="float32",
+            remat=False,
+        )

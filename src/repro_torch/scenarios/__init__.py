@@ -2,13 +2,17 @@
 
 The port's ``repro.scenarios`` for the scenarios it runs, with the
 reference's parameters: the synchronous ``mnist-iid-ring``,
-``mnist-noniid-ring``, ``mnist-noniid-star``, ``cifar-dirichlet-torus``, and
-the asynchronous ``straggler-bimodal-async``, ``straggler-bimodal-vanilla``,
+``mnist-noniid-ring``, ``mnist-noniid-star``, ``cifar-dirichlet-torus``; the
+round-engine ``round-compiled-ring``, ``round-superstep-ring`` and the
+federated-LM ``federated-lm-ring``; and the asynchronous
+``straggler-bimodal-async``, ``straggler-bimodal-vanilla``,
 ``dropout-heavy``, ``exponential-hetero-async``::
 
     run = build_scenario("mnist-noniid-ring", tau2=2)   # on the GPU
     run.run(10)
     build_scenario("straggler-bimodal-async", device="cpu", backend="cuda").run(12)
+    build_scenario("federated-lm-ring", device="cpu",
+                   arch_overrides=dict(d_model=64, d_ff=128), seq_len=16).run(2)
 
 ``build_scenario`` materializes the data environment (dataset, partition,
 eval batch) from numpy with the reference's rng streams, so a seed gives
@@ -37,8 +41,8 @@ class Scenario:
 
     name: str
     description: str
-    scheduler: str                      # "sync" | "async"
-    dataset: str = "mnist"              # "mnist" | "cifar"
+    scheduler: str                      # "sync" | "round" | "async"
+    dataset: str = "mnist"              # "mnist" | "cifar" | "lm" | "lm-clustered"
     partition: str = "label_skew"       # "iid" | "label_skew" | "dirichlet"
     partition_params: Optional[dict] = None
     topology: str = "ring"
@@ -49,22 +53,40 @@ class Scenario:
     tau1: int = 5
     tau2: int = 1
     alpha: int = 1
+    rounds_per_step: int = 1            # round only: rounds per step
     learning_rate: float = 0.05
     psi: str = "staleness"              # async only
     min_batches: int = 2                # async only
     theta_max: int = 8                  # async only
     batch_size: int = 10
     num_samples: int = 2400
+    arch: Optional[str] = None          # lm only: repro_torch.configs name
+    arch_overrides: Optional[dict] = None  # lm only: ArchConfig field overrides
+    seq_len: int = 64                   # lm only
+    vocab_size: int = 512               # lm only (must match the arch's vocab)
 
     def _model(self):
         from ..models import CifarCNN, MnistCNN
 
+        if self.dataset in ("lm", "lm-clustered"):
+            from ..configs import get_config
+            from ..models import CausalLM
+
+            # reduced() shrinks the named family to test scale; arch_overrides
+            # pins widths, precision or attn_impl per run
+            arch = get_config(self.arch or "granite-8b").reduced()
+            arch = dataclasses.replace(
+                arch, vocab_size=self.vocab_size, **(self.arch_overrides or {})
+            )
+            return CausalLM(arch)
         return {"mnist": MnistCNN, "cifar": CifarCNN}[self.dataset]()
 
     def _latency(self):
         from ..core import CIFAR_LATENCY, MNIST_LATENCY
 
-        return {"mnist": MNIST_LATENCY, "cifar": CIFAR_LATENCY}[self.dataset]
+        # no §V-B measurement exists for the LM tasks: pacing stays off
+        return {"mnist": MNIST_LATENCY, "cifar": CIFAR_LATENCY, "lm": None,
+                "lm-clustered": None}[self.dataset]
 
     def _partition(self, labels: np.ndarray, num_clients: int, seed: int):
         from ..data import dirichlet_partition, iid_partition, skewed_label_partition
@@ -78,9 +100,17 @@ class Scenario:
             return skewed_label_partition(labels, num_clients, seed=seed, **params)
         raise KeyError(f"unknown partition {self.partition!r}")
 
-    def _env(self, num_clients: int, num_samples: int, seed: int):
-        from ..data import FederatedDataset, cifar_like, mnist_like
+    def _env(self, num_clients: int, num_samples: int, seed: int, seq_len: int,
+             vocab_size: int, num_clusters: int):
+        from ..data import FederatedDataset, FederatedLM, cifar_like, mnist_like
 
+        if self.dataset == "lm-clustered":
+            ds = FederatedLM.generate_clustered(num_clients, num_samples, seq_len, vocab_size,
+                                                num_clusters, seed=seed)
+            return ds, ds.eval_batch(64, seed=seed)
+        if self.dataset == "lm":
+            ds = FederatedLM.generate(num_clients, num_samples, seq_len, vocab_size, seed=seed)
+            return ds, ds.eval_batch(64, seed=seed)
         data = {"mnist": mnist_like, "cifar": cifar_like}[self.dataset](num_samples, seed=seed)
         train, test = data.split(0.85)
         ds = FederatedDataset(train, self._partition(train.y, num_clients, seed))
@@ -106,11 +136,18 @@ class Scenario:
         c = int(overrides.pop("num_clients", self.num_clients))
         d = int(overrides.pop("num_clusters", self.num_clusters))
         n = int(overrides.pop("num_samples", self.num_samples))
-        model = overrides.pop("model", None) or self._model()
+        seq_len = int(overrides.pop("seq_len", self.seq_len))
+        vocab_size = int(overrides.pop("vocab_size", self.vocab_size))
+        arch_overrides = overrides.pop("arch_overrides", None)
+        template = self
+        if arch_overrides is not None or vocab_size != self.vocab_size:
+            merged = dict(self.arch_overrides or {})
+            merged.update(arch_overrides or {})
+            template = dataclasses.replace(self, vocab_size=vocab_size, arch_overrides=merged)
+        model = overrides.pop("model", None) or template._model()
         if c % d:
             raise ValueError(f"{self.name}: {c} clients do not divide into {d} clusters")
-        ds, eval_batch = self._env(c, n, seed)
-        assign = tuple(i * d // c for i in range(c))
+        ds, eval_batch = template._env(c, n, seed, seq_len, vocab_size, d)
         cfg: dict = {
             "scheduler": self.scheduler,
             "model": model,
@@ -119,8 +156,14 @@ class Scenario:
             "learning_rate": self.learning_rate,
             "latency": self._latency(),
             "seed": seed,
-            "clusters": ClusterSpec(c, assign, ds.data_sizes()),
         }
+        if self.scheduler == "round":
+            # the round engine lays clients out uniformly itself
+            cfg.update(num_clients=c, num_clusters=d, tau1=self.tau1, tau2=self.tau2,
+                       alpha=self.alpha, rounds_per_step=self.rounds_per_step)
+        else:
+            assign = tuple(i * d // c for i in range(c))
+            cfg["clusters"] = ClusterSpec(c, assign, ds.data_sizes())
         if self.scheduler == "sync":
             cfg.update(tau1=self.tau1, tau2=self.tau2, alpha=self.alpha)
         if self.scheduler == "async":
@@ -225,6 +268,36 @@ register_scenario(Scenario(
     scheduler="sync", dataset="cifar", partition="dirichlet",
     partition_params={"beta": 0.5},
     topology="torus", learning_rate=0.02,
+))
+
+
+# ---------------------------------------------------------------------------
+# The round-engine scenarios, as registered in the reference
+# ---------------------------------------------------------------------------
+
+register_scenario(Scenario(
+    name="round-compiled-ring",
+    description="Whole-round engine on IID data (uniform clusters).",
+    scheduler="round", partition="iid", tau1=2, tau2=2, alpha=2,
+    num_clients=8,
+))
+
+register_scenario(Scenario(
+    name="round-superstep-ring",
+    description="Superstep path: 4 rounds per step with batch prefetch (throughput lane).",
+    scheduler="round", partition="iid", tau1=2, tau2=2, alpha=2,
+    num_clients=8, rounds_per_step=4,
+))
+
+register_scenario(Scenario(
+    name="federated-lm-ring",
+    description="Federated LM: a reduced granite-family decoder per client, non-IID "
+                "Markov corpora, whole-round supersteps on a ring of 4 edge servers.",
+    scheduler="round", dataset="lm",
+    num_clients=8, num_clusters=4, tau1=2, tau2=2, alpha=2,
+    rounds_per_step=2, learning_rate=0.1,
+    arch="granite-8b", batch_size=2, num_samples=1024,
+    seq_len=64, vocab_size=512,
 ))
 
 

@@ -8,7 +8,11 @@ and normalized update, 3e-2 bf16, as the reference's kernel tests), and the
 kernel backend's training runs against the dense backend's (1e-4 after
 several iterations or events: the kernels' f32 sums run in another order
 than the dense products, and the normalized update multiplies by
-``1 / theta`` where the dense path divides).
+``1 / theta`` where the dense path divides).  Flash attention: 2e-5 f32 and
+3e-2 bf16 forward, as the reference's kernel tests; gradients 1e-4 (f32) and
+3e-2 (bf16) relative to the largest reference entry, since each gradient
+entry sums up to S * G products in another order than the plain version
+and, in bf16, is rounded once to 2^-8 relative.
 """
 import numpy as np
 import pytest
@@ -17,8 +21,10 @@ import torch
 from repro_torch.core import ClusterSpec, build_local_update, chain, mixing_matrix, ring
 from repro_torch.core import resolve_backend, staleness_mixing_matrix
 from repro_torch.kernels import (
-    cluster_agg, cluster_agg_ref, fused_transition, fused_transition_ref, gossip_mix,
-    gossip_mix_ref, normalized_update, normalized_update_ref, sgd_update, sgd_update_ref,
+    cluster_agg, cluster_agg_ref, flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_fwd, flash_attention_fwd_ref, fused_transition, fused_transition_ref,
+    gossip_mix, gossip_mix_ref, normalized_update, normalized_update_ref, sgd_update,
+    sgd_update_ref,
 )
 from repro_torch.models import MnistCNN
 from repro_torch.optim import sgd
@@ -198,3 +204,111 @@ def test_async_events_on_kernels_match_dense(cuda):
     assert runs["cuda"][1] == runs["dense"][1]
     for k, v in runs["cuda"][0].items():
         torch.testing.assert_close(v, runs["dense"][0][k], atol=1e-4, rtol=0)
+
+
+# (B, S, Hq, Hkv, hd, window, cap): MHA; GQA with a ragged S and hd 96; MQA
+# with a window and a cap; gemma2's hd 256 with both
+FLASH_CASES = [
+    (2, 64, 4, 4, 64, None, None),
+    (2, 80, 8, 2, 96, None, None),
+    (1, 200, 4, 1, 128, 48, 30.0),
+    (1, 96, 8, 4, 256, 40, 50.0),
+]
+
+
+def _qkvg(device, dtype, b, s, hq, hkv, hd):
+    mk = lambda *shape: torch.tensor(RNG.normal(size=shape), dtype=torch.float32,
+                                     device=device).to(dtype)
+    return mk(b, s, hq, hd), mk(b, s, hkv, hd), mk(b, s, hkv, hd), mk(b, s, hq, hd)
+
+
+def _close(got, ref, rel):
+    scale = max(1.0, ref.float().abs().max().item())
+    torch.testing.assert_close(got.float(), ref.float(), atol=rel * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fwd_tol,grad_tol", [(torch.float32, 2e-5, 1e-4),
+                                                    (torch.bfloat16, 3e-2, 3e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, dtype, fwd_tol, grad_tol, case):
+    b, s, hq, hkv, hd, window, cap = case
+    q, k, v, dout = _qkvg(cuda, dtype, b, s, hq, hkv, hd)
+    n = flash_attention_fwd.launches, flash_attention_bwd.launches
+    out, lse = flash_attention_fwd(q, k, v, window, cap)
+    ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, window, cap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=fwd_tol, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, window, cap)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - n[0], flash_attention_bwd.launches - n[1]) == (1, 1)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        _close(got, ref, grad_tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_vmap_grad_folds_clients(cuda):
+    c, (b, s, hq, hkv, hd, window, cap) = 3, FLASH_CASES[2]
+    q, k, v, w = (torch.stack([x] * c) for x in _qkvg(cuda, torch.float32, b, s, hq, hkv, hd))
+    q = q + 0.1 * torch.arange(c, device=cuda).view(c, 1, 1, 1, 1)  # distinct clients
+
+    def loss(q, k, v, w):
+        return (flash_attention(q, k, v, window, cap) * w).sum()
+
+    n = flash_attention_fwd.launches, flash_attention_bwd.launches
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(q, k, v, w)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - n[0], flash_attention_bwd.launches - n[1]) == (1, 1)
+    for i in range(c):
+        out, lse = flash_attention_fwd_ref(q[i], k[i], v[i], window, cap)
+        refs = flash_attention_bwd_ref(q[i], k[i], v[i], out, lse, w[i], window, cap)
+        for g, ref in zip(got, refs):
+            _close(g[i], ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses(cuda):
+    q, k, v, _ = _qkvg(cuda, torch.float32, 1, 16, 4, 2, 64)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_fwd(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="256"):
+        big = torch.zeros(1, 16, 2, 320, device=cuda)
+        flash_attention_fwd(big, big, big)
+    with pytest.raises(ValueError, match="on cpu"):
+        flash_attention_fwd(q, k.cpu(), v)
+
+
+@pytest.mark.cuda
+def test_federated_lm_ring_on_kernels_matches_dense_plain(cuda):
+    """Two supersteps (16 iterations) with the flash kernels, ``sgd_update``
+    and ``fused_transition`` against the dense backend with plain attention."""
+    counters = (flash_attention_fwd, flash_attention_bwd, sgd_update, fused_transition)
+    runs = {}
+    for backend, impl in (("cuda", "cuda"), ("dense", "plain")):
+        run = build_scenario("federated-lm-ring", device=cuda, backend=backend,
+                             arch_overrides={"attn_impl": impl}, num_samples=64, seq_len=32)
+        src = run.batch_source()
+        n = [c.launches for c in counters]
+        losses = torch.cat([run.runtime.step(src).losses for _ in range(2)])
+        launched = tuple(c.launches - k for c, k in zip(counters, n))
+        runs[backend] = (run.runtime.scheduler.params, losses, launched,
+                         run.runtime.evaluate(run.eval_batch)[0])
+    leaves = len(runs["cuda"][0])
+    # 2 attention layers x 16 iterations, clients folded into each launch;
+    # one SGD launch per leaf per iteration; 2 rounds x (2 intra + 1 inter)
+    # transitions per superstep
+    assert runs["cuda"][2] == (32, 32, 16 * leaves, 12 * leaves)
+    assert runs["dense"][2] == (0, 0, 0, 0)
+    torch.testing.assert_close(runs["cuda"][1], runs["dense"][1], atol=1e-4, rtol=0)
+    for k, v in runs["cuda"][0].items():
+        torch.testing.assert_close(v, runs["dense"][0][k], atol=1e-4, rtol=0)
+    assert abs(runs["cuda"][3] - runs["dense"][3]) <= 1e-4 * abs(runs["dense"][3])

@@ -105,6 +105,10 @@ def test_entry_points_default_to_cuda():
         tscenarios.build_scenario("mnist-noniid-ring")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcore.FederationRuntime(tmodels.MnistCNN(), None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tscenarios.build_scenario("federated-lm-ring")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcore.build_fl_round_step(tmodels.MnistCNN(), toptim.sgd(0.1), tcore.FLSpec(4, 2))
 
 
 @pytest.mark.parametrize("entry", ["DenseBackend", "CudaBackend", "resolve_backend"])
@@ -130,7 +134,8 @@ def test_backends_default_to_cuda(entry):
     {"store": {"kind": "host-offload", "k_max": 4}},
     {"faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
     {"mesh": "auto"},
-    {"scheduler": "round"},
+    # the round scheduler is ported for the default fleet only
+    {"scheduler": "round", "store": {"kind": "host-offload", "k_max": 4}},
     # the reference's dropout-participation-async: async with availability sampling
     {"scheduler": "async", "participation": "availability", "psi": "staleness",
      "profile": {"kind": "uniform", "heterogeneity": 4.0, "availability": 0.7}},
@@ -155,10 +160,12 @@ def test_registered_scenarios_match_reference():
         for field in ("scheduler", "dataset", "partition", "partition_params", "topology",
                       "backend", "num_clients", "num_clusters", "tau1", "tau2", "alpha",
                       "learning_rate", "batch_size", "num_samples", "profile", "psi",
-                      "min_batches", "theta_max"):
+                      "min_batches", "theta_max", "rounds_per_step", "arch",
+                      "arch_overrides", "seq_len", "vocab_size"):
             assert getattr(sc, field) == getattr(ref, field), (name, field)
     assert set(tscenarios.SCENARIOS) == {
         "mnist-iid-ring", "mnist-noniid-ring", "mnist-noniid-star", "cifar-dirichlet-torus",
+        "round-compiled-ring", "round-superstep-ring", "federated-lm-ring",
         "straggler-bimodal-async", "straggler-bimodal-vanilla", "dropout-heavy",
         "exponential-hetero-async",
     }
