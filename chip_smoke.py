@@ -13,7 +13,10 @@ Phases, one result line each; any failure exits non-zero without the final
             fused_sgd with sgd_update and normalized_update,
             fused_transition, gossip_mix, cluster_agg, flash_attention with
             its forward and backward kernels), one process per library, all
-            at once.
+            at once.  ``cuobjdump -sass`` of the flash library: the counts of
+            ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions per
+            kernel; the phase fails if the bf16 tensor-core forward, dK/dV or
+            dQ kernel has none.
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the leaf shapes of MnistCNN and CifarCNN stacked over
             C=20 clients in D=4 clusters, f32 and bf16.  Transition: alpha
@@ -30,12 +33,15 @@ Phases, one result line each; any failure exits non-zero without the final
             path that runs the kernel.  Flash attention forward and backward
             against their plain versions at federated-lm-ring's (16, 64, 4,
             4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's (1, 8192,
-            8, 4, 256) with window 4096 and cap 50, and a GQA case with hd 96
-            and a ragged S = 80, f32 and bf16 (2e-5 f32 and 3e-2 bf16
+            8, 4, 256) with window 4096 and cap 50, a GQA case with hd 96
+            and a ragged S = 80, and S = 16 (below one tile), f32 and bf16
+            (bf16 on the tensor-core route except gemma2-2b's backward at hd
+            256, which stays on the CUDA cores; 2e-5 f32 and 3e-2 bf16
             forward, as the reference's kernel tests; lse 1e-4; gradients
             1e-4 f32 and 3e-2 bf16 relative to the largest reference entry),
             then timed at both LM phases' shapes against
-            ``scaled_dot_product_attention``.
+            ``scaled_dot_product_attention``, with the achieved TFLOP/s and
+            the share of the bound.
 4. main     the main path: ``mnist-noniid-ring`` with ``tau2=2`` through
             ``build_scenario`` (which calls ``make_run``) on the default
             device, backend auto -> cuda, 10 iterations (local, intra and
@@ -71,16 +77,20 @@ Phases, one result line each; any failure exits non-zero without the final
 8. lm-width the same scenario at granite-8b's published widths (d_model
             4096, d_ff 14336, 32 heads, 8 KV heads of 128, vocab 49152,
             S = 2048, bf16), cut to 2 layers, per-client batch 1 and no
-            evaluate: 2 supersteps, their rate, peak device memory and the
-            attention kernels' share; then one client's loss and gradients
-            with the flash kernels against the plain attention.
+            evaluate: 2 supersteps (every flash launch on the tensor-core
+            route), their rate, peak device memory and the attention
+            kernels' share; then one client's loss and gradients with the
+            flash kernels against the plain attention.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (each flash entry
+also carries, under ``width``, its granite-8b bf16 tensor-core numbers and
+the ``lm-width`` launches); the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,14 +138,20 @@ KERNELS = {
     },
 }
 # (B, S, Hq, Hkv, hd, window, cap): federated-lm-ring's registered shape (C*B
-# = 8*2 folded), granite-8b's (C = 8, batch 1), gemma2-2b's local layer, and
-# a GQA case with hd 96 and a ragged S
+# = 8*2 folded), granite-8b's (C = 8, batch 1), gemma2-2b's local layer, a
+# GQA case with hd 96 and a ragged S, and S below one tile
 FLASH_SHAPES = {
     "federated-lm-ring": (16, 64, 4, 4, 64, None, None),
     "granite-8b": (8, 2048, 32, 8, 128, None, None),
     "gemma2-2b": (1, 8192, 8, 4, 256, 4096, 50.0),
     "gqa-hd96-ragged": (2, 80, 8, 2, 96, None, None),
+    "short-s16": (2, 16, 8, 2, 128, None, None),
 }
+# the bf16 tensor-core kernels of csrc/flash_attention_sm90.cu, which the
+# build phase requires to hold wgmma and TMA-load instructions
+FLASH_SM90 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu"
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                "flash_bwd_dq_sm90_kernel")
 LM_STEPS, LM_WIDTH_STEPS = 4, 2
 LM_WIDTH = dict(
     arch_overrides=dict(num_layers=2, d_model=4096, d_ff=14336, num_heads=32, num_kv_heads=8,
@@ -296,6 +312,33 @@ class Smoke:
             regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
             print(f"  {name} ptxas: {' | '.join(regs)}", flush=True)
         self.detail["build_s"] = dt
+        self.detail["flash_sass"] = self.sass_counts(libs["flash_attention"])
+
+    @staticmethod
+    def sass_counts(lib) -> dict:
+        """``{kernel symbol: {"HGMMA": n, "UTMALDG": n}}`` from ``cuobjdump
+        -sass`` of the flash library; raises unless every tensor-core kernel
+        holds both."""
+        from repro_torch.kernels import _build
+
+        cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        counts, cur = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                cur = ln.split("Function :")[1].strip()
+                counts[cur] = {"HGMMA": 0, "UTMALDG": 0}
+            elif cur is not None:
+                for op in ("HGMMA", "UTMALDG"):
+                    counts[cur][op] += op in ln
+        for sym, c in counts.items():
+            print(f"  sass {sym}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}", flush=True)
+        for kname in SM90_KERNELS:
+            found = {sym: c for sym, c in counts.items() if kname in sym}
+            if not found or not all(c["HGMMA"] and c["UTMALDG"] for c in found.values()):
+                raise AssertionError(f"{kname}: no HGMMA/UTMALDG in the built library ({found})")
+        return counts
 
     def kernels(self):
         torch = self.torch
@@ -357,6 +400,13 @@ class Smoke:
             t = flash["federated-lm-ring"] if kname in flash["federated-lm-ring"] else \
                 timings["mnist"]
             self.record[kname] = dict(t[kname], max_abs_err=main_err[kname])
+            if kname in flash["granite-8b"]:
+                w = flash["granite-8b"][kname]
+                self.record[kname]["width"] = {
+                    "shape": w["shape"], "dtype": w["dtype"], "route": w["route"],
+                    "source": FLASH_SM90, "max_abs_err": main_err[f"{kname}@granite-8b"],
+                    **{f: w[f] for f in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "tflops", "bound_share")}}
 
     def check_async_kernels(self, worst: dict, main_err: dict) -> None:
         """gossip_mix, cluster_agg and normalized_update against their plain
@@ -503,6 +553,7 @@ class Smoke:
             flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
             flash_attention_fwd_ref,
         )
+        from repro_torch.kernels.flash_attention import route
 
         worst["flash_attention"] = worst["flash_attention_backward"] = 0.0
         for sname, shape in FLASH_SHAPES.items():
@@ -536,9 +587,14 @@ class Smoke:
                 worst["flash_attention_backward"] = max(worst["flash_attention_backward"], g_err)
                 if (sname, dtype) == ("federated-lm-ring", torch.float32):
                     main_err["flash_attention"], main_err["flash_attention_backward"] = err, g_err
+                if (sname, dtype) == ("granite-8b", torch.bfloat16):
+                    main_err["flash_attention@granite-8b"] = err
+                    main_err["flash_attention_backward@granite-8b"] = g_err
                 print(f"  flash {sname} {shape[:5]} window={window} cap={cap} "
-                      f"{str(dtype)[6:]}: forward max abs err {err:.3e} (tol {f_tol}), lse "
-                      f"{lse_err:.3e}; backward {g_err:.3e} (tol {g_tol} relative)", flush=True)
+                      f"{str(dtype)[6:]} ({route(dtype, shape[4])} forward, "
+                      f"{route(dtype, shape[4], backward=True)} backward): forward max abs err "
+                      f"{err:.3e} (tol {f_tol}), lse {lse_err:.3e}; backward {g_err:.3e} (tol "
+                      f"{g_tol} relative)", flush=True)
 
     @staticmethod
     def flash_work(shape, itemsize):
@@ -564,6 +620,7 @@ class Smoke:
             flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
             flash_attention_fwd_ref,
         )
+        from repro_torch.kernels.flash_attention import route
 
         out = {}
         for sname, dtype in (("federated-lm-ring", torch.float32),
@@ -604,9 +661,12 @@ class Smoke:
                     graphable = not (kname.endswith("backward") and key == "library_ms")
                     t[f"graph_{key}"] = self.graph_ms(fn, reps=reps) if graphable else None
                 bnd, by = bounds[kname]
+                flops = flops_f if kname == "flash_attention" else flops_b
                 res[kname] = dict(t, bound_ms=bnd, bound_by=by, shape=list(shape[:5]),
-                                  window=window, cap=cap, dtype=str(dtype)[6:],
-                                  flops=flops_f if kname == "flash_attention" else flops_b)
+                                  window=window, cap=cap, dtype=str(dtype)[6:], flops=flops,
+                                  route=route(dtype, shape[4], kname.endswith("backward")),
+                                  tflops=flops / t["ms"] / 1e9, bound_share=bnd / t["ms"],
+                                  graph_bound_share=bnd / t["graph_ms"])
                 print(f"  time flash {sname} {str(dtype)[6:]} {kname}: " + ", ".join(
                     f"{key}={val:.6g}" if isinstance(val, float) else f"{key}={val}"
                     for key, val in res[kname].items()), flush=True)
@@ -725,10 +785,16 @@ class Smoke:
         for name, a, b in spans:
             per_name[name] = per_name.get(name, 0.0) + (b - a) / 1e3
         top = sorted(per_name.items(), key=lambda r: -r[1])[:6]
-        flash_ms = sum(ms for name, ms in per_name.items() if "flash_" in name)
+        flash_split: dict = {}  # by kernel function, template arguments dropped
+        for name, ms in per_name.items():
+            found = re.search(r"(flash_\w+)", name)
+            if found:
+                flash_split[found.group(1)] = flash_split.get(found.group(1), 0.0) + ms
+        flash_ms = sum(flash_split.values())
         return {"iters": iters, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "busy_ms_per_step": busy_ms / iters, "busy_share": busy_ms / wall_ms,
                 "flash_kernels_ms": flash_ms, "flash_share_of_busy": flash_ms / busy_ms,
+                "flash_split_ms": {k: round(ms, 4) for k, ms in flash_split.items()},
                 "top_kernels_ms": [(k[:60], round(ms, 4)) for k, ms in top]}
 
     def iteration_split(self, run) -> dict:
@@ -946,13 +1012,31 @@ class Smoke:
                                 "eval_loss": loss, "eval_acc": acc, "references": ref}
 
     def lm_counters(self) -> dict:
+        """The LM path's wrappers, their launch counts (and the flash
+        wrappers' counts by route) set to 0."""
         from repro_torch.kernels import (
             flash_attention_bwd, flash_attention_fwd, fused_transition, sgd_update,
         )
 
-        return {"flash_attention": flash_attention_fwd,
-                "flash_attention_backward": flash_attention_bwd,
-                "fused_transition": fused_transition, "sgd_update": sgd_update}
+        counters = {"flash_attention": flash_attention_fwd,
+                    "flash_attention_backward": flash_attention_bwd,
+                    "fused_transition": fused_transition, "sgd_update": sgd_update}
+        for fn in counters.values():
+            fn.launches = 0
+        for fn in (flash_attention_fwd, flash_attention_bwd):
+            fn.routes = dict.fromkeys(fn.routes, 0)
+        return counters
+
+    @staticmethod
+    def check_routes(counters, want: str, what: str) -> dict:
+        """Every flash launch of the run took route ``want``."""
+        routes = {k: dict(counters[k].routes)
+                  for k in ("flash_attention", "flash_attention_backward")}
+        for k, r in routes.items():
+            if r[want] != counters[k].launches or r[want] == 0:
+                raise AssertionError(f"{what}: {k} routes {r}, expected all "
+                                     f"{counters[k].launches} on {want}")
+        return routes
 
     def run_lm(self, steps, device=None, **overrides):
         """(run, host seconds for ``steps`` supersteps ending in a synchronize,
@@ -974,11 +1058,10 @@ class Smoke:
         transition kernels, held to the dense backend with plain attention."""
         torch = self.torch
         counters = self.lm_counters()
-        for fn in counters.values():
-            fn.launches = 0
         run, dt, losses = self.run_lm(LM_STEPS)
         loss, _ = run.runtime.evaluate(run.eval_batch)
         launches = {k: fn.launches for k, fn in counters.items()}
+        self.check_routes(counters, "cuda_core", "lm (f32)")
         sched, cfg = run.runtime.scheduler, run.runtime.model.cfg
         if sched.backend.name != "cuda" or run.runtime.device.type != "cuda" \
                 or cfg.attn_impl != "cuda":
@@ -1041,12 +1124,13 @@ class Smoke:
         """federated-lm-ring at granite-8b's published widths, cut in depth."""
         torch = self.torch
         counters = self.lm_counters()
-        for fn in counters.values():
-            fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         run, dt, losses = self.run_lm(LM_WIDTH_STEPS, **LM_WIDTH)
         peak = torch.cuda.max_memory_allocated()
         launches = {k: fn.launches for k, fn in counters.items()}
+        routes = self.check_routes(counters, "tensor_core", "lm-width (bf16)")
+        for kname in routes:
+            self.record[kname]["width"]["launches"] = launches[kname]
         sched, cfg = run.runtime.scheduler, run.runtime.model.cfg
         iters = LM_WIDTH_STEPS * sched.iterations_per_step
         c, b, s = sched.fl.num_clients, run.batch_size, LM_WIDTH["seq_len"]
@@ -1063,7 +1147,8 @@ class Smoke:
               f"sequences would need 25.8 GB of f32 logits); {n_params} params per client x "
               f"{c} clients; {iters} iterations in {dt:.3f}s = {iters / dt:.4f} it/s, "
               f"{iters * c * b * s / dt:.1f} tokens/s (first-call costs included); launches "
-              f"{json.dumps(launches)}; peak device memory {peak / 2**30:.2f} GiB; losses "
+              f"{json.dumps(launches)}, flash routes {json.dumps(routes)}; peak device "
+              f"memory {peak / 2**30:.2f} GiB; losses "
               f"{[round(x, 4) for x in losses.tolist()]}", flush=True)
         warm_dt = 1.0 / self.warm_rate(run, 1)
         busy = self.profile_steps(run, 1)
@@ -1100,7 +1185,8 @@ class Smoke:
         if not (lrel <= 1e-2 and gerr <= 5e-2):
             raise AssertionError("lm-width: flash and plain attention disagree")
         self.detail["lm_width"] = {
-            "launches": launches, "params_per_client": n_params, "peak_bytes": peak,
+            "launches": launches, "flash_routes": routes, "params_per_client": n_params,
+            "peak_bytes": peak,
             "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
             "tokens_per_s_warm": wiph * c * b * s, "profile": busy,
             "losses": losses.tolist(), "cuts": {"num_layers": [36, cfg.num_layers],
@@ -1129,6 +1215,9 @@ class Smoke:
         keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels = [dict(name=k, route="cuda", **KERNELS[k], **{f: self.record[k][f] for f in keys})
                    for k in KERNELS]
+        for entry in kernels:  # the flash kernels' granite-8b bf16 numbers
+            if "width" in self.record[entry["name"]]:
+                entry["width"] = self.record[entry["name"]]["width"]
         print(self.smi)
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {

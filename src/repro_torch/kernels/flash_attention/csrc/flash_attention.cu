@@ -4,7 +4,9 @@
 // repro/kernels/flash_attention/kernel.py::flash_attention_kernel (via
 // flash_attention_pallas).  Backward: no TPU counterpart (the reference
 // differentiates its plain attention through XLA); FlashAttention-2 style,
-// no atomics.
+// no atomics.  These are the CUDA-core kernels: they serve f32, the hd-256
+// backward and hd % 8 != 0.  bf16 otherwise runs on the tensor cores
+// (flash_attention_sm90.cu).
 //
 // Layouts as the reference's wrapper takes them: q (B, S, Hq, hd), k and v
 // (B, S, Hkv, hd), row-major, f32 or bf16; the KV head of query head h is
@@ -644,5 +646,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
 }
 
 extern "C" const char* error_string(int err) {
+  if (err >= 10000)  // flash_attention_sm90.cu: 10000 + the CUresult
+    return "cuTensorMapEncodeTiled refused a TMA descriptor (CUresult = code - 10000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

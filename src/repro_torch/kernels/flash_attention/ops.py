@@ -3,29 +3,33 @@ differentiable, vmappable op the model calls.
 
 * ``flash_attention_fwd(q, k, v, window, logit_cap) -> (out, lse)``: replaces
   ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel`` (TPU,
-  via ``flash_attention_pallas``) with the CUDA kernel in
-  ``csrc/flash_attention.cu``.  ``flash_attention_fwd.launches`` counts its
-  launches.
+  via ``flash_attention_pallas``) with a CUDA kernel.  ``flash_attention_fwd
+  .launches`` counts its launches, ``.routes`` the same by route.
 * ``flash_attention_bwd(q, k, v, out, lse, dout, window, logit_cap) -> (dq,
   dk, dv)``: the gradient, which has no TPU kernel (the reference
   differentiates its plain attention through XLA).  One call launches three
   kernels (delta, dK/dV, dQ) and counts once in
-  ``flash_attention_bwd.launches``.
+  ``flash_attention_bwd.launches`` (and ``.routes``).
 * ``flash_attention(q, k, v, window=None, logit_cap=None) -> out``: both as
   one op that ``torch.func.grad`` and ``torch.func.vmap`` go through.  Its
   vmap rule folds the mapped dimension into the batch, ``(C, B, S, H, hd)
   -> (C*B, S, H, hd)``, so a vmapped fleet is one launch per layer, forward
   and backward alike.
 
-Bound by operations at the path's shapes: ``4 * hd`` flops per live
-(query, key) pair forward (``S (S + 1) / 2`` pairs per head causally, fewer
-under a window), about 2.5x that backward, against q, k, v, out (dO, dq,
-dk, dv) and lse of traffic.
+Two routes, chosen by ``route(dtype, hd, backward)`` alone, never by a
+failure: ``"tensor_core"`` (``csrc/flash_attention_sm90.cu``: wgmma and
+TMA, bf16 with ``hd % 8 == 0``, hd <= 256 forward and <= 128 backward) and
+``"cuda_core"`` (``csrc/flash_attention.cu``: f32 math on the CUDA cores,
+every other case).  Bound by operations at the path's shapes: ``4 * hd``
+flops per live (query, key) pair forward (``S (S + 1) / 2`` pairs per head
+causally, fewer under a window), about 2.5x that backward, against q, k, v,
+out (dO, dq, dk, dv) and lse of traffic.
 
 Layouts are the reference's: q ``(B, S, Hq, hd)``, k and v ``(B, S, Hkv,
 hd)``; lse ``(B, Hq, S)`` f32.  Dispatch is by the tensor's device: CPU
 tensors take the plain versions (``ref.py``), CUDA tensors launch the
-kernels or raise — there is no fallback.
+kernels or raise — there is no fallback.  CUDA tensors must start on a
+16-byte boundary (TMA's rule); ``flash_attention`` copies one that does not.
 """
 from __future__ import annotations
 
@@ -38,26 +42,37 @@ import torch
 from .._build import check, load, stream_of
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
-__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "MAX_HEAD_DIM",
+           "route"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256  # widest tile the kernels are built for
+ROUTES = ("tensor_core", "cuda_core")
+
+
+def route(dtype: torch.dtype, hd: int, backward: bool = False) -> str:
+    """The kernel a CUDA call of this dtype and head width launches:
+    ``"tensor_core"`` for bf16 with ``hd % 8 == 0`` (TMA's 16-byte strides)
+    up to 256 forward and 128 backward (the hd-256 backward's dK and dV
+    would need 256 accumulator registers a thread), else ``"cuda_core"``."""
+    widest = 128 if backward else MAX_HEAD_DIM
+    if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= widest:
+        return "tensor_core"
+    return "cuda_core"
 
 
 @functools.cache
 def _bind():
+    """(lib, {route: forward launcher}, {route: backward launcher})."""
     lib = load("flash_attention")
-    ints = [ctypes.c_int] * 5
-    fwd = lib.flash_attention_fwd_launch
-    fwd.argtypes = ([ctypes.c_void_p] * 5 + ints
-                    + [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    bwd = lib.flash_attention_bwd_launch
-    bwd.argtypes = ([ctypes.c_void_p] * 10 + ints
-                    + [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
+    tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fwd, bwd = {}, {}
+    for rname, suffix in (("cuda_core", ""), ("tensor_core", "_sm90")):
+        fwd[rname] = getattr(lib, f"flash_attention_fwd{suffix}_launch")
+        fwd[rname].argtypes = [ctypes.c_void_p] * 5 + tail
+        bwd[rname] = getattr(lib, f"flash_attention_bwd{suffix}_launch")
+        bwd[rname].argtypes = [ctypes.c_void_p] * 10 + tail
+        fwd[rname].restype = bwd[rname].restype = ctypes.c_int
     return lib, fwd, bwd
 
 
@@ -89,6 +104,8 @@ def _check(q, k, v, window, logit_cap, extra=()):
             raise ValueError(f"{name} on {t.device} but q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention needs a contiguous {name}")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention needs {name} on a 16-byte boundary (TMA)")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
 
@@ -107,16 +124,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, hq, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib, fn, _ = _bind()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, s, hq, k.shape[2], hd, window or 0, float(logit_cap or 0.0), _scale(hd),
-            _DTYPES[q.dtype], stream_of(q.device))
-    check(lib, rc, "flash_attention forward")
+    lib, fns, _ = _bind()
+    way = route(q.dtype, hd)
+    rc = fns[way](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  b, s, hq, k.shape[2], hd, window or 0, float(logit_cap or 0.0), _scale(hd),
+                  _DTYPES[q.dtype], stream_of(q.device))
+    check(lib, rc, f"flash_attention forward ({way})")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[way] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,18 +152,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, window, logit_cap)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib, _, fn = _bind()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, hq, k.shape[2], hd, window or 0, float(logit_cap or 0.0), _scale(hd),
-            _DTYPES[q.dtype], stream_of(q.device))
-    check(lib, rc, "flash_attention backward")
+    lib, _, fns = _bind()
+    way = route(q.dtype, hd, backward=True)
+    # f32 scratch: delta (B, Hq, S); on the tensor cores delta and lse log2(e)
+    # in rows padded to the dK/dV kernel's query tile
+    rows = s if way == "cuda_core" else 2 * lib.flash_attention_sm90_rows(s)
+    delta = torch.empty((b, hq, rows), dtype=torch.float32, device=q.device)
+    rc = fns[way](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  b, s, hq, k.shape[2], hd, window or 0, float(logit_cap or 0.0), _scale(hd),
+                  _DTYPES[q.dtype], stream_of(q.device))
+    check(lib, rc, f"flash_attention backward ({way})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[way] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +186,16 @@ def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, copied if it is a CUDA tensor off a 16-byte boundary (a view
+    into the middle of a buffer), since the kernels' TMA loads need one."""
+    return x.clone() if x.device.type == "cuda" and x.data_ptr() % 16 else x
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(q, k, v, window, logit_cap):
-        return flash_attention_fwd(q, k, v, window, logit_cap)
+        return flash_attention_fwd(_aligned(q), _aligned(k), _aligned(v), window, logit_cap)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -191,6 +223,7 @@ class _FlashAttention(torch.autograd.Function):
 class _FlashAttentionBackward(torch.autograd.Function):
     @staticmethod
     def forward(q, k, v, out, lse, dout, window, logit_cap):
+        q, k, v, out, lse, dout = map(_aligned, (q, k, v, out, lse, dout))
         return flash_attention_bwd(q, k, v, out, lse, dout, window, logit_cap)
 
     @staticmethod
@@ -215,7 +248,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     logit_cap: Optional[float] = None) -> torch.Tensor:
     """Causal GQA attention: q ``(B, S, Hq, hd)``, k/v ``(B, S, Hkv, hd)`` ->
     ``(B, S, Hq, hd)``; differentiable and vmappable.  Inputs are made
-    contiguous here; the kernel wrappers below refuse what is not."""
+    contiguous here, and copied where they are off a 16-byte boundary; the
+    kernel wrappers above refuse either."""
     out, _ = _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                    window, logit_cap)
     return out

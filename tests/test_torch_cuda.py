@@ -26,6 +26,7 @@ from repro_torch.kernels import (
     gossip_mix, gossip_mix_ref, normalized_update, normalized_update_ref, sgd_update,
     sgd_update_ref,
 )
+from repro_torch.kernels.flash_attention import route
 from repro_torch.models import MnistCNN
 from repro_torch.optim import sgd
 from repro_torch.scenarios import build_scenario
@@ -207,12 +208,15 @@ def test_async_events_on_kernels_match_dense(cuda):
 
 
 # (B, S, Hq, Hkv, hd, window, cap): MHA; GQA with a ragged S and hd 96; MQA
-# with a window and a cap; gemma2's hd 256 with both
+# with a window and a cap; gemma2's hd 256 with both; S below one tile; a
+# long S at granite's hd 128 and GQA 4
 FLASH_CASES = [
     (2, 64, 4, 4, 64, None, None),
     (2, 80, 8, 2, 96, None, None),
     (1, 200, 4, 1, 128, 48, 30.0),
     (1, 96, 8, 4, 256, 40, 50.0),
+    (2, 16, 8, 2, 128, None, None),
+    (1, 2048, 8, 2, 128, None, None),
 ]
 
 
@@ -235,6 +239,8 @@ def test_flash_attention_matches_plain(cuda, dtype, fwd_tol, grad_tol, case):
     b, s, hq, hkv, hd, window, cap = case
     q, k, v, dout = _qkvg(cuda, dtype, b, s, hq, hkv, hd)
     n = flash_attention_fwd.launches, flash_attention_bwd.launches
+    ways = route(dtype, hd), route(dtype, hd, backward=True)
+    by_route = flash_attention_fwd.routes[ways[0]], flash_attention_bwd.routes[ways[1]]
     out, lse = flash_attention_fwd(q, k, v, window, cap)
     ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, window, cap)
     torch.cuda.synchronize()
@@ -244,9 +250,47 @@ def test_flash_attention_matches_plain(cuda, dtype, fwd_tol, grad_tol, case):
     refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, window, cap)
     torch.cuda.synchronize()
     assert (flash_attention_fwd.launches - n[0], flash_attention_bwd.launches - n[1]) == (1, 1)
+    assert (flash_attention_fwd.routes[ways[0]] - by_route[0],
+            flash_attention_bwd.routes[ways[1]] - by_route[1]) == (1, 1)
     for got, ref in zip(grads, refs):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         _close(got, ref, grad_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_bf16_takes_tensor_cores_and_is_deterministic(cuda, case):
+    """bf16 at hd <= 128 runs the wgmma/TMA kernels, forward and backward
+    (hd 256's backward stays on the CUDA cores), and the backward, which
+    sums without atomics, is bitwise the same from call to call."""
+    b, s, hq, hkv, hd, window, cap = case
+    q, k, v, dout = _qkvg(cuda, torch.bfloat16, b, s, hq, hkv, hd)
+    n = flash_attention_fwd.routes["tensor_core"], flash_attention_bwd.routes["tensor_core"]
+    out, lse = flash_attention_fwd(q, k, v, window, cap)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+    second = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.routes["tensor_core"] - n[0] == 1
+    assert flash_attention_bwd.routes["tensor_core"] - n[1] == (2 if hd <= 128 else 0)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_misaligned_view_and_op_copies_it(cuda, dtype):
+    """TMA needs 16-byte aligned bases: a view that starts one element into
+    its buffer is refused by the wrapper, and the op copies it."""
+    b, s, hq, hkv, hd = 1, 32, 4, 2, 64
+    q, k, v, _ = _qkvg(cuda, dtype, b, s, hq, hkv, hd)
+    n = q.numel()
+    off = torch.empty(n + 1, dtype=dtype, device=cuda)[1:].view(b, s, hq, hd)
+    off.copy_(q)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(off, k, v)
+    out, _ = flash_attention_fwd(q, k, v)
+    torch.testing.assert_close(flash_attention(off, k, v), out, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

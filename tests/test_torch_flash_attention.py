@@ -5,7 +5,9 @@ to on the card) against the reference's Pallas kernel in interpret mode and
 its exact oracle, with the cases and tolerances of the reference's kernel
 tests (2e-5 f32, 3e-2 bf16).  The plain backward against ``jax.vjp`` of the
 oracle (1e-5 f32).  The op under ``torch.func.vmap(grad)`` against a
-per-sample loop, ragged sequence lengths, and the wrappers' refusals.
+per-sample loop, ragged sequence lengths, and the wrappers' refusals.  The
+route each dtype and head width takes on the card, and the bf16 rounding of
+P and dS that the tensor-core kernels do, held to the card's tolerances.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ from repro_torch.kernels import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
     flash_attention_fwd_ref,
 )
+from repro_torch.kernels.flash_attention import route
 
 RNG = np.random.default_rng(0)
 
@@ -160,3 +163,87 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         flash_attention_bwd(q, k, v, out, lse.double(), out)
     with pytest.raises(ValueError, match="do not match"):
         flash_attention_bwd(q, k, v, out, lse[:, :, :8].contiguous(), out)
+
+
+@pytest.mark.parametrize("dtype,hd,backward,want", [
+    (torch.bfloat16, 64, False, "tensor_core"),
+    (torch.bfloat16, 96, False, "tensor_core"),
+    (torch.bfloat16, 128, False, "tensor_core"),
+    (torch.bfloat16, 256, False, "tensor_core"),
+    (torch.bfloat16, 64, True, "tensor_core"),
+    (torch.bfloat16, 96, True, "tensor_core"),
+    (torch.bfloat16, 128, True, "tensor_core"),
+    (torch.bfloat16, 256, True, "cuda_core"),    # dK and dV would need 256 registers a thread
+    (torch.bfloat16, 100, False, "cuda_core"),   # hd % 8 != 0: no 16-byte TMA strides
+    (torch.bfloat16, 100, True, "cuda_core"),
+    (torch.float32, 128, False, "cuda_core"),    # f32 stays f32: no bf16 tensor cores
+    (torch.float32, 64, True, "cuda_core"),
+])
+def test_route_by_dtype_and_head_width(dtype, hd, backward, want):
+    assert route(dtype, hd, backward=backward) == want
+
+
+def _bf16_rounded_forward(q, k, v, window, cap):
+    """The plain forward with P rounded to bf16 before P V, as the tensor-core
+    kernel rounds it (``l`` sums the unrounded P)."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, hd).float()
+    raw = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
+    sc = raw if cap is None else cap * torch.tanh(raw / cap)
+    pos = torch.arange(s)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    sc = torch.where(mask, sc, -1e30)
+    p = torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)), 0.0)
+    pv = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.bfloat16).float(), v.float())
+    out = pv / p.sum(-1).clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
+def _bf16_rounded_backward(q, k, v, out, lse, dout, window, cap):
+    """The plain backward with P and dS rounded to bf16 before the dV, dQ and
+    dK products, as the tensor-core kernels round them."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = hd ** -0.5
+    qg = q.reshape(b, s, hkv, g, hd).float()
+    raw = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    sc = raw if cap is None else cap * torch.tanh(raw / cap)
+    pos = torch.arange(s)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    p = torch.where(mask, torch.exp(sc - lse.reshape(b, hkv, g, s)[..., None]), 0.0)
+    do = dout.reshape(b, s, hkv, g, hd).float()
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", do, out.reshape(b, s, hkv, g, hd).float())
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
+    ds = p * (dp - delta[..., None])
+    if cap is not None:
+        ds = ds * (1.0 - torch.tanh(raw / cap) ** 2)
+    r = lambda x: x.to(torch.bfloat16).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", r(p), do)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", r(ds), k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", r(ds), qg) * scale
+    return tuple(x.to(t.dtype) for x, t in ((dq.reshape(b, s, hq, hd), q), (dk, k), (dv, v)))
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (48, 30.0)])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+def test_bf16_rounding_of_p_and_ds_within_card_tolerances(hd, window, cap):
+    """The tensor-core kernels round P (and dS) to bf16 before the second
+    product, where the plain version keeps f32.  With that rounding the plain
+    formulas still meet the card tests' bf16 tolerances (3e-2 forward, 3e-2
+    relative to the largest entry for the gradients), so a later redesign
+    that rounds more cannot pass unseen."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(1, 160, 4, 2, hd))
+    dout = torch.from_numpy(_arr((1, 160, 4, hd))).to(torch.bfloat16)
+    out, lse = flash_attention_fwd_ref(q, k, v, window, cap)
+    got = _bf16_rounded_forward(q, k, v, window, cap)
+    np.testing.assert_allclose(got.float().numpy(), out.float().numpy(), atol=3e-2)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, window, cap)
+    for g, r in zip(_bf16_rounded_backward(q, k, v, out, lse, dout, window, cap), refs):
+        scale = max(1.0, r.float().abs().max().item())
+        np.testing.assert_allclose(g.float().numpy(), r.float().numpy(), atol=3e-2 * scale)
