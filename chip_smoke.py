@@ -13,15 +13,19 @@ Phases, one result line each; any failure exits non-zero without the final
             fused_sgd with sgd_update and normalized_update,
             fused_transition, gossip_mix, cluster_agg, flash_attention with
             its forward and backward kernels), one process per library, all
-            at once.  ``cuobjdump -sass`` of the flash library: the counts of
-            ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions per
-            kernel; the phase fails if the bf16 tensor-core forward, dK/dV or
-            dQ kernel has none.
+            at once.  ptxas's report of the two leaf-table kernels
+            (``fused_transition_kernel``, ``sgd_update_kernel``): the phase
+            fails if any instantiation spills registers.  ``cuobjdump -sass``
+            of the flash library: the counts of ``HGMMA`` (wgmma) and
+            ``UTMALDG`` (TMA load) instructions per kernel; the phase fails if
+            the bf16 tensor-core forward, dK/dV or dQ kernel has none.
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the leaf shapes of MnistCNN and CifarCNN stacked over
-            C=20 clients in D=4 clusters, f32 and bf16.  Transition: alpha
-            0/1/2, static factors and masked participation weights with a
-            faulted mixing matrix (ring with one link down).  gossip_mix:
+            C=20 clients in D=4 clusters, f32 and bf16.  Transition and SGD:
+            the tree calls, one launch each (and a tree of 96 leaves, two
+            launches); transition alpha 0/1/2, static factors and masked
+            participation weights with a faulted mixing matrix (ring with one
+            link down); SGD bit for bit.  gossip_mix:
             D=4, alpha 0/1/2, the ring P and an eq. 22 P_t, in place.
             cluster_agg: C=20 -> D=4 and the async g=5 -> 1, masked weights.
             normalized_update: R=5 rows with 1/theta per row, and R=1.
@@ -30,7 +34,9 @@ Phases, one result line each; any failure exits non-zero without the final
             update, 3e-2 bf16.  Then CUDA-event times of the kernel, the
             plain version and one library call computing the same function
             (where there is one), beside the bound, at the shapes of the
-            path that runs the kernel.  Flash attention forward and backward
+            path that runs the kernel (the transition and SGD as tree calls
+            in place, against per-leaf ``torch.matmul`` and one
+            ``torch._foreach_add_``).  Flash attention forward and backward
             against their plain versions at federated-lm-ring's (16, 64, 4,
             4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's (1, 8192,
             8, 4, 256) with window 4096 and cap 50, a GQA case with hd 96
@@ -46,12 +52,14 @@ Phases, one result line each; any failure exits non-zero without the final
             ``build_scenario`` (which calls ``make_run``) on the default
             device, backend auto -> cuda, 10 iterations (local, intra and
             inter events), launch counters zeroed just before and read
-            just after.  Held against the same run with the dense backend
+            just after and held to their exact counts (one launch per stage:
+            2 transitions and 10 SGD steps).  Held against the same run with
+            the dense backend
             on the card and on the CPU (1e-4 max abs on the parameters,
             1e-4 relative on the eval loss).
-5. cifar    ``cifar-dirichlet-torus`` with the kernel backend: iterations/s
-            and the split of one iteration into local gradient,
-            ``sgd_update`` and transition.
+5. cifar    ``cifar-dirichlet-torus`` with the kernel backend, launches held
+            to one per stage: iterations/s and the split of one iteration
+            into local gradient, ``sgd_update`` and transition.
 6. async    asynchronous SD-FEEL: ``straggler-bimodal-async`` through
             ``build_scenario`` on the default device, backend auto -> cuda,
             24 cluster events, launch counters zeroed just before and read
@@ -69,7 +77,8 @@ Phases, one result line each; any failure exits non-zero without the final
             -> cuda, attn_impl cuda: 4 supersteps (32 iterations) and one
             evaluate, launch counters zeroed just before and read just
             after and held to their exact counts (the clients fold into one
-            attention launch per layer).  Held against the same run with
+            attention launch per layer; one SGD and one transition launch per
+            stage for the 12 leaves).  Held against the same run with
             the dense backend and plain attention on the card and on the
             CPU (1e-4 max abs on parameters and per-iteration losses, 1e-4
             relative on the eval loss).  Then warm iterations/s, tokens/s,
@@ -78,13 +87,16 @@ Phases, one result line each; any failure exits non-zero without the final
             4096, d_ff 14336, 32 heads, 8 KV heads of 128, vocab 49152,
             S = 2048, bf16), cut to 2 layers, per-client batch 1 and no
             evaluate: 2 supersteps (every flash launch on the tensor-core
-            route), their rate, peak device memory and the attention
-            kernels' share; then one client's loss and gradients with the
-            flash kernels against the plain attention.
+            route), their launches held exactly, their rate, peak device
+            memory and the attention kernels' share; then one client's loss
+            and gradients with the flash kernels against the plain attention;
+            then the transition (the inter event: D=4, alpha=2) and SGD timed
+            on the run's own 12-leaf bf16 tree in place, against the bytes
+            bound and the library calls.
 
-The line before the last is the kernels' JSON record (each flash entry
-also carries, under ``width``, its granite-8b bf16 tensor-core numbers and
-the ``lm-width`` launches); the last line is
+The line before the last is the kernels' JSON record (the flash,
+transition and SGD entries also carry, under ``width``, their granite-8b
+bf16 numbers and the ``lm-width`` launches); the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -159,6 +171,10 @@ LM_WIDTH = dict(
     vocab_size=49152, seq_len=2048, batch_size=1, num_samples=16,
 )
 ASYNC_KERNELS = ("normalized_update", "cluster_agg", "gossip_mix")
+# the kernels that take a table of leaves (one launch per tree), by library;
+# the build phase fails if ptxas spills registers in either
+LEAF_TABLE_KERNELS = {"fused_transition": "fused_transition_kernel",
+                      "fused_sgd": "sgd_update_kernel"}
 
 
 def fail(msg: str) -> None:
@@ -312,7 +328,49 @@ class Smoke:
             regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
             print(f"  {name} ptxas: {' | '.join(regs)}", flush=True)
         self.detail["build_s"] = dt
+        self.detail["leaf_table_ptxas"] = self.check_spills()
         self.detail["flash_sass"] = self.sass_counts(libs["flash_attention"])
+
+    @staticmethod
+    def ptxas_report(log: str) -> dict:
+        """``{kernel symbol: {"registers", "stack", "spill_stores"}}`` from a
+        ``-Xptxas -v`` build log."""
+        report, cur = {}, None
+        for ln in log.splitlines():
+            found = re.search(r"Function properties for (\S+)", ln)
+            if found:
+                cur = found.group(1)
+                report[cur] = {"registers": None, "stack": None, "spill_stores": None}
+                continue
+            found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
+            if found and cur:
+                report[cur]["stack"], report[cur]["spill_stores"] = map(int, found.groups())
+            found = re.search(r"Used (\d+) registers", ln)
+            if found and cur:
+                report[cur]["registers"] = int(found.group(1))
+        return report
+
+    def check_spills(self) -> dict:
+        """Every instantiation of the two leaf-table kernels, with its
+        registers and spills; raises if ptxas reports a spill store in one."""
+        from repro_torch.kernels import _build
+
+        found = {}
+        for lib, kname in LEAF_TABLE_KERNELS.items():
+            if lib not in _build.build_logs:
+                raise AssertionError(f"no ptxas report for kernels/{lib}")
+            rep = {sym: r for sym, r in self.ptxas_report(_build.build_logs[lib]).items()
+                   if kname in sym}
+            if not rep or any(r["spill_stores"] is None for r in rep.values()):
+                raise AssertionError(f"{kname}: no ptxas spill report in the build log")
+            for sym, r in rep.items():
+                print(f"  ptxas {kname} {sym}: {r['registers']} registers, {r['stack']} bytes "
+                      f"stack, {r['spill_stores']} bytes spill stores", flush=True)
+            spilled = {sym: r for sym, r in rep.items() if r["spill_stores"]}
+            if spilled:
+                raise AssertionError(f"{kname}: ptxas spills registers in {spilled}")
+            found[kname] = rep
+        return found
 
     @staticmethod
     def sass_counts(lib) -> dict:
@@ -342,9 +400,6 @@ class Smoke:
 
     def kernels(self):
         torch = self.torch
-        from repro_torch.kernels import (
-            fused_transition_ref, fused_transition_tree, sgd_update, sgd_update_ref,
-        )
         from repro_torch.models import CifarCNN, MnistCNN
 
         factors = self.factors()
@@ -355,31 +410,33 @@ class Smoke:
                 leaves = self.stacked_leaves(mcls, dtype)
                 for fname, (vt, p, bt) in factors.items():
                     for alpha in (0, 1, 2):
-                        out = fused_transition_tree(leaves, vt, p, bt, alpha=alpha)
-                        err = max(
-                            (out[k].float() - fused_transition_ref(
-                                w.reshape(C, -1), vt, p, bt, alpha).float().view(w.shape)
-                             ).abs().max().item()
-                            for k, w in leaves.items()
-                        )
-                        torch.cuda.synchronize()
-                        if not err <= t_tol:
-                            raise AssertionError(f"fused_transition {mname} {dtype} {fname} "
-                                                 f"alpha={alpha}: max abs err {err} > {t_tol}")
+                        err = self.hold_transition_tree(leaves, vt, p, bt, alpha, t_tol,
+                                                        f"{mname} {dtype} {fname}", 1)
                         worst["fused_transition"] = max(worst["fused_transition"], err)
                         if (mname, dtype, fname, alpha) == ("mnist", torch.float32, "static", 1):
                             main_err["fused_transition"] = err
                 grads = self.stacked_leaves(mcls, dtype, seed=1)
-                for k, w in leaves.items():
-                    out = sgd_update(w, grads[k], LR)
-                    err = (out.float() - sgd_update_ref(w, grads[k], LR).float()).abs().max().item()
-                    if not err <= s_tol:
-                        raise AssertionError(f"sgd_update {mname} {dtype} {k}: max abs err {err}")
-                    worst["sgd_update"] = max(worst["sgd_update"], err)
-                    if (mname, dtype) == ("mnist", torch.float32):
-                        main_err["sgd_update"] = max(main_err.get("sgd_update", 0.0), err)
-                print(f"  {mname} {str(dtype)[6:]}: transition (2 factor sets x alpha 0-2) and "
-                      f"sgd_update agree with their plain versions", flush=True)
+                err = self.hold_sgd_tree(leaves, grads, s_tol, f"{mname} {dtype}", 1)
+                worst["sgd_update"] = max(worst["sgd_update"], err)
+                if (mname, dtype) == ("mnist", torch.float32):
+                    main_err["sgd_update"] = err
+                print(f"  {mname} {str(dtype)[6:]}: transition tree (2 factor sets x alpha 0-2) "
+                      f"and sgd_update tree agree with their plain versions, one launch each",
+                      flush=True)
+        # more leaves than one table holds: CifarCNN's and MnistCNN's leaves
+        # four times over (96), f32, two launches per tree
+        many = {f"{i}.{k}": w for i in range(4) for mcls in (CifarCNN, MnistCNN)
+                for k, w in self.stacked_leaves(mcls, torch.float32, seed=10 + i).items()}
+        groups = self.launch_groups(many)
+        vt, p, bt = factors["masked+faulted"]
+        err = self.hold_transition_tree(many, vt, p, bt, 2, 1e-5, f"{len(many)} leaves", groups)
+        worst["fused_transition"] = max(worst["fused_transition"], err)
+        grads = {k: torch.randn_like(w) for k, w in many.items()}
+        worst["sgd_update"] = max(worst["sgd_update"], self.hold_sgd_tree(
+            many, grads, 1e-6, f"{len(many)} leaves", groups))
+        print(f"  {len(many)} leaves f32: {groups} launches per tree, both kernels agree with "
+              f"their plain versions", flush=True)
+        del many, grads
         self.check_async_kernels(worst, main_err)
         self.check_flash(worst, main_err)
         print(f"max abs err over all cases: {json.dumps(worst)}", flush=True)
@@ -407,6 +464,57 @@ class Smoke:
                     "source": FLASH_SM90, "max_abs_err": main_err[f"{kname}@granite-8b"],
                     **{f: w[f] for f in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "tflops", "bound_share")}}
+
+    @staticmethod
+    def launch_groups(tree: dict) -> int:
+        """Launches one call of a leaf-table kernel takes for ``tree``."""
+        from repro_torch.kernels.fused_transition.ops import plan_launches
+
+        return len(plan_launches([(w.dtype, 0, ()) for w in tree.values()]))
+
+    def hold_transition_tree(self, leaves, vt, p, bt, alpha, tol, what, launches) -> float:
+        """The tree call (out of place) against the plain version leaf by
+        leaf, and its launch count; returns the max abs error."""
+        torch = self.torch
+        from repro_torch.kernels import (
+            fused_transition, fused_transition_ref, fused_transition_tree,
+        )
+
+        n = fused_transition.launches
+        out = fused_transition_tree(leaves, vt, p, bt, alpha=alpha)
+        torch.cuda.synchronize()
+        if fused_transition.launches - n != launches:
+            raise AssertionError(f"fused_transition {what}: {fused_transition.launches - n} "
+                                 f"launches, expected {launches}")
+        err = max((out[k].float() - fused_transition_ref(
+            w.reshape(w.shape[0], -1), vt, p, bt, alpha).float().view(w.shape)).abs().max().item()
+            for k, w in leaves.items())
+        if not err <= tol:
+            raise AssertionError(f"fused_transition {what} alpha={alpha}: max abs err {err} > "
+                                 f"{tol}")
+        return err
+
+    def hold_sgd_tree(self, leaves, grads, tol, what, launches) -> float:
+        """The tree call (out of place) against the plain version, which it
+        must equal bit for bit, and its launch count; returns the max abs
+        error."""
+        torch = self.torch
+        from repro_torch.kernels import sgd_update, sgd_update_ref, sgd_update_tree
+
+        n = sgd_update.launches
+        out = sgd_update_tree(leaves, grads, LR)
+        torch.cuda.synchronize()
+        if sgd_update.launches - n != launches:
+            raise AssertionError(f"sgd_update {what}: {sgd_update.launches - n} launches, "
+                                 f"expected {launches}")
+        err = 0.0
+        for k, w in leaves.items():
+            ref = sgd_update_ref(w, grads[k], LR)
+            e = (out[k].float() - ref.float()).abs().max().item()
+            if not (e <= tol and torch.equal(out[k], ref)):
+                raise AssertionError(f"sgd_update {what} {k}: max abs err {e}, not bitwise equal")
+            err = max(err, e)
+        return err
 
     def check_async_kernels(self, worst: dict, main_err: dict) -> None:
         """gossip_mix, cluster_agg and normalized_update against their plain
@@ -676,16 +784,24 @@ class Smoke:
         return out
 
     def time_kernels(self, mcls, factors) -> dict:
+        """Times of the two leaf-table kernels over every leaf of ``mcls``
+        stacked over C clients (f32), in place as the main path calls them:
+        the tree call (one launch), the plain version leaf by leaf, and the
+        library yardsticks, per-leaf ``torch.matmul(T^T, W)`` for the
+        transition and one ``torch._foreach_add_`` for SGD; then the largest
+        leaf alone."""
         torch = self.torch
         from repro_torch.kernels import (
-            fused_transition, fused_transition_ref, sgd_update, sgd_update_ref,
+            fused_transition, fused_transition_ref, fused_transition_tree, sgd_update,
+            sgd_update_ref, sgd_update_tree,
         )
 
         vt, p, bt = factors
         alpha = 1  # the main path's inter event
-        leaves = {k: w.reshape(C, -1) for k, w in self.stacked_leaves(mcls, torch.float32).items()}
-        grads = {k: torch.randn_like(w) for k, w in leaves.items()}
-        outs = {k: torch.empty_like(w) for k, w in leaves.items()}
+        tree = self.stacked_leaves(mcls, torch.float32)
+        grads = {k: torch.randn_like(w) for k, w in tree.items()}
+        leaves = {k: w.view(C, -1) for k, w in tree.items()}
+        ws, gs = list(tree.values()), [grads[k] for k in tree]
         t_full = (vt.T @ torch.linalg.matrix_power(p, alpha) @ bt.T)  # (C, C) T_k
         t_lib = t_full.T.contiguous()
         nbytes = sum(w.numel() * w.element_size() for w in leaves.values())
@@ -693,20 +809,18 @@ class Smoke:
         factor_bytes = 4 * (vt.numel() + p.numel() + bt.numel())
 
         tr_calls = {
-            "ms": lambda: [fused_transition(w, vt, p, bt, alpha, out=outs[k])
-                           for k, w in leaves.items()],
+            "ms": lambda: fused_transition_tree(tree, vt, p, bt, alpha, inplace=True),
             "plain_ms": lambda: [fused_transition_ref(w, vt, p, bt, alpha)
                                  for w in leaves.values()],
             "library_ms": lambda: [torch.matmul(t_lib, w) for w in leaves.values()],
         }
         sgd_calls = {
-            "ms": lambda: [sgd_update(w, grads[k], LR, out=outs[k]) for k, w in leaves.items()],
-            "plain_ms": lambda: [sgd_update_ref(w, grads[k], LR) for k, w in leaves.items()],
-            "library_ms": lambda: [torch.add(w, grads[k], alpha=-LR)
-                                   for k, w in leaves.items()],
+            "ms": lambda: sgd_update_tree(tree, grads, LR, inplace=True),
+            "plain_ms": lambda: [sgd_update_ref(w, grads[k], LR) for k, w in tree.items()],
+            "library_ms": lambda: torch._foreach_add_(ws, gs, alpha=-LR),
         }
         tr_bound, tr_by = self.bound(2 * nbytes + factor_bytes,
-                                2 * m_total * (2 * C * D + alpha * D * D))
+                                     2 * m_total * (2 * C * D + alpha * D * D))
         sgd_bound, sgd_by = self.bound(3 * nbytes, 2 * m_total * C)
         out = {}
         for kname, calls, bnd, by, moved in (
@@ -716,18 +830,20 @@ class Smoke:
             t = {k: self.cuda_ms(fn) for k, fn in calls.items()}
             t.update({f"graph_{k}": self.graph_ms(fn) for k, fn in calls.items()})
             out[kname] = dict(t, bound_ms=bnd, bound_by=by, leaves=len(leaves),
-                              bytes_moved=moved)
-        # the largest leaf alone: the kernel's own rate, without launch gaps
+                              launches_per_call=self.launch_groups(tree), bytes_moved=moved,
+                              bound_share=bnd / t["ms"], graph_bound_share=bnd / t["graph_ms"])
+        # the largest leaf alone: the kernel's own rate at its largest shape
         big = max(leaves, key=lambda k: leaves[k].numel())
         w = leaves[big]
         out["fused_transition"]["largest_leaf"] = {
             "leaf": big, "shape": list(w.shape),
-            "graph_ms": self.graph_ms(lambda: fused_transition(w, vt, p, bt, alpha, out=outs[big])),
+            "graph_ms": self.graph_ms(lambda: fused_transition(w, vt, p, bt, alpha, out=w)),
             "bound_ms": 2 * w.numel() * w.element_size() / HBM_BYTES_PER_S * 1e3,
         }
         out["sgd_update"]["largest_leaf"] = {
             "leaf": big, "shape": list(w.shape),
-            "graph_ms": self.graph_ms(lambda: sgd_update(w, grads[big], LR, out=outs[big])),
+            "graph_ms": self.graph_ms(lambda: sgd_update(tree[big], grads[big], LR,
+                                                         out=tree[big])),
             "bound_ms": 3 * w.numel() * w.element_size() / HBM_BYTES_PER_S * 1e3,
         }
         return out
@@ -791,10 +907,13 @@ class Smoke:
             if found:
                 flash_split[found.group(1)] = flash_split.get(found.group(1), 0.0) + ms
         flash_ms = sum(flash_split.values())
+        leaf_table = {k: sum(ms for name, ms in per_name.items() if k in name)
+                      for k in LEAF_TABLE_KERNELS.values()}
         return {"iters": iters, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "busy_ms_per_step": busy_ms / iters, "busy_share": busy_ms / wall_ms,
                 "flash_kernels_ms": flash_ms, "flash_share_of_busy": flash_ms / busy_ms,
                 "flash_split_ms": {k: round(ms, 4) for k, ms in flash_split.items()},
+                "leaf_table_ms": {k: round(ms, 4) for k, ms in leaf_table.items()},
                 "top_kernels_ms": [(k[:60], round(ms, 4)) for k, ms in top]}
 
     def iteration_split(self, run) -> dict:
@@ -841,11 +960,13 @@ class Smoke:
         events = [sched.cfg.event_at(k) for k in range(1, 11)]
         if sched.backend.name != "cuda" or run.runtime.device.type != "cuda":
             raise AssertionError(f"auto resolved to {sched.backend.name} on {run.runtime.device}")
-        if min(launches.values()) < 1:
-            raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+        expected = self.sync_launches(sched, 10)
+        if launches != expected:
+            raise AssertionError(f"main path launches {launches}, expected {expected}")
         self.check_finite(sched.params, "mnist cuda run")
         print(f"main path mnist-noniid-ring tau2=2 on {run.runtime.device}, backend "
-              f"{sched.backend.name}: events {events}; launches {json.dumps(launches)}; "
+              f"{sched.backend.name}: events {events}; launches {json.dumps(launches)} "
+              f"(expected exactly: one per stage); "
               f"{10 / dt:.3f} it/s cold (10 iterations, {dt:.4f}s, first-call costs included); "
               f"eval loss {loss:.6f} acc {acc:.4f}", flush=True)
         for kname, n in launches.items():
@@ -875,6 +996,13 @@ class Smoke:
                                     "split": split, "profile": busy, "eval_loss": loss,
                                     "eval_acc": acc, "references": ref}
 
+    def sync_launches(self, sched, iters) -> dict:
+        """Exact launches of ``iters`` sync iterations: one SGD launch per
+        iteration and one per transition, each times the tree's launch groups."""
+        groups = self.launch_groups(sched.params)
+        transitions = sum(sched.cfg.event_at(k) != "local" for k in range(1, iters + 1))
+        return {"fused_transition": transitions * groups, "sgd_update": iters * groups}
+
     def cifar(self):
         torch = self.torch
         from repro_torch.kernels import fused_transition, sgd_update
@@ -886,8 +1014,10 @@ class Smoke:
         launches = {"fused_transition": fused_transition.launches,
                     "sgd_update": sgd_update.launches}
         sched = run.runtime.scheduler
-        if sched.backend.name != "cuda" or min(launches.values()) < 1:
-            raise AssertionError(f"cifar path off the kernels: {sched.backend.name} {launches}")
+        expected = self.sync_launches(sched, 10)
+        if sched.backend.name != "cuda" or launches != expected:
+            raise AssertionError(f"cifar path: backend {sched.backend.name}, launches "
+                                 f"{launches}, expected {expected}")
         self.check_finite(sched.params, "cifar run")
         peak = torch.cuda.max_memory_allocated()
         warm = self.warm_rate(run, 10)
@@ -1053,6 +1183,17 @@ class Smoke:
         dt = time.perf_counter() - t0
         return run, dt, torch.cat(losses).float().cpu()
 
+    def lm_launches(self, sched, cfg, steps, evaluate) -> dict:
+        """Exact launches of ``steps`` supersteps: one attention launch per
+        layer per iteration (clients folded), plus the evaluate's forward;
+        one leaf-table launch per launch group per SGD step and transition."""
+        iters = steps * sched.iterations_per_step
+        transitions = steps * sched.rounds_per_step * (sched.fl.tau2 + 1)
+        groups = self.launch_groups(sched.params)
+        return {"flash_attention": cfg.num_layers * (iters + evaluate),
+                "flash_attention_backward": cfg.num_layers * iters,
+                "fused_transition": transitions * groups, "sgd_update": iters * groups}
+
     def lm_path(self):
         """This slice's path: federated-lm-ring on the flash, SGD and
         transition kernels, held to the dense backend with plain attention."""
@@ -1069,12 +1210,7 @@ class Smoke:
                                  f"{run.runtime.device} with attn_impl {cfg.attn_impl}")
         iters = LM_STEPS * sched.iterations_per_step
         leaves = len(sched.params)
-        transitions = LM_STEPS * sched.rounds_per_step * (sched.fl.tau2 + 1)
-        # one attention launch per layer per iteration (clients folded), plus
-        # the evaluate's forward; one kernel per leaf per SGD step / transition
-        expected = {"flash_attention": cfg.num_layers * (iters + 1),
-                    "flash_attention_backward": cfg.num_layers * iters,
-                    "fused_transition": transitions * leaves, "sgd_update": iters * leaves}
+        expected = self.lm_launches(sched, cfg, LM_STEPS, evaluate=True)
         if launches != expected:
             raise AssertionError(f"lm launches {launches}, expected {expected}")
         self.check_finite(sched.params, "lm cuda run")
@@ -1134,9 +1270,9 @@ class Smoke:
         sched, cfg = run.runtime.scheduler, run.runtime.model.cfg
         iters = LM_WIDTH_STEPS * sched.iterations_per_step
         c, b, s = sched.fl.num_clients, run.batch_size, LM_WIDTH["seq_len"]
-        if launches["flash_attention"] != cfg.num_layers * iters or \
-                launches["flash_attention_backward"] != cfg.num_layers * iters:
-            raise AssertionError(f"lm-width launches {launches}")
+        expected = self.lm_launches(sched, cfg, LM_WIDTH_STEPS, evaluate=False)
+        if launches != expected:
+            raise AssertionError(f"lm-width launches {launches}, expected {expected}")
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError("lm-width run: non-finite losses")
         n_params = sum(w[0].numel() for w in sched.params.values())
@@ -1184,6 +1320,9 @@ class Smoke:
               f"{gmax:.3e}", flush=True)
         if not (lrel <= 1e-2 and gerr <= 5e-2):
             raise AssertionError("lm-width: flash and plain attention disagree")
+        del got, p0, batch
+        torch.cuda.empty_cache()
+        tree_times = self.time_width_trees(run, launches)
         self.detail["lm_width"] = {
             "launches": launches, "flash_routes": routes, "params_per_client": n_params,
             "peak_bytes": peak,
@@ -1191,7 +1330,109 @@ class Smoke:
             "tokens_per_s_warm": wiph * c * b * s, "profile": busy,
             "losses": losses.tolist(), "cuts": {"num_layers": [36, cfg.num_layers],
                                                 "batch_size": [2, b], "evaluate": False},
-            "cuda_vs_plain": {"loss_rel": lrel, "grad_rel_norm": gerr, "grad_rel_max": gmax}}
+            "cuda_vs_plain": {"loss_rel": lrel, "grad_rel_norm": gerr, "grad_rel_max": gmax},
+            "leaf_table_kernels": tree_times}
+
+    def time_width_trees(self, run, launches) -> dict:
+        """The two leaf-table kernels on the lm-width run's own bf16 tree (C =
+        8 clients, 12 leaves), in place: the transition as the inter event
+        calls it (``CudaBackend.transition``, D = 4, alpha = 2), SGD with a
+        gradient-sized buffer.  Eager and graph times against the bytes
+        bound, and the library yardsticks (per-leaf ``torch.matmul`` into a
+        reused buffer, one ``torch._foreach_add_``); recorded under each
+        kernel's ``width``."""
+        torch = self.torch
+        from repro_torch.kernels import (
+            fused_transition_ref, fused_transition_tree, sgd_update_ref, sgd_update_tree,
+        )
+
+        sched = run.runtime.scheduler
+        backend, params = sched.backend, sched.params
+        nbytes = sum(w.numel() * w.element_size() for w in params.values())
+        m_total = sum(w[0].numel() for w in params.values())
+        c, d, alpha = backend._bt.shape[0], backend._bt.shape[1], backend.alpha
+        chunk = 1 << 24  # columns the plain versions take at a time
+
+        # both tree calls (out of place) against the plain versions first
+        out = fused_transition_tree(params, backend._vt, backend._p, backend._bt, alpha=alpha)
+        tr_err = 0.0
+        for k, w in params.items():
+            w2, o2 = w.view(c, -1), out[k].view(c, -1)
+            for a in range(0, w2.shape[1], chunk):
+                ref = fused_transition_ref(w2[:, a:a + chunk], backend._vt, backend._p,
+                                           backend._bt, alpha)
+                tr_err = max(tr_err, (o2[:, a:a + chunk].float() - ref.float()).abs().max().item())
+        del out, ref
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        grads = {k: torch.randn(w.shape, generator=gen, device=self.dev).to(w.dtype)
+                 for k, w in params.items()}
+        out = sgd_update_tree(params, grads, LR)
+        sgd_err, sgd_equal = 0.0, True
+        for k, w in params.items():
+            wf, gf, of = w.view(-1), grads[k].view(-1), out[k].view(-1)
+            for a in range(0, wf.numel(), chunk * c):
+                ref = sgd_update_ref(wf[a:a + chunk * c], gf[a:a + chunk * c], LR)
+                got = of[a:a + chunk * c]
+                sgd_err = max(sgd_err, (got.float() - ref.float()).abs().max().item())
+                sgd_equal = sgd_equal and torch.equal(got, ref)
+        del out, ref, got
+        torch.cuda.empty_cache()
+        print(f"  lm-width tree calls against the plain versions: fused_transition max abs err "
+              f"{tr_err:.3e} (tol 3e-2), sgd_update {sgd_err:.3e} (bitwise equal: {sgd_equal})",
+              flush=True)
+        if not (tr_err <= 3e-2 and sgd_err == 0.0 and sgd_equal):
+            raise AssertionError("lm-width: a tree kernel disagrees with its plain version")
+        errs = {"fused_transition": tr_err, "sgd_update": sgd_err}
+        t_lib = (backend._vt.T @ torch.linalg.matrix_power(backend._p, alpha)
+                 @ backend._bt.T).T.to(torch.bfloat16).contiguous()
+        scratch = torch.empty(max(w.numel() for w in params.values()), dtype=torch.bfloat16,
+                              device=self.dev)
+        flat = [w.view(c, -1) for w in params.values()]
+        ws, gs = list(params.values()), [grads[k] for k in params]
+        calls = {
+            "fused_transition": (
+                lambda: backend.transition(params, "inter"),
+                lambda: [torch.matmul(t_lib, w, out=scratch[:w.numel()].view(w.shape))
+                         for w in flat],
+                self.bound(2 * nbytes, 2 * m_total * (2 * c * d + alpha * d * d),
+                           BF16_FLOPS_PER_S)),
+            "sgd_update": (
+                lambda: sgd_update_tree(params, grads, 1e-6, inplace=True),
+                lambda: torch._foreach_add_(ws, gs, alpha=-1e-6),
+                self.bound(3 * nbytes, 2 * m_total * c, BF16_FLOPS_PER_S)),
+        }
+        # yardsticks of the transition: the intra event (alpha = 0, two of the
+        # three transitions of a round), and the card's copy of the same tree
+        # (read once, written once, as the transition)
+        extra = {"fused_transition": {
+            "intra_ms": self.cuda_ms(lambda: backend.transition(params, "intra"), reps=5,
+                                     warmup=1),
+            "intra_graph_ms": self.graph_ms(lambda: backend.transition(params, "intra"), reps=5),
+            "copy_graph_ms": self.graph_ms(lambda: torch._foreach_copy_(gs, ws), reps=5)},
+            "sgd_update": {}}
+        out = {}
+        for kname, (fn, lib, (bnd, by)) in calls.items():
+            ms, lib_ms = self.cuda_ms(fn, reps=5, warmup=1), self.cuda_ms(lib, reps=5, warmup=1)
+            g_ms = self.graph_ms(fn, reps=5)
+            torch.cuda.empty_cache()
+            out[kname] = {
+                "shape": {"clients": c, "clusters": d, "alpha": alpha if kname ==
+                          "fused_transition" else None, "leaves": len(params),
+                          "params_per_client": m_total},
+                "dtype": "bfloat16", "route": "cuda", "source": KERNELS[kname]["source"],
+                "launches": launches[kname], "launches_per_call": self.launch_groups(params),
+                "max_abs_err": errs[kname], "ms": ms, "graph_ms": g_ms, "bound_ms": bnd,
+                "bound_by": by,
+                "bound_share": bnd / ms, "graph_bound_share": bnd / g_ms, "library_ms": lib_ms,
+                **extra[kname]}
+            self.record[kname]["width"] = out[kname]
+            print(f"  lm-width {kname} over {len(params)} bf16 leaves ({m_total} params x {c} "
+                  f"clients): " + ", ".join(f"{k}={v:.6g}" if isinstance(v, float) else
+                                            f"{k}={v}" for k, v in out[kname].items()
+                                            if k not in ("shape", "source")), flush=True)
+        del grads, scratch, ws, gs, flat
+        torch.cuda.empty_cache()
+        return out
 
     def run(self):
         torch = self.torch

@@ -24,8 +24,9 @@ Registered implementations:
 ``CudaBackend``    The hand-written CUDA kernels, the counterpart of the
                    reference's ``PallasBackend``: ``transition`` is the fused
                    ``V P^alpha B`` kernel (``kernels/fused_transition``, one
-                   pass over each leaf, the (D, M) cluster intermediate kept
-                   in registers), ``intra_cluster`` the ``cluster_agg`` kernel
+                   launch per tree and one pass over each leaf, the (D, M)
+                   cluster intermediate kept in registers),
+                   ``intra_cluster`` the ``cluster_agg`` kernel
                    and ``inter_cluster`` the ``gossip_mix`` kernel.  Requires
                    contiguous uniform clusters.  ``transition`` and
                    ``inter_cluster`` **overwrite** the leaves they are given

@@ -10,9 +10,10 @@ batched stage is tested against.
 
 Fused-kernel path: when the optimizer is plain SGD with a static learning
 rate and the aggregation backend is ``cuda``, the update runs through the
-``sgd_update`` kernel (``kernels/fused_sgd``) on every stacked leaf, in
-place.  Unlike the reference there is no dense fallback for leaves that do
-not tile: the kernel masks its own tail, so every leaf goes through it.
+``sgd_update`` kernel (``kernels/fused_sgd``) over every stacked leaf, in
+place, one launch per tree.  Unlike the reference there is no dense
+fallback for leaves that do not tile: the kernel masks its own tail, so
+every leaf goes through it.
 """
 from __future__ import annotations
 

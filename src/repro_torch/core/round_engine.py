@@ -14,7 +14,8 @@ reference's nested ``lax.scan`` is a Python loop here::
 Batch entries carry the leading iteration axis: ``(R * tau1 * tau2, C, b,
 ...)``.  On the ``cuda`` backend the SGD step (``sgd_update``) and the
 transitions (``fused_transition``) overwrite the stacked parameters in
-place, the counterpart of the reference's donated buffers; on ``dense``
+place, one launch per tree each, the counterpart of the reference's
+donated buffers; on ``dense``
 every stage returns new tensors.  Losses stay one device tensor of shape
 ``(R * tau1 * tau2,)``: nothing is read back per iteration.
 

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# ptxas register/shared-memory report of each build, for logs
+# ptxas register/shared-memory/spill report of each library (kept beside it)
 build_logs: dict[str, str] = {}
 
 
@@ -82,7 +82,10 @@ def _start(name: str):
 
 
 def _finish(name: str, so: Path, pending) -> None:
-    if pending is None:
+    if pending is None:  # built before: its ptxas report lies beside it
+        log = so.with_suffix(".log")
+        if log.exists():
+            build_logs[name] = log.read_text()
         return
     proc, tmp = pending
     out, _ = proc.communicate()
@@ -90,6 +93,7 @@ def _finish(name: str, so: Path, pending) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for kernels/{name} (rc {proc.returncode}):\n{out}")
+    so.with_suffix(".log").write_text(out)
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 

@@ -4,6 +4,9 @@
   ``repro/kernels/fused_sgd/kernel.py::_sgd_kernel`` (TPU, via
   ``sgd_update_pallas``) with the CUDA kernel in ``csrc/sgd_update.cu``.
   Bound by bytes: ``3 * numel * itemsize`` (read w and g, write w).
+  ``sgd_update_tree`` launches once per tree (once per group of
+  ``plan_launches``: one launch for every tree of one dtype and at most
+  ``MAX_LEAVES`` leaves); ``sgd_update`` is the one-leaf case.
 * ``normalized_update``: ``(w_final - w_start) * inv_theta``, one factor
   per row; replaces ``_norm_update_kernel`` (via
   ``normalized_update_pallas``) with ``csrc/normalized_update.cu``.  Bound
@@ -23,9 +26,10 @@ import functools
 import torch
 
 from .._build import check, load, stream_of
+from .._leaves import MAX_LEAVES, plan_launches
 from .ref import normalized_update_ref, sgd_update_ref
 
-__all__ = ["sgd_update", "sgd_update_tree", "normalized_update"]
+__all__ = ["sgd_update", "sgd_update_tree", "normalized_update", "plan_launches", "MAX_LEAVES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,8 +38,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _bind():
     lib = load("fused_sgd")
     fn = lib.sgd_update_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     norm = lib.normalized_update_launch
     norm.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -45,6 +49,48 @@ def _bind():
     return lib, fn, norm
 
 
+def _check_leaf(w: torch.Tensor, g: torch.Tensor, out: torch.Tensor | None, what: str) -> None:
+    if g.shape != w.shape or g.dtype != w.dtype or g.device != w.device:
+        raise ValueError(f"{what}: g {tuple(g.shape)}/{g.dtype}/{g.device} does not match "
+                         f"w {tuple(w.shape)}/{w.dtype}/{w.device}")
+    if out is not None and (out.shape != w.shape or out.dtype != w.dtype
+                            or out.device != w.device):
+        raise ValueError(f"{what}: out must match w in shape, dtype and device")
+
+
+def _sgd(ws: list, gs: list, outs: list, lr: float) -> list:
+    """``w - lr * g`` for every (checked) leaf, all on one device, into
+    ``outs`` (a tensor, which may alias ``w``, or None for a new one)."""
+    device = ws[0].device
+    if device.type == "cpu":
+        res = [sgd_update_ref(w, g, lr) for w, g in zip(ws, gs)]
+        return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]
+    if device.type != "cuda":
+        raise ValueError(f"sgd_update runs on cpu or cuda tensors, got {device}")
+    for w, g, o in zip(ws, gs, outs):
+        if w.dtype not in _DTYPES:
+            raise TypeError(f"sgd_update kernel supports float32/bfloat16, got {w.dtype}")
+        if not (w.is_contiguous() and g.is_contiguous() and (o is None or o.is_contiguous())):
+            raise ValueError("sgd_update kernel needs a contiguous w, g and out")
+    outs = [torch.empty_like(w, memory_format=torch.contiguous_format) if o is None else o
+            for w, o in zip(ws, outs)]
+    leaves = [(w.dtype, w.numel(), (w.data_ptr(), g.data_ptr(), o.data_ptr()))
+              for w, g, o in zip(ws, gs, outs)]
+    lib, fn, _ = _bind()
+    stream = stream_of(device)
+    for dtype, members in plan_launches(leaves):
+        rows = []
+        for i, vec in members:
+            _, n, ptrs = leaves[i]
+            rows += (*ptrs, n, vec)
+        rc = fn((ctypes.c_longlong * len(rows))(*rows), len(members), float(lr),
+                _DTYPES[dtype], stream)
+        check(lib, rc, "sgd_update")
+        if any(leaves[i][1] for i, _ in members):  # the launcher skips a launch with no work
+            sgd_update.launches += 1
+    return outs
+
+
 def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """``w - lr * g`` computed in f32 and stored in ``w.dtype``.
@@ -52,30 +98,8 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float,
     ``out`` (may be ``w`` itself) receives the result; otherwise a new
     tensor is returned.  Any shape; all tensors contiguous and alike.
     """
-    if g.shape != w.shape or g.dtype != w.dtype or g.device != w.device:
-        raise ValueError(f"g {tuple(g.shape)}/{g.dtype}/{g.device} does not match "
-                         f"w {tuple(w.shape)}/{w.dtype}/{w.device}")
-    if out is not None and (out.shape != w.shape or out.dtype != w.dtype
-                            or out.device != w.device):
-        raise ValueError("out must match w in shape, dtype and device")
-    if w.device.type == "cpu":
-        res = sgd_update_ref(w, g, lr)
-        return res if out is None else out.copy_(res)
-    if w.device.type != "cuda":
-        raise ValueError(f"sgd_update runs on cpu or cuda tensors, got {w.device}")
-    if w.dtype not in _DTYPES:
-        raise TypeError(f"sgd_update kernel supports float32/bfloat16, got {w.dtype}")
-    if out is None:
-        out = torch.empty_like(w, memory_format=torch.contiguous_format)
-    for name, t in (("w", w), ("g", g), ("out", out)):
-        if not t.is_contiguous():
-            raise ValueError(f"sgd_update kernel needs a contiguous {name}")
-    lib, fn, _ = _bind()
-    rc = fn(w.data_ptr(), g.data_ptr(), out.data_ptr(), w.numel(), float(lr),
-            _DTYPES[w.dtype], stream_of(w.device))
-    check(lib, rc, "sgd_update")
-    sgd_update.launches += 1
-    return out
+    _check_leaf(w, g, out, "sgd_update")
+    return _sgd([w], [g], [out], lr)[0]
 
 
 sgd_update.launches = 0
@@ -138,12 +162,24 @@ normalized_update.launches = 0
 
 
 def sgd_update_tree(params: dict, grads: dict, lr: float, inplace: bool = False) -> dict:
-    """``sgd_update`` on every leaf (one launch per leaf on CUDA).
+    """``sgd_update`` on every leaf: one launch per group of ``plan_launches``
+    on CUDA.
 
-    With ``inplace`` each leaf of ``params`` is overwritten and the same
-    tensors are returned — safe because the update is elementwise.
+    ``grads`` must hold the keys of ``params`` with leaves of the same shape,
+    dtype and device; every leaf is checked before any is touched.  With
+    ``inplace`` each leaf of ``params`` is overwritten and the same tensors
+    are returned — safe because the update is elementwise.
     """
-    return {
-        k: sgd_update(w, grads[k], lr, out=w if inplace else None)
-        for k, w in params.items()
-    }
+    if params.keys() != grads.keys():
+        raise ValueError(f"params and grads hold different keys: "
+                         f"{sorted(params.keys() ^ grads.keys())}")
+    if not params:
+        return {}
+    ws, gs = list(params.values()), [grads[k] for k in params]
+    device = ws[0].device
+    for k, w, g in zip(params, ws, gs):
+        _check_leaf(w, g, None, f"sgd_update_tree leaf {k!r}")
+        if w.device != device:
+            raise ValueError(f"leaf {k!r} on {w.device}, the first leaf on {device}")
+    res = _sgd(ws, gs, ws if inplace else [None] * len(ws), lr)
+    return dict(zip(params, res))

@@ -23,9 +23,10 @@ from repro_torch.core import resolve_backend, staleness_mixing_matrix
 from repro_torch.kernels import (
     cluster_agg, cluster_agg_ref, flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
     flash_attention_fwd, flash_attention_fwd_ref, fused_transition, fused_transition_ref,
-    gossip_mix, gossip_mix_ref, normalized_update, normalized_update_ref, sgd_update,
-    sgd_update_ref,
+    fused_transition_tree, gossip_mix, gossip_mix_ref, normalized_update, normalized_update_ref,
+    sgd_update, sgd_update_ref, sgd_update_tree,
 )
+from repro_torch.kernels.fused_transition.ops import MAX_LEAVES
 from repro_torch.kernels.flash_attention import route
 from repro_torch.models import MnistCNN
 from repro_torch.optim import sgd
@@ -77,6 +78,98 @@ def test_sgd_update_matches_plain(cuda, dtype, tol, n, offset):
     out = sgd_update(w, g, 0.05)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), sgd_update_ref(w, g, 0.05).float(), atol=tol, rtol=0)
+
+
+def _ragged_tree(device, dtype, c, seed=0):
+    """(C, ...) leaves mixing vector-aligned and unaligned M: M = 0, M = 10
+    (MnistCNN's b4), an odd M, aligned M, a 3-D leaf and an offset view."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=device).to(dtype)
+    buf = mk(c * 1024 + 1)
+    return {"m0": mk(c, 0), "m10": mk(c, 10), "m333": mk(c, 333), "m1024": mk(c, 1024),
+            "m16000": mk(c, 16_000), "w3d": mk(c, 5, 5, 8), "offset": buf[1:].view(c, 1024)}
+
+
+def _uniform_factors(device, c, d, faulted=False):
+    spec = ClusterSpec(c, tuple(i // (c // d) for i in range(c)), tuple(RNG.uniform(0.5, 2.0, c)))
+    p = np.ones((1, 1)) if d == 1 else mixing_matrix(chain(d) if faulted else ring(d),
+                                                     spec.m_tilde())
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    return f32(spec.V().T), f32(p), f32(spec.B().T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("alpha", [0, 1, 2])
+@pytest.mark.parametrize("d", [1, 4, 8, 16])
+def test_fused_transition_tree_ragged_one_launch(cuda, dtype, tol, alpha, d):
+    """One launch for the whole ragged tree; each leaf within ``tol`` of the
+    plain version; in place and out of place bitwise equal; the tree equal,
+    bit for bit, to one single-leaf call per leaf."""
+    c = 16
+    vt, p, bt = _uniform_factors(cuda, c, d, faulted=d == 4)
+    tree = _ragged_tree(cuda, dtype, c, seed=alpha)
+    n = fused_transition.launches
+    out = fused_transition_tree(tree, vt, p, bt, alpha=alpha)
+    torch.cuda.synchronize()
+    assert fused_transition.launches == n + 1
+    for k, w in tree.items():
+        flat = w.reshape(c, w.numel() // c)
+        assert out[k].shape == w.shape and out[k].dtype == dtype
+        ref = fused_transition_ref(flat, vt, p, bt, alpha).view(w.shape)
+        torch.testing.assert_close(out[k].float(), ref.float(), atol=tol, rtol=0)
+        assert torch.equal(fused_transition(flat, vt, p, bt, alpha=alpha).view(w.shape), out[k])
+    inplace = {k: w.clone() if k != "offset" else w for k, w in tree.items()}
+    n = fused_transition.launches
+    res = fused_transition_tree(inplace, vt, p, bt, alpha=alpha, inplace=True)
+    torch.cuda.synchronize()
+    assert fused_transition.launches == n + 1
+    for k in tree:
+        assert res[k] is inplace[k] and torch.equal(res[k], out[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgd_update_tree_ragged_bitwise(cuda, dtype):
+    """One launch for the tree, bitwise equal to the plain version, to the
+    in-place update and to one single-leaf call per leaf."""
+    params = _ragged_tree(cuda, dtype, 4, seed=1)
+    params["odd"] = torch.randn(1001, device=cuda).to(dtype)
+    grads = {k: torch.randn_like(w, dtype=torch.float32).to(dtype) for k, w in params.items()}
+    n = sgd_update.launches
+    out = sgd_update_tree(params, grads, 0.05)
+    torch.cuda.synchronize()
+    assert sgd_update.launches == n + 1
+    for k, w in params.items():
+        assert torch.equal(out[k], sgd_update_ref(w, grads[k], 0.05))
+        assert torch.equal(out[k], sgd_update(w, grads[k], 0.05))
+    res = sgd_update_tree(params, grads, 0.05, inplace=True)
+    for k in params:
+        assert res[k] is params[k] and torch.equal(params[k], out[k])
+
+
+@pytest.mark.cuda
+def test_tree_kernels_launch_per_dtype_and_per_max_leaves(cuda):
+    """A tree of more than MAX_LEAVES leaves of one dtype takes two launches,
+    a tree mixing f32 and bf16 two, and each leaf still matches."""
+    vt, p, bt = _uniform_factors(cuda, 20, 4)
+    big = {f"l{i}": torch.randn(20, 90 + 3 * i, device=cuda) for i in range(MAX_LEAVES + 6)}
+    mixed = {"a": torch.randn(20, 64, device=cuda),
+             "b": torch.randn(20, 64, device=cuda).to(torch.bfloat16),
+             "c": torch.randn(20, 7, device=cuda), "d": torch.randn(20, 9, device=cuda).to(
+                 torch.bfloat16)}
+    for tree, tol in ((big, {torch.float32: 1e-5}), (mixed, {torch.float32: 1e-5,
+                                                             torch.bfloat16: 3e-2})):
+        n = fused_transition.launches, sgd_update.launches
+        out = fused_transition_tree(tree, vt, p, bt, alpha=2)
+        grads = {k: torch.randn_like(w, dtype=torch.float32).to(w.dtype) for k, w in tree.items()}
+        new = sgd_update_tree(tree, grads, 0.1)
+        torch.cuda.synchronize()
+        assert (fused_transition.launches - n[0], sgd_update.launches - n[1]) == (2, 2)
+        for k, w in tree.items():
+            ref = fused_transition_ref(w, vt, p, bt, 2)
+            torch.testing.assert_close(out[k].float(), ref.float(), atol=tol[w.dtype], rtol=0)
+            assert torch.equal(new[k], sgd_update_ref(w, grads[k], 0.1))
 
 
 @pytest.mark.cuda
@@ -346,11 +439,12 @@ def test_federated_lm_ring_on_kernels_matches_dense_plain(cuda):
         launched = tuple(c.launches - k for c, k in zip(counters, n))
         runs[backend] = (run.runtime.scheduler.params, losses, launched,
                          run.runtime.evaluate(run.eval_batch)[0])
-    leaves = len(runs["cuda"][0])
     # 2 attention layers x 16 iterations, clients folded into each launch;
-    # one SGD launch per leaf per iteration; 2 rounds x (2 intra + 1 inter)
-    # transitions per superstep
-    assert runs["cuda"][2] == (32, 32, 16 * leaves, 12 * leaves)
+    # one SGD launch per iteration and one per transition (the 12 leaves
+    # fit one leaf table), 2 rounds x (2 intra + 1 inter) transitions per
+    # superstep
+    assert len(runs["cuda"][0]) <= MAX_LEAVES
+    assert runs["cuda"][2] == (32, 32, 16, 12)
     assert runs["dense"][2] == (0, 0, 0, 0)
     torch.testing.assert_close(runs["cuda"][1], runs["dense"][1], atol=1e-4, rtol=0)
     for k, v in runs["cuda"][0].items():

@@ -28,6 +28,8 @@ from repro_torch.kernels import (
     cluster_agg, cluster_agg_tree, fused_transition, fused_transition_tree, gossip_mix,
     gossip_mix_tree, normalized_update, sgd_update, sgd_update_tree,
 )
+from repro_torch.kernels.fused_sgd.ops import plan_launches as sgd_plan
+from repro_torch.kernels.fused_transition.ops import MAX_LEAVES, plan_launches
 
 RNG = np.random.default_rng(0)
 
@@ -135,6 +137,108 @@ def test_cpu_calls_do_not_count_launches():
     cluster_agg(torch.zeros(8, 16), torch.ones(8), 4)
     normalized_update(torch.zeros(5, 16), torch.zeros(5, 16), torch.ones(5))
     assert [f.launches for f in wrappers] == before
+
+
+# -- launch planning of the leaf-table kernels ----------------------------------
+
+@pytest.mark.parametrize("source", ["fused_transition/csrc/fused_transition.cu",
+                                    "fused_sgd/csrc/sgd_update.cu"])
+def test_planner_table_size_matches_the_kernel(source):
+    """Both tree wrappers plan with one planner, and its MAX_LEAVES is the
+    leaf-table size the CUDA source was written for."""
+    import re
+    from pathlib import Path
+
+    import repro_torch.kernels as kernels
+
+    text = (Path(kernels.__file__).parent / source).read_text()
+    assert sgd_plan is plan_launches
+    assert int(re.search(r"constexpr int kMaxLeaves = (\d+);", text).group(1)) == MAX_LEAVES
+
+
+@pytest.mark.parametrize("n,dtypes", [
+    (1, (torch.float32,)), (12, (torch.bfloat16,)), (64, (torch.float32,)),
+    (65, (torch.float32,)), (130, (torch.float32,)), (40, (torch.float32, torch.bfloat16)),
+    (150, (torch.bfloat16, torch.float32, torch.bfloat16)),
+])
+def test_plan_launches_covers_every_leaf_once_in_order(n, dtypes):
+    leaves = [(dtypes[i % len(dtypes)], 4 * (i + 1), (1024 * i,)) for i in range(n)]
+    plan = plan_launches(leaves)
+    seen = [i for _, members in plan for i, _ in members]
+    assert sorted(seen) == list(range(n))
+    for dtype, members in plan:
+        assert 1 <= len(members) <= MAX_LEAVES
+        assert all(leaves[i][0] == dtype for i, _ in members)
+        assert [i for i, _ in members] == sorted(i for i, _ in members)
+    for dtype in set(dtypes):  # ceil(n_dtype / K) launches per dtype, leaves in order
+        idx = [i for i, leaf in enumerate(leaves) if leaf[0] == dtype]
+        assert [i for dt, members in plan if dt == dtype for i, _ in members] == idx
+        assert sum(dt == dtype for dt, _ in plan) == -(-len(idx) // MAX_LEAVES)
+    assert [dt for dt, _ in plan][0] == dtypes[0]  # dtypes in order of first appearance
+
+
+@pytest.mark.parametrize("dtype,m,offset,vec", [
+    (torch.float32, 1024, 0, True),      # aligned, M a multiple of 4
+    (torch.float32, 10, 0, False),       # MnistCNN's b4: M % 4 != 0
+    (torch.float32, 333, 0, False),      # odd M
+    (torch.float32, 1024, 1, False),     # offset view: base 4 bytes past 16
+    (torch.float32, 1024, 4, True),      # offset by one vector: aligned again
+    (torch.bfloat16, 4096, 0, True),     # aligned, M a multiple of 8
+    (torch.bfloat16, 4, 0, False),       # M % 8 != 0
+    (torch.bfloat16, 4096, 2, False),    # offset view: base 4 bytes past 16
+    (torch.bfloat16, 0, 0, True),        # no columns: nothing to load
+])
+def test_plan_launches_vector_flag(dtype, m, offset, vec):
+    buf = torch.zeros(3 * m + offset + 16, dtype=dtype)
+    base = buf.data_ptr()
+    w = buf[(-base // buf.element_size()) % 8:][offset:offset + 3 * m]  # from a 16-byte boundary
+    out = torch.zeros(3 * m, dtype=dtype)
+    assert (w.data_ptr() - offset * w.element_size()) % 16 == 0
+    ((dt, [(i, flag)]),) = plan_launches([(dtype, m, (w.data_ptr(), out.data_ptr()))])
+    assert (dt, i, flag) == (dtype, 0, vec)
+    # every operand must be aligned: a misaligned g or out turns the flag off too
+    ((_, [(_, flag)]),) = plan_launches([(dtype, m, (out.data_ptr(), w.data_ptr()))])
+    assert flag == vec
+
+
+def _trees(kind):
+    """(params, grads) that differ in ``kind``, the mismatch in the last leaf."""
+    params = {"a": torch.ones(3, 4), "b": torch.ones(3, 5)}
+    grads = {"a": torch.ones(3, 4), "b": torch.ones(3, 5)}
+    if kind == "keys":
+        grads = {"a": grads["a"], "c": grads["b"]}
+    elif kind == "shape":
+        grads["b"] = torch.ones(3, 6)
+    elif kind == "dtype":
+        grads["b"] = torch.ones(3, 5, dtype=torch.bfloat16)
+    elif kind == "missing":
+        del grads["b"]
+    return params, grads
+
+
+@pytest.mark.parametrize("kind", ["keys", "shape", "dtype", "missing"])
+def test_sgd_update_tree_refuses_mismatched_trees_before_any_dispatch(kind):
+    params, grads = _trees(kind)
+    before = sgd_update.launches
+    with pytest.raises(ValueError):
+        sgd_update_tree(params, grads, 0.5, inplace=True)
+    assert all(bool((w == 1).all()) for w in params.values())  # no leaf was touched
+    assert sgd_update.launches == before
+
+
+@pytest.mark.parametrize("bad", ["leading_dim", "scalar_leaf", "factor_device"])
+def test_fused_transition_tree_refuses_before_any_dispatch(bad):
+    vt, p, bt = (_t(a) for a in _factors(8, 4))
+    tree = {"a": torch.ones(8, 5), "b": torch.ones(8, 3)}
+    if bad == "leading_dim":
+        tree["b"] = torch.ones(6, 3)
+    elif bad == "scalar_leaf":
+        tree["b"] = torch.tensor(1.0)
+    else:
+        p = p.to("meta")
+    with pytest.raises(ValueError):
+        fused_transition_tree(tree, vt, p, bt, alpha=1, inplace=True)
+    assert bool((tree["a"] == 1).all())
 
 
 # -- the async path's kernels --------------------------------------------------
