@@ -22,7 +22,8 @@
 //   4 f32 or 8 bf16; 8 bytes of bf16 at MAXD = 16, so that y stays at 64
 //   registers and no instantiation spills).  A thread issues the vector
 //   loads of kRowBatch rows (all C = 8 rows at granite widths) before their
-//   FMAs, keeping the rows packed in registers until each is used.
+//   FMAs, keeping the rows packed in registers until each is used; the
+//   first kRowBatch rows of its next tile are loaded before this tile's FMAs.
 // * y = V^T w accumulates in f32 registers (fmaf, c = 0..C-1), P^T is applied
 //   alpha times in registers, and B^T y goes back to device memory with
 //   16-byte stores.  A column belongs to one thread, which reads it whole
@@ -186,12 +187,25 @@ __host__ __device__ constexpr int factor_bytes(int C, int MAXD) {
 // The thread's LANES columns of one tile of a (C, M) leaf: with VEC the
 // columns m0 .. m0 + LANES - 1 (all in the leaf, 16-byte aligned), else
 // m0 + j * kThreads for the j whose column lies in the leaf.
+template <typename T, int MAXD>
+using RawT = typename RawOf<lanes<T, MAXD>() * sizeof(T)>::type;  // one thread's vector
+
+// rows c0 .. c0 + kRowBatch - 1 (those below C) of the thread's vector at m0
+template <typename T, int MAXD>
+__device__ __forceinline__ void load_rows(const T* w, long long M, long long m0, int c0, int C,
+                                          RawT<T, MAXD>* r) {
+#pragma unroll
+  for (int b = 0; b < kRowBatch; ++b)
+    if (c0 + b < C) r[b] = *reinterpret_cast<const RawT<T, MAXD>*>(w + (c0 + b) * M + m0);
+}
+
 template <typename T, int MAXD, bool VEC>
 __device__ __forceinline__ void transition_columns(const T* w, T* out, long long M, long long m0,
+                                                   const RawT<T, MAXD>* first,
                                                    const float* s_v, const float* s_p,
                                                    const float* s_bt, int C, int D, int alpha) {
   constexpr int LANES = lanes<T, MAXD>();
-  using Raw = typename RawOf<LANES * sizeof(T)>::type;
+  using Raw = RawT<T, MAXD>;
   constexpr int kWords = (int)sizeof(Raw) / 4;
   float y[MAXD][LANES];
 #pragma unroll
@@ -201,9 +215,12 @@ __device__ __forceinline__ void transition_columns(const T* w, T* out, long long
   for (int c0 = 0; c0 < C; c0 += kRowBatch) {  // the loads of a batch of rows, then the FMAs
     if constexpr (VEC) {
       Raw r[kRowBatch];  // kept packed until used: kWords registers a row
+      if (c0 == 0) {  // the first batch was loaded ahead, during the previous tile
 #pragma unroll
-      for (int b = 0; b < kRowBatch; ++b)
-        if (c0 + b < C) r[b] = *reinterpret_cast<const Raw*>(w + (c0 + b) * M + m0);
+        for (int b = 0; b < kRowBatch; ++b) r[b] = first[b];
+      } else {
+        load_rows<T, MAXD>(w, M, m0, c0, C, r);
+      }
 #pragma unroll
       for (int b = 0; b < kRowBatch; ++b) {
         if (c0 + b >= C) continue;
@@ -270,17 +287,31 @@ fused_transition_kernel(const __grid_constant__ LeafTable tab, const float* __re
   }
   __syncthreads();
 
-  // vector tiles first, then scalar ones; the leaf cursor only moves forward
-  int l = 0;
+  // vector tiles first, then scalar ones; the leaf cursors only move forward.
+  // A vector tile's first rows are loaded during the tile before it.
+  constexpr int LANES = lanes<T, MAXD>();
+  int l = 0, ln = 0;  // leaves of tile t and of the tile loaded ahead
   long long t = blockIdx.x;
+  RawT<T, MAXD> ahead[kRowBatch];
+  auto load_ahead = [&](long long tn) {
+    while (tn >= tab.first_tile[ln + 1]) ++ln;
+    const long long m0 = (tn - tab.first_tile[ln]) * kTileCols + (long long)tid * LANES;
+    if (m0 < tab.m[ln]) load_rows<T, MAXD>(static_cast<const T*>(tab.w[ln]), tab.m[ln], m0, 0, C,
+                                           ahead);
+  };
+  if (t < tab.vec_tiles) load_ahead(t);
   for (; t < tab.vec_tiles; t += gridDim.x) {
     while (t >= tab.first_tile[l + 1]) ++l;
     const long long M = tab.m[l];
-    const long long m0 = (t - tab.first_tile[l]) * kTileCols + (long long)tid * lanes<T, MAXD>();
+    const long long m0 = (t - tab.first_tile[l]) * kTileCols + (long long)tid * LANES;
+    RawT<T, MAXD> first[kRowBatch];
+#pragma unroll
+    for (int b = 0; b < kRowBatch; ++b) first[b] = ahead[b];
+    if (t + gridDim.x < tab.vec_tiles) load_ahead(t + gridDim.x);
     if (m0 < M)  // M is a multiple of LANES: the thread's vector lies in the leaf
       transition_columns<T, MAXD, true>(static_cast<const T*>(tab.w[l]),
-                                        static_cast<T*>(tab.out[l]), M, m0, s_v, s_p, s_bt,
-                                        C, D, alpha);
+                                        static_cast<T*>(tab.out[l]), M, m0, first, s_v, s_p,
+                                        s_bt, C, D, alpha);
   }
   const long long tiles = tab.first_tile[tab.n];
   for (; t < tiles; t += gridDim.x) {
@@ -289,8 +320,8 @@ fused_transition_kernel(const __grid_constant__ LeafTable tab, const float* __re
     const long long m0 = (t - tab.first_tile[l]) * kTileCols + tid;
     if (m0 < M)  // else the ragged edge of the leaf's last tile
       transition_columns<T, MAXD, false>(static_cast<const T*>(tab.w[l]),
-                                         static_cast<T*>(tab.out[l]), M, m0, s_v, s_p, s_bt,
-                                         C, D, alpha);
+                                         static_cast<T*>(tab.out[l]), M, m0, nullptr, s_v, s_p,
+                                         s_bt, C, D, alpha);
   }
 }
 
