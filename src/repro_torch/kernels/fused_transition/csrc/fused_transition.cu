@@ -17,17 +17,18 @@
 //   an SM) and walks the tile space with a grid-stride loop; a block finds a
 //   tile's leaf by scanning the prefix sums forward.  Nothing is copied to
 //   the device, so a CUDA graph captures the launch as it is.
-// * 16-byte streams: a tile is kTileCols columns of each of the C rows of a
-//   leaf, and every thread owns LANES consecutive columns of it (16 bytes:
-//   4 f32 or 8 bf16; 8 bytes of bf16 at MAXD = 16, so that y stays at 64
-//   registers and no instantiation spills).  A thread issues the vector
-//   loads of kRowBatch rows (all C = 8 rows at granite widths) before their
-//   FMAs, keeping the rows packed in registers until each is used; the
-//   first kRowBatch rows of its next tile are loaded before this tile's FMAs.
+// * 16-byte streams through a TMA ring: a tile is kTileBytes of each of the
+//   C rows of a leaf.  One thread brings a block's next tiles into a ring of
+//   kStages shared-memory buffers with 1-D bulk copies (cp.async.bulk, one
+//   per row, completion on an mbarrier), so up to kStages * C * kTileBytes
+//   a block are in flight without holding registers.  Every thread owns
+//   LANES consecutive columns of the tile (16 bytes: 4 f32 or 8 bf16; 8
+//   bytes of bf16 at MAXD = 16, so that y stays at 64 registers and no
+//   instantiation spills) and reads them from shared memory row by row.
 // * y = V^T w accumulates in f32 registers (fmaf, c = 0..C-1), P^T is applied
 //   alpha times in registers, and B^T y goes back to device memory with
-//   16-byte stores.  A column belongs to one thread, which reads it whole
-//   before it writes it, so ``out`` may alias ``w`` (in place).
+//   16-byte stores.  A column belongs to one thread, and a tile is read
+//   whole before it is written, so ``out`` may alias ``w`` (in place).
 // * The factors are runtime operands staged in shared memory, each row
 //   padded with zeros to MAXD floats, so that a row of V, P or B^T is MAXD/4
 //   vector loads, broadcast to the block: participation weights and faulted
@@ -35,16 +36,22 @@
 //   arithmetic per column is 2 C D + alpha D^2 FMAs, about 3 instructions a
 //   byte in bf16, so the loads of the factors are not negligible.)  D is
 //   bounded by the register array size MAXD (4, 8 or 16, chosen at launch);
-//   D > 16 is refused, and so are factors beyond 48 KB of shared memory.
+//   D > 16 is refused.
 // * The vector path needs each row of the tile 16-byte aligned: the leaf's
 //   bases aligned and M a multiple of the vector (the launcher's ``vec``
 //   flag; such leaves come first in the table).  The other leaves, an odd M
 //   or an offset view, take the scalar path of the same kernel, its LANES
 //   columns kThreads apart, so each warp load is still coalesced.
+// Why a ring: 16-byte register loads of up to 8 rows a thread, with the same
+// padded factors, ran about 5% slower at granite-8b widths (bf16, C = 8,
+// alpha = 2), where the FMAs of a tile are many: a warp waits for its rows
+// and then computes, while the ring streams a block's next tiles during
+// the FMAs.  Loading the next tile's rows into registers as well left two
+// blocks an SM and ran slower still.  ``ab.py`` beside ``ops.py`` times
+// the designs against each other (PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
-#include <string.h>
 
 #include <type_traits>
 
@@ -53,8 +60,11 @@ namespace {
 enum { DT_F32 = 0, DT_BF16 = 1 };  // dtype codes shared with ops.py
 constexpr int kThreads = 128;
 constexpr int kMaxLeaves = 64;     // MAX_LEAVES in kernels/_leaves.py
-constexpr int kRowBatch = 8;       // rows a thread loads before their FMAs
-constexpr int kSmemDefault = 48 * 1024;  // dynamic shared memory without opting in
+constexpr int kStages = 3;         // ring buffers a block keeps in flight, at most
+constexpr int kRowBatch = 8;       // rows of the scalar path loaded before their FMAs
+constexpr int kRingAlign = 128;
+constexpr int kSmemLimit = 227 * 1024;  // a block's shared memory on the H100
+constexpr int kSmemPerSm = 228 * 1024;  // an SM's, 1 KB of it reserved for each block
 
 struct LeafTable {
   const void* w[kMaxLeaves];
@@ -115,6 +125,41 @@ __device__ __forceinline__ void pack(const float* x, uint32_t* wd) {
       wd[i] = *reinterpret_cast<uint32_t*>(&h);
     }
   }
+}
+
+// -- PTX: shared addresses, mbarriers, 1-D bulk copies -----------------------
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(saddr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// `bytes` (a multiple of 16) from a 16-byte aligned global address
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(saddr(dst)),
+      "l"(src), "r"(bytes), "r"(saddr(bar))
+      : "memory");
 }
 
 // MAXD consecutive f32 of a padded factor row, 16 bytes at a time
@@ -179,58 +224,116 @@ __device__ __forceinline__ void expand(const float (&y)[MAXD][LANES], float* o,
   }
 }
 
-// shared memory: the factors in rows padded to MAXD floats
-__host__ __device__ constexpr int factor_bytes(int C, int MAXD) {
-  return (2 * C + MAXD) * MAXD * (int)sizeof(float);
+// shared memory before the ring: the padded factors and kStages mbarriers
+__host__ __device__ constexpr int ring_offset(int C, int MAXD) {
+  return ((2 * C + MAXD) * MAXD * 4 + 8 * kStages + kRingAlign - 1) / kRingAlign * kRingAlign;
 }
 
-// The thread's LANES columns of one tile of a (C, M) leaf: with VEC the
-// columns m0 .. m0 + LANES - 1 (all in the leaf, 16-byte aligned), else
-// m0 + j * kThreads for the j whose column lies in the leaf.
 template <typename T, int MAXD>
-using RawT = typename RawOf<lanes<T, MAXD>() * sizeof(T)>::type;  // one thread's vector
-
-// rows c0 .. c0 + kRowBatch - 1 (those below C) of the thread's vector at m0
-template <typename T, int MAXD>
-__device__ __forceinline__ void load_rows(const T* w, long long M, long long m0, int c0, int C,
-                                          RawT<T, MAXD>* r) {
-#pragma unroll
-  for (int b = 0; b < kRowBatch; ++b)
-    if (c0 + b < C) r[b] = *reinterpret_cast<const RawT<T, MAXD>*>(w + (c0 + b) * M + m0);
-}
-
-template <typename T, int MAXD, bool VEC>
-__device__ __forceinline__ void transition_columns(const T* w, T* out, long long M, long long m0,
-                                                   const RawT<T, MAXD>* first,
-                                                   const float* s_v, const float* s_p,
-                                                   const float* s_bt, int C, int D, int alpha) {
+__global__ void __launch_bounds__(kThreads)
+fused_transition_kernel(const __grid_constant__ LeafTable tab, const float* __restrict__ vt,
+                        const float* __restrict__ p, const float* __restrict__ bt,
+                        int C, int D, int alpha, int stages) {
   constexpr int LANES = lanes<T, MAXD>();
-  using Raw = RawT<T, MAXD>;
-  constexpr int kWords = (int)sizeof(Raw) / 4;
-  float y[MAXD][LANES];
+  constexpr int kTileCols = tile_cols<T, MAXD>();
+  constexpr int kTileBytes = kTileCols * (int)sizeof(T);  // of one row
+  using Raw = typename RawOf<LANES * sizeof(T)>::type;
+
+  // factors in rows padded to MAXD with zeros, so a row is MAXD / 4 vector loads
+  extern __shared__ __align__(kRingAlign) unsigned char smem[];
+  float* s_v = reinterpret_cast<float*>(smem);  // (C, MAXD): V, s_v[c, d] = vt[d, c]
+  float* s_p = s_v + C * MAXD;                   // (MAXD, MAXD)
+  float* s_bt = s_p + MAXD * MAXD;               // (C, MAXD)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_bt + C * MAXD);
+  unsigned char* ring = smem + ring_offset(C, MAXD);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < C * MAXD; i += blockDim.x) {
+    const int c = i / MAXD, d = i % MAXD;
+    s_v[i] = d < D ? vt[d * C + c] : 0.f;
+    s_bt[i] = d < D ? bt[c * D + d] : 0.f;
+  }
+  for (int i = tid; i < MAXD * MAXD; i += blockDim.x) {
+    const int r = i / MAXD, d = i % MAXD;
+    s_p[i] = r < D && d < D ? p[r * D + d] : 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // -- vector tiles: the k-th tile of this block is t = blockIdx.x + k * gridDim.x,
+  //    in ring slot k % stages
+  const long long vec_tiles = stages > 0 ? tab.vec_tiles : 0;
+  int fetch_leaf = 0;  // thread 0's leaf cursor for the copies
+  auto fetch = [&](long long k) {
+    const long long t = blockIdx.x + k * gridDim.x;
+    if (t >= vec_tiles) return;
+    while (t >= tab.first_tile[fetch_leaf + 1]) ++fetch_leaf;
+    const long long M = tab.m[fetch_leaf];
+    const long long base = (t - tab.first_tile[fetch_leaf]) * kTileCols;
+    const long long cols = M - base < kTileCols ? M - base : kTileCols;
+    const uint32_t bytes = (uint32_t)(cols * (long long)sizeof(T));  // a multiple of 16
+    const int slot = (int)(k % stages);
+    uint64_t* bar = &bars[slot];
+    unsigned char* dst = ring + (size_t)slot * C * kTileBytes;
+    const T* src = static_cast<const T*>(tab.w[fetch_leaf]) + base;
+    mbar_expect_tx(bar, bytes * C);
+    for (int c = 0; c < C; ++c) bulk_load(dst + (size_t)c * kTileBytes, src + c * M, bytes, bar);
+  };
+  if (tid == 0)
+    for (int k = 0; k < stages; ++k) fetch(k);
+
+  int l = 0;
+  long long k = 0;
+  for (long long t = blockIdx.x; t < vec_tiles; t += gridDim.x, ++k) {
+    while (t >= tab.first_tile[l + 1]) ++l;
+    const int slot = (int)(k % stages);
+    const long long M = tab.m[l];
+    const long long m0 = (t - tab.first_tile[l]) * kTileCols + (long long)tid * LANES;
+    mbar_wait(&bars[slot], (uint32_t)((k / stages) & 1));
+    if (m0 < M) {  // M is a multiple of LANES: the thread's vector lies in the leaf
+      const unsigned char* src = ring + (size_t)slot * C * kTileBytes + tid * sizeof(Raw);
+      float y[MAXD][LANES];
 #pragma unroll
-  for (int d = 0; d < MAXD; ++d)
+      for (int d = 0; d < MAXD; ++d)
 #pragma unroll
-    for (int j = 0; j < LANES; ++j) y[d][j] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += kRowBatch) {  // the loads of a batch of rows, then the FMAs
-    if constexpr (VEC) {
-      Raw r[kRowBatch];  // kept packed until used: kWords registers a row
-      if (c0 == 0) {  // the first batch was loaded ahead, during the previous tile
-#pragma unroll
-        for (int b = 0; b < kRowBatch; ++b) r[b] = first[b];
-      } else {
-        load_rows<T, MAXD>(w, M, m0, c0, C, r);
-      }
-#pragma unroll
-      for (int b = 0; b < kRowBatch; ++b) {
-        if (c0 + b >= C) continue;
-        uint32_t wd[kWords];
-        memcpy(wd, &r[b], sizeof(Raw));
+        for (int j = 0; j < LANES; ++j) y[d][j] = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const Raw r = *reinterpret_cast<const Raw*>(src + (size_t)c * kTileBytes);
         float x[LANES];
-        unpack<T, LANES>(wd, x);
-        accumulate<MAXD, LANES>(y, x, s_v, D, c0 + b);
+        unpack<T, LANES>(reinterpret_cast<const uint32_t*>(&r), x);
+        accumulate<MAXD, LANES>(y, x, s_v, D, c);
       }
-    } else {
+      mix<MAXD, LANES>(y, s_p, D, alpha);
+      T* dst = static_cast<T*>(tab.out[l]) + m0;
+      for (int c = 0; c < C; ++c) {
+        float o[LANES];
+        expand<MAXD, LANES>(y, o, s_bt, D, c);
+        Raw r;
+        pack<T, LANES>(o, reinterpret_cast<uint32_t*>(&r));
+        *reinterpret_cast<Raw*>(dst + c * M) = r;
+      }
+    }
+    __syncthreads();  // every thread is done with the slot: refill it
+    if (tid == 0) fetch(k + stages);
+  }
+
+  // -- scalar tiles: this thread's LANES columns lie kThreads apart
+  const long long tiles = tab.first_tile[tab.n];
+  for (long long t = vec_tiles + blockIdx.x; t < tiles; t += gridDim.x) {
+    while (t >= tab.first_tile[l + 1]) ++l;
+    const T* w = static_cast<const T*>(tab.w[l]);
+    T* out = static_cast<T*>(tab.out[l]);
+    const long long M = tab.m[l];
+    const long long m0 = (t - tab.first_tile[l]) * kTileCols + tid;
+    if (m0 >= M) continue;  // ragged edge of the leaf's last tile
+    float y[MAXD][LANES];
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d)
+#pragma unroll
+      for (int j = 0; j < LANES; ++j) y[d][j] = 0.f;
+    for (int c0 = 0; c0 < C; c0 += kRowBatch) {  // the loads of a batch of rows, then the FMAs
       float x[kRowBatch][LANES];
 #pragma unroll
       for (int b = 0; b < kRowBatch; ++b)
@@ -243,18 +346,10 @@ __device__ __forceinline__ void transition_columns(const T* w, T* out, long long
       for (int b = 0; b < kRowBatch; ++b)
         if (c0 + b < C) accumulate<MAXD, LANES>(y, x[b], s_v, D, c0 + b);
     }
-  }
-  mix<MAXD, LANES>(y, s_p, D, alpha);
-  for (int c = 0; c < C; ++c) {
-    float o[LANES];
-    expand<MAXD, LANES>(y, o, s_bt, D, c);
-    if constexpr (VEC) {
-      uint32_t wd[kWords];
-      pack<T, LANES>(o, wd);
-      Raw r;
-      memcpy(&r, wd, sizeof(Raw));
-      *reinterpret_cast<Raw*>(out + c * M + m0) = r;
-    } else {
+    mix<MAXD, LANES>(y, s_p, D, alpha);
+    for (int c = 0; c < C; ++c) {
+      float o[LANES];
+      expand<MAXD, LANES>(y, o, s_bt, D, c);
 #pragma unroll
       for (int j = 0; j < LANES; ++j) {
         const long long m = m0 + (long long)j * kThreads;
@@ -264,75 +359,23 @@ __device__ __forceinline__ void transition_columns(const T* w, T* out, long long
   }
 }
 
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kThreads)
-fused_transition_kernel(const __grid_constant__ LeafTable tab, const float* __restrict__ vt,
-                        const float* __restrict__ p, const float* __restrict__ bt,
-                        int C, int D, int alpha) {
-  constexpr int kTileCols = tile_cols<T, MAXD>();
-  // factors in rows padded to MAXD with zeros, so a row is MAXD / 4 vector loads
-  extern __shared__ __align__(16) float smem[];
-  float* s_v = smem;              // (C, MAXD): V, s_v[c, d] = vt[d, c]
-  float* s_p = s_v + C * MAXD;    // (MAXD, MAXD)
-  float* s_bt = s_p + MAXD * MAXD;  // (C, MAXD)
-  const int tid = threadIdx.x;
-  for (int i = tid; i < C * MAXD; i += blockDim.x) {
-    const int c = i / MAXD, d = i % MAXD;
-    s_v[i] = d < D ? vt[d * C + c] : 0.f;
-    s_bt[i] = d < D ? bt[c * D + d] : 0.f;
-  }
-  for (int i = tid; i < MAXD * MAXD; i += blockDim.x) {
-    const int r = i / MAXD, d = i % MAXD;
-    s_p[i] = r < D && d < D ? p[r * D + d] : 0.f;
-  }
-  __syncthreads();
-
-  // vector tiles first, then scalar ones; the leaf cursors only move forward.
-  // A vector tile's first rows are loaded during the tile before it.
-  constexpr int LANES = lanes<T, MAXD>();
-  int l = 0, ln = 0;  // leaves of tile t and of the tile loaded ahead
-  long long t = blockIdx.x;
-  RawT<T, MAXD> ahead[kRowBatch];
-  auto load_ahead = [&](long long tn) {
-    while (tn >= tab.first_tile[ln + 1]) ++ln;
-    const long long m0 = (tn - tab.first_tile[ln]) * kTileCols + (long long)tid * LANES;
-    if (m0 < tab.m[ln]) load_rows<T, MAXD>(static_cast<const T*>(tab.w[ln]), tab.m[ln], m0, 0, C,
-                                           ahead);
-  };
-  if (t < tab.vec_tiles) load_ahead(t);
-  for (; t < tab.vec_tiles; t += gridDim.x) {
-    while (t >= tab.first_tile[l + 1]) ++l;
-    const long long M = tab.m[l];
-    const long long m0 = (t - tab.first_tile[l]) * kTileCols + (long long)tid * LANES;
-    RawT<T, MAXD> first[kRowBatch];
-#pragma unroll
-    for (int b = 0; b < kRowBatch; ++b) first[b] = ahead[b];
-    if (t + gridDim.x < tab.vec_tiles) load_ahead(t + gridDim.x);
-    if (m0 < M)  // M is a multiple of LANES: the thread's vector lies in the leaf
-      transition_columns<T, MAXD, true>(static_cast<const T*>(tab.w[l]),
-                                        static_cast<T*>(tab.out[l]), M, m0, first, s_v, s_p,
-                                        s_bt, C, D, alpha);
-  }
-  const long long tiles = tab.first_tile[tab.n];
-  for (; t < tiles; t += gridDim.x) {
-    while (t >= tab.first_tile[l + 1]) ++l;
-    const long long M = tab.m[l];
-    const long long m0 = (t - tab.first_tile[l]) * kTileCols + tid;
-    if (m0 < M)  // else the ragged edge of the leaf's last tile
-      transition_columns<T, MAXD, false>(static_cast<const T*>(tab.w[l]),
-                                         static_cast<T*>(tab.out[l]), M, m0, nullptr, s_v, s_p,
-                                         s_bt, C, D, alpha);
-  }
-}
-
 // leaves: n rows of (w, out, M, vec) as 64-bit integers
 template <typename T, int MAXD>
 cudaError_t launch(const long long* leaves, int n, const float* vt, const float* p,
                    const float* bt, int C, int D, int alpha, cudaStream_t stream) {
   constexpr long long kTileCols = tile_cols<T, MAXD>();
+  constexpr int kTileBytes = (int)(kTileCols * sizeof(T));
   auto kernel = fused_transition_kernel<T, MAXD>;
-  const int smem = factor_bytes(C, MAXD);
-  if (smem > kSmemDefault) return cudaErrorInvalidValue;
+  // shared memory: factors, mbarriers, then a ring of up to kStages tiles,
+  // fewer (down to 2) where that keeps two blocks on an SM (C = 20 in f32);
+  // with no room for two (C beyond any path's), every leaf takes the
+  // scalar path
+  const int fixed = ring_offset(C, MAXD);
+  const auto smem_of = [&](int s) { return (long long)fixed + (long long)s * C * kTileBytes; };
+  int stages = kStages;
+  while (stages > 2 && 2 * (smem_of(stages) + 1024) > kSmemPerSm) --stages;
+  if (smem_of(stages) > kSmemLimit) stages = 0;
+  const size_t smem = (size_t)smem_of(stages);
 
   LeafTable tab = {};
   tab.n = n;
@@ -340,28 +383,32 @@ cudaError_t launch(const long long* leaves, int n, const float* vt, const float*
   int placed = 0;
   for (int pass = 0; pass < 2; ++pass)
     for (int l = 0; l < n; ++l)
-      if ((leaves[4 * l + 3] != 0) == (pass == 0)) order[placed++] = l;
+      if ((leaves[4 * l + 3] != 0 && stages > 0) == (pass == 0)) order[placed++] = l;
   for (int i = 0; i < n; ++i) {
     const long long* e = leaves + 4 * order[i];
     tab.w[i] = reinterpret_cast<const void*>(e[0]);
     tab.out[i] = reinterpret_cast<void*>(e[1]);
     tab.m[i] = e[2];
     tab.first_tile[i + 1] = tab.first_tile[i] + (e[2] + kTileCols - 1) / kTileCols;
-    if (e[3] != 0) tab.vec_tiles = tab.first_tile[i + 1];
+    if (e[3] != 0 && stages > 0) tab.vec_tiles = tab.first_tile[i + 1];
   }
   const long long tiles = tab.first_tile[n];
   if (tiles == 0) return cudaSuccess;
 
-  // one wave of blocks: the SM count times the blocks that fit on an SM
+  // one wave of blocks: the SM count times the blocks that fit on an SM.
+  // The shared-memory opt-in holds for the current device only, so it is
+  // set, and occupancy asked, at every launch (a few host microseconds).
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long blocks = tiles < full ? tiles : full;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(tab, vt, p, bt, C, D, alpha);
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(tab, vt, p, bt, C, D, alpha, stages);
   return cudaGetLastError();
 }
 
@@ -384,6 +431,8 @@ extern "C" int fused_transition_launch(const long long* leaves, int n, const voi
                                        int dtype, void* stream) {
   if (leaves == nullptr || n < 1 || n > kMaxLeaves) return (int)cudaErrorInvalidValue;
   if (C < 1 || D < 1 || D > 16 || alpha < 0) return (int)cudaErrorInvalidValue;
+  // the factors must fit the default 48 KB of dynamic shared memory
+  if ((size_t)(2 * D * C + D * D) * sizeof(float) > 48 * 1024) return (int)cudaErrorInvalidValue;
   for (int l = 0; l < n; ++l)
     if (leaves[4 * l + 2] < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

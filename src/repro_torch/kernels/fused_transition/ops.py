@@ -68,8 +68,7 @@ def _transition(flats: list, outs: list, vt, p, bt, alpha: int) -> list:
     d, c = vt.shape
     if d > MAX_D:
         raise ValueError(f"fused_transition kernel supports D <= {MAX_D} clusters, got {d}")
-    maxd = next(r for r in (4, 8, MAX_D) if d <= r)  # the kernel pads factor rows to it
-    if (2 * c + maxd) * maxd * 4 > 48 * 1024:
+    if (2 * d * c + d * d) * 4 > 48 * 1024:
         raise ValueError(f"factors for C={c}, D={d} exceed the kernel's 48 KB of shared memory")
     for w, o in zip(flats, outs):
         if w.dtype not in _DTYPES:
