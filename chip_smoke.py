@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old-flash SOURCE]
 
 Phases, one result line each; any failure exits non-zero without the final
 ``{"ok": true, ...}`` line:
@@ -12,10 +12,15 @@ Phases, one result line each; any failure exits non-zero without the final
 2. build    ``nvcc`` builds every kernel library from ``src/`` (five:
             fused_sgd with sgd_update and normalized_update,
             fused_transition, gossip_mix, cluster_agg, flash_attention with
-            its forward and backward kernels), one process per library, all
-            at once.  ptxas's report of the two leaf-table kernels
-            (``fused_transition_kernel``, ``sgd_update_kernel``): the phase
-            fails if any instantiation spills registers.  ``cuobjdump -sass``
+            its forward and backward kernels), one process per source, all
+            at once, beside the flash forward as it stood before the split
+            TF32 redesign (commit db70968's ``flash_attention.cu``, from git,
+            or the file ``--old-flash`` names; without either its A/B below is
+            skipped and says so).  ptxas's report of the leaf-table kernels
+            (``fused_transition_kernel``, ``sgd_update_kernel``,
+            ``cluster_agg_kernel``) and of the split-TF32 forward
+            (``flash_fwd_split_tf32_kernel``): the phase fails if any
+            instantiation spills registers.  ``cuobjdump -sass``
             of the flash library: the counts of ``HGMMA`` (wgmma) and
             ``UTMALDG`` (TMA load) instructions per kernel; the phase fails if
             the bf16 tensor-core forward, dK/dV or dQ kernel has none.
@@ -27,27 +32,35 @@ Phases, one result line each; any failure exits non-zero without the final
             participation weights with a faulted mixing matrix (ring with one
             link down); SGD bit for bit.  gossip_mix:
             D=4, alpha 0/1/2, the ring P and an eq. 22 P_t, in place.
-            cluster_agg: C=20 -> D=4 and the async g=5 -> 1, masked weights.
+            cluster_agg: C=20 -> D=4 and the async g=5 -> 1, masked weights,
+            per leaf and as the tree call (one launch, bitwise the per-leaf
+            calls).
             normalized_update: R=5 rows with 1/theta per row, and R=1.
             Tolerances as the reference's kernel tests: 1e-5 f32
             transition, gossip and aggregation, 1e-6 f32 SGD and normalized
             update, 3e-2 bf16.  Then CUDA-event times of the kernel, the
             plain version and one library call computing the same function
             (where there is one), beside the bound, at the shapes of the
-            path that runs the kernel (the transition and SGD as tree calls
-            in place, against per-leaf ``torch.matmul`` and one
+            path that runs the kernel (the transition, SGD and cluster_agg
+            as tree calls, against per-leaf ``torch.matmul`` and one
             ``torch._foreach_add_``).  Flash attention forward and backward
             against their plain versions at federated-lm-ring's (16, 64, 4,
             4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's (1, 8192,
             8, 4, 256) with window 4096 and cap 50, a GQA case with hd 96
             and a ragged S = 80, and S = 16 (below one tile), f32 and bf16
-            (bf16 on the tensor-core route except gemma2-2b's backward at hd
-            256, which stays on the CUDA cores; 2e-5 f32 and 3e-2 bf16
-            forward, as the reference's kernel tests; lse 1e-4; gradients
-            1e-4 f32 and 3e-2 bf16 relative to the largest reference entry),
-            then timed at both LM phases' shapes against
-            ``scaled_dot_product_attention``, with the achieved TFLOP/s and
-            the share of the bound.
+            (f32 forwards on the split-TF32 route, f32 backwards on the
+            CUDA cores; bf16 on the tensor-core route except gemma2-2b's
+            backward at hd 256, which stays on the CUDA cores; 2e-5 f32 and
+            3e-2 bf16 forward, as the reference's kernel tests; lse 1e-4;
+            gradients 1e-4 f32 and 3e-2 bf16 relative to the largest
+            reference entry),
+            then timed at both LM phases' shapes and the f32 forward also at
+            granite-8b's heads, (2, 2048, 32, 8, 128), against
+            ``scaled_dot_product_attention`` (the kernel the profiler saw it
+            launch is named), with the achieved TFLOP/s and the share of the
+            bound; and the split-TF32 forward against the forward it
+            replaced, built from its old source, in one process (graph
+            replays, old new new old) at those two f32 shapes.
 4. main     the main path: ``mnist-noniid-ring`` with ``tau2=2`` through
             ``build_scenario`` (which calls ``make_run``) on the default
             device, backend auto -> cuda, 10 iterations (local, intra and
@@ -63,13 +76,13 @@ Phases, one result line each; any failure exits non-zero without the final
 6. async    asynchronous SD-FEEL: ``straggler-bimodal-async`` through
             ``build_scenario`` on the default device, backend auto -> cuda,
             24 cluster events, launch counters zeroed just before and read
-            just after (normalized_update, cluster_agg and gossip_mix once
-            per leaf per event).  Held against the same run with the dense
-            backend on the card and on the CPU (identical event sequence,
-            1e-4 max abs on the cluster models, 1e-4 relative on the eval
-            loss).  Then warm events/s, the split of one event (client
-            deltas, normalized_update, cluster_agg, gossip_mix) and the
-            profiled device-busy share.
+            just after (normalized_update and gossip_mix once per leaf per
+            event, cluster_agg once per event: one tree call).  Held against
+            the same run with the dense backend on the card and on the CPU
+            (identical event sequence, 1e-4 max abs on the cluster models,
+            1e-4 relative on the eval loss).  Then warm events/s, the split
+            of one event (client deltas, normalized_update, cluster_agg,
+            gossip_mix) and the profiled device-busy share.
 7. lm       federated LM training: ``federated-lm-ring`` as registered
             (reduced granite: d_model 256, 4 heads of 64, 2 layers, vocab
             512, S = 64; C = 8 in D = 4, tau1 = tau2 = 2, alpha = 2, R = 2)
@@ -77,7 +90,8 @@ Phases, one result line each; any failure exits non-zero without the final
             -> cuda, attn_impl cuda: 4 supersteps (32 iterations) and one
             evaluate, launch counters zeroed just before and read just
             after and held to their exact counts (the clients fold into one
-            attention launch per layer; one SGD and one transition launch per
+            attention launch per layer, forward on the split-TF32 route and
+            backward on the CUDA cores; one SGD and one transition launch per
             stage for the 12 leaves).  Held against the same run with
             the dense backend and plain attention on the card and on the
             CPU (1e-4 max abs on parameters and per-iteration losses, 1e-4
@@ -113,6 +127,7 @@ HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data-sheet memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
+SPLIT_TF32_FLOPS_PER_S = 495e12 / 3  # dense TF32 peak over split TF32's 3 products
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 C, D, LR = 20, 4, 0.05
 G = C // D                  # clients per cluster: the async event's rows
@@ -140,7 +155,7 @@ KERNELS = {
         "replaces": "src/repro/kernels/fused_sgd/kernel.py:29",
     },
     "flash_attention": {
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_split_tf32.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
     },
     "flash_attention_backward": {
@@ -159,6 +174,10 @@ FLASH_SHAPES = {
     "gqa-hd96-ragged": (2, 80, 8, 2, 96, None, None),
     "short-s16": (2, 16, 8, 2, 128, None, None),
 }
+# the f32 forward at granite-8b's head layout (B = 2), timed beside the lm shape
+GRANITE_F32 = (2, 2048, 32, 8, 128, None, None)
+# the forward before the split-TF32 redesign: its source at this commit
+OLD_FLASH = ("db70968", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu")
 # the bf16 tensor-core kernels of csrc/flash_attention_sm90.cu, which the
 # build phase requires to hold wgmma and TMA-load instructions
 FLASH_SM90 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu"
@@ -171,10 +190,13 @@ LM_WIDTH = dict(
     vocab_size=49152, seq_len=2048, batch_size=1, num_samples=16,
 )
 ASYNC_KERNELS = ("normalized_update", "cluster_agg", "gossip_mix")
-# the kernels that take a table of leaves (one launch per tree), by library;
-# the build phase fails if ptxas spills registers in either
+# the sync kernels that take a table of leaves (one launch per tree), by library
 LEAF_TABLE_KERNELS = {"fused_transition": "fused_transition_kernel",
                       "fused_sgd": "sgd_update_kernel"}
+# the kernels the build phase fails if ptxas spills registers in, by library
+SPILL_CHECKED = {**{lib: (k,) for lib, k in LEAF_TABLE_KERNELS.items()},
+                 "cluster_agg": ("cluster_agg_kernel",),
+                 "flash_attention": ("flash_fwd_split_tf32_kernel",)}
 
 
 def fail(msg: str) -> None:
@@ -183,6 +205,13 @@ def fail(msg: str) -> None:
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--old-flash", type=Path, default=None,
+                    help="CUDA source of the flash forward before the split-TF32 redesign "
+                         f"(default: {OLD_FLASH[1]} at commit {OLD_FLASH[0]}, from git)")
+    args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
     sys.path.insert(0, str(SRC))
@@ -190,16 +219,18 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    Smoke(torch).run()
+    Smoke(torch, args.old_flash).run()
 
 
 class Smoke:
-    def __init__(self, torch):
+    def __init__(self, torch, old_flash=None):
         self.torch = torch
         self.dev = torch.device("cuda")
         self.failed: list[str] = []
         self.detail: dict = {}
         self.record: dict = {}
+        self.old_flash_src = old_flash
+        self.old_flash = None  # the old forward's launcher, once built
 
     # -- helpers -------------------------------------------------------------
     def phase(self, name, fn):
@@ -321,15 +352,59 @@ class Smoke:
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
+        old = self.start_old_flash()
         libs = _build.build_all()
+        self.finish_old_flash(old)
         dt = time.perf_counter() - t0
-        print(f"built {sorted(libs)} in {dt:.2f}s (parallel nvcc; sm_90a)", flush=True)
+        print(f"built {sorted(libs)} in {dt:.2f}s (parallel nvcc, one per source; sm_90a)",
+              flush=True)
         for name, log in _build.build_logs.items():
             regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
             print(f"  {name} ptxas: {' | '.join(regs)}", flush=True)
         self.detail["build_s"] = dt
-        self.detail["leaf_table_ptxas"] = self.check_spills()
+        self.detail["spill_checked_ptxas"] = self.check_spills()
         self.detail["flash_sass"] = self.sass_counts(libs["flash_attention"])
+
+    def start_old_flash(self):
+        """Start ``nvcc`` on the flash forward's source from before the
+        split-TF32 redesign (``--old-flash``, else ``git show`` of
+        ``OLD_FLASH``); returns (library path, process) or None where no
+        source is at hand."""
+        from repro_torch.kernels import _build
+
+        out_dir = _build._build_root()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        src = self.old_flash_src
+        if src is None:
+            got = subprocess.run(["git", "-C", str(HERE), "show", f"{OLD_FLASH[0]}:{OLD_FLASH[1]}"],
+                                 capture_output=True, text=True)
+            if got.returncode != 0:
+                print(f"old flash forward: no --old-flash and no git history here "
+                      f"({got.stderr.strip()[:120]}): its A/B is skipped", flush=True)
+                self.detail["old_flash"] = "skipped: no source"
+                return None
+            src = out_dir / f"flash_attention_{OLD_FLASH[0]}.cu"
+            src.write_text(got.stdout)
+        so = out_dir / f"libflash_old_{OLD_FLASH[0]}.so"
+        proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.detail["old_flash"] = str(src)
+        return so, proc
+
+    def finish_old_flash(self, started) -> None:
+        import ctypes
+
+        if started is None:
+            return
+        so, proc = started
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the old flash source:\n{log}")
+        fn = ctypes.CDLL(str(so)).flash_attention_fwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self.old_flash = fn
 
     @staticmethod
     def ptxas_report(log: str) -> dict:
@@ -351,25 +426,26 @@ class Smoke:
         return report
 
     def check_spills(self) -> dict:
-        """Every instantiation of the two leaf-table kernels, with its
+        """Every instantiation of the kernels of ``SPILL_CHECKED``, with its
         registers and spills; raises if ptxas reports a spill store in one."""
         from repro_torch.kernels import _build
 
         found = {}
-        for lib, kname in LEAF_TABLE_KERNELS.items():
+        for lib, knames in SPILL_CHECKED.items():
             if lib not in _build.build_logs:
                 raise AssertionError(f"no ptxas report for kernels/{lib}")
-            rep = {sym: r for sym, r in self.ptxas_report(_build.build_logs[lib]).items()
-                   if kname in sym}
-            if not rep or any(r["spill_stores"] is None for r in rep.values()):
-                raise AssertionError(f"{kname}: no ptxas spill report in the build log")
-            for sym, r in rep.items():
-                print(f"  ptxas {kname} {sym}: {r['registers']} registers, {r['stack']} bytes "
-                      f"stack, {r['spill_stores']} bytes spill stores", flush=True)
-            spilled = {sym: r for sym, r in rep.items() if r["spill_stores"]}
-            if spilled:
-                raise AssertionError(f"{kname}: ptxas spills registers in {spilled}")
-            found[kname] = rep
+            report = self.ptxas_report(_build.build_logs[lib])
+            for kname in knames:
+                rep = {sym: r for sym, r in report.items() if kname in sym}
+                if not rep or any(r["spill_stores"] is None for r in rep.values()):
+                    raise AssertionError(f"{kname}: no ptxas spill report in the build log")
+                for sym, r in rep.items():
+                    print(f"  ptxas {kname} {sym}: {r['registers']} registers, {r['stack']} "
+                          f"bytes stack, {r['spill_stores']} bytes spill stores", flush=True)
+                spilled = {sym: r for sym, r in rep.items() if r["spill_stores"]}
+                if spilled:
+                    raise AssertionError(f"{kname}: ptxas spills registers in {spilled}")
+                found[kname] = rep
         return found
 
     @staticmethod
@@ -465,6 +541,13 @@ class Smoke:
                     "source": FLASH_SM90, "max_abs_err": main_err[f"{kname}@granite-8b"],
                     **{f: w[f] for f in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "tflops", "bound_share")}}
+        g = flash["granite-f32"]["flash_attention"]  # the split-TF32 forward at width
+        self.record["flash_attention"]["f32_width"] = {
+            "max_abs_err": main_err["flash_attention@granite-f32"],
+            **{f: g[f] for f in ("shape", "dtype", "route", "ms", "graph_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms", "graph_library_ms",
+                                 "tflops", "bound_share", "graph_bound_share",
+                                 "library_kernels", "ab")}}
 
     @staticmethod
     def launch_groups(tree: dict) -> int:
@@ -542,8 +625,8 @@ class Smoke:
         at the async path's operands: P_t with alpha 1, g -> 1, R = 5)."""
         torch = self.torch
         from repro_torch.kernels import (
-            cluster_agg, cluster_agg_ref, gossip_mix, gossip_mix_ref, normalized_update,
-            normalized_update_ref,
+            cluster_agg, cluster_agg_ref, cluster_agg_tree, gossip_mix, gossip_mix_ref,
+            normalized_update, normalized_update_ref,
         )
         from repro_torch.models import CifarCNN, MnistCNN
 
@@ -590,19 +673,40 @@ class Smoke:
                     hold("normalized_update", normalized_update(wf[0], w0[0], 1.0 / 7.0),
                          normalized_update_ref(wf[0], w0[0], 1.0 / 7.0), n_tol,
                          f"{mname} {dtype} {k} R=1", False)
+                # the tree calls: one launch each, every leaf bitwise the
+                # per-leaf call and within tol of the plain version
+                for what, tree, wt, d in (("C->D masked", ws, masked, D),
+                                          ("g->1", {k: w[:G] for k, w in ws.items()},
+                                           m_hat[:G], 1)):
+                    n = cluster_agg.launches
+                    out = cluster_agg_tree(tree, wt, d)
+                    torch.cuda.synchronize()
+                    if cluster_agg.launches - n != self.launch_groups(tree):
+                        raise AssertionError(f"cluster_agg tree {mname} {dtype} {what}: "
+                                             f"{cluster_agg.launches - n} launches")
+                    for k, w in tree.items():
+                        flat = w.reshape(w.shape[0], -1)
+                        got = out[k].reshape(d, -1)
+                        if not torch.equal(got, cluster_agg(flat, wt, d)):
+                            raise AssertionError(f"cluster_agg tree {mname} {dtype} {what} {k}: "
+                                                 f"not bitwise the per-leaf call")
+                        hold("cluster_agg", got, cluster_agg_ref(flat, wt, d), tol,
+                             f"{mname} {dtype} {k} tree {what}", False)
                 torch.cuda.synchronize()
                 print(f"  {mname} {str(dtype)[6:]}: gossip_mix (ring, P_t x alpha 0-2, in "
-                      f"place), cluster_agg (C->D, g->1, masked) and normalized_update "
-                      f"(R=5, R=1) agree with their plain versions", flush=True)
+                      f"place), cluster_agg (C->D, g->1, masked; per leaf and as one tree "
+                      f"launch, bitwise alike) and normalized_update (R=5, R=1) agree with "
+                      f"their plain versions", flush=True)
 
     def time_async_kernels(self, mcls) -> dict:
         """Times of the async path's kernels at its shapes: the (D, M) cluster
         stack mixed in place with P_t (alpha 1), the fired cluster's (g, M)
-        deltas reduced with m^ to (1, M), and (g, M) normalized updates."""
+        deltas reduced with m^ to (1, M) by one tree call, and (g, M)
+        normalized updates."""
         torch = self.torch
         from repro_torch.kernels import (
-            cluster_agg, cluster_agg_ref, gossip_mix, gossip_mix_ref, normalized_update,
-            normalized_update_ref,
+            cluster_agg, cluster_agg_ref, cluster_agg_tree, gossip_mix, gossip_mix_ref,
+            normalized_update, normalized_update_ref,
         )
 
         mixings, _, m_hat, inv = self.async_operands()
@@ -624,8 +728,8 @@ class Smoke:
                 "plain_ms": lambda: [gossip_mix_ref(v, p_dev, 1) for v in y.values()],
                 "library_ms": lambda: [torch.matmul(p_dev.T, v) for v in y.values()],
             },
-            "cluster_agg": {
-                "ms": lambda: [cluster_agg(v, m_row, 1, out=agg_out[k]) for k, v in wf.items()],
+            "cluster_agg": {  # the tree call, one launch, as the event makes it
+                "ms": lambda: cluster_agg_tree(wf, m_row, 1),
                 "plain_ms": lambda: [cluster_agg_ref(v, m_row, 1) for v in wf.values()],
                 "library_ms": lambda: [torch.matmul(m_row[None], v) for v in wf.values()],
             },
@@ -723,6 +827,22 @@ class Smoke:
                       f"{route(dtype, shape[4], backward=True)} backward): forward max abs err "
                       f"{err:.3e} (tol {f_tol}), lse {lse_err:.3e}; backward {g_err:.3e} (tol "
                       f"{g_tol} relative)", flush=True)
+        # the f32 forward at granite-8b's heads, the timed split-TF32 shape
+        q, k, v, _ = self.flash_inputs(GRANITE_F32, torch.float32)
+        out, lse = flash_attention_fwd(q, k, v)
+        ref_out, ref_lse = flash_attention_fwd_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = (out - ref_out).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        del q, k, v, out, lse, ref_out, ref_lse
+        torch.cuda.empty_cache()
+        if not (err <= 2e-5 and lse_err <= 1e-4):
+            raise AssertionError(f"flash_attention granite-f32: max abs err {err} (tol 2e-5), "
+                                 f"lse {lse_err} (tol 1e-4)")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        main_err["flash_attention@granite-f32"] = err
+        print(f"  flash granite-f32 {GRANITE_F32[:5]} float32 ({route(torch.float32, 128)} "
+              f"forward): max abs err {err:.3e} (tol 2e-5), lse {lse_err:.3e}", flush=True)
 
     @staticmethod
     def flash_work(shape, itemsize):
@@ -738,10 +858,13 @@ class Smoke:
 
     def time_flash(self) -> dict:
         """Forward and backward times at the lm phase's shape (f32) and the
-        lm-width phase's (granite-8b, bf16): the kernel, the plain version
-        and ``scaled_dot_product_attention`` (causal, GQA), beside the bound.
-        Each also replayed from a CUDA graph, except the library backward:
-        that is ``autograd.grad`` of one retained autograd graph."""
+        lm-width phase's (granite-8b, bf16), and the f32 forward alone at
+        granite-8b's heads (``GRANITE_F32``): the kernel, the plain version
+        and ``scaled_dot_product_attention`` (causal, GQA; the kernels the
+        profiler saw it launch are named), beside the bound.  Each also
+        replayed from a CUDA graph, except the library backward: that is
+        ``autograd.grad`` of one retained autograd graph.  The f32 forwards
+        also run against the forward they replaced (``flash_ab``)."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import (
@@ -751,35 +874,40 @@ class Smoke:
         from repro_torch.kernels.flash_attention import route
 
         out = {}
-        for sname, dtype in (("federated-lm-ring", torch.float32),
-                             ("granite-8b", torch.bfloat16)):
-            shape = FLASH_SHAPES[sname]
+        for sname, shape, dtype, backward in (
+                ("federated-lm-ring", FLASH_SHAPES["federated-lm-ring"], torch.float32, True),
+                ("granite-8b", FLASH_SHAPES["granite-8b"], torch.bfloat16, True),
+                ("granite-f32", GRANITE_F32, torch.float32, False)):
             window, cap = shape[5:]
             small = shape[1] <= 256
             q, k, v, dout = self.flash_inputs(shape, dtype, seed=1)
             o, lse = flash_attention_fwd(q, k, v, window, cap)
             qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, dout))  # (B, H, S, hd)
-            leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
-            lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-            calls = {
-                "flash_attention": {
-                    "ms": lambda: flash_attention_fwd(q, k, v, window, cap),
-                    "plain_ms": lambda: flash_attention_fwd_ref(q, k, v, window, cap),
-                    "library_ms": lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True),
-                },
-                "flash_attention_backward": {
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)
+            calls = {"flash_attention": {
+                "ms": lambda: flash_attention_fwd(q, k, v, window, cap),
+                "plain_ms": lambda: flash_attention_fwd_ref(q, k, v, window, cap),
+                "library_ms": sdpa,
+            }}
+            if backward:
+                leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+                lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                         enable_gqa=True)
+                calls["flash_attention_backward"] = {
                     "ms": lambda: flash_attention_bwd(q, k, v, o, lse, dout, window, cap),
                     "plain_ms": lambda: flash_attention_bwd_ref(q, k, v, o, lse, dout,
                                                                 window, cap),
                     "library_ms": lambda: torch.autograd.grad(lib_out, leaves, gt,
                                                               retain_graph=True),
-                },
-            }
+                }
             flops_f, flops_b, bytes_f, bytes_b = self.flash_work(shape, q.element_size())
-            peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
-            bounds = {"flash_attention": self.bound(bytes_f, flops_f, peak),
-                      "flash_attention_backward": self.bound(bytes_b, flops_b, peak)}
+            way = route(dtype, shape[4])
+            peak_f = {"split_tf32": SPLIT_TF32_FLOPS_PER_S,
+                      "tensor_core": BF16_FLOPS_PER_S}[way]
+            peak_b = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+            bounds = {"flash_attention": self.bound(bytes_f, flops_f, peak_f),
+                      "flash_attention_backward": self.bound(bytes_b, flops_b, peak_b)}
             res = {}
             for kname, fns in calls.items():
                 reps = 20 if small else 3
@@ -795,13 +923,69 @@ class Smoke:
                                   route=route(dtype, shape[4], kname.endswith("backward")),
                                   tflops=flops / t["ms"] / 1e9, bound_share=bnd / t["ms"],
                                   graph_bound_share=bnd / t["graph_ms"])
+            res["flash_attention"]["library_kernels"] = self.device_kernels(sdpa)
+            if dtype == torch.float32:
+                res["flash_attention"]["ab"] = self.flash_ab(q, k, v, shape, flops_f, reps)
+            for kname, r in res.items():
                 print(f"  time flash {sname} {str(dtype)[6:]} {kname}: " + ", ".join(
                     f"{key}={val:.6g}" if isinstance(val, float) else f"{key}={val}"
-                    for key, val in res[kname].items()), flush=True)
+                    for key, val in r.items()), flush=True)
             out[sname] = res
-            del q, k, v, dout, o, lse, qt, kt, vt, gt, leaves, lib_out, calls
+            del q, k, v, dout, o, lse, qt, kt, vt, gt, calls, sdpa
+            if backward:
+                del leaves, lib_out
             torch.cuda.empty_cache()
         return out
+
+    def device_kernels(self, fn) -> list:
+        """Names of the device kernels one call of ``fn`` launches, as the
+        profiler saw them."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+    def flash_ab(self, q, k, v, shape, flops, reps) -> dict:
+        """The split-TF32 forward against the forward it replaced (built from
+        its old source at build time), no window or cap, on the same inputs:
+        both held to each other, then graph replays in the order old new new
+        old."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention_fwd
+
+        if self.old_flash is None:
+            return {"skipped": self.detail.get("old_flash", "no source")}
+        b, s, hq, hkv, hd = shape[:5]
+        o_old = torch.empty_like(q)
+        l_old = torch.empty((b, hq, s), dtype=torch.float32, device=self.dev)
+
+        def old():
+            rc = self.old_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_old.data_ptr(),
+                                l_old.data_ptr(), b, s, hq, hkv, hd, 0, 0.0, hd ** -0.5, 0,
+                                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"old flash forward: cudaError_t {rc}")
+
+        new = lambda: flash_attention_fwd(q, k, v)
+        old()
+        o_new, l_new = new()
+        torch.cuda.synchronize()
+        diff = (o_new - o_old).abs().max().item()
+        ldiff = (l_new - l_old).abs().max().item()
+        if not (diff <= 4e-5 and ldiff <= 2e-4):  # each within 2e-5 / 1e-4 of the plain version
+            raise AssertionError(f"split-TF32 and old forward differ by {diff} (lse {ldiff})")
+        ms = {"old": [], "new": []}
+        for key in ("old", "new", "new", "old"):
+            ms[key].append(self.graph_ms(old if key == "old" else new, reps=reps))
+        return {"graph_ms": ms, "max_abs_diff": diff, "lse_max_abs_diff": ldiff,
+                "tflops": {key: flops / (sum(v) / len(v)) / 1e9 for key, v in ms.items()},
+                "old_source": self.detail.get("old_flash")}
 
     def time_kernels(self, mcls, factors) -> dict:
         """Times of the two leaf-table kernels over every leaf of ``mcls``
@@ -1079,7 +1263,7 @@ class Smoke:
         the scheduler calls it, on the next event's cluster and batches."""
         import numpy as np
         from repro_torch.core import staleness_mixing_matrix
-        from repro_torch.kernels import cluster_agg, normalized_update
+        from repro_torch.kernels import cluster_agg_tree, normalized_update
 
         torch = self.torch
         sched = run.runtime.scheduler
@@ -1101,8 +1285,7 @@ class Smoke:
                                              reps=5, warmup=2),
             "normalized_update_ms": self.cuda_ms(
                 lambda: [normalized_update(wf[k], w0f[k], inv) for k in wf], reps=10),
-            "cluster_agg_ms": self.cuda_ms(
-                lambda: [cluster_agg(v, m_hat, 1) for v in deltas.values()], reps=10),
+            "cluster_agg_ms": self.cuda_ms(lambda: cluster_agg_tree(deltas, m_hat, 1), reps=10),
             "gossip_mix_ms": self.cuda_ms(lambda: sched.backend.inter_cluster(y, p_t, 1),
                                           reps=10),
         }
@@ -1122,9 +1305,12 @@ class Smoke:
         if sched.backend.name != "cuda" or run.runtime.device.type != "cuda":
             raise AssertionError(f"auto resolved to {sched.backend.name} on {run.runtime.device}")
         leaves = len(sched.y)
-        expected = ASYNC_EVENTS * leaves  # one launch per leaf per cluster event
-        if any(n != expected for n in launches.values()):
-            raise AssertionError(f"async launches {launches}, expected {expected} each")
+        # normalized_update and gossip_mix: one launch per leaf per cluster
+        # event; cluster_agg: one tree call per event, one launch per group
+        expected = {k: ASYNC_EVENTS * leaves for k in counters}
+        expected["cluster_agg"] = ASYNC_EVENTS * self.launch_groups(sched.y)
+        if launches != expected:
+            raise AssertionError(f"async launches {launches}, expected {expected}")
         self.check_finite(sched.y, "async cuda run")
         self.check_finite(run.runtime.global_params(), "async cuda run (consensus)")
         print(f"async {name} on {run.runtime.device}, backend {sched.backend.name}: "
@@ -1156,7 +1342,7 @@ class Smoke:
         print(f"async warm: {warm:.3f} events/s over {ASYNC_EVENTS} more events; split "
               + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
               + f"; profiled 8 events: {json.dumps(busy)}", flush=True)
-        self.detail["async"] = {"launches": launches, "events": events,
+        self.detail["async"] = {"launches": launches, "expected": expected, "events": events,
                                 "events_per_s_cold": ASYNC_EVENTS / dt,
                                 "events_per_s_warm": warm, "split": split, "profile": busy,
                                 "eval_loss": loss, "eval_acc": acc, "references": ref}
@@ -1178,14 +1364,14 @@ class Smoke:
         return counters
 
     @staticmethod
-    def check_routes(counters, want: str, what: str) -> dict:
-        """Every flash launch of the run took route ``want``."""
-        routes = {k: dict(counters[k].routes)
-                  for k in ("flash_attention", "flash_attention_backward")}
+    def check_routes(counters, want: dict, what: str) -> dict:
+        """Every flash launch of the run took the route ``want`` names for
+        its wrapper."""
+        routes = {k: dict(counters[k].routes) for k in want}
         for k, r in routes.items():
-            if r[want] != counters[k].launches or r[want] == 0:
+            if r[want[k]] != counters[k].launches or r[want[k]] == 0:
                 raise AssertionError(f"{what}: {k} routes {r}, expected all "
-                                     f"{counters[k].launches} on {want}")
+                                     f"{counters[k].launches} on {want[k]}")
         return routes
 
     def run_lm(self, steps, device=None, **overrides):
@@ -1222,7 +1408,8 @@ class Smoke:
         run, dt, losses = self.run_lm(LM_STEPS)
         loss, _ = run.runtime.evaluate(run.eval_batch)
         launches = {k: fn.launches for k, fn in counters.items()}
-        self.check_routes(counters, "cuda_core", "lm (f32)")
+        routes = self.check_routes(counters, {"flash_attention": "split_tf32",
+                                              "flash_attention_backward": "cuda_core"}, "lm (f32)")
         sched, cfg = run.runtime.scheduler, run.runtime.model.cfg
         if sched.backend.name != "cuda" or run.runtime.device.type != "cuda" \
                 or cfg.attn_impl != "cuda":
@@ -1242,7 +1429,7 @@ class Smoke:
               f"(C={c}, b={b}, S={s}, {cfg.num_layers} layers, {leaves} leaves); launches "
               f"{json.dumps(launches)} (expected exactly); {iters / dt:.3f} it/s cold "
               f"({dt:.4f}s); losses first {losses[0]:.6f} last {losses[-1]:.6f}; eval loss "
-              f"{loss:.6f}", flush=True)
+              f"{loss:.6f}; flash routes {json.dumps(routes)}", flush=True)
         for kname in ("flash_attention", "flash_attention_backward"):
             self.record[kname]["launches"] = launches[kname]
 
@@ -1271,7 +1458,7 @@ class Smoke:
         print(f"lm warm: {warm:.3f} it/s, {tokens:.1f} tokens/s over {LM_STEPS} more "
               f"supersteps; split " + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
               + f"; profiled 2 supersteps: {json.dumps(busy)}", flush=True)
-        self.detail["lm"] = {"launches": launches, "expected": expected,
+        self.detail["lm"] = {"launches": launches, "expected": expected, "flash_routes": routes,
                              "it_per_s_cold": iters / dt, "it_per_s_warm": warm,
                              "tokens_per_s_warm": tokens, "split": split, "profile": busy,
                              "eval_loss": loss, "losses": losses.tolist(), "references": ref}
@@ -1284,7 +1471,9 @@ class Smoke:
         run, dt, losses = self.run_lm(LM_WIDTH_STEPS, **LM_WIDTH)
         peak = torch.cuda.max_memory_allocated()
         launches = {k: fn.launches for k, fn in counters.items()}
-        routes = self.check_routes(counters, "tensor_core", "lm-width (bf16)")
+        routes = self.check_routes(counters, {"flash_attention": "tensor_core",
+                                              "flash_attention_backward": "tensor_core"},
+                                   "lm-width (bf16)")
         for kname in routes:
             self.record[kname]["width"]["launches"] = launches[kname]
         sched, cfg = run.runtime.scheduler, run.runtime.model.cfg
@@ -1462,9 +1651,10 @@ class Smoke:
         keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels = [dict(name=k, route="cuda", **KERNELS[k], **{f: self.record[k][f] for f in keys})
                    for k in KERNELS]
-        for entry in kernels:  # the flash kernels' granite-8b bf16 numbers
-            if "width" in self.record[entry["name"]]:
-                entry["width"] = self.record[entry["name"]]["width"]
+        for entry in kernels:  # granite-8b's numbers (bf16; the f32 forward's too)
+            for extra in ("width", "f32_width"):
+                if extra in self.record[entry["name"]]:
+                    entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {

@@ -368,8 +368,8 @@ class AsyncScheduler:
 
     On the ``cuda`` backend eq. 19 runs through the ``normalized_update``
     kernel (one factor ``1 / theta_i`` per client row) and eq. 20's reduction
-    through ``cluster_agg`` (the fired cluster's ``(g, M)`` stack to
-    ``(1, M)``); on ``dense`` both are the plain expressions the reference
+    through ``cluster_agg_tree`` (the fired cluster's ``(g, M)`` stacks to
+    ``(1, M)``, one launch for the tree); on ``dense`` both are the plain expressions the reference
     writes.  The queue already names the next event when a step finishes,
     so its batches are gathered and copied (non-blocking) right after the
     current event's launches; ``prefetch=False`` draws the same streams.
@@ -458,16 +458,18 @@ class AsyncScheduler:
         w0, w = self._local_steps(d, batches)
         theta_bar = self._theta_bars[d]
         if self._use_kernels:
-            from ..kernels import cluster_agg, normalized_update
+            from ..kernels import cluster_agg_tree, normalized_update
 
-            for k, y in self.y.items():
+            deltas = {}
+            for k in self.y:
                 # vmap(grad) returns conv-kernel gradients as permuted views,
                 # and w_final inherits that layout from them: the kernels
                 # stream contiguous rows
                 wf = w[k].reshape(g, -1).contiguous()
-                delta = normalized_update(wf, w0[k].view(g, -1), self._inv_thetas[d])
-                r = cluster_agg(delta, self._m_hats[d], 1)
-                y[d].add_(theta_bar * r.view(y.shape[1:]))
+                deltas[k] = normalized_update(wf, w0[k].view(g, -1), self._inv_thetas[d])
+            rs = cluster_agg_tree(deltas, self._m_hats[d], 1)  # one launch for the tree
+            for k, y in self.y.items():
+                y[d].add_(theta_bar * rs[k].view(y.shape[1:]))
         else:
             for k, y in self.y.items():
                 theta = self._thetas[d].view((g,) + (1,) * (y.dim() - 1))

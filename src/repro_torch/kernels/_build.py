@@ -4,9 +4,10 @@ Each kernel package keeps its sources under ``csrc/`` and exports plain
 ``extern "C"`` launchers that return ``cudaGetLastError()``.  ``load(name)``
 compiles ``csrc/*.cu`` of ``kernels/<name>`` for ``sm_90a`` into a shared
 library at first use and loads it; ``build_all()`` starts one ``nvcc`` per
-kernel at once.  Libraries land in ``build/repro_torch_kernels/`` of the
-checkout (or ``$REPRO_TORCH_BUILD_DIR``), keyed by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads as built.
+source of every kernel at once, then links each library.  Libraries land in
+``build/repro_torch_kernels/`` of the checkout (or ``$REPRO_TORCH_BUILD_DIR``),
+keyed by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads as built.
 
 Nothing here runs at import: the CPU tests import every module, and
 ``nvcc`` is only called when a kernel is first launched on a CUDA tensor (or
@@ -70,15 +71,18 @@ def _target(name: str) -> tuple[Path, list[Path]]:
 
 
 def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns (path, proc|None)."""
+    """Start one ``nvcc -c`` per source of ``name`` unless its library exists;
+    returns (path, (procs, objects) | None)."""
     so, srcs = _target(name)
     if so.exists():
         return so, None
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return so, (proc, tmp)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o") for src in srcs]
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    return so, (procs, objs)
 
 
 def _finish(name: str, so: Path, pending) -> None:
@@ -87,18 +91,33 @@ def _finish(name: str, so: Path, pending) -> None:
         if log.exists():
             build_logs[name] = log.read_text()
         return
-    proc, tmp = pending
-    out, _ = proc.communicate()
-    build_logs[name] = out
-    if proc.returncode != 0:
+    procs, objs = pending
+    outs = [proc.communicate()[0] for proc in procs]
+    rcs = [proc.returncode for proc in procs]
+    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+    try:
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed for kernels/{name} (rc {rcs}):\n" + "".join(outs))
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        outs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking kernels/{name} failed (rc {link.returncode}):\n"
+                               + "".join(outs))
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for kernels/{name} (rc {proc.returncode}):\n{out}")
-    so.with_suffix(".log").write_text(out)
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_logs[name] = "".join(outs)
+    so.with_suffix(".log").write_text(build_logs[name])
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 
 def build_all(names=KERNELS) -> dict[str, Path]:
-    """Build every named kernel library, all ``nvcc`` processes at once."""
+    """Build every named kernel library, one ``nvcc`` per source, all at once."""
     with _lock:
         started = {n: _start(n) for n in names if n not in _libs}
         errors = []

@@ -1,45 +1,43 @@
-// Causal GQA flash attention, forward and backward, for Hopper (sm_90a).
+// Causal GQA flash attention backward on the CUDA cores, for Hopper (sm_90a).
 //
-// Forward: replaces the TPU kernel
-// repro/kernels/flash_attention/kernel.py::flash_attention_kernel (via
-// flash_attention_pallas).  Backward: no TPU counterpart (the reference
-// differentiates its plain attention through XLA); FlashAttention-2 style,
-// no atomics.  These are the CUDA-core kernels: they serve f32, the hd-256
-// backward and hd % 8 != 0.  bf16 otherwise runs on the tensor cores
-// (flash_attention_sm90.cu).
+// No TPU counterpart (the reference differentiates its plain attention
+// through XLA); FlashAttention-2 style, no atomics.  These kernels serve the
+// f32 backward, the hd-256 backward and hd % 8 != 0.  bf16 with hd % 8 == 0
+// and hd <= 128 runs on the tensor cores (flash_attention_sm90.cu); every
+// forward runs on the tensor cores too (flash_attention_sm90.cu for bf16
+// with hd % 8 == 0, flash_attention_split_tf32.cu for the rest).
 //
 // Layouts as the reference's wrapper takes them: q (B, S, Hq, hd), k and v
 // (B, S, Hkv, hd), row-major, f32 or bf16; the KV head of query head h is
 // h / (Hq / Hkv).  lse and delta are f32 (B, Hq, S).  Scores are
 // (q . k) * hd^-0.5, then cap * tanh(s / cap) when a cap is set; key kp is
 // live for query qp when kp <= qp (and qp - kp < window when a window is
-// set).  NEG_INF = -1e30, masked probabilities are exactly 0, l is clamped
-// at 1e-30; f32 arithmetic throughout, outputs in the input dtype.
+// set).  NEG_INF = -1e30, masked probabilities are exactly 0; f32 arithmetic
+// throughout, outputs in the input dtype.
 //
-// What bounds it: at the path's shapes the work is 4 * hd flops per live
-// (query, key) pair forward (about 2.5x that backward) against
-// (3 + 1) * S * H * hd elements of traffic, far above the card's
-// bytes-to-flops ratio, so the bound is operations.  These kernels run on
-// the CUDA cores in f32 (no wgmma, no TMA): they are the simple, correct
-// first version, and sit well above the tensor-core bound in bf16.
+// What bounds it: at the path's shapes the work is about 2.5 x 4 * hd flops
+// per live (query, key) pair against (4 + 4) * S * H * hd elements of
+// traffic, far above the card's bytes-to-flops ratio, so the bound is
+// operations.  These kernels run on the CUDA cores in f32 (no wgmma, no
+// TMA): they are the simple, correct first version.
 //
-// Design.  A block of 8 warps owns a tile of rows (forward and dQ: query
-// rows, 8 or 4 per warp; dK/dV: key rows).  The other operand streams
-// through shared memory in f32 tiles, converted once on load; shared rows
-// that lanes index by row are padded by 4 floats, so the 16-byte loads of
-// 8 lanes fall on distinct banks.  In the score phase each lane owns one or
-// two columns of the tile and all of its warp's rows, and the rows it
-// shares with the warp are broadcast reads.  Row statistics (max, sum) are
-// warp shuffles.  The probabilities (or dS) go through shared memory to the
-// product phase, where each lane owns hd / 32 output columns of every row
-// of its warp, kept in registers for the whole loop.  Only live tiles are
-// visited: from the window's first key (or 0) to the diagonal forward and
-// for dQ; from the diagonal to the window's reach for dK/dV, which loops
-// over the G query heads of its KV head too, so GQA sums without atomics.
-// The heaviest tiles (last along S) are launched first.  Any S (the ragged
-// edge is masked by position), any hd <= 256 (the tile width HD is 64, 128
-// or 256, zero-filled beyond hd).  Tile sizes keep every block under the
-// 227 KB of shared memory (the attribute is raised above 48 KB at launch).
+// Design.  A block of 8 warps owns a tile of rows (dQ: query rows, 8 or 4
+// per warp; dK/dV: key rows).  The other operand streams through shared
+// memory in f32 tiles, converted once on load; shared rows that lanes index
+// by row are padded by 4 floats, so the 16-byte loads of 8 lanes fall on
+// distinct banks.  In the score phase each lane owns one or two columns of
+// the tile and all of its warp's rows, and the rows it shares with the warp
+// are broadcast reads.  Row statistics are warp shuffles.  dS goes through
+// shared memory to the product phase, where each lane owns hd / 32 output
+// columns of every row of its warp, kept in registers for the whole loop.
+// Only live tiles are visited: from the window's first key (or 0) to the
+// diagonal for dQ; from the diagonal to the window's reach for dK/dV, which
+// loops over the G query heads of its KV head too, so GQA sums without
+// atomics.  The heaviest tiles (last along S) are launched first.  Any S
+// (the ragged edge is masked by position), any hd <= 256 (the tile width HD
+// is 64, 128 or 256, zero-filled beyond hd).  Tile sizes keep every block
+// under the 227 KB of shared memory (the attribute is raised above 48 KB at
+// every launch).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -49,7 +47,6 @@ namespace {
 enum { DT_F32 = 0, DT_BF16 = 1 };  // dtype codes shared with ops.py
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
 
 struct Shape {
   int B, S, Hq, Hkv, hd;
@@ -86,12 +83,6 @@ __device__ __forceinline__ float comp(float4 a, int i) {
   return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -112,126 +103,6 @@ __device__ void load_tile(float* dst, int ld, const T* __restrict__ src, int b, 
     float x = 0.f;
     if (s < sh.S && d < sh.hd) x = to_f32(src[(((int64_t)b * sh.S + s) * H + h) * sh.hd + d]);
     dst[r * ld + d] = x;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Forward: one block per (b * Hq + h, tile of BQ = 8 * RQ query rows).
-// ---------------------------------------------------------------------------
-template <typename T, int HD, int RQ, int BK>
-struct Fwd {
-  static constexpr int BQ = kWarps * RQ, JK = BK / 32, NC = HD / 32, LD = HD + 4;
-  static constexpr size_t smem = sizeof(float) * (BQ * LD + BK * LD + BK * HD + BQ * BK);
-};
-
-template <typename T, int HD, int RQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, const Shape sh) {
-  using F = Fwd<T, HD, RQ, BK>;
-  constexpr int BQ = F::BQ, JK = F::JK, NC = F::NC, LD = F::LD;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // BQ x LD
-  float* Ks = Qs + BQ * LD;                     // BK x LD
-  float* Vs = Ks + BK * LD;                     // BK x HD
-  float* Ps = Vs + BK * HD;                     // BQ x BK
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.x, b = bh / sh.Hq, h = bh % sh.Hq, kvh = h / (sh.Hq / sh.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
-  load_tile<T, HD>(Qs, LD, q, b, h, sh.Hq, sh, q0, BQ);
-
-  float m[RQ], l[RQ], acc[RQ][NC];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int q_last = min(q0 + BQ, sh.S) - 1;
-  const int k_first = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
-  for (int k0 = (k_first / BK) * BK; k0 <= q_last; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD>(Ks, LD, k, b, kvh, sh.Hkv, sh, k0, BK);
-    load_tile<T, HD>(Vs, HD, v, b, kvh, sh.Hkv, sh, k0, BK);
-    __syncthreads();
-
-    float s[RQ][JK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < JK; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < HD; d += 4) {
-      float4 kv[JK];
-#pragma unroll
-      for (int j = 0; j < JK; ++j) kv[j] = ld4(&Ks[(lane + 32 * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float4 qv = ld4(&Qs[(warp * RQ + i) * LD + d]);
-#pragma unroll
-        for (int j = 0; j < JK; ++j) s[i][j] = dot4(qv, kv[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = warp * RQ + i, qp = q0 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < JK; ++j) {
-        const int kp = k0 + lane + 32 * j;
-        const float x = live(qp, kp, sh) ? capped(s[i][j] * sh.scale, sh.cap) : kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < JK; ++j) {
-        const int kp = k0 + lane + 32 * j;
-        const float p = live(qp, kp, sh) ? expf(s[i][j] - m_new) : 0.f;
-        Ps[r * BK + lane + 32 * j] = p;
-        ps += p;
-      }
-      l[i] = l[i] * corr + warp_sum(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncwarp();  // a warp's P rows are its own
-
-    for (int j = 0; j < BK; j += 4) {
-      float4 pv[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = ld4(&Ps[(warp * RQ + i) * BK + j]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float vv = Vs[(j + jj) * HD + lane + 32 * c];
-#pragma unroll
-          for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(comp(pv[i], jj), vv, acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int qp = q0 + warp * RQ + i;
-    if (qp >= sh.S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + (((int64_t)b * sh.S + qp) * sh.Hq + h) * sh.hd;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < sh.hd) o[d] = from_f32<T>(acc[i][c] / denom);
-    }
-    if (lane == 0) lse[(int64_t)bh * sh.S + qp] = m[i] + logf(l[i]);
   }
 }
 
@@ -526,28 +397,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-// Raises the dynamic shared-memory limit of the kernel with tile traits F
-// once per process (the attribute persists), so no launch, and no launch
-// captured into a CUDA graph, repeats the call.  Keyed by F, not by the
-// kernel's type: kernels of one signature share a function-pointer type.
+// Raises the dynamic shared-memory limit of the kernel with tile traits F.
+// The attribute holds for the current device only, so it is set at every
+// launch (a few host microseconds), never cached in a static: a cache would
+// skip it on a second card, where every launch above 48 KB would be refused.
 template <typename F, typename K>
 cudaError_t allow_smem(K kernel) {
-  static const cudaError_t done = F::smem <= 48 * 1024 ? cudaSuccess
+  return F::smem <= 48 * 1024 ? cudaSuccess
       : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::smem);
-  return done;
-}
-
-template <typename T, int HD, int RQ, int BK>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-                const Shape& sh, cudaStream_t st) {
-  using F = Fwd<T, HD, RQ, BK>;
-  auto kern = flash_fwd_kernel<T, HD, RQ, BK>;
-  cudaError_t e = allow_smem<F>(kern);
-  if (e != cudaSuccess) return e;
-  dim3 grid(sh.B * sh.Hq, (sh.S + F::BQ - 1) / F::BQ);
-  kern<<<grid, kThreads, F::smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                        static_cast<const T*>(v), static_cast<T*>(out), lse, sh);
-  return cudaGetLastError();
 }
 
 template <typename T, int HD, int R, int B2>
@@ -582,16 +439,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out, co
 
 // Tile sizes by head width (rows per warp, the streamed tile): hd <= 128
 // streams 64-row tiles with 8 rows per warp; hd <= 256 halves what shared
-// memory would not hold (forward: 32-key tiles; backward: 4 rows per warp,
-// 32-row tiles).
-template <typename T>
-cudaError_t fwd_hd(const void* q, const void* k, const void* v, void* out, float* lse,
-                   const Shape& sh, cudaStream_t st) {
-  if (sh.hd <= 64) return fwd<T, 64, 8, 64>(q, k, v, out, lse, sh, st);
-  if (sh.hd <= 128) return fwd<T, 128, 8, 64>(q, k, v, out, lse, sh, st);
-  return fwd<T, 256, 8, 32>(q, k, v, out, lse, sh, st);
-}
-
+// memory would not hold (4 rows per warp, 32-row tiles).
 template <typename T>
 cudaError_t bwd_hd(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -609,22 +457,6 @@ bool make_shape(Shape* sh, int B, int S, int Hq, int Hkv, int hd, int window, fl
 }
 
 }  // namespace
-
-// out (B, S, Hq, hd) and lse (B, Hq, S) f32 are written; window <= 0 and
-// cap <= 0 mean none; scale is hd^-0.5, rounded to f32 by the caller.
-extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                          void* out, float* lse, int B, int S, int Hq,
-                                          int Hkv, int hd, int window, float cap, float scale,
-                                          int dtype, void* stream) {
-  Shape sh;
-  if (!make_shape(&sh, B, S, Hq, Hkv, hd, window, cap, scale)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_F32: return (int)fwd_hd<float>(q, k, v, out, lse, sh, st);
-    case DT_BF16: return (int)fwd_hd<__nv_bfloat16>(q, k, v, out, lse, sh, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // dq, dk, dv (the shapes of q, k, v) are written; delta is (B, Hq, S) f32
 // scratch.  Three launches: delta, dK/dV, dQ.

@@ -6,12 +6,13 @@
 // flash_attention_pallas) for bf16 inputs with hd % 8 == 0 and hd <= 256.
 // Backward: no TPU counterpart (the reference differentiates its plain
 // attention through XLA); here for bf16 with hd % 8 == 0 and hd <= 128.
-// Every other case (f32, hd 256 backward, hd % 8 != 0) stays on the CUDA-core
-// kernels of flash_attention.cu; ops.py picks by dtype and hd, never by a
-// failure.  The function is the one of ref.py: scores (q . k) * hd^-0.5,
-// then cap * tanh(s / cap) under a cap; key kp live for query qp when kp <=
-// qp (and qp - kp < window); masked probabilities exactly 0, l clamped at
-// 1e-30; lse = m + log l, f32 (B, Hq, S); any S.
+// Every other forward (f32, hd % 8 != 0) runs in split TF32
+// (flash_attention_split_tf32.cu), every other backward (f32, hd 256, hd % 8
+// != 0) on the CUDA cores (flash_attention.cu); ops.py picks by dtype and
+// hd, never by a failure.  The function is the one of ref.py: scores
+// (q . k) * hd^-0.5, then cap * tanh(s / cap) under a cap; key kp live for
+// query qp when kp <= qp (and qp - kp < window); masked probabilities
+// exactly 0, l clamped at 1e-30; lse = m + log l, f32 (B, Hq, S); any S.
 //
 // What bounds it: operations.  4 * hd flops per live (query, key) pair
 // forward, 2.5x that backward, against q, k, v, o (dO, dq, dk, dv) and lse
@@ -859,21 +860,26 @@ int make_map(CUtensorMap* map, const void* ptr, const Shape& sh, int H, int rows
   return r == CUDA_SUCCESS ? 0 : kTmaErrorBase + (int)r;
 }
 
-// once per kernel and process: raises its dynamic shared-memory limit, and
-// checks that its register allocation covers what setmaxnreg moves (the
-// consumers' increase would otherwise wait forever).  Keyed by the tile
-// traits F: kernels of one signature share a function-pointer type.
+// At every launch: checks that the kernel's register allocation covers what
+// setmaxnreg moves (the consumers' increase would otherwise wait forever),
+// and raises its dynamic shared-memory limit.  The register count is a
+// property of the compiled function, so its check is cached once per tile
+// traits F (kernels of one signature share a function-pointer type).  The
+// shared-memory opt-in holds for the current device only, so it is set at
+// every launch (a few host microseconds), never cached: a cache would skip
+// it on a second card, where the launch would be refused.
 template <typename F, typename K>
 cudaError_t prepare(K kernel) {
-  static const cudaError_t done = [kernel] {
+  static const cudaError_t regs = [kernel] {
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return e;
     if (attr.numRegs * kThreads < 128 * kProducerRegs + kConsumers * kConsumerRegs)
       return cudaErrorInvalidConfiguration;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::smem);
+    return cudaSuccess;
   }();
-  return done;
+  if (regs != cudaSuccess) return regs;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::smem);
 }
 
 template <int HD, int BK, int ST>

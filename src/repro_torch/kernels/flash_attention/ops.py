@@ -16,14 +16,17 @@ differentiable, vmappable op the model calls.
   -> (C*B, S, H, hd)``, so a vmapped fleet is one launch per layer, forward
   and backward alike.
 
-Two routes, chosen by ``route(dtype, hd, backward)`` alone, never by a
+Three routes, chosen by ``route(dtype, hd, backward)`` alone, never by a
 failure: ``"tensor_core"`` (``csrc/flash_attention_sm90.cu``: wgmma and
-TMA, bf16 with ``hd % 8 == 0``, hd <= 256 forward and <= 128 backward) and
-``"cuda_core"`` (``csrc/flash_attention.cu``: f32 math on the CUDA cores,
-every other case).  Bound by operations at the path's shapes: ``4 * hd``
-flops per live (query, key) pair forward (``S (S + 1) / 2`` pairs per head
-causally, fewer under a window), about 2.5x that backward, against q, k, v,
-out (dO, dq, dk, dv) and lse of traffic.
+TMA, bf16 with ``hd % 8 == 0``, hd <= 256 forward and <= 128 backward),
+``"split_tf32"`` (``csrc/flash_attention_split_tf32.cu``: every other
+forward, f32 and bf16 with ``hd % 8 != 0``, on the tensor cores in split
+TF32, an f32-accurate emulation) and ``"cuda_core"``
+(``csrc/flash_attention.cu``: every other backward, f32 math on the CUDA
+cores).  Bound by operations at the path's shapes: ``4 * hd`` flops per
+live (query, key) pair forward (``S (S + 1) / 2`` pairs per head causally,
+fewer under a window), about 2.5x that backward, against q, k, v, out (dO,
+dq, dk, dv) and lse of traffic.
 
 Layouts are the reference's: q ``(B, S, Hq, hd)``, k and v ``(B, S, Hkv,
 hd)``; lse ``(B, Hq, S)`` f32.  Dispatch is by the tensor's device: CPU
@@ -47,18 +50,19 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "MAX
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256  # widest tile the kernels are built for
-ROUTES = ("tensor_core", "cuda_core")
+ROUTES = ("tensor_core", "split_tf32", "cuda_core")
 
 
 def route(dtype: torch.dtype, hd: int, backward: bool = False) -> str:
     """The kernel a CUDA call of this dtype and head width launches:
     ``"tensor_core"`` for bf16 with ``hd % 8 == 0`` (TMA's 16-byte strides)
     up to 256 forward and 128 backward (the hd-256 backward's dK and dV
-    would need 256 accumulator registers a thread), else ``"cuda_core"``."""
+    would need 256 accumulator registers a thread); else ``"split_tf32"``
+    forward and ``"cuda_core"`` backward."""
     widest = 128 if backward else MAX_HEAD_DIM
     if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= widest:
         return "tensor_core"
-    return "cuda_core"
+    return "cuda_core" if backward else "split_tf32"
 
 
 @functools.cache
@@ -67,12 +71,14 @@ def _bind():
     lib = load("flash_attention")
     tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fwd, bwd = {}, {}
-    for rname, suffix in (("cuda_core", ""), ("tensor_core", "_sm90")):
+    for rname, suffix in (("split_tf32", "_split_tf32"), ("tensor_core", "_sm90")):
         fwd[rname] = getattr(lib, f"flash_attention_fwd{suffix}_launch")
         fwd[rname].argtypes = [ctypes.c_void_p] * 5 + tail
+        fwd[rname].restype = ctypes.c_int
+    for rname, suffix in (("cuda_core", ""), ("tensor_core", "_sm90")):
         bwd[rname] = getattr(lib, f"flash_attention_bwd{suffix}_launch")
         bwd[rname].argtypes = [ctypes.c_void_p] * 10 + tail
-        fwd[rname].restype = bwd[rname].restype = ctypes.c_int
+        bwd[rname].restype = ctypes.c_int
     return lib, fwd, bwd
 
 

@@ -21,8 +21,9 @@ import torch
 from repro_torch.core import ClusterSpec, build_local_update, chain, mixing_matrix, ring
 from repro_torch.core import resolve_backend, staleness_mixing_matrix
 from repro_torch.kernels import (
-    cluster_agg, cluster_agg_ref, flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
-    flash_attention_fwd, flash_attention_fwd_ref, fused_transition, fused_transition_ref,
+    cluster_agg, cluster_agg_ref, cluster_agg_tree, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref, fused_transition,
+    fused_transition_ref,
     fused_transition_tree, gossip_mix, gossip_mix_ref, normalized_update, normalized_update_ref,
     sgd_update, sgd_update_ref, sgd_update_tree,
 )
@@ -240,6 +241,49 @@ def test_cluster_agg_matches_plain_and_skips_masked_rows(cuda, dtype, tol, m, c,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+def test_cluster_agg_tree_ragged_one_launch_per_dtype_group(cuda, d):
+    """A ragged tree mixing f32 and bf16 leaves (one of them off a 16-byte
+    boundary) takes one launch per dtype; a tree of 96 f32 leaves takes two.
+    Each leaf is bitwise the one-leaf call and within tolerance of the plain
+    version, and a masked row contributes exactly nothing, even NaN."""
+    c = 20
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    mk = lambda dtype, *shape: torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    buf = mk(torch.float32, c * 1024 + 1)
+    tree = {"m10": mk(torch.float32, c, 10), "bf333": mk(torch.bfloat16, c, 333),
+            "w3d": mk(torch.float32, c, 5, 5, 8), "bf16000": mk(torch.bfloat16, c, 16_000),
+            "offset": buf[1:].view(c, 1024), "m0": mk(torch.float32, c, 0),
+            "m4096": mk(torch.float32, c, 4096), "bf1024": mk(torch.bfloat16, c, 1024)}
+    assert tree["offset"].data_ptr() % 16
+    wt = torch.tensor(RNG.uniform(0.1, 1.0, c), dtype=torch.float32, device=cuda)
+    wt[1::3] = 0.0  # masked participation
+    n = cluster_agg.launches
+    out = cluster_agg_tree(tree, wt, d)
+    torch.cuda.synchronize()
+    assert cluster_agg.launches == n + 2  # one per dtype
+    tol = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+    for k, w in tree.items():
+        flat = w.reshape(c, -1)
+        assert out[k].shape == (d,) + w.shape[1:] and out[k].dtype == w.dtype
+        assert torch.equal(cluster_agg(flat, wt, d).view(out[k].shape), out[k])
+        torch.testing.assert_close(out[k].float().reshape(d, -1),
+                                   cluster_agg_ref(flat, wt, d).float(), atol=tol[w.dtype], rtol=0)
+    for w in tree.values():
+        w.view(c, -1)[1::3] = float("nan")
+    again = cluster_agg_tree(tree, wt, d)
+    for k in tree:
+        assert torch.equal(again[k], out[k])
+    many = {f"l{i}": mk(torch.float32, c, 90 + 3 * i) for i in range(96)}
+    n = cluster_agg.launches
+    res = cluster_agg_tree(many, wt, d)
+    torch.cuda.synchronize()
+    assert cluster_agg.launches == n + 2
+    for k, w in many.items():
+        assert torch.equal(res[k], cluster_agg(w, wt, d))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("m", [10, 333, 16_000])
 @pytest.mark.parametrize("offset", [0, 1])
@@ -292,8 +336,11 @@ def test_async_events_on_kernels_match_dense(cuda):
         launched = (normalized_update.launches - n[0], cluster_agg.launches - n[1],
                     gossip_mix.launches - n[2])
         runs[backend] = (run.runtime.scheduler.y, events, launched)
+    # normalized_update and gossip_mix once per leaf per event, cluster_agg
+    # once per event (the tree's leaves fit one table)
     leaves = len(runs["cuda"][0])
-    assert runs["cuda"][2] == (6 * leaves,) * 3
+    assert leaves <= MAX_LEAVES
+    assert runs["cuda"][2] == (6 * leaves, 6, 6 * leaves)
     assert runs["dense"][2] == (0, 0, 0)
     assert runs["cuda"][1] == runs["dense"][1]
     for k, v in runs["cuda"][0].items():
@@ -310,6 +357,19 @@ FLASH_CASES = [
     (1, 96, 8, 4, 256, 40, 50.0),
     (2, 16, 8, 2, 128, None, None),
     (1, 2048, 8, 2, 128, None, None),
+]
+
+
+# the split-TF32 forward's own edges: S = 1, an S that is not a multiple of
+# 16, hd 32, hd 80, and hd 30 (hd % 4 != 0: its scalar path); bf16 with hd
+# 100 (hd % 8 != 0) takes it too
+SPLIT_CASES = [
+    (torch.float32, (1, 1, 4, 2, 64, None, None)),
+    (torch.float32, (2, 37, 8, 2, 64, None, None)),
+    (torch.float32, (2, 50, 4, 2, 32, None, None)),
+    (torch.float32, (2, 70, 4, 2, 80, 24, None)),
+    (torch.float32, (2, 45, 4, 2, 30, None, 20.0)),
+    (torch.bfloat16, (2, 40, 4, 2, 100, None, None)),
 ]
 
 
@@ -348,6 +408,24 @@ def test_flash_attention_matches_plain(cuda, dtype, fwd_tol, grad_tol, case):
     for got, ref in zip(grads, refs):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         _close(got, ref, grad_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case", SPLIT_CASES)
+def test_flash_split_tf32_forward_matches_plain(cuda, dtype, case):
+    """The split-TF32 forward at its edges, within the forward tolerances
+    (2e-5 f32, 3e-2 bf16; lse 1e-4), one launch on its route."""
+    b, s, hq, hkv, hd, window, cap = case
+    q, k, v, _ = _qkvg(cuda, dtype, b, s, hq, hkv, hd)
+    assert route(dtype, hd) == "split_tf32"
+    n = flash_attention_fwd.routes["split_tf32"]
+    out, lse = flash_attention_fwd(q, k, v, window, cap)
+    ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, window, cap)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.routes["split_tf32"] == n + 1
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

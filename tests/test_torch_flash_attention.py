@@ -174,10 +174,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     (torch.bfloat16, 96, True, "tensor_core"),
     (torch.bfloat16, 128, True, "tensor_core"),
     (torch.bfloat16, 256, True, "cuda_core"),    # dK and dV would need 256 registers a thread
-    (torch.bfloat16, 100, False, "cuda_core"),   # hd % 8 != 0: no 16-byte TMA strides
+    (torch.bfloat16, 100, False, "split_tf32"),  # hd % 8 != 0: no 16-byte TMA strides
     (torch.bfloat16, 100, True, "cuda_core"),
-    (torch.float32, 128, False, "cuda_core"),    # f32 stays f32: no bf16 tensor cores
+    (torch.float32, 128, False, "split_tf32"),   # f32 stays f32-accurate: split TF32
     (torch.float32, 64, True, "cuda_core"),
+    (torch.float32, 256, False, "split_tf32"),
+    (torch.float32, 30, False, "split_tf32"),
+    (torch.bfloat16, 30, False, "split_tf32"),
+    (torch.float32, 256, True, "cuda_core"),
 ])
 def test_route_by_dtype_and_head_width(dtype, hd, backward, want):
     assert route(dtype, hd, backward=backward) == want
@@ -247,3 +251,51 @@ def test_bf16_rounding_of_p_and_ds_within_card_tolerances(hd, window, cap):
     for g, r in zip(_bf16_rounded_backward(q, k, v, out, lse, dout, window, cap), refs):
         scale = max(1.0, r.float().abs().max().item())
         np.testing.assert_allclose(g.float().numpy(), r.float().numpy(), atol=3e-2 * scale)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32's 10 mantissa bits, to nearest (ties away), as
+    ``cvt.rna.tf32.f32`` rounds it."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the split-TF32 kernel forms it: hi.hi + hi.lo +
+    lo.hi of the TF32 splits (lo.lo dropped), summed in f64 and rounded to f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    terms = [(ah, bh), (ah, bl), (al, bh)]
+    return sum(torch.einsum(eq, x.double(), y.double()) for x, y in terms).float()
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (48, 30.0)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_split_tf32_arithmetic_within_card_tolerances(hd, window, cap):
+    """The split-TF32 forward keeps Q K^T and P V to about 21 bits: with its
+    splits (and lo.lo dropped) the plain formulas still meet the card tests'
+    f32 tolerances (2e-5 on out, 1e-4 on lse), at every head width the
+    kernel is built for, with and without a window and a cap."""
+    b, s, hq, hkv = 1, 160, 4, 2
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, s, hq, hkv, hd))
+    out, lse = flash_attention_fwd_ref(q, k, v, window, cap)
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, hd)
+    raw = _split_tf32_product("bqhgd,bkhd->bhgqk", qg, k) * hd ** -0.5
+    sc = raw if cap is None else cap * torch.tanh(raw / cap)
+    pos = torch.arange(s)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    sc = torch.where(mask, sc, -1e30)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), 0.0)
+    l = p.sum(-1)
+    pv = _split_tf32_product("bhgqk,bkhd->bqhgd", p, v)
+    got = (pv / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]).reshape(b, s, hq, hd)
+    got_lse = (m[..., 0] + torch.log(l)).reshape(b, hq, s)
+    np.testing.assert_allclose(got.numpy(), out.numpy(), atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), lse.numpy(), atol=1e-4)
+    # the splits matter: TF32 alone (hi.hi) misses the forward tolerance
+    plain_tf32 = torch.einsum("bhgqk,bkhd->bqhgd", _tf32(p), _tf32(v))
+    assert not np.allclose((plain_tf32 / l.permute(0, 3, 1, 2)[..., None]).reshape(b, s, hq, hd)
+                           .numpy(), out.numpy(), atol=2e-5)

@@ -142,17 +142,19 @@ def test_cpu_calls_do_not_count_launches():
 # -- launch planning of the leaf-table kernels ----------------------------------
 
 @pytest.mark.parametrize("source", ["fused_transition/csrc/fused_transition.cu",
-                                    "fused_sgd/csrc/sgd_update.cu"])
+                                    "fused_sgd/csrc/sgd_update.cu",
+                                    "cluster_agg/csrc/cluster_agg.cu"])
 def test_planner_table_size_matches_the_kernel(source):
-    """Both tree wrappers plan with one planner, and its MAX_LEAVES is the
+    """The tree wrappers plan with one planner, and its MAX_LEAVES is the
     leaf-table size the CUDA source was written for."""
     import re
     from pathlib import Path
 
     import repro_torch.kernels as kernels
+    from repro_torch.kernels.cluster_agg.ops import plan_launches as agg_plan
 
     text = (Path(kernels.__file__).parent / source).read_text()
-    assert sgd_plan is plan_launches
+    assert sgd_plan is plan_launches and agg_plan is plan_launches
     assert int(re.search(r"constexpr int kMaxLeaves = (\d+);", text).group(1)) == MAX_LEAVES
 
 
@@ -301,6 +303,72 @@ def test_cluster_agg_tree_ragged_leaves():
     for k in tree:
         assert out[k].shape == (4,) + tree[k].shape[1:]
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cluster_agg_tree_ragged_matches_jax(d, masked):
+    """The tree call's CPU path on a ragged tree (1-column, odd, 3-D and
+    4-D leaves) against JAX's ``cluster_agg_tree`` in interpret mode."""
+    c = 8
+    tree = {"one": RNG.normal(size=(c, 1)), "odd": RNG.normal(size=(c, 333)),
+            "w3d": RNG.normal(size=(c, 3, 7)), "w4d": RNG.normal(size=(c, 2, 3, 5)),
+            "wide": RNG.normal(size=(c, 1024))}
+    tree = {k: v.astype(np.float32) for k, v in tree.items()}
+    wt = RNG.uniform(0.1, 1.0, c).astype(np.float32)
+    if masked:
+        wt[1::3] = 0.0
+    ref = j_cluster_agg_tree({k: jnp.asarray(v) for k, v in tree.items()}, jnp.asarray(wt), d,
+                             interpret=True, tile_m=128)
+    out = cluster_agg_tree(params_from_numpy(tree, "cpu"), _t(wt), d)
+    assert list(out) == list(tree)
+    for k in tree:
+        assert out[k].shape == (d,) + tree[k].shape[1:]
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["rows", "devices", "non_contiguous", "weights"])
+def test_cluster_agg_tree_refuses_before_any_dispatch(bad):
+    """Every leaf is checked before anything runs: C rows, the weights'
+    device, contiguity (and weights of one row per client)."""
+    tree = {"a": torch.ones(8, 5), "b": torch.ones(8, 3)}
+    wt = torch.ones(8)
+    if bad == "rows":
+        tree["b"] = torch.ones(6, 3)
+    elif bad == "devices":
+        tree["b"] = torch.ones(8, 3, device="meta")
+    elif bad == "non_contiguous":
+        tree["b"] = torch.ones(3, 8).T
+    else:
+        wt = torch.ones(8, 1)
+    before = cluster_agg.launches
+    with pytest.raises(ValueError, match={"rows": "inconsistent with C=6",
+                                          "devices": "one device",
+                                          "non_contiguous": "contiguous",
+                                          "weights": "must be"}[bad]):
+        cluster_agg_tree(tree, wt, 4)
+    assert cluster_agg.launches == before
+
+
+def test_cluster_agg_tree_outputs_one_aligned_buffer_per_dtype():
+    """The tree call's new outputs: one allocation per dtype, each leaf's
+    (D, M) view starting on a 16-byte boundary and apart from the others."""
+    from repro_torch.kernels.cluster_agg.ops import _outputs
+
+    flats = [torch.zeros(8, m, dtype=dt) for m, dt in ((10, torch.float32), (3, torch.bfloat16),
+                                                       (333, torch.float32), (7, torch.bfloat16))]
+    given = torch.zeros(4, 3, dtype=torch.bfloat16)
+    outs = _outputs(flats, [None, given, None, None], 4)
+    assert outs[1] is given
+    assert [tuple(o.shape) for o in outs] == [(4, 10), (4, 3), (4, 333), (4, 7)]
+    assert outs[0].untyped_storage().data_ptr() == outs[2].untyped_storage().data_ptr()
+    for o in outs:
+        assert o.dtype in (torch.float32, torch.bfloat16) and o.is_contiguous()
+        assert (o.data_ptr() - o.untyped_storage().data_ptr()) % 16 == 0
+    for o in outs:
+        o.zero_()
+    outs[0].fill_(1.0)
+    assert all(bool((o == 0).all()) for o in outs[1:])
 
 
 def test_normalized_update_scalar_matches_jax():
