@@ -18,7 +18,8 @@ Phases, one result line each; any failure exits non-zero without the final
             or the file ``--old-flash`` names; without either its A/B below is
             skipped and says so).  ptxas's report of the leaf-table kernels
             (``fused_transition_kernel``, ``sgd_update_kernel``,
-            ``cluster_agg_kernel``) and of the split-TF32 forward
+            ``normalized_update_kernel``, ``cluster_agg_kernel``,
+            ``gossip_mix_kernel``) and of the split-TF32 forward
             (``flash_fwd_split_tf32_kernel``): the phase fails if any
             instantiation spills registers.  ``cuobjdump -sass``
             of the flash library: the counts of ``HGMMA`` (wgmma) and
@@ -30,20 +31,25 @@ Phases, one result line each; any failure exits non-zero without the final
             the tree calls, one launch each (and a tree of 96 leaves, two
             launches); transition alpha 0/1/2, static factors and masked
             participation weights with a faulted mixing matrix (ring with one
-            link down); SGD bit for bit.  gossip_mix:
-            D=4, alpha 0/1/2, the ring P and an eq. 22 P_t, in place.
-            cluster_agg: C=20 -> D=4 and the async g=5 -> 1, masked weights,
-            per leaf and as the tree call (one launch, bitwise the per-leaf
-            calls).
-            normalized_update: R=5 rows with 1/theta per row, and R=1.
+            link down); SGD bit for bit.  The async kernels as tree calls
+            (one launch a tree, every leaf bitwise its one-leaf call):
+            gossip_mix D=4, alpha 0/1/2, the ring P and an eq. 22 P_t, out
+            of place and in place; cluster_agg C=20 -> D=4 and the async
+            g=5 -> 1, masked weights; normalized_update R=5 rows with
+            1/theta per row (bitwise the plain version), and R=1; then
+            ragged trees (scalar and vector leaves; gossip at D = 1, 4, 5,
+            16, every register size) and 70-leaf trees (two launches).  A
+            gossip or normalized-update tree that returns its input fails
+            (each case moves its input by more than 10x the tolerance).
             Tolerances as the reference's kernel tests: 1e-5 f32
             transition, gossip and aggregation, 1e-6 f32 SGD and normalized
             update, 3e-2 bf16.  Then CUDA-event times of the kernel, the
             plain version and one library call computing the same function
             (where there is one), beside the bound, at the shapes of the
-            path that runs the kernel (the transition, SGD and cluster_agg
-            as tree calls, against per-leaf ``torch.matmul`` and one
-            ``torch._foreach_add_``).  Flash attention forward and backward
+            path that runs the kernel (every kernel but flash as a tree
+            call, against per-leaf ``torch.matmul``, one
+            ``torch._foreach_add_`` for SGD, and ``torch._foreach_sub``
+            plus ``torch._foreach_mul_``, two calls, for normalized_update).  Flash attention forward and backward
             against their plain versions at federated-lm-ring's (16, 64, 4,
             4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's (1, 8192,
             8, 4, 256) with window 4096 and cap 50, a GQA case with hd 96
@@ -76,13 +82,15 @@ Phases, one result line each; any failure exits non-zero without the final
 6. async    asynchronous SD-FEEL: ``straggler-bimodal-async`` through
             ``build_scenario`` on the default device, backend auto -> cuda,
             24 cluster events, launch counters zeroed just before and read
-            just after (normalized_update and gossip_mix once per leaf per
-            event, cluster_agg once per event: one tree call).  Held against
-            the same run with the dense backend on the card and on the CPU
+            just after (normalized_update, cluster_agg and gossip_mix each
+            one tree call, one launch, per event).  Held against the same
+            run with the dense backend on the card and on the CPU
             (identical event sequence, 1e-4 max abs on the cluster models,
             1e-4 relative on the eval loss).  Then warm events/s, the split
             of one event (client deltas, normalized_update, cluster_agg,
-            gossip_mix) and the profiled device-busy share.
+            gossip_mix), the strided w_final leaves copied before eq. 19,
+            and from the profiler the device-busy ms per event, its share,
+            and kernel and copy launches per event.
 7. lm       federated LM training: ``federated-lm-ring`` as registered
             (reduced granite: d_model 256, 4 heads of 64, 2 layers, vocab
             512, S = 64; C = 8 in D = 4, tau1 = tau2 = 2, alpha = 2, R = 2)
@@ -190,13 +198,13 @@ LM_WIDTH = dict(
     vocab_size=49152, seq_len=2048, batch_size=1, num_samples=16,
 )
 ASYNC_KERNELS = ("normalized_update", "cluster_agg", "gossip_mix")
-# the sync kernels that take a table of leaves (one launch per tree), by library
-LEAF_TABLE_KERNELS = {"fused_transition": "fused_transition_kernel",
-                      "fused_sgd": "sgd_update_kernel"}
+# the kernels that take a table of leaves (one launch per tree), by library
+LEAF_TABLE_KERNELS = {"fused_transition": ("fused_transition_kernel",),
+                      "fused_sgd": ("sgd_update_kernel", "normalized_update_kernel"),
+                      "cluster_agg": ("cluster_agg_kernel",),
+                      "gossip_mix": ("gossip_mix_kernel",)}
 # the kernels the build phase fails if ptxas spills registers in, by library
-SPILL_CHECKED = {**{lib: (k,) for lib, k in LEAF_TABLE_KERNELS.items()},
-                 "cluster_agg": ("cluster_agg_kernel",),
-                 "flash_attention": ("flash_fwd_split_tf32_kernel",)}
+SPILL_CHECKED = {**LEAF_TABLE_KERNELS, "flash_attention": ("flash_fwd_split_tf32_kernel",)}
 
 
 def fail(msg: str) -> None:
@@ -621,13 +629,12 @@ class Smoke:
 
     def check_async_kernels(self, worst: dict, main_err: dict) -> None:
         """gossip_mix, cluster_agg and normalized_update against their plain
-        versions; fills ``worst`` (every case) and ``main_err`` (MnistCNN f32
-        at the async path's operands: P_t with alpha 1, g -> 1, R = 5)."""
+        versions, as tree calls (each leaf also bitwise its one-leaf call);
+        fills ``worst`` (every case) and ``main_err`` (MnistCNN f32 at the
+        async path's operands: P_t with alpha 1, g -> 1, R = 5)."""
+        import numpy as np
         torch = self.torch
-        from repro_torch.kernels import (
-            cluster_agg, cluster_agg_ref, cluster_agg_tree, gossip_mix, gossip_mix_ref,
-            normalized_update, normalized_update_ref,
-        )
+        from repro_torch.kernels import cluster_agg, cluster_agg_ref, cluster_agg_tree
         from repro_torch.models import CifarCNN, MnistCNN
 
         mixings, masked, m_hat, inv = self.async_operands()
@@ -635,6 +642,8 @@ class Smoke:
             worst[name] = 0.0
 
         def hold(name, got, ref, tol, what, main):
+            if got.numel() == 0:
+                return
             err = (got.float() - ref.float()).abs().max().item()
             if not err <= tol:
                 raise AssertionError(f"{name} {what}: max abs err {err} > {tol}")
@@ -645,99 +654,206 @@ class Smoke:
         for mname, mcls in (("mnist", MnistCNN), ("cifar", CifarCNN)):
             for dtype, tol, n_tol in ((torch.float32, 1e-5, 1e-6), (torch.bfloat16, 3e-2, 3e-2)):
                 main = (mname, dtype) == ("mnist", torch.float32)
+                what = f"{mname} {str(dtype)[6:]}"
                 ys = self.stacked_leaves(mcls, dtype, seed=2, rows=D)
                 ws = self.stacked_leaves(mcls, dtype, seed=3)
                 w0s = self.stacked_leaves(mcls, dtype, seed=4)
-                for k in ys:
-                    y = ys[k].reshape(D, -1)
-                    for pname, p in mixings.items():
-                        for alpha in (0, 1, 2):
-                            ref = gossip_mix_ref(y, p.to(self.dev), alpha)
-                            got = y.clone()
-                            gossip_mix(got, p, alpha, out=got)  # in place, as the path
-                            hold("gossip_mix", got, ref, tol, f"{mname} {dtype} {k} {pname} "
-                                 f"alpha={alpha}", main and pname == "p_t" and alpha == 1)
+                for pname, p in mixings.items():
+                    for alpha in (0, 1, 2):
+                        self.hold_gossip_tree(ys, p, alpha, tol, f"{what} {pname}", hold,
+                                              main and pname == "p_t" and alpha == 1)
+                wf = {k: w[:G] for k, w in ws.items()}
+                w0 = {k: w[:G] for k, w in w0s.items()}
+                self.hold_norm_tree(wf, w0, inv, n_tol, f"{what} R=5", hold, main)
+                self.hold_norm_tree({k: w[0] for k, w in wf.items()},
+                                    {k: w[0] for k, w in w0.items()}, 1.0 / 7.0, n_tol,
+                                    f"{what} R=1 scalar", hold, False)
+                for k in ws:
                     w = ws[k].reshape(C, -1)
                     hold("cluster_agg", cluster_agg(w, masked, D),
-                         cluster_agg_ref(w, masked, D), tol, f"{mname} {dtype} {k} C->D", False)
+                         cluster_agg_ref(w, masked, D), tol, f"{what} {k} C->D", False)
                     hold("cluster_agg", cluster_agg(w[:G], masked[:G], 1),
                          cluster_agg_ref(w[:G], masked[:G], 1), tol,
-                         f"{mname} {dtype} {k} g->1 masked", False)
-                    hold("cluster_agg", cluster_agg(w[:G], m_hat[:G], 1),
-                         cluster_agg_ref(w[:G], m_hat[:G], 1), tol,
-                         f"{mname} {dtype} {k} g->1", main)
-                    wf, w0 = w[:G], w0s[k].reshape(C, -1)[:G]
-                    hold("normalized_update", normalized_update(wf, w0, inv),
-                         normalized_update_ref(wf, w0, inv), n_tol, f"{mname} {dtype} {k} R=5",
-                         main)
-                    hold("normalized_update", normalized_update(wf[0], w0[0], 1.0 / 7.0),
-                         normalized_update_ref(wf[0], w0[0], 1.0 / 7.0), n_tol,
-                         f"{mname} {dtype} {k} R=1", False)
+                         f"{what} {k} g->1 masked", False)
                 # the tree calls: one launch each, every leaf bitwise the
                 # per-leaf call and within tol of the plain version
-                for what, tree, wt, d in (("C->D masked", ws, masked, D),
-                                          ("g->1", {k: w[:G] for k, w in ws.items()},
-                                           m_hat[:G], 1)):
+                for case, tree, wt, d in (("C->D masked", ws, masked, D), ("g->1", wf, m_hat[:G], 1)):
                     n = cluster_agg.launches
                     out = cluster_agg_tree(tree, wt, d)
                     torch.cuda.synchronize()
                     if cluster_agg.launches - n != self.launch_groups(tree):
-                        raise AssertionError(f"cluster_agg tree {mname} {dtype} {what}: "
+                        raise AssertionError(f"cluster_agg tree {what} {case}: "
                                              f"{cluster_agg.launches - n} launches")
                     for k, w in tree.items():
                         flat = w.reshape(w.shape[0], -1)
                         got = out[k].reshape(d, -1)
                         if not torch.equal(got, cluster_agg(flat, wt, d)):
-                            raise AssertionError(f"cluster_agg tree {mname} {dtype} {what} {k}: "
+                            raise AssertionError(f"cluster_agg tree {what} {case} {k}: "
                                                  f"not bitwise the per-leaf call")
                         hold("cluster_agg", got, cluster_agg_ref(flat, wt, d), tol,
-                             f"{mname} {dtype} {k} tree {what}", False)
+                             f"{what} {k} tree {case}", main and case == "g->1")
                 torch.cuda.synchronize()
-                print(f"  {mname} {str(dtype)[6:]}: gossip_mix (ring, P_t x alpha 0-2, in "
-                      f"place), cluster_agg (C->D, g->1, masked; per leaf and as one tree "
-                      f"launch, bitwise alike) and normalized_update (R=5, R=1) agree with "
-                      f"their plain versions", flush=True)
+                print(f"  {what}: gossip_mix tree (ring, P_t x alpha 0-2, out of place and in "
+                      f"place), normalized_update tree (R=5, R=1) and cluster_agg (C->D, g->1, "
+                      f"masked) agree with their plain versions, one launch a tree, bitwise "
+                      f"their one-leaf calls", flush=True)
+        # ragged trees (an offset view and odd widths take the scalar path),
+        # D on every register size of gossip_mix (MAXD 4, 8, 16)
+        for dtype, tol, n_tol in ((torch.float32, 1e-5, 1e-6), (torch.bfloat16, 3e-2, 3e-2)):
+            for d in (1, 4, 5, 16):
+                p = np.random.default_rng(d).uniform(0.0, 1.0, (d, d))
+                p = torch.tensor(0.9 * p / p.sum(axis=0), dtype=torch.float32)
+                self.hold_gossip_tree(self.ragged_leaves(d, dtype, d), p, 2, tol,
+                                      f"ragged {str(dtype)[6:]} D={d}", hold, False)
+            self.hold_norm_tree(self.ragged_leaves(G, dtype, 20), self.ragged_leaves(G, dtype, 21),
+                                inv, n_tol, f"ragged {str(dtype)[6:]}", hold, False)
+        # more leaves than one table holds: two launches per tree
+        many = {f"l{i}": torch.randn(G, 18 + 3 * i, device=self.dev) for i in range(70)}
+        self.hold_gossip_tree({k: w[:D].contiguous() for k, w in many.items()}, mixings["p_t"], 1,
+                              1e-5, "70 leaves", hold, False)
+        self.hold_norm_tree(many, {k: torch.randn_like(w) for k, w in many.items()}, inv, 1e-6,
+                            "70 leaves", hold, False)
+        torch.cuda.synchronize()
+        print("  ragged trees (D = 1, 4, 5, 16; scalar and vector leaves, f32 and bf16) and "
+              "70-leaf trees (two launches each): gossip_mix and normalized_update agree",
+              flush=True)
+
+    def ragged_leaves(self, rows, dtype, seed) -> dict:
+        """``(rows, ...)`` leaves mixing vector and scalar paths: M = 0, M =
+        10 (MnistCNN's b4), an odd M, aligned M, a 3-D leaf and an offset
+        view (off a 16-byte boundary)."""
+        torch = self.torch
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        mk = lambda *shape: torch.randn(shape, generator=gen, device=self.dev).to(dtype)
+        buf = mk(rows * 1024 + 2)
+        return {"m0": mk(rows, 0), "m10": mk(rows, 10), "m333": mk(rows, 333),
+                "m1024": mk(rows, 1024), "m16000": mk(rows, 16_000), "w3d": mk(rows, 5, 5, 8),
+                "offset": buf[2:].view(rows, 1024)}
+
+    def hold_gossip_tree(self, tree, p, alpha, tol, what, hold, main) -> None:
+        """The tree call out of place (launches as ``plan_launches`` groups
+        the tree), each leaf within ``tol`` of the plain version and bitwise
+        its one-leaf call, then in place bitwise the same.  Raises unless the
+        mixing moves the leaves by more than 10x ``tol`` (alpha > 0), so that
+        a kernel returning its input fails."""
+        torch = self.torch
+        from repro_torch.kernels import gossip_mix, gossip_mix_ref, gossip_mix_tree
+
+        groups = self.launch_groups(tree)
+        n = gossip_mix.launches
+        out = gossip_mix_tree(tree, p, alpha)
+        torch.cuda.synchronize()
+        if gossip_mix.launches - n != groups:
+            raise AssertionError(f"gossip_mix tree {what}: {gossip_mix.launches - n} launches, "
+                                 f"expected {groups}")
+        moved = 0.0
+        for k, y in tree.items():
+            flat = y.reshape(y.shape[0], -1)
+            got = out[k].reshape(flat.shape)
+            ref = gossip_mix_ref(flat, p.to(self.dev), alpha)
+            hold("gossip_mix", got, ref, tol, f"{what} {k} alpha={alpha}", main)
+            if not torch.equal(got, gossip_mix(flat, p, alpha)):
+                raise AssertionError(f"gossip_mix tree {what} {k} alpha={alpha}: not bitwise "
+                                     f"the one-leaf call")
+            if flat.numel():
+                moved = max(moved, (flat.float() - ref.float()).abs().max().item())
+        if alpha and not moved > 10 * tol:
+            raise AssertionError(f"gossip_mix tree {what} alpha={alpha}: the mixing moves its "
+                                 f"input by {moved} at most, too little to tell a kernel that "
+                                 f"returns its input at tol {tol}")
+        inplace = {k: y.clone() for k, y in tree.items()}
+        n = gossip_mix.launches
+        res = gossip_mix_tree(inplace, p, alpha, inplace=True)
+        torch.cuda.synchronize()
+        if gossip_mix.launches - n != groups:
+            raise AssertionError(f"gossip_mix tree {what} in place: {gossip_mix.launches - n} "
+                                 f"launches, expected {groups}")
+        for k in tree:
+            if not (res[k] is inplace[k] and torch.equal(res[k], out[k])):
+                raise AssertionError(f"gossip_mix tree {what} {k} alpha={alpha}: in place not "
+                                     f"bitwise out of place")
+
+    def hold_norm_tree(self, wf, w0, inv, tol, what, hold, main) -> None:
+        """The tree call (launches as ``plan_launches`` groups the tree),
+        each leaf bitwise its plain version and its one-leaf call; raises
+        unless the update moves ``w_final`` by more than 10x ``tol``."""
+        torch = self.torch
+        from repro_torch.kernels import (
+            normalized_update, normalized_update_ref, normalized_update_tree,
+        )
+
+        groups = self.launch_groups(wf)
+        n = normalized_update.launches
+        out = normalized_update_tree(wf, w0, inv)
+        torch.cuda.synchronize()
+        if normalized_update.launches - n != groups:
+            raise AssertionError(f"normalized_update tree {what}: "
+                                 f"{normalized_update.launches - n} launches, expected {groups}")
+        moved = 0.0
+        for k, a in wf.items():
+            ref = normalized_update_ref(a, w0[k], inv)
+            hold("normalized_update", out[k], ref, tol, f"{what} {k}", main)
+            if not (torch.equal(out[k], ref)
+                    and torch.equal(out[k], normalized_update(a, w0[k], inv))):
+                raise AssertionError(f"normalized_update tree {what} {k}: not bitwise the plain "
+                                     f"version and the one-leaf call")
+            if a.numel():
+                moved = max(moved, (a.float() - ref.float()).abs().max().item())
+        if not moved > 10 * tol:
+            raise AssertionError(f"normalized_update tree {what}: the update moves w_final by "
+                                 f"{moved} at most, too little to tell a kernel that returns "
+                                 f"its input at tol {tol}")
 
     def time_async_kernels(self, mcls) -> dict:
-        """Times of the async path's kernels at its shapes: the (D, M) cluster
-        stack mixed in place with P_t (alpha 1), the fired cluster's (g, M)
-        deltas reduced with m^ to (1, M) by one tree call, and (g, M)
-        normalized updates."""
+        """Times of the async path's three tree calls at its shapes (f32),
+        as the event makes them: the (D, ...) cluster stack mixed in place
+        with P_t (alpha 1), the fired cluster's (g, ...) normalized updates,
+        and their reduction with m^ to (1, ...); beside each the plain
+        version leaf by leaf and the yardstick: per-leaf ``torch.matmul``
+        for gossip_mix and cluster_agg, ``torch._foreach_sub`` plus
+        ``torch._foreach_mul_`` (two calls; no single PyTorch call computes
+        it) for normalized_update."""
         torch = self.torch
         from repro_torch.kernels import (
             cluster_agg, cluster_agg_ref, cluster_agg_tree, gossip_mix, gossip_mix_ref,
-            normalized_update, normalized_update_ref,
+            gossip_mix_tree, normalized_update, normalized_update_ref, normalized_update_tree,
         )
 
         mixings, _, m_hat, inv = self.async_operands()
         p_t = mixings["p_t"]
         p_dev = p_t.to(self.dev)
         m_row = m_hat[:G].contiguous()
-        y = {k: w.reshape(D, -1) for k, w in self.stacked_leaves(mcls, torch.float32, 5,
-                                                                  rows=D).items()}
-        wf = {k: w.reshape(G, -1) for k, w in self.stacked_leaves(mcls, torch.float32, 6,
-                                                                   rows=G).items()}
-        w0 = {k: w.reshape(G, -1) for k, w in self.stacked_leaves(mcls, torch.float32, 7,
-                                                                   rows=G).items()}
-        agg_out = {k: torch.empty((1, w.shape[1]), device=self.dev) for k, w in wf.items()}
+        y = self.stacked_leaves(mcls, torch.float32, 5, rows=D)
+        wf = self.stacked_leaves(mcls, torch.float32, 6, rows=G)
+        w0 = self.stacked_leaves(mcls, torch.float32, 7, rows=G)
+        y_flat = {k: v.view(D, -1) for k, v in y.items()}
+        wf_flat = {k: v.view(G, -1) for k, v in wf.items()}
+        w0_flat = {k: v.view(G, -1) for k, v in w0.items()}
+        agg_out = {k: torch.empty((1, w.shape[1]), device=self.dev) for k, w in wf_flat.items()}
         norm_out = {k: torch.empty_like(w) for k, w in wf.items()}
-        m_total = sum(w.shape[1] for w in y.values())
+        wf_list, w0_list = list(wf_flat.values()), [w0_flat[k] for k in wf_flat]
+        inv_cols = [inv[:, None]] * len(wf_list)
+        m_total = sum(w.shape[1] for w in y_flat.values())
+
+        def foreach_two_calls():
+            diffs = torch._foreach_sub(wf_list, w0_list)
+            torch._foreach_mul_(diffs, inv_cols)
+
         calls = {
-            "gossip_mix": {
-                "ms": lambda: [gossip_mix(v, p_t, 1, out=v) for v in y.values()],
-                "plain_ms": lambda: [gossip_mix_ref(v, p_dev, 1) for v in y.values()],
-                "library_ms": lambda: [torch.matmul(p_dev.T, v) for v in y.values()],
+            "gossip_mix": {  # the tree call in place, as CudaBackend.inter_cluster makes it
+                "ms": lambda: gossip_mix_tree(y, p_t, 1, inplace=True),
+                "plain_ms": lambda: [gossip_mix_ref(v, p_dev, 1) for v in y_flat.values()],
+                "library_ms": lambda: [torch.matmul(p_dev.T, v) for v in y_flat.values()],
             },
-            "cluster_agg": {  # the tree call, one launch, as the event makes it
-                "ms": lambda: cluster_agg_tree(wf, m_row, 1),
-                "plain_ms": lambda: [cluster_agg_ref(v, m_row, 1) for v in wf.values()],
-                "library_ms": lambda: [torch.matmul(m_row[None], v) for v in wf.values()],
+            "cluster_agg": {
+                "ms": lambda: cluster_agg_tree(wf_flat, m_row, 1),
+                "plain_ms": lambda: [cluster_agg_ref(v, m_row, 1) for v in wf_flat.values()],
+                "library_ms": lambda: [torch.matmul(m_row[None], v) for v in wf_flat.values()],
             },
             "normalized_update": {
-                "ms": lambda: [normalized_update(v, w0[k], inv, out=norm_out[k])
-                               for k, v in wf.items()],
+                "ms": lambda: normalized_update_tree(wf, w0, inv, out=norm_out),
                 "plain_ms": lambda: [normalized_update_ref(v, w0[k], inv) for k, v in wf.items()],
-                # no single PyTorch call computes (a - b) * s per row
+                "foreach_two_calls_ms": foreach_two_calls,
             },
         }
         bounds = {
@@ -745,27 +861,31 @@ class Smoke:
             "cluster_agg": self.bound((G + 1) * m_total * 4 + G * 4, 2 * G * m_total),
             "normalized_update": self.bound(3 * G * m_total * 4 + G * 4, 2 * G * m_total),
         }
-        # the largest leaf alone: the kernel's own rate, without launch gaps
-        big = max(y, key=lambda k: y[k].shape[1])
-        m_big = y[big].shape[1]
+        # the largest leaf alone: the kernel's own rate, without the other leaves
+        big = max(y_flat, key=lambda k: y_flat[k].shape[1])
+        m_big = y_flat[big].shape[1]
         big_calls = {
-            "gossip_mix": (lambda: gossip_mix(y[big], p_t, 1, out=y[big]), 2 * D * m_big * 4),
-            "cluster_agg": (lambda: cluster_agg(wf[big], m_row, 1, out=agg_out[big]),
+            "gossip_mix": (lambda: gossip_mix(y_flat[big], p_t, 1, out=y_flat[big]),
+                           2 * D * m_big * 4),
+            "cluster_agg": (lambda: cluster_agg(wf_flat[big], m_row, 1, out=agg_out[big]),
                             (G + 1) * m_big * 4),
-            "normalized_update": (lambda: normalized_update(wf[big], w0[big], inv,
-                                                            out=norm_out[big]), 3 * G * m_big * 4),
+            "normalized_update": (lambda: normalized_update(wf_flat[big], w0_flat[big], inv,
+                                                            out=norm_out[big].view(G, -1)),
+                                  3 * G * m_big * 4),
         }
         out = {}
         for kname, fns in calls.items():
             t = {k: self.cuda_ms(fn) for k, fn in fns.items()}
             t.update({f"graph_{k}": self.graph_ms(fn) for k, fn in fns.items()})
-            t.setdefault("library_ms", None)
+            t.setdefault("library_ms", None)  # one PyTorch call computing the same, where one is
             t.setdefault("graph_library_ms", None)
             bnd, by = bounds[kname]
             fn, byts = big_calls[kname]
-            out[kname] = dict(t, bound_ms=bnd, bound_by=by, leaves=len(y), largest_leaf={
-                "leaf": big, "m": m_big, "graph_ms": self.graph_ms(fn),
-                "bound_ms": byts / HBM_BYTES_PER_S * 1e3})
+            out[kname] = dict(t, bound_ms=bnd, bound_by=by, leaves=len(y),
+                              launches_per_call=self.launch_groups(y),
+                              bound_share=bnd / t["ms"], graph_bound_share=bnd / t["graph_ms"],
+                              largest_leaf={"leaf": big, "m": m_big, "graph_ms": self.graph_ms(fn),
+                                            "bound_ms": byts / HBM_BYTES_PER_S * 1e3})
         return out
 
     def flash_inputs(self, shape, dtype, seed=0):
@@ -1112,9 +1232,15 @@ class Smoke:
                 flash_split[found.group(1)] = flash_split.get(found.group(1), 0.0) + ms
         flash_ms = sum(flash_split.values())
         leaf_table = {k: sum(ms for name, ms in per_name.items() if k in name)
-                      for k in LEAF_TABLE_KERNELS.values()}
+                      for names in LEAF_TABLE_KERNELS.values() for k in names}
+        # device launches a step: every kernel, and PyTorch's copy kernels
+        # (``.contiguous()`` of a strided tensor) among them
+        kernels = [name for name, _, _ in spans if not name.startswith(("Memcpy", "Memset"))]
+        copies = sum("copy" in name for name in kernels)
         return {"iters": iters, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "busy_ms_per_step": busy_ms / iters, "busy_share": busy_ms / wall_ms,
+                "kernel_launches_per_step": len(kernels) / iters,
+                "copy_launches_per_step": copies / iters,
                 "flash_kernels_ms": flash_ms, "flash_share_of_busy": flash_ms / busy_ms,
                 "flash_split_ms": {k: round(ms, 4) for k, ms in flash_split.items()},
                 "leaf_table_ms": {k: round(ms, 4) for k, ms in leaf_table.items()},
@@ -1263,7 +1389,7 @@ class Smoke:
         the scheduler calls it, on the next event's cluster and batches."""
         import numpy as np
         from repro_torch.core import staleness_mixing_matrix
-        from repro_torch.kernels import cluster_agg_tree, normalized_update
+        from repro_torch.kernels import cluster_agg_tree, normalized_update_tree
 
         torch = self.torch
         sched = run.runtime.scheduler
@@ -1271,10 +1397,11 @@ class Smoke:
         g = len(sched._members[d])
         batches = sched._gather(run.batch_source(), d)
         w0, w = sched._local_steps(d, batches)
-        wf = {k: v.reshape(g, -1).contiguous() for k, v in w.items()}
-        w0f = {k: v.view(g, -1) for k, v in w0.items()}
+        # the strided leaves of w_final, each one copy launch before eq. 19
+        self.detail["async_wf_copies_per_event"] = sum(not v.is_contiguous() for v in w.values())
+        wf = {k: v.contiguous() for k, v in w.items()}
         inv, m_hat = sched._inv_thetas[d], sched._m_hats[d]
-        deltas = {k: normalized_update(wf[k], w0f[k], inv) for k in wf}
+        deltas = normalized_update_tree(wf, w0, inv)
         y = {k: v.clone() for k, v in sched.y.items()}
         gaps = (sched.t - sched.last_update).astype(np.float64)
         gaps[d] = 0.0
@@ -1283,8 +1410,8 @@ class Smoke:
         return {
             "client_deltas_ms": self.cuda_ms(lambda: sched._local_steps(d, batches),
                                              reps=5, warmup=2),
-            "normalized_update_ms": self.cuda_ms(
-                lambda: [normalized_update(wf[k], w0f[k], inv) for k in wf], reps=10),
+            "normalized_update_ms": self.cuda_ms(lambda: normalized_update_tree(wf, w0, inv),
+                                                 reps=10),
             "cluster_agg_ms": self.cuda_ms(lambda: cluster_agg_tree(deltas, m_hat, 1), reps=10),
             "gossip_mix_ms": self.cuda_ms(lambda: sched.backend.inter_cluster(y, p_t, 1),
                                           reps=10),
@@ -1305,10 +1432,9 @@ class Smoke:
         if sched.backend.name != "cuda" or run.runtime.device.type != "cuda":
             raise AssertionError(f"auto resolved to {sched.backend.name} on {run.runtime.device}")
         leaves = len(sched.y)
-        # normalized_update and gossip_mix: one launch per leaf per cluster
-        # event; cluster_agg: one tree call per event, one launch per group
-        expected = {k: ASYNC_EVENTS * leaves for k in counters}
-        expected["cluster_agg"] = ASYNC_EVENTS * self.launch_groups(sched.y)
+        # each of the three: one tree call per cluster event, one launch per
+        # group of plan_launches
+        expected = {k: ASYNC_EVENTS * self.launch_groups(sched.y) for k in counters}
         if launches != expected:
             raise AssertionError(f"async launches {launches}, expected {expected}")
         self.check_finite(sched.y, "async cuda run")
@@ -1341,7 +1467,12 @@ class Smoke:
         busy = self.profile_steps(run, 8)
         print(f"async warm: {warm:.3f} events/s over {ASYNC_EVENTS} more events; split "
               + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
-              + f"; profiled 8 events: {json.dumps(busy)}", flush=True)
+              + f"; w_final copies per event {self.detail['async_wf_copies_per_event']}"
+              + f"; device busy {busy['busy_ms_per_step']:.4f} ms per event "
+              + f"({100 * busy['busy_share']:.1f}% busy), "
+              + f"{busy['kernel_launches_per_step']:.2f} kernel launches per event "
+              + f"({busy['copy_launches_per_step']:.2f} copies); profiled 8 events: "
+              + json.dumps(busy), flush=True)
         self.detail["async"] = {"launches": launches, "expected": expected, "events": events,
                                 "events_per_s_cold": ASYNC_EVENTS / dt,
                                 "events_per_s_warm": warm, "split": split, "profile": busy,

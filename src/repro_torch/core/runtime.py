@@ -366,10 +366,11 @@ class AsyncScheduler:
     * eq. 21-22: ``y <- y @ P_t`` through ``backend.inter_cluster``, with
       ``P_t`` built on the host in float64 from the iteration gaps.
 
-    On the ``cuda`` backend eq. 19 runs through the ``normalized_update``
-    kernel (one factor ``1 / theta_i`` per client row) and eq. 20's reduction
-    through ``cluster_agg_tree`` (the fired cluster's ``(g, M)`` stacks to
-    ``(1, M)``, one launch for the tree); on ``dense`` both are the plain expressions the reference
+    On the ``cuda`` backend eq. 19 runs through ``normalized_update_tree``
+    (one factor ``1 / theta_i`` per client row), eq. 20's reduction through
+    ``cluster_agg_tree`` (the fired cluster's ``(g, ...)`` stacks to ``(1,
+    ...)``) and eq. 21-22 through ``gossip_mix_tree``, one launch each for
+    the tree; on ``dense`` all three are the plain expressions the reference
     writes.  The queue already names the next event when a step finishes,
     so its batches are gathered and copied (non-blocking) right after the
     current event's launches; ``prefetch=False`` draws the same streams.
@@ -458,16 +459,15 @@ class AsyncScheduler:
         w0, w = self._local_steps(d, batches)
         theta_bar = self._theta_bars[d]
         if self._use_kernels:
-            from ..kernels import cluster_agg_tree, normalized_update
+            from ..kernels import cluster_agg_tree, normalized_update_tree
 
-            deltas = {}
-            for k in self.y:
-                # vmap(grad) returns conv-kernel gradients as permuted views,
-                # and w_final inherits that layout from them: the kernels
-                # stream contiguous rows
-                wf = w[k].reshape(g, -1).contiguous()
-                deltas[k] = normalized_update(wf, w0[k].view(g, -1), self._inv_thetas[d])
-            rs = cluster_agg_tree(deltas, self._m_hats[d], 1)  # one launch for the tree
+            # vmap(grad) returns conv-kernel gradients as permuted views, and
+            # w_final can inherit that layout from them: the kernels stream
+            # contiguous rows (a no-op on a contiguous leaf, one copy launch
+            # on a strided one)
+            wf = {k: v.contiguous() for k, v in w.items()}
+            deltas = normalized_update_tree(wf, w0, self._inv_thetas[d])  # one launch
+            rs = cluster_agg_tree(deltas, self._m_hats[d], 1)  # one launch
             for k, y in self.y.items():
                 y[d].add_(theta_bar * rs[k].view(y.shape[1:]))
         else:

@@ -11,14 +11,15 @@ from .flash_attention import (
     flash_attention_fwd_ref,
 )
 from .fused_sgd import (
-    normalized_update, normalized_update_ref, sgd_update, sgd_update_ref, sgd_update_tree,
+    normalized_update, normalized_update_ref, normalized_update_tree, sgd_update, sgd_update_ref,
+    sgd_update_tree,
 )
 from .fused_transition import fused_transition, fused_transition_ref, fused_transition_tree
 from .gossip_mix import gossip_mix, gossip_mix_ref, gossip_mix_tree
 
 __all__ = [
     "sgd_update", "sgd_update_ref", "sgd_update_tree",
-    "normalized_update", "normalized_update_ref",
+    "normalized_update", "normalized_update_ref", "normalized_update_tree",
     "fused_transition", "fused_transition_ref", "fused_transition_tree",
     "gossip_mix", "gossip_mix_ref", "gossip_mix_tree",
     "cluster_agg", "cluster_agg_ref", "cluster_agg_tree",

@@ -27,7 +27,7 @@ import functools
 import torch
 
 from .._build import check, load, stream_of
-from .._leaves import MAX_LEAVES, plan_launches
+from .._leaves import MAX_LEAVES, leaf_outputs, plan_launches
 from .ref import cluster_agg_ref
 
 __all__ = ["cluster_agg", "cluster_agg_tree", "plan_launches", "MAX_LEAVES"]
@@ -70,7 +70,7 @@ def _agg(flats: list, outs: list, weights: torch.Tensor, d: int) -> list:
             raise TypeError(f"cluster_agg kernel supports float32/bfloat16, got {w.dtype}")
         if not (w.is_contiguous() and (o is None or o.is_contiguous())):
             raise ValueError("cluster_agg kernel needs a contiguous w and out")
-    outs = _outputs(flats, outs, d)
+    outs = leaf_outputs([((d, w.shape[1]), w.dtype) for w in flats], outs, weights.device)
     leaves = [(w.dtype, w.shape[1], (w.data_ptr(), o.data_ptr())) for w, o in zip(flats, outs)]
     lib, fn = _bind()
     stream = stream_of(weights.device)
@@ -85,26 +85,6 @@ def _agg(flats: list, outs: list, weights: torch.Tensor, d: int) -> list:
         if any(leaves[i][1] for i, _ in members):  # the launcher skips a launch with no work
             cluster_agg.launches += 1
     return outs
-
-
-def _outputs(flats: list, outs: list, d: int) -> list:
-    """``outs`` with each None replaced by a new ``(D, M)`` tensor: views of
-    one buffer per dtype (one allocation, not one a leaf), each starting on
-    a 16-byte boundary so that the kernel's vector path stays open."""
-    sizes: dict = {}
-    for w, o in zip(flats, outs):
-        if o is None:
-            sizes[w.dtype] = sizes.get(w.dtype, 0) + -(-d * w.shape[1] // 8) * 8
-    bufs = {dt: torch.empty(n, dtype=dt, device=flats[0].device) for dt, n in sizes.items()}
-    used = dict.fromkeys(sizes, 0)
-    res = []
-    for w, o in zip(flats, outs):
-        if o is None:
-            n, at = d * w.shape[1], used[w.dtype]
-            o = bufs[w.dtype][at:at + n].view(d, w.shape[1])
-            used[w.dtype] = at + -(-n // 8) * 8
-        res.append(o)
-    return res
 
 
 def cluster_agg(w: torch.Tensor, weights: torch.Tensor, num_clusters: int,

@@ -4,13 +4,15 @@
   ``repro/kernels/fused_sgd/kernel.py::_sgd_kernel`` (TPU, via
   ``sgd_update_pallas``) with the CUDA kernel in ``csrc/sgd_update.cu``.
   Bound by bytes: ``3 * numel * itemsize`` (read w and g, write w).
-  ``sgd_update_tree`` launches once per tree (once per group of
-  ``plan_launches``: one launch for every tree of one dtype and at most
-  ``MAX_LEAVES`` leaves); ``sgd_update`` is the one-leaf case.
 * ``normalized_update``: ``(w_final - w_start) * inv_theta``, one factor
   per row; replaces ``_norm_update_kernel`` (via
   ``normalized_update_pallas``) with ``csrc/normalized_update.cu``.  Bound
   by bytes: ``3 * R * M * itemsize``.
+
+Both launch once per tree: ``sgd_update_tree`` and
+``normalized_update_tree`` take one launch per group of ``plan_launches``
+(one launch for every tree of one dtype and at most ``MAX_LEAVES``
+leaves); ``sgd_update`` and ``normalized_update`` are the one-leaf cases.
 
 Both sources build into one library.  Dispatch is by the tensor's device: a
 CPU tensor takes the plain version (``ref.py``), a CUDA tensor launches the
@@ -26,10 +28,11 @@ import functools
 import torch
 
 from .._build import check, load, stream_of
-from .._leaves import MAX_LEAVES, plan_launches
+from .._leaves import MAX_LEAVES, leaf_outputs, plan_launches
 from .ref import normalized_update_ref, sgd_update_ref
 
-__all__ = ["sgd_update", "sgd_update_tree", "normalized_update", "plan_launches", "MAX_LEAVES"]
+__all__ = ["sgd_update", "sgd_update_tree", "normalized_update", "normalized_update_tree",
+           "plan_launches", "MAX_LEAVES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,9 +45,8 @@ def _bind():
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     norm = lib.normalized_update_launch
-    norm.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_void_p]
+    norm.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     norm.restype = ctypes.c_int
     return lib, fn, norm
 
@@ -105,6 +107,65 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float,
 sgd_update.launches = 0
 
 
+def _check_norm_leaf(w_final: torch.Tensor, w_start: torch.Tensor, out, inv_theta,
+                     what: str) -> None:
+    if w_start.shape != w_final.shape or w_start.dtype != w_final.dtype \
+            or w_start.device != w_final.device:
+        raise ValueError(f"{what}: w_start {tuple(w_start.shape)}/{w_start.dtype}/"
+                         f"{w_start.device} does not match w_final {tuple(w_final.shape)}/"
+                         f"{w_final.dtype}/{w_final.device}")
+    if out is not None and (out.shape != w_final.shape or out.dtype != w_final.dtype
+                            or out.device != w_final.device):
+        raise ValueError(f"{what}: out must match w_final in shape, dtype and device")
+    if isinstance(inv_theta, torch.Tensor):
+        if inv_theta.dim() != 1 or w_final.dim() < 1 or inv_theta.shape[0] != w_final.shape[0]:
+            raise ValueError(f"{what}: inv_theta {tuple(inv_theta.shape)} must hold one factor "
+                             f"per row of w_final {tuple(w_final.shape)}")
+        if inv_theta.device != w_final.device:
+            raise ValueError(f"{what}: w_final and inv_theta must lie on one device")
+
+
+def _norm(wfs: list, w0s: list, outs: list, inv_theta) -> list:
+    """``(w_final - w_start) * inv_theta`` for every (checked) leaf, all on
+    one device, into ``outs`` (a tensor, which may alias an input, or None
+    for a new one)."""
+    device = wfs[0].device
+    if device.type == "cpu":
+        res = [normalized_update_ref(a, b, inv_theta) for a, b in zip(wfs, w0s)]
+        return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]
+    if device.type != "cuda":
+        raise ValueError(f"normalized_update runs on cpu or cuda tensors, got {device}")
+    per_row = isinstance(inv_theta, torch.Tensor)
+    if per_row and inv_theta.dtype != torch.float32:
+        raise TypeError(f"normalized_update kernel takes float32 inv_theta, got {inv_theta.dtype}")
+    if per_row and not inv_theta.is_contiguous():
+        raise ValueError("normalized_update kernel needs a contiguous inv_theta")
+    for a, b, o in zip(wfs, w0s, outs):
+        if a.dtype not in _DTYPES:
+            raise TypeError(f"normalized_update kernel supports float32/bfloat16, got {a.dtype}")
+        if not (a.is_contiguous() and b.is_contiguous() and (o is None or o.is_contiguous())):
+            raise ValueError("normalized_update kernel needs a contiguous w_final, w_start and "
+                             "out")
+    rows = inv_theta.shape[0] if per_row else 1
+    outs = leaf_outputs([(tuple(a.shape), a.dtype) for a in wfs], outs, device)
+    leaves = [(a.dtype, a.numel() // rows, (a.data_ptr(), b.data_ptr(), o.data_ptr()))
+              for a, b, o in zip(wfs, w0s, outs)]
+    lib, _, fn = _bind()
+    stream = stream_of(device)
+    for dtype, members in plan_launches(leaves):
+        table = []
+        for i, vec in members:
+            _, m, ptrs = leaves[i]
+            table += (*ptrs, m, vec)
+        rc = fn((ctypes.c_longlong * len(table))(*table), len(members),
+                inv_theta.data_ptr() if per_row else None, 0.0 if per_row else float(inv_theta),
+                rows, _DTYPES[dtype], stream)
+        check(lib, rc, "normalized_update")
+        if any(leaves[i][1] for i, _ in members):  # the launcher skips a launch with no work
+            normalized_update.launches += 1
+    return outs
+
+
 def normalized_update(w_final: torch.Tensor, w_start: torch.Tensor, inv_theta,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """``(w_final - w_start) * inv_theta`` computed in f32, stored in ``w_final.dtype``.
@@ -115,47 +176,8 @@ def normalized_update(w_final: torch.Tensor, w_start: torch.Tensor, inv_theta,
     ``out`` (may alias an input) receives the result; otherwise a new tensor
     is returned.  All tensors contiguous and alike.
     """
-    if w_start.shape != w_final.shape or w_start.dtype != w_final.dtype \
-            or w_start.device != w_final.device:
-        raise ValueError(f"w_start {tuple(w_start.shape)}/{w_start.dtype}/{w_start.device} "
-                         f"does not match w_final {tuple(w_final.shape)}/{w_final.dtype}/"
-                         f"{w_final.device}")
-    if out is not None and (out.shape != w_final.shape or out.dtype != w_final.dtype
-                            or out.device != w_final.device):
-        raise ValueError("out must match w_final in shape, dtype and device")
-    per_row = isinstance(inv_theta, torch.Tensor)
-    if per_row:
-        if inv_theta.dim() != 1 or w_final.dim() < 1 or inv_theta.shape[0] != w_final.shape[0]:
-            raise ValueError(f"inv_theta {tuple(inv_theta.shape)} must hold one factor per "
-                             f"row of w_final {tuple(w_final.shape)}")
-        if inv_theta.device != w_final.device:
-            raise ValueError("w_final and inv_theta must lie on one device")
-    if w_final.device.type == "cpu":
-        res = normalized_update_ref(w_final, w_start, inv_theta)
-        return res if out is None else out.copy_(res)
-    if w_final.device.type != "cuda":
-        raise ValueError(f"normalized_update runs on cpu or cuda tensors, got {w_final.device}")
-    if w_final.dtype not in _DTYPES:
-        raise TypeError(f"normalized_update kernel supports float32/bfloat16, "
-                        f"got {w_final.dtype}")
-    if per_row and inv_theta.dtype != torch.float32:
-        raise TypeError(f"normalized_update kernel takes float32 inv_theta, got {inv_theta.dtype}")
-    if out is None:
-        out = torch.empty_like(w_final, memory_format=torch.contiguous_format)
-    checked = [("w_final", w_final), ("w_start", w_start), ("out", out)]
-    if per_row:
-        checked.append(("inv_theta", inv_theta))
-    for name, t in checked:
-        if not t.is_contiguous():
-            raise ValueError(f"normalized_update kernel needs a contiguous {name}")
-    rows = inv_theta.shape[0] if per_row else 1
-    lib, _, fn = _bind()
-    rc = fn(w_final.data_ptr(), w_start.data_ptr(), out.data_ptr(),
-            inv_theta.data_ptr() if per_row else None, 0.0 if per_row else float(inv_theta),
-            rows, w_final.numel() // rows, _DTYPES[w_final.dtype], stream_of(w_final.device))
-    check(lib, rc, "normalized_update")
-    normalized_update.launches += 1
-    return out
+    _check_norm_leaf(w_final, w_start, out, inv_theta, "normalized_update")
+    return _norm([w_final], [w_start], [out], inv_theta)[0]
 
 
 normalized_update.launches = 0
@@ -183,3 +205,32 @@ def sgd_update_tree(params: dict, grads: dict, lr: float, inplace: bool = False)
             raise ValueError(f"leaf {k!r} on {w.device}, the first leaf on {device}")
     res = _sgd(ws, gs, ws if inplace else [None] * len(ws), lr)
     return dict(zip(params, res))
+
+
+def normalized_update_tree(w_final: dict, w_start: dict, inv_theta,
+                           out: dict | None = None) -> dict:
+    """``normalized_update`` on every leaf: one launch per group of
+    ``plan_launches`` on CUDA.
+
+    ``w_start`` (and ``out``, where given) must hold the keys of ``w_final``
+    with leaves of the same shape, dtype and device; every leaf is
+    contiguous, and with an ``(R,)`` ``inv_theta`` has R rows.  Every leaf
+    is checked before any is touched.  New outputs are views of one buffer
+    per dtype; a leaf of ``out`` may alias its input.
+    """
+    for name, other in (("w_start", w_start), ("out", out)):
+        if other is not None and w_final.keys() != other.keys():
+            raise ValueError(f"w_final and {name} hold different keys: "
+                             f"{sorted(w_final.keys() ^ other.keys())}")
+    if not w_final:
+        return {}
+    wfs, w0s = list(w_final.values()), [w_start[k] for k in w_final]
+    outs = [None] * len(wfs) if out is None else [out[k] for k in w_final]
+    device = wfs[0].device
+    for k, a, b, o in zip(w_final, wfs, w0s, outs):
+        _check_norm_leaf(a, b, o, inv_theta, f"normalized_update_tree leaf {k!r}")
+        if a.device != device:
+            raise ValueError(f"leaf {k!r} on {a.device}, the first leaf on {device}")
+        if not (a.is_contiguous() and b.is_contiguous() and (o is None or o.is_contiguous())):
+            raise ValueError(f"normalized_update_tree needs contiguous leaves; {k!r} is not")
+    return dict(zip(w_final, _norm(wfs, w0s, outs, inv_theta)))

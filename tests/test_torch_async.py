@@ -130,3 +130,25 @@ def test_cuda_backend_updates_y_in_place(jax_reference):
     trun.runtime.step(trun.batch_source())
     assert all(sched.y[k] is leaves[k] for k in leaves)
     assert trun.runtime.cluster_params() is sched.y
+
+
+def test_cuda_backend_event_calls_each_tree_kernel_once(jax_reference, monkeypatch):
+    """On the ``cuda`` backend every cluster event calls
+    ``normalized_update_tree``, ``cluster_agg_tree`` and ``gossip_mix_tree``
+    once each (one launch per tree on the card); here, on the plain path,
+    spies count the calls, since the launch counters do not move."""
+    import repro_torch.kernels as kernels
+
+    calls = {"normalized_update_tree": 0, "cluster_agg_tree": 0, "gossip_mix_tree": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def spy(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(kernels, name, spy)
+    ref = jax_reference["straggler-bimodal-async"]
+    _, _, events = _torch_run("straggler-bimodal-async", ref["init"], "cuda")
+    assert events == ref["events"] and len(events) == EVENTS
+    assert calls == dict.fromkeys(calls, EVENTS)

@@ -24,8 +24,8 @@ from repro_torch.kernels import (
     cluster_agg, cluster_agg_ref, cluster_agg_tree, flash_attention, flash_attention_bwd,
     flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref, fused_transition,
     fused_transition_ref,
-    fused_transition_tree, gossip_mix, gossip_mix_ref, normalized_update, normalized_update_ref,
-    sgd_update, sgd_update_ref, sgd_update_tree,
+    fused_transition_tree, gossip_mix, gossip_mix_ref, gossip_mix_tree, normalized_update,
+    normalized_update_ref, normalized_update_tree, sgd_update, sgd_update_ref, sgd_update_tree,
 )
 from repro_torch.kernels.fused_transition.ops import MAX_LEAVES
 from repro_torch.kernels.flash_attention import route
@@ -303,6 +303,93 @@ def test_normalized_update_matches_plain(cuda, dtype, tol, m, offset):
                                .float(), atol=tol, rtol=0)
 
 
+def _column_stochastic(d, seed):
+    p = np.random.default_rng(seed).uniform(0.0, 1.0, (d, d))
+    return torch.tensor(p / p.sum(axis=0), dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d", [1, 4, 5, 8, 13, 16])
+def test_gossip_mix_tree_in_place_every_maxd(cuda, dtype, tol, d):
+    """D on every register size of the kernel (MAXD 4, 8, 16): the ragged
+    tree (vector and scalar leaves, an offset view) is one launch, each leaf
+    within ``tol`` of the plain version and bitwise its one-leaf call, and
+    the in-place call bitwise the out-of-place one."""
+    p = _column_stochastic(d, d)
+    tree = _ragged_tree(cuda, dtype, d, seed=d)
+    for alpha in (0, 1, 2):
+        n = gossip_mix.launches
+        out = gossip_mix_tree(tree, p, alpha=alpha)
+        torch.cuda.synchronize()
+        assert gossip_mix.launches == n + 1
+        for k, y in tree.items():
+            flat = y.reshape(d, -1)
+            assert out[k].shape == y.shape and out[k].dtype == dtype
+            ref = gossip_mix_ref(flat, p.to(cuda), alpha).view(y.shape)
+            torch.testing.assert_close(out[k].float(), ref.float(), atol=tol, rtol=0)
+            assert torch.equal(gossip_mix(flat, p, alpha=alpha).view(y.shape), out[k])
+        inplace = {k: y.clone() for k, y in tree.items()}  # the offset view stays off 16 bytes
+        inplace["offset"] = torch.empty(d * 1024 + 1, device=cuda, dtype=dtype)[1:].view(
+            d, 1024).copy_(tree["offset"])
+        n = gossip_mix.launches
+        res = gossip_mix_tree(inplace, p.to(cuda), alpha=alpha, inplace=True)
+        torch.cuda.synchronize()
+        assert gossip_mix.launches == n + 1
+        for k in tree:
+            assert res[k] is inplace[k] and torch.equal(res[k], out[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_row", [True, False])
+def test_normalized_update_tree_bitwise(cuda, dtype, per_row):
+    """One launch for the ragged tree (vector and scalar leaves), bitwise
+    equal to the plain version and to one single-leaf call per leaf, and
+    in place (``out`` aliasing ``w_final``) bitwise the same."""
+    inv = 1.0 / torch.tensor([1.0, 3.0, 7.0, 8.0, 2.0], device=cuda) if per_row else 1.0 / 7.0
+    wf = _ragged_tree(cuda, dtype, 5, seed=3)
+    w0 = _ragged_tree(cuda, dtype, 5, seed=4)
+    n = normalized_update.launches
+    out = normalized_update_tree(wf, w0, inv)
+    torch.cuda.synchronize()
+    assert normalized_update.launches == n + 1
+    for k, a in wf.items():
+        assert out[k].shape == a.shape and out[k].dtype == dtype
+        assert torch.equal(out[k], normalized_update_ref(a, w0[k], inv))
+        assert torch.equal(out[k], normalized_update(a, w0[k], inv))
+        assert out[k].numel() == 0 or out[k].data_ptr() % 16 == 0
+    res = normalized_update_tree(wf, w0, inv, out=wf)
+    for k in wf:
+        assert res[k] is wf[k] and torch.equal(wf[k], out[k])
+
+
+@pytest.mark.cuda
+def test_async_trees_launch_per_dtype_and_per_max_leaves(cuda):
+    """More than MAX_LEAVES leaves of one dtype take two launches of each
+    async tree kernel, a tree mixing f32 and bf16 two, and each leaf is
+    bitwise its one-leaf call."""
+    p = _p_t(cuda)
+    inv = 1.0 / torch.tensor([1.0, 3.0, 7.0, 8.0, 2.0], device=cuda)
+    big = {f"l{i}": torch.randn(4, 5, 18 + 3 * i, device=cuda) for i in range(MAX_LEAVES + 6)}
+    mixed = {"a": torch.randn(4, 5, 64, device=cuda),
+             "b": torch.randn(4, 5, 64, device=cuda).to(torch.bfloat16),
+             "c": torch.randn(4, 5, 7, device=cuda),
+             "d": torch.randn(4, 5, 9, device=cuda).to(torch.bfloat16)}
+    for tree in (big, mixed):
+        y = {k: w[:, 0].contiguous() for k, w in tree.items()}           # (D, M)
+        wf = {k: w[0].contiguous() for k, w in tree.items()}             # (R, M)
+        w0 = {k: w[1].contiguous() for k, w in tree.items()}
+        n = gossip_mix.launches, normalized_update.launches
+        mixed_y = gossip_mix_tree(y, p, alpha=1)
+        deltas = normalized_update_tree(wf, w0, inv)
+        torch.cuda.synchronize()
+        assert (gossip_mix.launches - n[0], normalized_update.launches - n[1]) == (2, 2)
+        for k in tree:
+            assert torch.equal(mixed_y[k], gossip_mix(y[k], p, alpha=1))
+            assert torch.equal(deltas[k], normalized_update(wf[k], w0[k], inv))
+
+
 @pytest.mark.cuda
 def test_fused_local_step_and_transition_match_dense(cuda):
     c = 8
@@ -336,11 +423,11 @@ def test_async_events_on_kernels_match_dense(cuda):
         launched = (normalized_update.launches - n[0], cluster_agg.launches - n[1],
                     gossip_mix.launches - n[2])
         runs[backend] = (run.runtime.scheduler.y, events, launched)
-    # normalized_update and gossip_mix once per leaf per event, cluster_agg
-    # once per event (the tree's leaves fit one table)
+    # each of the three once per event: one tree call, and the tree's
+    # leaves fit one table
     leaves = len(runs["cuda"][0])
     assert leaves <= MAX_LEAVES
-    assert runs["cuda"][2] == (6 * leaves, 6, 6 * leaves)
+    assert runs["cuda"][2] == (6, 6, 6)
     assert runs["dense"][2] == (0, 0, 0)
     assert runs["cuda"][1] == runs["dense"][1]
     for k, v in runs["cuda"][0].items():

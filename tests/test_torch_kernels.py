@@ -26,7 +26,7 @@ from repro.kernels import sgd_update_tree as j_sgd_update_tree
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import (
     cluster_agg, cluster_agg_tree, fused_transition, fused_transition_tree, gossip_mix,
-    gossip_mix_tree, normalized_update, sgd_update, sgd_update_tree,
+    gossip_mix_tree, normalized_update, normalized_update_tree, sgd_update, sgd_update_tree,
 )
 from repro_torch.kernels.fused_sgd.ops import plan_launches as sgd_plan
 from repro_torch.kernels.fused_transition.ops import MAX_LEAVES, plan_launches
@@ -136,6 +136,8 @@ def test_cpu_calls_do_not_count_launches():
     gossip_mix(torch.zeros(4, 16), p, alpha=1)
     cluster_agg(torch.zeros(8, 16), torch.ones(8), 4)
     normalized_update(torch.zeros(5, 16), torch.zeros(5, 16), torch.ones(5))
+    gossip_mix_tree({"y": torch.zeros(4, 16)}, p, alpha=1)
+    normalized_update_tree({"w": torch.zeros(5, 16)}, {"w": torch.zeros(5, 16)}, torch.ones(5))
     assert [f.launches for f in wrappers] == before
 
 
@@ -350,25 +352,33 @@ def test_cluster_agg_tree_refuses_before_any_dispatch(bad):
     assert cluster_agg.launches == before
 
 
-def test_cluster_agg_tree_outputs_one_aligned_buffer_per_dtype():
-    """The tree call's new outputs: one allocation per dtype, each leaf's
-    (D, M) view starting on a 16-byte boundary and apart from the others."""
-    from repro_torch.kernels.cluster_agg.ops import _outputs
+@pytest.mark.parametrize("caller", ["cluster_agg", "normalized_update"])
+def test_cluster_agg_tree_outputs_one_aligned_buffer_per_dtype(caller):
+    """The tree calls' new outputs (``_leaves.leaf_outputs``, shared by
+    ``cluster_agg`` with its ``(D, M)`` outputs and ``normalized_update``
+    with outputs shaped as its inputs): one allocation per dtype, each
+    leaf's view starting on a 16-byte boundary and apart from the others."""
+    from repro_torch.kernels._leaves import leaf_outputs
+    from repro_torch.kernels.cluster_agg.ops import leaf_outputs as agg_outputs
+    from repro_torch.kernels.fused_sgd.ops import leaf_outputs as sgd_outputs
 
-    flats = [torch.zeros(8, m, dtype=dt) for m, dt in ((10, torch.float32), (3, torch.bfloat16),
-                                                       (333, torch.float32), (7, torch.bfloat16))]
-    given = torch.zeros(4, 3, dtype=torch.bfloat16)
-    outs = _outputs(flats, [None, given, None, None], 4)
+    assert agg_outputs is leaf_outputs and sgd_outputs is leaf_outputs
+    dts = (torch.float32, torch.bfloat16, torch.float32, torch.bfloat16)
+    shapes = {"cluster_agg": [(4, 10), (4, 3), (4, 333), (4, 7)],  # (D, M) from (C, M)
+              "normalized_update": [(5, 10), (5, 3), (5, 3, 7), (5, 7, 1)]}[caller]
+    given = torch.zeros(shapes[1], dtype=torch.bfloat16)
+    outs = leaf_outputs(list(zip(shapes, dts)), [None, given, None, None], "cpu")
     assert outs[1] is given
-    assert [tuple(o.shape) for o in outs] == [(4, 10), (4, 3), (4, 333), (4, 7)]
+    assert [tuple(o.shape) for o in outs] == shapes
     assert outs[0].untyped_storage().data_ptr() == outs[2].untyped_storage().data_ptr()
-    for o in outs:
-        assert o.dtype in (torch.float32, torch.bfloat16) and o.is_contiguous()
+    for o, dt in zip(outs, dts):
+        assert o.dtype == dt and o.is_contiguous()
         assert (o.data_ptr() - o.untyped_storage().data_ptr()) % 16 == 0
     for o in outs:
         o.zero_()
     outs[0].fill_(1.0)
-    assert all(bool((o == 0).all()) for o in outs[1:])
+    outs[3].fill_(1.0)
+    assert all(bool((o == 0).all()) for o in outs[1:3])
 
 
 def test_normalized_update_scalar_matches_jax():
@@ -390,3 +400,102 @@ def test_normalized_update_per_row(dtype, tol):
                                (wf_r - w0_r) / theta[:, None, None], atol=tol)
     with pytest.raises(ValueError, match="one factor per row"):
         normalized_update(_t(wf), _t(w0), _t(1.0 / theta[:4]))
+
+
+# -- the async path's tree calls ---------------------------------------------
+
+def _ragged_rows(rows, rng=RNG):
+    """``(rows, ...)`` f32 leaves with 1-column, odd, 3-D and wide rows."""
+    tree = {"one": rng.normal(size=(rows, 1)), "odd": rng.normal(size=(rows, 333)),
+            "w3d": rng.normal(size=(rows, 3, 7)), "wide": rng.normal(size=(rows, 1024))}
+    return {k: v.astype(np.float32) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("alpha", [0, 1, 3])
+@pytest.mark.parametrize("d", [1, 4, 5, 16])
+def test_gossip_mix_tree_ragged_matches_jax(d, alpha):
+    """The tree call's CPU path on a ragged tree against JAX's
+    ``gossip_mix_tree`` in interpret mode, for D on every side of the
+    kernel's register sizes (4, 8, 16), within 1e-6 (f32 sums of D
+    products in another order)."""
+    rng = np.random.default_rng(d * 10 + alpha)
+    p = rng.uniform(0.0, 1.0, (d, d))
+    p = (p / p.sum(axis=0)).astype(np.float32)  # columns sum to 1, as a mixing matrix
+    tree = _ragged_rows(d, rng)
+    ref = j_gossip_mix_tree({k: jnp.asarray(v) for k, v in tree.items()}, jnp.asarray(p),
+                            alpha=alpha, interpret=True, tile_m=128)
+    out = gossip_mix_tree(params_from_numpy(tree, "cpu"), _t(p), alpha=alpha)
+    assert list(out) == list(tree)
+    for k in tree:
+        assert out[k].shape == tree[k].shape
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("per_row", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normalized_update_tree_matches_jax_rows_bitwise(dtype, per_row):
+    """The tree call's CPU path against JAX's ``normalized_update`` (the
+    Pallas kernel in interpret mode) on each row with its scalar factor,
+    bit for bit: both take an f32 difference and product and one cast."""
+    theta = np.array([1.0, 3.0, 7.0], np.float32)
+    inv = (1.0 / theta).astype(np.float32)
+    wf, w0 = _ragged_rows(3), _ragged_rows(3)
+    tw = {k: _t(v, dtype) for k, v in wf.items()}
+    t0 = {k: _t(v, dtype) for k, v in w0.items()}
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    out = normalized_update_tree(tw, t0, _t(inv) if per_row else float(inv[1]))
+    assert list(out) == list(wf)
+    for k in wf:
+        assert out[k].shape == wf[k].shape and out[k].dtype == dtype
+        for r in range(3):
+            a, b = (jnp.asarray(x[k][r].reshape(-1), jdt) for x in (wf, w0))
+            ref = j_normalized_update(a, b, float(inv[r] if per_row else inv[1]),
+                                      interpret=True, tile_m=a.size)
+            np.testing.assert_array_equal(out[k][r].reshape(-1).float().numpy(),
+                                          np.asarray(ref, np.float32), err_msg=f"{k}[{r}]")
+
+
+def _async_trees(bad):
+    """(y for gossip_mix_tree, p, w_final, w_start, out, inv_theta), all
+    ones, with ``bad`` broken in the last leaf (or operand)."""
+    y = {"a": torch.ones(4, 5), "b": torch.ones(4, 3)}
+    p = torch.eye(4)
+    wf = {"a": torch.ones(5, 4), "b": torch.ones(5, 3, 2)}
+    w0 = {k: torch.ones_like(v) for k, v in wf.items()}
+    inv = torch.ones(5)
+    if bad == "keys":
+        w0 = {"a": w0["a"], "c": w0["b"]}
+    elif bad == "shape":
+        w0["b"] = torch.ones(5, 3, 3)
+    elif bad == "dtype":
+        w0["b"] = torch.ones(5, 3, 2, dtype=torch.bfloat16)
+    elif bad == "devices":
+        y["b"] = torch.ones(4, 3, device="meta")
+        wf["b"], w0["b"] = (torch.ones(5, 3, 2, device="meta") for _ in range(2))
+    elif bad == "non_contiguous":
+        y["b"] = torch.ones(3, 4).T
+        wf["b"] = torch.ones(2, 3, 5).permute(2, 1, 0)
+    elif bad == "rows":
+        y["b"] = torch.ones(5, 3)
+        inv = torch.ones(4)
+    return y, p, wf, w0, inv
+
+
+@pytest.mark.parametrize("bad", ["keys", "shape", "dtype", "devices", "non_contiguous", "rows"])
+def test_async_trees_refuse_before_any_dispatch(bad):
+    """Both tree calls check every leaf before any is touched (in place, so
+    a touched leaf would show) and launch nothing when they refuse."""
+    y, p, wf, w0, inv = _async_trees(bad)
+    before = gossip_mix.launches, normalized_update.launches
+    if bad in ("devices", "non_contiguous", "rows"):  # gossip_mix_tree has one tree
+        with pytest.raises(ValueError, match={"devices": "one device", "rows": "inconsistent",
+                                              "non_contiguous": "contiguous"}[bad]):
+            gossip_mix_tree(y, p * 0.5, alpha=1, inplace=True)
+        assert bool((y["a"] == 1).all())
+    with pytest.raises(ValueError, match={"keys": "different keys", "shape": "does not match",
+                                          "dtype": "does not match", "devices": "one device",
+                                          "non_contiguous": "contiguous",
+                                          "rows": "one factor per row"}[bad]):
+        normalized_update_tree(wf, w0, inv, out=wf)
+    assert all(bool((v == 1).all()) for v in wf.values() if v.device.type == "cpu")
+    assert (gossip_mix.launches, normalized_update.launches) == before
