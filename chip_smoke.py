@@ -69,21 +69,46 @@ Phases, one result line each; any failure exits non-zero without the final
             replays, old new new old) at those two f32 shapes.
 4. main     the main path: ``mnist-noniid-ring`` with ``tau2=2`` through
             ``build_scenario`` (which calls ``make_run``) on the default
-            device, backend auto -> cuda, 10 iterations (local, intra and
-            inter events), launch counters zeroed just before and read
-            just after and held to their exact counts (one launch per stage:
-            2 transitions and 10 SGD steps).  Held against the same run with
-            the dense backend
-            on the card and on the CPU (1e-4 max abs on the parameters,
-            1e-4 relative on the eval loss).
-5. cifar    ``cifar-dirichlet-torus`` with the kernel backend, launches held
-            to one per stage: iterations/s and the split of one iteration
-            into local gradient, ``sgd_update`` and transition.
+            device, backend auto -> cuda, CUDA graphs (the default on the
+            card: one graph per event kind, ``core/cuda_graph.py``), 30
+            iterations (local, intra and inter events; each kind's graph
+            warms up, is captured and is replayed at least twice, checked),
+            run under the profiler: the kernels that ran on the device,
+            counted from its records (``kernels.device_launches``), held
+            exactly (one per stage, replays included: 6 transitions and 30
+            SGD steps), and the wrappers' host counters, zeroed just before
+            and read just after, held to each event kind's warm-up and
+            capture (a replay launches nothing from the host).  The kernels
+            line's ``launches`` are the device counts, ``host_launches`` the
+            counters.  Held against the same run with
+            the dense backend on the card (graph) and on the CPU (eager)
+            (1e-4 max abs on the parameters, 1e-4 relative on the eval
+            loss).  The split of one iteration into local gradient,
+            ``sgd_update`` and transition (eager calls).  Then eager
+            (``graph=False``) against graph in this process, three passes in
+            turns eager, graph, graph, eager, every run's kernel runs and
+            host launches held exactly as above: under cuDNN's deterministic
+            algorithms the graph runs' parameters and eval losses are held
+            to the eager-vs-eager difference of the pass; before and after
+            it, under cuDNN's defaults (whose weight gradients are not
+            reproducible run to run), each run's warm iterations/s, the
+            profiler's busy share, busy ms and kernel launches per step, its
+            peak device memory (allocated, and reserved above the turn's
+            start), the bytes held in each CUDA-graph private pool (the
+            three sync graphs share one), and the runs' differences,
+            reported.
+5. cifar    ``cifar-dirichlet-torus`` with the kernel backend: the same
+            eager-vs-graph A/B over 30 iterations (6 inter events), and the
+            split of one iteration.
 6. async    asynchronous SD-FEEL: ``straggler-bimodal-async`` through
             ``build_scenario`` on the default device, backend auto -> cuda,
-            24 cluster events, launch counters zeroed just before and read
-            just after (normalized_update, cluster_agg and gossip_mix each
-            one tree call, one launch, per event).  Held against the same
+            24 cluster events under the profiler, launch counters zeroed
+            just before and read just after, and the kernels that ran on the
+            device counted (normalized_update, cluster_agg and gossip_mix
+            each one tree call, one launch, per event; both counts held
+            exactly), eager (the event is not
+            captured: ``P_t``, the cluster and its weights are host values
+            of each event).  Held against the same
             run with the dense backend on the card and on the CPU
             (identical event sequence, 1e-4 max abs on the cluster models,
             1e-4 relative on the eval loss).  Then warm events/s, the split
@@ -96,16 +121,22 @@ Phases, one result line each; any failure exits non-zero without the final
             512, S = 64; C = 8 in D = 4, tau1 = tau2 = 2, alpha = 2, R = 2)
             through ``build_scenario`` on the default device, backend auto
             -> cuda, attn_impl cuda: 4 supersteps (32 iterations) and one
-            evaluate, launch counters zeroed just before and read just
-            after and held to their exact counts (the clients fold into one
-            attention launch per layer, forward on the split-TF32 route and
-            backward on the CUDA cores; one SGD and one transition launch per
-            stage for the 12 leaves).  Held against the same run with
-            the dense backend and plain attention on the card and on the
-            CPU (1e-4 max abs on parameters and per-iteration losses, 1e-4
-            relative on the eval loss).  Then warm iterations/s, tokens/s,
-            the split of one iteration and the profiled busy share.
-8. lm-width the same scenario at granite-8b's published widths (d_model
+            evaluate under the profiler, the kernels that ran on the device
+            held to their exact counts (the clients fold into one attention
+            launch per layer, forward on the split-TF32 route and backward
+            on the CUDA cores; one SGD and one transition launch per stage
+            for the 12 leaves), the supersteps replayed from one CUDA graph
+            (the default; at least two replays, checked), and the launch
+            counters, zeroed just before and read just after, held to the
+            first two supersteps' and the evaluate's launches.  Held
+            against the same run with the dense backend and plain attention
+            on the card (graph) and on the CPU (eager) (1e-4 max abs on
+            parameters and per-iteration losses, 1e-4 relative on the eval
+            loss).  The split of one iteration, then the eager-vs-graph A/B
+            of the main phase over 4 supersteps a run (tokens/s too; the
+            kernel runs by flash route held exactly on both sides).
+8. lm-width eager (``graph=False``): the same scenario at granite-8b's
+            published widths (d_model
             4096, d_ff 14336, 32 heads, 8 KV heads of 128, vocab 49152,
             S = 2048, bf16), cut to 2 layers, per-client batch 1 and no
             evaluate: 2 supersteps (every flash launch on the tensor-core
@@ -192,10 +223,15 @@ FLASH_SM90 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
                 "flash_bwd_dq_sm90_kernel")
 LM_STEPS, LM_WIDTH_STEPS = 4, 2
+# sync iterations a run is compared over: at tau1 = 5, tau2 = 2 three intra
+# and three inter events, so each event kind's graph warms up on its first
+# call, captures on its second and is replayed twice
+SYNC_ITERS = 30
 LM_WIDTH = dict(
     arch_overrides=dict(num_layers=2, d_model=4096, d_ff=14336, num_heads=32, num_kv_heads=8,
                         head_dim=128, dtype="bfloat16", attn_chunk=512),
     vocab_size=49152, seq_len=2048, batch_size=1, num_samples=16,
+    graph=False,  # stays eager: 99% busy, and its 61 GiB peak leaves no room for a pool
 )
 ASYNC_KERNELS = ("normalized_update", "cluster_agg", "gossip_mix")
 # the kernels that take a table of leaves (one launch per tree), by library
@@ -1278,33 +1314,42 @@ class Smoke:
                 raise AssertionError(f"{what}: non-finite values in {k}")
 
     def main_path(self):
-        torch = self.torch
-        from repro_torch.kernels import fused_transition, sgd_update
+        from repro_torch.kernels import device_launches, fused_transition, sgd_update
 
         fused_transition.launches = 0
         sgd_update.launches = 0
-        run, dt, (loss, acc) = self.run_scenario("mnist-noniid-ring", 10, tau2=2)
-        launches = {"fused_transition": fused_transition.launches,
-                    "sgd_update": sgd_update.launches}
+        (run, dt, (loss, acc)), ran = device_launches(
+            lambda: self.run_scenario("mnist-noniid-ring", SYNC_ITERS, tau2=2))
+        host = {"fused_transition": fused_transition.launches,
+                "sgd_update": sgd_update.launches}
         sched = run.runtime.scheduler
-        events = [sched.cfg.event_at(k) for k in range(1, 11)]
+        events = [sched.cfg.event_at(k) for k in range(1, SYNC_ITERS + 1)]
         if sched.backend.name != "cuda" or run.runtime.device.type != "cuda":
             raise AssertionError(f"auto resolved to {sched.backend.name} on {run.runtime.device}")
-        expected = self.sync_launches(sched, 10)
-        if launches != expected:
-            raise AssertionError(f"main path launches {launches}, expected {expected}")
+        replays = self.check_replays(sched, events, "main path")
+        expected = self.sync_launches(sched, SYNC_ITERS)
+        if ran != expected:
+            raise AssertionError(f"main path kernel runs {ran}, expected {expected}")
+        host_expected = self.sync_launches(sched, SYNC_ITERS, host=True)
+        if host != host_expected:
+            raise AssertionError(f"main path host launches {host}, expected {host_expected}")
         self.check_finite(sched.params, "mnist cuda run")
         print(f"main path mnist-noniid-ring tau2=2 on {run.runtime.device}, backend "
-              f"{sched.backend.name}: events {events}; launches {json.dumps(launches)} "
-              f"(expected exactly: one per stage); "
-              f"{10 / dt:.3f} it/s cold (10 iterations, {dt:.4f}s, first-call costs included); "
-              f"eval loss {loss:.6f} acc {acc:.4f}", flush=True)
-        for kname, n in launches.items():
+              f"{sched.backend.name}, CUDA graphs (the default): events {events}; graph "
+              f"replays by event kind {json.dumps(replays)}; kernel runs on the device "
+              f"{json.dumps(ran)} (the profiler's records, expected exactly: one per stage, "
+              f"replays included); host launches {json.dumps(host)} (the wrappers' counters, "
+              f"expected exactly: each event kind's warm-up and capture, none at a replay); "
+              f"{SYNC_ITERS / dt:.3f} it/s cold under the profiler ({SYNC_ITERS} iterations, "
+              f"{dt:.4f}s, warm-up and capture included); eval loss {loss:.6f} acc {acc:.4f}",
+              flush=True)
+        for kname, n in ran.items():
             self.record[kname]["launches"] = n
+            self.record[kname]["host_launches"] = host[kname]
 
         ref = {}
-        for label, device in (("dense on cuda", None), ("dense on cpu", "cpu")):
-            r, _, (rloss, _) = self.run_scenario("mnist-noniid-ring", 10, device=device,
+        for label, device in (("dense on cuda (graph)", None), ("dense on cpu (eager)", "cpu")):
+            r, _, (rloss, _) = self.run_scenario("mnist-noniid-ring", SYNC_ITERS, device=device,
                                                  tau2=2, backend="dense")
             err = max((w.float().cpu() - r.runtime.scheduler.params[k].float().cpu())
                       .abs().max().item() for k, w in sched.params.items())
@@ -1315,56 +1360,276 @@ class Smoke:
             if not (err <= 1e-4 and rel <= 1e-4):
                 raise AssertionError(f"kernel-backend run disagrees with {label}")
 
-        warm = self.warm_rate(run, 20)
         split = self.iteration_split(run)
-        busy = self.profile_steps(run, 10)
-        print(f"main path warm: {warm:.3f} it/s over 20 more iterations; split "
+        host = self.host_split(run.batch_source(), 100)
+        print("main path split of one iteration (eager calls): "
               + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
-              + f"; profiled 10 steps: {json.dumps(busy)}", flush=True)
-        self.detail["main_path"] = {"launches": launches, "events": events,
-                                    "it_per_s_cold": 10 / dt, "it_per_s_warm": warm,
-                                    "split": split, "profile": busy, "eval_loss": loss,
-                                    "eval_acc": acc, "references": ref}
+              + "; host ms a step left beside a replay: "
+              + ", ".join(f"{k}={v:.4f}" for k, v in host.items()), flush=True)
+        del run, sched  # the A/B's memory peaks start without this run's graphs
+        ab = self.graph_ab(
+            "main", lambda graph: self.sync_values("mnist-noniid-ring", graph, tau2=2),
+            lambda sched, host: self.sync_launches(sched, SYNC_ITERS, host), SYNC_ITERS,
+            warm=100, profile=20)
+        self.detail["main_path"] = {"launches": ran, "host_launches": host, "events": events,
+                                    "graph_replays": replays,
+                                    "it_per_s_cold": SYNC_ITERS / dt, "split": split,
+                                    "host_split": host, "eval_loss": loss, "eval_acc": acc,
+                                    "references": ref, "eager_vs_graph": ab}
 
-    def sync_launches(self, sched, iters) -> dict:
-        """Exact launches of ``iters`` sync iterations: one SGD launch per
-        iteration and one per transition, each times the tree's launch groups."""
+    def host_split(self, producer, n) -> dict:
+        """Host milliseconds per step of what a replayed step still does on
+        the host: drawing its batch with numpy (``producer(k)``), and
+        staging it (pinning, and queueing its copy on the copy stream), as
+        ``BatchFeed`` does, after a few steps of warm-up."""
+        torch = self.torch
+        from repro_torch.core.pipeline import CopyStream
+
+        copy = CopyStream(self.dev)
+        for k in range(1, 6):
+            copy.take(copy.stage(producer(k)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = [producer(k) for k in range(6, n + 6)]
+        draw = (time.perf_counter() - t0) / n * 1e3
+        t0 = time.perf_counter()
+        for b in batches:
+            copy.take(copy.stage(b))
+        stage = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        return {"draw_ms": draw, "stage_ms": stage}
+
+    def check_replays(self, sched, events, what) -> dict:
+        """Graph replays of each sync event kind, which must be at least 2
+        for every kind the run fired 3 times or more (warm-up, capture and
+        replay, replay)."""
+        if sched._graphs is None:
+            raise AssertionError(f"{what}: the run is not on CUDA graphs")
+        replays = {e: g.replays for e, g in sched._graphs.items()}
+        short = {e: n for e, n in replays.items() if events.count(e) >= 3 and n < 2}
+        if short:
+            raise AssertionError(f"{what}: event kinds replayed fewer than twice: {short}")
+        return replays
+
+    def sync_values(self, name, graph, **overrides):
+        """(run, host seconds, {"params", "losses"}) of ``SYNC_ITERS`` sync
+        iterations; the losses of a sync run are its eval loss."""
+        run, dt, (loss, _) = self.run_scenario(name, SYNC_ITERS, graph=graph, **overrides)
+        params = {k: w.detach().float().cpu() for k, w in run.runtime.scheduler.params.items()}
+        return run, dt, {"params": params, "losses": self.torch.tensor([loss])}
+
+    def graph_ab(self, what, drive, expected, window, warm, profile, per_step=1) -> dict:
+        """Eager (``graph=False``) against CUDA graphs in this process.
+        ``drive(graph)`` builds a run and steps it over the compared window
+        of ``window`` iterations: (run, host seconds, {"params": ...,
+        "losses": ...} on the host).  Every run's kernel runs over the window,
+        counted on the device by the profiler, must equal ``expected(sched,
+        False)``, flash routes included, and its host launches
+        ``expected(sched, True)``.
+
+        Three passes, each in turns eager, graph, graph, eager: a timed
+        pass, the held pass, and the timed pass again.  The held pass runs
+        under cuDNN's deterministic algorithms, where eager repeats itself:
+        the graph runs' parameters and losses are held to that
+        eager-vs-eager difference.  (cuDNN's default weight-gradient
+        algorithms are not reproducible run to run, and the training
+        compounds their last-bit differences, so under them two eager runs
+        differ and no pair of runs can be held to another pair's
+        difference.)  The timed passes run as users do, with cuDNN's
+        defaults: each run's warm rate over ``warm`` more steps (times
+        ``per_step`` iterations), its profile over ``profile`` steps, its
+        peak device memory, and the differences between the runs, reported;
+        one before and one after the held pass, so a rate that moves between
+        them shows what the earlier runs of the process leave behind."""
+        torch = self.torch
+        order = ("eager", "graph", "graph", "eager")
+        timed_before = self.ab_timed(what, "before", drive, expected, window, warm, profile,
+                                     per_step)
+        held = {"eager": [], "graph": []}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for label in order:
+                run, vals, _, _ = self.ab_turn(what, label, drive, expected)
+                held[label].append(vals)
+                del run
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        held_diff = self.ab_diffs(held)
+        ee, ge = held_diff["eager_vs_eager"], held_diff["graph_vs_eager"]
+        print(f"  {what}, cuDNN deterministic: eager vs eager max abs diff params "
+              f"{ee['params']:.3e}, losses {ee['losses']:.3e}; graph vs eager (every pair) "
+              f"{ge['params']:.3e}, {ge['losses']:.3e} (held to the eager-vs-eager "
+              f"difference)", flush=True)
+        if not all(ge[k] <= ee[k] for k in ee):
+            raise AssertionError(f"{what}: graph runs differ from the eager ones by {ge}, "
+                                 f"more than eager from eager, {ee}")
+        timed_after = self.ab_timed(what, "after", drive, expected, window, warm, profile,
+                                    per_step)
+        return {"order": list(order), **timed_after, "before_held_pass": timed_before,
+                "held_cudnn_deterministic": held_diff}
+
+    def ab_timed(self, what, when, drive, expected, window, warm, profile, per_step) -> dict:
+        """A timed pass of ``graph_ab``, ``when`` ("before" or "after") the
+        held pass."""
+        torch = self.torch
+        sides = {"eager": [], "graph": []}
+        timed = {"eager": [], "graph": []}
+        for label in ("eager", "graph", "graph", "eager"):
+            run, vals, ran, (start, reserved) = self.ab_turn(what, label, drive, expected)
+            rate = self.warm_rate(run, warm) * per_step
+            busy = self.profile_steps(run, profile)
+            peak = torch.cuda.max_memory_allocated()
+            peak_reserved = torch.cuda.max_memory_reserved() - reserved
+            pools = self.graph_pools()
+            side = {"it_per_s_warm": rate,
+                    "busy_share": busy["busy_share"],
+                    "busy_ms_per_step": busy["busy_ms_per_step"],
+                    "kernel_launches_per_step": busy["kernel_launches_per_step"],
+                    "peak_bytes": peak, "peak_above_start_bytes": peak - start,
+                    "peak_reserved_above_start_bytes": peak_reserved,
+                    "graph_pools_bytes": pools, "launches": ran, "profile": busy}
+            sched = run.runtime.scheduler
+            graphed = getattr(sched, "_graphs", getattr(sched, "_graph", None))
+            if graphed is not None:
+                side["replays"] = ({e: g.replays for e, g in graphed.items()}
+                                   if isinstance(graphed, dict) else graphed.replays)
+            sides[label].append(side)
+            timed[label].append(vals)
+            print(f"  {what} {label} ({when} the held pass): {rate:.3f} it/s warm over {warm} "
+                  f"steps; busy {100 * busy['busy_share']:.1f}%, "
+                  f"{busy['busy_ms_per_step']:.4f} ms and "
+                  f"{busy['kernel_launches_per_step']:.1f} kernel launches per step "
+                  f"({profile} steps profiled); peak device memory {peak / 2**20:.1f} MiB "
+                  f"({(peak - start) / 2**20:.1f} above the turn's start), reserved "
+                  f"{peak_reserved / 2**20:.1f} MiB above it; graph pools (MiB) "
+                  f"{[round(b / 2**20, 1) for b in pools]}; kernel runs over "
+                  f"the window {json.dumps(ran)} (expected exactly)", flush=True)
+            del run, sched, graphed
+        timed_diff = self.ab_diffs(timed)
+        print(f"  {what}, cuDNN defaults ({when} the held pass; reported, not held): "
+              + "; ".join(f"{k.replace('_', ' ')} params {d['params']:.3e}, losses "
+                          f"{d['losses']:.3e}" for k, d in timed_diff.items()), flush=True)
+        mean = lambda side, k: sum(r[k] for r in sides[side]) / len(sides[side])
+        speedup = mean("graph", "it_per_s_warm") / mean("eager", "it_per_s_warm")
+        print(f"  {what} graph/eager warm rate {speedup:.3f}x ({when} the held pass; means of "
+              f"two runs each)", flush=True)
+        return {"eager": sides["eager"], "graph": sides["graph"], "cudnn_default": timed_diff,
+                "warm_rate_ratio": speedup}
+
+    def ab_turn(self, what, label, drive, expected):
+        """One run of an A/B, from a released device: (run, values, kernel
+        runs over the window on the device, held to ``expected(sched,
+        False)``, and the bytes allocated and reserved when it started); its
+        host launches are held to ``expected(sched, True)``."""
+        import gc
+
+        torch = self.torch
+        from repro_torch.kernels import device_launches
+
+        graph = label == "graph"
+        gc.collect()  # a scheduler and its graphs hold each other
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        before = self.host_counts()
+        (run, _, vals), ran = device_launches(lambda: drive(graph))
+        host = {k: n - before[k] for k, n in self.host_counts().items() if n != before[k]}
+        sched = run.runtime.scheduler
+        graphed = getattr(sched, "_graphs", getattr(sched, "_graph", None))
+        if (graphed is not None) != graph:
+            raise AssertionError(f"{what} {label}: graph {graphed is not None}")
+        want, host_want = expected(sched, False), expected(sched, True)
+        if ran != want:
+            raise AssertionError(f"{what} {label}: kernel runs {ran}, expected {want}")
+        if host != host_want:
+            raise AssertionError(f"{what} {label}: host launches {host}, expected {host_want}")
+        return run, vals, ran, start
+
+    def graph_pools(self) -> list:
+        """Bytes the caching allocator holds in each CUDA-graph private pool
+        (its segments by pool id, ``torch.cuda.memory_snapshot``)."""
+        pools: dict = {}
+        for seg in self.torch.cuda.memory_snapshot():
+            pool = tuple(seg.get("segment_pool_id", (0, 0)))
+            if pool != (0, 0):
+                pools[pool] = pools.get(pool, 0) + seg["total_size"]
+        return sorted(pools.values(), reverse=True)
+
+    @staticmethod
+    def ab_diffs(values) -> dict:
+        """Max abs differences of parameters and losses: the two eager runs,
+        the two graph runs, and every graph run against every eager run."""
+        def diff(a, b):
+            return {"params": max((a["params"][k] - v).abs().max().item()
+                                  for k, v in b["params"].items()),
+                    "losses": (a["losses"] - b["losses"]).abs().max().item()}
+
+        e, g = values["eager"], values["graph"]
+        pairs = [diff(gi, ej) for gi in g for ej in e]
+        return {"eager_vs_eager": diff(e[0], e[1]), "graph_vs_graph": diff(g[0], g[1]),
+                "graph_vs_eager": {k: max(p[k] for p in pairs) for k in pairs[0]}}
+
+    def sync_launches(self, sched, iters, host=False) -> dict:
+        """Exact kernel runs of ``iters`` sync iterations: one SGD launch per
+        iteration and one per transition, each times the tree's launch
+        groups.  ``host``: the launches the wrappers count on the host, which
+        on CUDA graphs are those of each event kind's first two iterations
+        (warm-up, capture); a replay launches nothing from the host."""
         groups = self.launch_groups(sched.params)
-        transitions = sum(sched.cfg.event_at(k) != "local" for k in range(1, iters + 1))
-        return {"fused_transition": transitions * groups, "sgd_update": iters * groups}
+        events = [sched.cfg.event_at(k) for k in range(1, iters + 1)]
+        if host and sched._graphs is not None:
+            events = [e for i, e in enumerate(events) if events[:i].count(e) < 2]
+        transitions = sum(e != "local" for e in events)
+        return {"fused_transition": transitions * groups, "sgd_update": len(events) * groups}
+
+    @staticmethod
+    def host_counts() -> dict:
+        """Every wrapper's host counter, the flash ones by route too, keyed as
+        ``kernels.count_kernels`` keys its device counts."""
+        from repro_torch import kernels
+
+        out = {}
+        for name in ("fused_transition", "sgd_update", "normalized_update", "cluster_agg",
+                     "gossip_mix", "flash_attention_fwd", "flash_attention_bwd"):
+            fn = getattr(kernels, name)
+            out[name] = fn.launches
+            out.update({f"{name}.{r}": n for r, n in getattr(fn, "routes", {}).items()})
+        return out
+
+    @staticmethod
+    def by_wrapper(n: dict, fwd: str, bwd: str) -> dict:
+        """Launch counts keyed by this script's kernel names, keyed as
+        ``kernels.count_kernels`` keys them, the flash ones on routes ``fwd``
+        and ``bwd``; zeros left out."""
+        out = {}
+        for k, v in n.items():
+            if k == "flash_attention":
+                out["flash_attention_fwd"] = out[f"flash_attention_fwd.{fwd}"] = v
+            elif k == "flash_attention_backward":
+                out["flash_attention_bwd"] = out[f"flash_attention_bwd.{bwd}"] = v
+            else:
+                out[k] = v
+        return {k: v for k, v in out.items() if v}
 
     def cifar(self):
-        torch = self.torch
-        from repro_torch.kernels import fused_transition, sgd_update
-
-        fused_transition.launches = 0
-        sgd_update.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        run, dt, (loss, acc) = self.run_scenario("cifar-dirichlet-torus", 10)
-        launches = {"fused_transition": fused_transition.launches,
-                    "sgd_update": sgd_update.launches}
+        """cifar-dirichlet-torus, eager against graph: its leaves are where
+        bytes matter and its device is busy most of the time already."""
+        name = "cifar-dirichlet-torus"
+        ab = self.graph_ab("cifar", lambda graph: self.sync_values(name, graph),
+                           lambda sched, host: self.sync_launches(sched, SYNC_ITERS, host),
+                           SYNC_ITERS, warm=20, profile=5)
+        run, _, (loss, acc) = self.run_scenario(name, 1)
         sched = run.runtime.scheduler
-        expected = self.sync_launches(sched, 10)
-        if sched.backend.name != "cuda" or launches != expected:
-            raise AssertionError(f"cifar path: backend {sched.backend.name}, launches "
-                                 f"{launches}, expected {expected}")
+        if sched.backend.name != "cuda":
+            raise AssertionError(f"cifar path: backend {sched.backend.name}")
         self.check_finite(sched.params, "cifar run")
-        peak = torch.cuda.max_memory_allocated()
-        warm = self.warm_rate(run, 10)
         split = self.iteration_split(run)
-        busy = self.profile_steps(run, 5)
-        params = sched.params
-        n_params = sum(w[0].numel() for w in params.values())
+        n_params = sum(w[0].numel() for w in sched.params.values())
         print(f"cifar-dirichlet-torus on cuda: {n_params} params x {C} clients, "
-              f"{len(params)} leaves; launches (10 iterations) {json.dumps(launches)}; "
-              f"{10 / dt:.3f} it/s cold, {warm:.3f} it/s warm; eval loss {loss:.6f} "
-              f"acc {acc:.4f}; peak device memory {peak / 2**20:.1f} MiB; split "
-              + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
-              + f"; profiled 5 steps: {json.dumps(busy)}", flush=True)
-        self.detail["cifar"] = {"launches": launches, "it_per_s_cold": 10 / dt,
-                                "it_per_s_warm": warm, "eval_loss": loss, "eval_acc": acc,
-                                "peak_bytes": peak, "split": split, "profile": busy,
-                                "params": n_params}
+              f"{len(sched.params)} leaves; split of one iteration (eager calls) "
+              + ", ".join(f"{k}={v:.4f}" for k, v in split.items()), flush=True)
+        self.detail["cifar"] = {"split": split, "params": n_params, "eager_vs_graph": ab}
 
     def run_async(self, name, events, device=None, **overrides):
         """(run, host seconds for ``events`` steps ending in a synchronize,
@@ -1419,14 +1684,15 @@ class Smoke:
 
     def async_path(self):
         torch = self.torch
-        from repro_torch.kernels import cluster_agg, gossip_mix, normalized_update
+        from repro_torch.kernels import cluster_agg, device_launches, gossip_mix, normalized_update
 
         name = "straggler-bimodal-async"
         counters = {"normalized_update": normalized_update, "cluster_agg": cluster_agg,
                     "gossip_mix": gossip_mix}
         for fn in counters.values():
             fn.launches = 0
-        run, dt, events, (loss, acc) = self.run_async(name, ASYNC_EVENTS)
+        (run, dt, events, (loss, acc)), ran = device_launches(
+            lambda: self.run_async(name, ASYNC_EVENTS))
         launches = {k: fn.launches for k, fn in counters.items()}
         sched = run.runtime.scheduler
         if sched.backend.name != "cuda" or run.runtime.device.type != "cuda":
@@ -1435,17 +1701,22 @@ class Smoke:
         # each of the three: one tree call per cluster event, one launch per
         # group of plan_launches
         expected = {k: ASYNC_EVENTS * self.launch_groups(sched.y) for k in counters}
-        if launches != expected:
-            raise AssertionError(f"async launches {launches}, expected {expected}")
+        if launches != expected or ran != expected:
+            raise AssertionError(f"async host launches {launches}, kernel runs {ran}, "
+                                 f"expected {expected} each")
         self.check_finite(sched.y, "async cuda run")
         self.check_finite(run.runtime.global_params(), "async cuda run (consensus)")
-        print(f"async {name} on {run.runtime.device}, backend {sched.backend.name}: "
-              f"{ASYNC_EVENTS} events over clusters {[c for _, c, _ in events]}; launches "
-              f"{json.dumps(launches)} ({leaves} leaves); {ASYNC_EVENTS / dt:.3f} events/s cold "
-              f"({dt:.4f}s, first-call costs included); eval loss {loss:.6f} acc {acc:.4f}; "
+        print(f"async {name} on {run.runtime.device}, backend {sched.backend.name}, eager "
+              f"(the event is not captured: P_t, the cluster and its weights are host "
+              f"values of each event): "
+              f"{ASYNC_EVENTS} events over clusters {[c for _, c, _ in events]}; host launches "
+              f"{json.dumps(launches)}, kernel runs on the device the same ({leaves} leaves); "
+              f"{ASYNC_EVENTS / dt:.3f} events/s cold under the profiler ({dt:.4f}s, "
+              f"first-call costs included); eval loss {loss:.6f} acc {acc:.4f}; "
               f"clock {sched.clock:.6f}", flush=True)
-        for kname, n in launches.items():
+        for kname, n in ran.items():
             self.record[kname]["launches"] = n
+            self.record[kname]["host_launches"] = launches[kname]
 
         ref = {}
         for label, device in (("dense on cuda", None), ("dense on cpu", "cpu")):
@@ -1520,10 +1791,14 @@ class Smoke:
         dt = time.perf_counter() - t0
         return run, dt, torch.cat(losses).float().cpu()
 
-    def lm_launches(self, sched, cfg, steps, evaluate) -> dict:
+    def lm_launches(self, sched, cfg, steps, evaluate, host=False) -> dict:
         """Exact launches of ``steps`` supersteps: one attention launch per
         layer per iteration (clients folded), plus the evaluate's forward;
-        one leaf-table launch per launch group per SGD step and transition."""
+        one leaf-table launch per launch group per SGD step and transition.
+        ``host``: the launches the wrappers count on the host, which on a
+        CUDA graph are those of the first two supersteps (warm-up, capture)."""
+        if host and sched._graph is not None:
+            steps = min(steps, 2)
         iters = steps * sched.iterations_per_step
         transitions = steps * sched.rounds_per_step * (sched.fl.tau2 + 1)
         groups = self.launch_groups(sched.params)
@@ -1535,9 +1810,15 @@ class Smoke:
         """This slice's path: federated-lm-ring on the flash, SGD and
         transition kernels, held to the dense backend with plain attention."""
         torch = self.torch
+        from repro_torch.core.pipeline import stack_window
+        from repro_torch.kernels import device_launches
+
+        def drive():
+            run, dt, losses = self.run_lm(LM_STEPS)
+            return run, dt, losses, run.runtime.evaluate(run.eval_batch)[0]
+
         counters = self.lm_counters()
-        run, dt, losses = self.run_lm(LM_STEPS)
-        loss, _ = run.runtime.evaluate(run.eval_batch)
+        (run, dt, losses, loss), ran = device_launches(drive)
         launches = {k: fn.launches for k, fn in counters.items()}
         routes = self.check_routes(counters, {"flash_attention": "split_tf32",
                                               "flash_attention_backward": "cuda_core"}, "lm (f32)")
@@ -1548,25 +1829,36 @@ class Smoke:
                                  f"{run.runtime.device} with attn_impl {cfg.attn_impl}")
         iters = LM_STEPS * sched.iterations_per_step
         leaves = len(sched.params)
+        if sched._graph is None or sched._graph.replays < 2:
+            raise AssertionError("lm: the superstep graph was not replayed at least twice")
         expected = self.lm_launches(sched, cfg, LM_STEPS, evaluate=True)
-        if launches != expected:
-            raise AssertionError(f"lm launches {launches}, expected {expected}")
+        host_expected = self.lm_launches(sched, cfg, LM_STEPS, evaluate=True, host=True)
+        if self.by_wrapper(expected, "split_tf32", "cuda_core") != ran:
+            raise AssertionError(f"lm kernel runs {ran}, expected {expected}")
+        if launches != host_expected:
+            raise AssertionError(f"lm host launches {launches}, expected {host_expected}")
+        ran = expected  # the same counts, by this script's kernel names
         self.check_finite(sched.params, "lm cuda run")
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError("lm cuda run: non-finite losses")
         c, b, s = sched.fl.num_clients, run.batch_size, run.eval_batch["tokens"].shape[1]
         print(f"lm federated-lm-ring on {run.runtime.device}, backend {sched.backend.name}, "
-              f"attn_impl {cfg.attn_impl}: {LM_STEPS} supersteps = {iters} iterations "
-              f"(C={c}, b={b}, S={s}, {cfg.num_layers} layers, {leaves} leaves); launches "
-              f"{json.dumps(launches)} (expected exactly); {iters / dt:.3f} it/s cold "
+              f"attn_impl {cfg.attn_impl}, CUDA graphs (the default; "
+              f"{sched._graph.replays} replays): {LM_STEPS} supersteps = {iters} iterations "
+              f"(C={c}, b={b}, S={s}, {cfg.num_layers} layers, {leaves} leaves); kernel runs "
+              f"on the device {json.dumps(ran)} (the profiler's records), host launches "
+              f"{json.dumps(launches)} (the first two supersteps' and the evaluate's; both "
+              f"expected exactly); {iters / dt:.3f} it/s cold under the profiler "
               f"({dt:.4f}s); losses first {losses[0]:.6f} last {losses[-1]:.6f}; eval loss "
               f"{loss:.6f}; flash routes {json.dumps(routes)}", flush=True)
         for kname in ("flash_attention", "flash_attention_backward"):
-            self.record[kname]["launches"] = launches[kname]
+            self.record[kname]["launches"] = ran[kname]
+            self.record[kname]["host_launches"] = launches[kname]
 
         ref = {}
         plain = {"backend": "dense", "arch_overrides": {"attn_impl": "plain"}}
-        for label, device in (("dense+plain on cuda", None), ("dense+plain on cpu", "cpu")):
+        for label, device in (("dense+plain on cuda (graph)", None),
+                              ("dense+plain on cpu (eager)", "cpu")):
             r, _, rlosses = self.run_lm(LM_STEPS, device=device, **plain)
             rloss, _ = r.runtime.evaluate(r.eval_batch)
             err = max((w.float().cpu() - r.runtime.scheduler.params[k].float().cpu())
@@ -1582,17 +1874,39 @@ class Smoke:
                 raise AssertionError(f"lm kernel run disagrees with {label}")
             del r
 
-        warm = self.warm_rate(run, LM_STEPS) * sched.iterations_per_step
         split = self.iteration_split(run)
-        busy = self.profile_steps(run, 2)
-        tokens = warm * c * b * s
-        print(f"lm warm: {warm:.3f} it/s, {tokens:.1f} tokens/s over {LM_STEPS} more "
-              f"supersteps; split " + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
-              + f"; profiled 2 supersteps: {json.dumps(busy)}", flush=True)
-        self.detail["lm"] = {"launches": launches, "expected": expected, "flash_routes": routes,
-                             "it_per_s_cold": iters / dt, "it_per_s_warm": warm,
-                             "tokens_per_s_warm": tokens, "split": split, "profile": busy,
-                             "eval_loss": loss, "losses": losses.tolist(), "references": ref}
+        ips, replays = sched.iterations_per_step, sched._graph.replays
+        src = run.batch_source()
+        host = self.host_split(lambda k: stack_window(src, (k - 1) * ips + 1, ips), 20)
+        print("lm split of one iteration (eager calls): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in split.items())
+              + "; host ms a superstep left beside a replay: "
+              + ", ".join(f"{k}={v:.4f}" for k, v in host.items()), flush=True)
+        del run, sched, src  # the A/B's memory peaks start without this run's graph
+
+        def drive(graph):
+            r, rdt, rlosses = self.run_lm(LM_STEPS, graph=graph)
+            params = {k: w.detach().float().cpu() for k, w in r.runtime.scheduler.params.items()}
+            return r, rdt, {"params": params, "losses": rlosses}
+
+        def window_launches(sched, host):
+            return self.by_wrapper(self.lm_launches(sched, cfg, LM_STEPS, False, host),
+                                   "split_tf32", "cuda_core")
+
+        ab = self.graph_ab("lm", drive, window_launches, LM_STEPS * ips, warm=8, profile=2,
+                           per_step=ips)
+        for timed in (ab["before_held_pass"], ab):
+            for side in timed["eager"] + timed["graph"]:
+                side["tokens_per_s_warm"] = side["it_per_s_warm"] * c * b * s
+        print("  lm tokens/s warm, before and after the held pass: eager " + ", ".join(
+            f"{r['tokens_per_s_warm']:.1f}" for r in ab["before_held_pass"]["eager"] + ab["eager"])
+            + "; graph " + ", ".join(f"{r['tokens_per_s_warm']:.1f}" for r in
+                                     ab["before_held_pass"]["graph"] + ab["graph"]), flush=True)
+        self.detail["lm"] = {"launches": ran, "host_launches": launches, "flash_routes": routes,
+                             "graph_replays": replays,
+                             "it_per_s_cold": iters / dt, "split": split,
+                             "host_split": host, "eval_loss": loss, "losses": losses.tolist(),
+                             "references": ref, "eager_vs_graph": ab}
 
     def lm_width(self):
         """federated-lm-ring at granite-8b's published widths, cut in depth."""
@@ -1616,7 +1930,9 @@ class Smoke:
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError("lm-width run: non-finite losses")
         n_params = sum(w[0].numel() for w in sched.params.values())
-        print(f"lm-width federated-lm-ring at granite-8b widths ({cfg.d_model} d_model, "
+        print(f"lm-width federated-lm-ring at granite-8b widths, eager (graph=False: the "
+              f"device is busy throughout, and its peak leaves no room for a graph's pool) "
+              f"({cfg.d_model} d_model, "
               f"{cfg.d_ff} d_ff, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
               f"vocab {cfg.vocab_size}, S={s}, {cfg.dtype}); cuts: depth 36 -> "
               f"{cfg.num_layers} layers, per-client batch 2 -> {b}, no evaluate (its 64 "
@@ -1783,7 +2099,7 @@ class Smoke:
         kernels = [dict(name=k, route="cuda", **KERNELS[k], **{f: self.record[k][f] for f in keys})
                    for k in KERNELS]
         for entry in kernels:  # granite-8b's numbers (bf16; the f32 forward's too)
-            for extra in ("width", "f32_width"):
+            for extra in ("width", "f32_width", "host_launches"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

@@ -122,6 +122,7 @@ class ExecSpec:
     alpha: Optional[int] = None
     learning_rate: Optional[float] = None
     prefetch: Optional[bool] = None
+    graph: Optional[bool] = None    # sync, round: CUDA-graph steps (None: on CUDA)
     latency: Any = None
     mesh: Any = None
     extras: dict = dataclasses.field(default_factory=dict)
@@ -130,7 +131,7 @@ class ExecSpec:
 _TOP_KEYS = ("num_clients", "num_clusters", "clusters", "seed")
 _FLEET_KEYS = ("profile", "profile_seed", "participation", "store", "faults")
 _EXEC_KEYS = ("scheduler", "backend", "topology", "tau1", "tau2", "alpha",
-              "learning_rate", "prefetch", "latency", "mesh")
+              "learning_rate", "prefetch", "graph", "latency", "mesh")
 _DATA_KEYS = ("dataset", "partition", "partition_params", "num_samples", "batch_size")
 
 

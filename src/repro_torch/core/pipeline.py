@@ -10,10 +10,14 @@ consumption in the same order as the reference, so a numpy rng source
 yields the same batches in both packages.  Producers signal exhaustion by
 raising ``StopIteration`` or ``IndexError``.
 
-Staging is ``torch.as_tensor(..., device=...)`` on PyTorch's current
-stream; ``device_batch(..., non_blocking=True)`` (the async scheduler's
-prefetch) stages through pinned host memory instead.  A side copy stream is
-later work.
+``BatchFeed`` is what the sync and round schedulers draw from: a
+``BatchPipeline`` over their producer whose transfer, on a CUDA device, is
+a ``CopyStream``: each batch is pinned and copied on a stream of its own,
+and the compute stream waits on that copy's event only when it takes the
+batch.  On the CPU (and with ``prefetch=False``) ``device_batch`` stages with
+``torch.as_tensor(..., device=...)``; ``device_batch(..., non_blocking=True)``
+(the async scheduler's prefetch) goes through pinned memory on the current
+stream.
 
 ``stack_window`` stacks a round engine's window of iteration batches on a
 new leading axis.  ``gather_client_batches`` draws the async scheduler's
@@ -28,7 +32,8 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["BatchPipeline", "device_batch", "gather_client_batches", "stack_window"]
+__all__ = ["BatchFeed", "BatchPipeline", "CopyStream", "device_batch", "gather_client_batches",
+           "stack_window"]
 
 
 def device_batch(batch: dict, device, non_blocking: bool = False) -> dict:
@@ -109,6 +114,72 @@ class BatchPipeline:
         self._next_get += 1
         self._fill()
         return batch
+
+
+class CopyStream:
+    """Host batches to a CUDA device on a copy stream of their own.
+
+    ``stage`` pins every entry (PyTorch's caching host allocator holds a
+    pinned block until the copy out of it has run), queues the copies on the
+    copy stream and records an event there; the host does not wait.
+    ``take`` makes the current (compute) stream wait on that event and marks
+    the device tensors as used by it (``record_stream``): the allocator does
+    not give their memory to a later staged batch before the compute stream
+    has read them, which in graph mode is the copy into the graph's static
+    input buffers ahead of the replay.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+
+    def stage(self, batch: dict) -> tuple[dict, "torch.cuda.Event"]:
+        pinned = {k: torch.as_tensor(np.ascontiguousarray(v)).pin_memory()
+                  for k, v in batch.items()}
+        with torch.cuda.stream(self.stream):
+            staged = {k: t.to(self.device, non_blocking=True) for k, t in pinned.items()}
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return staged, ready
+
+    def take(self, staged: tuple[dict, "torch.cuda.Event"]) -> dict:
+        batch, ready = staged
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(ready)
+        for t in batch.values():
+            t.record_stream(compute)
+        return batch
+
+
+class BatchFeed:
+    """A scheduler's batches on its device, staged ``depth`` steps ahead.
+
+    ``get(k, source, producer)`` returns step ``k``'s batch; ``producer``
+    (``source`` itself by default) maps a step to its host batch.  A
+    different ``source``, or a step out of order, starts a new pipeline;
+    with ``prefetch=False`` every batch is drawn and copied when asked for.
+    """
+
+    def __init__(self, device, prefetch: bool = True):
+        self.device = torch.device(device)
+        self.prefetch = prefetch
+        self._copy = CopyStream(self.device) if self.device.type == "cuda" else None
+        self._pipeline: Optional[BatchPipeline] = None
+        self._source = None
+
+    def _stage(self, batch: dict):
+        return self._copy.stage(batch) if self._copy else device_batch(batch, self.device)
+
+    def get(self, k: int, source, producer: Optional[Callable[[int], Any]] = None) -> dict:
+        producer = source if producer is None else producer
+        if not self.prefetch:
+            return device_batch(producer(k), self.device)
+        if (self._pipeline is None or self._source is not source
+                or self._pipeline.next_index != k):
+            self._pipeline = BatchPipeline(producer, self._stage, start=k)
+            self._source = source
+        staged = self._pipeline.get(k)
+        return self._copy.take(staged) if self._copy else staged
 
 
 def gather_client_batches(batch_source, clients: Sequence[int], count: int) -> dict:

@@ -19,8 +19,11 @@ donated buffers; on ``dense``
 every stage returns new tensors.  Losses stay one device tensor of shape
 ``(R * tau1 * tau2,)``: nothing is read back per iteration.
 
-The ``participation`` and ``mixing`` operand variants come with 'Fleet
-axes'; a CUDA graph of the round is later work.
+The function built here is the eager reference path and, unchanged, the
+body that ``RoundScheduler`` captures as one CUDA graph per (super)step
+(``core/cuda_graph.py``), the counterpart of the reference's jitted
+``lax.scan``.  The ``participation`` and ``mixing`` operand variants come
+with 'Fleet axes'.
 """
 from __future__ import annotations
 

@@ -9,9 +9,12 @@ to a scheduler.  Ported: ``SyncScheduler`` (Algorithm 1 / Lemma 1) and
 fleet, and ``AsyncScheduler`` (Section IV, Algorithm 2) with an optional
 device profile.
 
-Everything runs eagerly on an explicit ``device``.  Entry points take
+Everything runs on an explicit ``device``.  Entry points take
 ``device=None``, which means ``"cuda"``, and raise when there is no GPU and
-the caller did not pass ``device="cpu"``::
+the caller did not pass ``device="cpu"``.  On a CUDA device the sync and
+round schedulers replay their steps from CUDA graphs (``graph=None``, see
+``core/cuda_graph.py``); ``graph=False`` runs the eager loop, the
+reference path, and the async scheduler is eager::
 
     runtime = make_run({"scenario": "mnist-noniid-ring", "tau2": 2})
     history = runtime.run(200, batch_fn, eval_batch, eval_every=20)
@@ -19,6 +22,7 @@ the caller did not pass ``device="cpu"``::
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 from typing import Callable, Optional, Protocol, runtime_checkable
 
@@ -27,8 +31,10 @@ import torch
 
 from .backends import resolve_backend
 from .config import RunConfig
+from .cuda_graph import GraphedStep, copy_into, resolve_graph
 from .device import resolve_device
 from .latency import LatencyModel
+from .pipeline import BatchFeed
 from .protocol import ClusterSpec, SDFEELConfig
 from .staleness import staleness_mixing_matrix
 from .topology import TOPOLOGIES, Topology
@@ -138,9 +144,13 @@ class SyncScheduler:
     Each protocol iteration is one vmapped local SGD step followed by the
     scheduled transition.  With the ``cuda`` backend both stages overwrite
     ``self.params`` in place — the ``sgd_update`` kernel is elementwise and
-    each column of the transition belongs to one kernel thread — which is
-    the port's counterpart of the reference's donated jit step.  Batches are
-    staged through a :class:`~repro_torch.core.pipeline.BatchPipeline`.
+    each column of the transition belongs to one kernel thread.  ``graph``
+    (``None``: on for a CUDA device, off on the CPU; ``True`` on the CPU
+    raises) replays each iteration from a CUDA graph, one ``GraphedStep``
+    per event kind as the reference jits one step per kind; the ``dense``
+    backend's new tensors are then copied into ``self.params``, which keeps
+    its tensors across steps.  ``graph=False`` is the eager loop.  Batches
+    are staged through a :class:`~repro_torch.core.pipeline.BatchFeed`.
 
     Only the default fleet is ported (resident state, full participation,
     no profile, no faults, no mesh); ``RunConfig.validate`` rejects the rest.
@@ -149,14 +159,13 @@ class SyncScheduler:
     name = "sync"
 
     def __init__(self, cfg: SDFEELConfig, latency: Optional[LatencyModel] = None,
-                 backend=None, prefetch: bool = True):
+                 backend=None, prefetch: bool = True, graph: Optional[bool] = None):
         self.cfg = cfg
         self.latency = latency
         self.prefetch = prefetch
         self.params: Optional[dict] = None
         self._backend_spec = backend
-        self._pipeline = None
-        self._pipeline_src = None
+        self._graph_spec = graph
         # §V-B per-event wall-clock depends only on construction args
         self._event_times = {
             e: _event_time(latency, cfg.alpha, e) for e in ("local", "intra", "inter")
@@ -178,30 +187,36 @@ class SyncScheduler:
         )
         self._m = torch.as_tensor(cfg.clusters.m(), dtype=torch.float32, device=device)
         self._v = torch.as_tensor(cfg.clusters.V(), dtype=torch.float32, device=device)
+        self._feed = BatchFeed(device, self.prefetch)
+        self._graphs = self._build_graphs() if resolve_graph(self._graph_spec, device) else None
+
+    def _build_graphs(self) -> dict:
+        """One ``GraphedStep`` per event kind over ``_body``, in one memory pool."""
+        pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        return {e: GraphedStep(functools.partial(self._body, e), lambda: self.params,
+                               self.device, pool) for e in ("local", "intra", "inter")}
+
+    def _update(self, event: str, batch: dict) -> dict:
+        """One protocol iteration: the local SGD step, then the transition."""
+        params, _, _ = self._local(self.params, (), batch)
+        if event != "local":
+            params = self.backend.transition(params, event)
+        return params
+
+    def _body(self, event: str, batch: dict) -> None:
+        """The captured step: ``_update`` written into ``self.params``."""
+        copy_into(self.params, self._update(event, batch))
 
     def _apply(self, k: int, batch: dict) -> tuple[str, float]:
         event = self.cfg.event_at(k)
-        self.params, _, _ = self._local(self.params, (), batch)
-        if event != "local":
-            self.params = self.backend.transition(self.params, event)
+        if self._graphs is None:
+            self.params = self._update(event, batch)
+        else:
+            self._graphs[event](batch)
         return event, self._event_times[event]
 
-    def _next_batch(self, k: int, batch_source) -> dict:
-        from .pipeline import BatchPipeline, device_batch
-
-        def transfer(batch):
-            return device_batch(batch, self.device)
-
-        if not self.prefetch:
-            return transfer(batch_source(k))
-        if (self._pipeline is None or self._pipeline_src is not batch_source
-                or self._pipeline.next_index != k):
-            self._pipeline = BatchPipeline(batch_source, transfer, start=k)
-            self._pipeline_src = batch_source
-        return self._pipeline.get(k)
-
     def step(self, k: int, batch_source) -> StepEvent:
-        event, dt = self._apply(k, self._next_batch(k, batch_source))
+        event, dt = self._apply(k, self._feed.get(k, batch_source))
         return StepEvent(kind=event, iteration=k, dt=dt)
 
     def global_params(self) -> dict:
@@ -242,8 +257,12 @@ class RoundScheduler:
     ``pipeline.stack_window`` and staged by a ``BatchPipeline`` one step
     ahead.  Each step runs ``round_engine.build_fl_round_step``: on the
     ``cuda`` backend the stacked parameters are updated in place by the
-    ``sgd_update`` and ``fused_transition`` kernels.  ``StepEvent.losses``
-    stays on the device.
+    ``sgd_update`` and ``fused_transition`` kernels.  ``graph`` (``None``: on
+    for a CUDA device, off on the CPU; ``True`` on the CPU raises) replays
+    the whole (super)step from one CUDA graph, the counterpart of the
+    reference's jitted ``lax.scan``; the ``dense`` backend's new tensors are
+    then copied into ``self.params``.  ``graph=False`` is the eager loop.
+    ``StepEvent.losses`` stays on the device.
 
     ``backend=None`` takes the one ``FLSpec.impl`` names (``dense`` by
     default, as the reference's round engine); scenarios pass ``"auto"``.
@@ -254,7 +273,8 @@ class RoundScheduler:
     name = "round"
 
     def __init__(self, fl, optimizer=None, latency: Optional[LatencyModel] = None,
-                 backend=None, rounds_per_step: int = 1, prefetch: bool = True):
+                 backend=None, rounds_per_step: int = 1, prefetch: bool = True,
+                 graph: Optional[bool] = None):
         if rounds_per_step < 1:
             raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
         self.fl = fl
@@ -265,8 +285,7 @@ class RoundScheduler:
         self.params: Optional[dict] = None
         self.opt_state = None
         self._backend_spec = backend
-        self._pipeline = None
-        self._pipeline_src = None
+        self._graph_spec = graph
         self._proto = fl.protocol()
         # §V-B wall-clock of one full round, priced once
         self._round_time = sum(
@@ -305,31 +324,30 @@ class RoundScheduler:
         )
         self._m = torch.as_tensor(clusters.m(), dtype=torch.float32, device=device)
         self._v = torch.as_tensor(clusters.V(), dtype=torch.float32, device=device)
+        self._feed = BatchFeed(device, self.prefetch)
+        self._graph = self._build_graph() if resolve_graph(self._graph_spec, device) else None
 
-    def _superstep_batches(self, k: int, batch_source) -> dict:
-        from .pipeline import BatchPipeline, device_batch, stack_window
+    def _build_graph(self) -> GraphedStep:
+        return GraphedStep(self._body, lambda: (self.params, self.opt_state), self.device)
 
-        ips = self.iterations_per_step
-
-        def producer(step: int) -> dict:
-            return stack_window(batch_source, (step - 1) * ips + 1, ips)
-
-        def transfer(window: dict) -> dict:
-            return device_batch(window, self.device)
-
-        if not self.prefetch:
-            return transfer(producer(k))
-        if (self._pipeline is None or self._pipeline_src is not batch_source
-                or self._pipeline.next_index != k):
-            self._pipeline = BatchPipeline(producer, transfer, start=k)
-            self._pipeline_src = batch_source
-        return self._pipeline.get(k)
+    def _body(self, batches: dict) -> torch.Tensor:
+        """The captured step: one round step written into the state."""
+        params, opt_state, losses = self._round_step(self.params, self.opt_state, batches)
+        copy_into((self.params, self.opt_state), (params, opt_state))
+        return losses
 
     def step(self, k: int, batch_source) -> StepEvent:
-        stacked = self._superstep_batches(k, batch_source)
-        self.params, self.opt_state, losses = self._round_step(
-            self.params, self.opt_state, stacked
-        )
+        from .pipeline import stack_window
+
+        ips = self.iterations_per_step
+        stacked = self._feed.get(
+            k, batch_source, lambda step: stack_window(batch_source, (step - 1) * ips + 1, ips))
+        if self._graph is None:
+            self.params, self.opt_state, losses = self._round_step(
+                self.params, self.opt_state, stacked
+            )
+        else:
+            losses = self._graph(stacked)
         return StepEvent(kind="round", iteration=k * self.iterations_per_step,
                          dt=self.rounds_per_step * self._round_time, losses=losses)
 
@@ -638,7 +656,7 @@ def _make_sync(s: dict) -> SyncScheduler:
     )
     return SyncScheduler(
         cfg, latency=s.pop("latency", None), backend=s.pop("backend", None),
-        prefetch=s.pop("prefetch", True),
+        prefetch=s.pop("prefetch", True), graph=s.pop("graph", None),
     )
 
 
@@ -661,7 +679,7 @@ def _make_round(s: dict) -> RoundScheduler:
     return RoundScheduler(
         fl, optimizer=s.pop("optimizer", None), latency=s.pop("latency", None),
         backend=s.pop("backend", None), rounds_per_step=s.pop("rounds_per_step", 1),
-        prefetch=s.pop("prefetch", True),
+        prefetch=s.pop("prefetch", True), graph=s.pop("graph", None),
     )
 
 

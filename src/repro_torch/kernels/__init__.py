@@ -4,7 +4,18 @@ Each kernel ships as ``<name>/{csrc/*.cu, ops.py, ref.py}``: the CUDA source
 (built with ``nvcc`` at first use and bound with ctypes, see ``_build.py``),
 the wrapper that dispatches by device and counts launches, and the plain
 PyTorch version that CPU tensors take and the card is checked against.
+
+A wrapper counts on the host where it launches: ``<wrapper>.launches``,
+and for the flash wrappers also ``<wrapper>.routes``.  Under CUDA-graph
+capture (``core/cuda_graph.py``) a wrapper counts its launch into the graph
+though nothing runs yet, and a replay runs the kernel without a host launch,
+so these counters count host launches.  What ran on the device is counted
+from the profiler's kernel records: ``device_launches(fn)`` runs ``fn``
+under ``torch.profiler`` and ``count_kernels`` maps the device kernels'
+names to the wrappers (keys ``<wrapper>`` and ``<wrapper>.<route>``).
 """
+import re
+
 from .cluster_agg import cluster_agg, cluster_agg_ref, cluster_agg_tree
 from .flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
@@ -17,7 +28,55 @@ from .fused_sgd import (
 from .fused_transition import fused_transition, fused_transition_ref, fused_transition_tree
 from .gossip_mix import gossip_mix, gossip_mix_ref, gossip_mix_tree
 
+# the device kernel that runs once per launch of each wrapper, by the key its
+# count goes under (a flash backward runs three kernels, its dQ kernel once)
+DEVICE_KERNELS = {
+    "fused_transition_kernel": "fused_transition",
+    "sgd_update_kernel": "sgd_update",
+    "normalized_update_kernel": "normalized_update",
+    "cluster_agg_kernel": "cluster_agg",
+    "gossip_mix_kernel": "gossip_mix",
+    "flash_fwd_split_tf32_kernel": "flash_attention_fwd.split_tf32",
+    "flash_fwd_sm90_kernel": "flash_attention_fwd.tensor_core",
+    "flash_bwd_dq_kernel": "flash_attention_bwd.cuda_core",
+    "flash_bwd_dq_sm90_kernel": "flash_attention_bwd.tensor_core",
+}
+_KERNEL_NAME = re.compile(r"\b(" + "|".join(DEVICE_KERNELS) + r")\b")
+
+
+def count_kernels(names) -> dict:
+    """Launches by wrapper, from the names of the device kernels that ran
+    (one name per kernel run, demangled as the profiler gives them):
+    ``{wrapper: n}``, and ``{"<wrapper>.<route>": n}`` for the flash
+    wrappers; kernels of no wrapper are left out."""
+    out: dict = {}
+    for name in names:
+        found = _KERNEL_NAME.search(name)
+        if found:
+            key = DEVICE_KERNELS[found.group(1)]
+            for k in {key, key.partition(".")[0]}:
+                out[k] = out.get(k, 0) + 1
+    return out
+
+
+def device_launches(fn):
+    """``(fn(), count_kernels(...))`` of the kernels ``fn`` ran on the
+    device, graph replays included, from ``torch.profiler``'s CUDA records
+    (read raw: one record per kernel run, without building the event
+    tree); ``fn`` is followed by a synchronize."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, count_kernels(e.name() for e in prof.profiler.kineto_results.events()
+                              if e.device_type() == DeviceType.CUDA)
+
+
 __all__ = [
+    "DEVICE_KERNELS", "count_kernels", "device_launches",
     "sgd_update", "sgd_update_ref", "sgd_update_tree",
     "normalized_update", "normalized_update_ref", "normalized_update_tree",
     "fused_transition", "fused_transition_ref", "fused_transition_tree",

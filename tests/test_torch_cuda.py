@@ -12,7 +12,13 @@ than the dense products, and the normalized update multiplies by
 3e-2 bf16 forward, as the reference's kernel tests; gradients 1e-4 (f32) and
 3e-2 (bf16) relative to the largest reference entry, since each gradient
 entry sums up to S * G products in another order than the plain version
-and, in bf16, is rounded once to 2^-8 relative.
+and, in bf16, is rounded once to 2^-8 relative.  The captured steps
+(``core/cuda_graph.py``) are held to eager runs of the same scenario under
+cuDNN's deterministic algorithms, where eager repeats itself bitwise, with
+the eager runs' exact kernel runs in every step, counted on the device by
+the profiler (a replay launches nothing from the host, so the wrappers'
+counters move only at a key's warm-up and capture); a new batch shape or
+new parameter tensors re-capture, and the old tensors are never written.
 """
 import numpy as np
 import pytest
@@ -24,8 +30,9 @@ from repro_torch.kernels import (
     cluster_agg, cluster_agg_ref, cluster_agg_tree, flash_attention, flash_attention_bwd,
     flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref, fused_transition,
     fused_transition_ref,
-    fused_transition_tree, gossip_mix, gossip_mix_ref, gossip_mix_tree, normalized_update,
-    normalized_update_ref, normalized_update_tree, sgd_update, sgd_update_ref, sgd_update_tree,
+    fused_transition_tree, gossip_mix, gossip_mix_ref, gossip_mix_tree, device_launches,
+    normalized_update, normalized_update_ref, normalized_update_tree, sgd_update, sgd_update_ref,
+    sgd_update_tree,
 )
 from repro_torch.kernels.fused_transition.ops import MAX_LEAVES
 from repro_torch.kernels.flash_attention import route
@@ -615,3 +622,125 @@ def test_federated_lm_ring_on_kernels_matches_dense_plain(cuda):
     for k, v in runs["cuda"][0].items():
         torch.testing.assert_close(v, runs["dense"][0][k], atol=1e-4, rtol=0)
     assert abs(runs["cuda"][3] - runs["dense"][3]) <= 1e-4 * abs(runs["dense"][3])
+
+
+# -- captured steps (core/cuda_graph.py) --------------------------------------
+
+_HOST_COUNTED = {"fused_transition": fused_transition, "sgd_update": sgd_update,
+                 "flash_attention_fwd": flash_attention_fwd,
+                 "flash_attention_bwd": flash_attention_bwd}
+
+
+def _host_counts() -> dict:
+    """The wrappers' host counters, flash ones by route too, keyed as
+    ``kernels.count_kernels`` keys its device counts."""
+    out = {k: fn.launches for k, fn in _HOST_COUNTED.items()}
+    for k in ("flash_attention_fwd", "flash_attention_bwd"):
+        out.update({f"{k}.{r}": n for r, n in _HOST_COUNTED[k].routes.items()})
+    return out
+
+
+def _graph_run(device, name, steps, graph, **kw):
+    """(scheduler, [(step kind, device launches, host launches)] a step,
+    params, losses) of ``steps`` steps; a sync run's losses are its eval loss."""
+    run = build_scenario(name, device=device, graph=graph, **kw)
+    src = run.batch_source()
+    counted, losses = [], []
+    for _ in range(steps):
+        before = _host_counts()
+        event, ran = device_launches(lambda: run.runtime.step(src))
+        host = {k: n - before[k] for k, n in _host_counts().items() if n != before[k]}
+        counted.append((event.kind, ran, host))
+        losses.append(event.losses)
+    sched = run.runtime.scheduler
+    if losses[0] is None:
+        losses = [torch.tensor([run.runtime.evaluate(run.eval_batch)[0]])]
+    return sched, counted, {k: v.clone() for k, v in sched.params.items()}, torch.cat(losses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,steps,kw", [
+    # 30 sync iterations: three intra and three inter events, so every kind's
+    # graph warms up, captures and is replayed twice
+    ("mnist-noniid-ring", 30, {"tau2": 2}),
+    ("round-superstep-ring", 3, {"num_samples": 400}),
+    ("federated-lm-ring", 3, {}),
+])
+def test_graph_replays_match_eager(cuda, name, steps, kw):
+    """Graph runs against eager runs, in turns eager, graph, graph, eager,
+    under cuDNN's deterministic algorithms: eager repeats itself bitwise, so
+    a replay, the same kernels in the same order, is held to that
+    difference, and to the eager run's exact launch counts."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {label: _graph_run(cuda, name, steps, graph, **kw)
+                for label, graph in (("eager", False), ("graph", True), ("graph2", True),
+                                     ("eager2", False))}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def diff(a, b):
+        return max(max((a[2][k] - v).abs().max().item() for k, v in b[2].items()),
+                   (a[3] - b[3]).abs().max().item())
+
+    ee = diff(runs["eager"], runs["eager2"])
+    ge = max(diff(runs[g], runs[e]) for g in ("graph", "graph2") for e in ("eager", "eager2"))
+    assert ge <= ee, (ge, ee)
+    # every step runs the eager step's kernels on the device; the host counts
+    # a graph's launches at its warm-up and capture (the first two steps of
+    # each kind), and none at a replay
+    ran = [r for _, r, _ in runs["eager"][1]]
+    assert all(ran) and all([r for _, r, _ in run[1]] == ran for run in runs.values())
+    for label, run in runs.items():
+        seen: dict = {}
+        for kind, dev, host in run[1]:
+            seen[kind] = seen.get(kind, 0) + 1
+            want = dev if label.startswith("eager") or seen[kind] <= 2 else {}
+            assert host == want, (label, kind, seen[kind], host, dev)
+    for label in ("graph", "graph2"):
+        sched = runs[label][0]
+        if hasattr(sched, "_graphs"):
+            assert all(g.replays >= 2 for g in sched._graphs.values()), sched._graphs
+        else:
+            assert sched._graph.replays == steps - 1
+    eager = runs["eager"][0]
+    assert getattr(eager, "_graphs", getattr(eager, "_graph", None)) is None
+
+
+@pytest.mark.cuda
+def test_graph_recaptures_on_a_new_batch_shape(cuda):
+    run = build_scenario("mnist-noniid-ring", device=cuda, tau2=2)
+    rng = np.random.default_rng(0)
+    sources = {b: (lambda k, b=b: run.dataset.stacked_batch(b, rng)) for b in (10, 6)}
+    local = run.runtime.scheduler._graphs["local"]
+    for b in (10, 10, 10, 6):  # iterations 1-4 are local: warm-up, capture, replay; warm-up
+        run.runtime.step(sources[b])
+    assert (local.captured, local.replays) == (1, 2)
+    run.runtime.step(sources[6])  # iteration 5: the intra event's warm-up
+    run.runtime.step(sources[6])  # iteration 6: local batch 6 captured and replayed
+    torch.cuda.synchronize()
+    assert (local.captured, local.replays, len(local._entries)) == (2, 3, 2)
+    for w in run.runtime.scheduler.params.values():
+        assert bool(torch.isfinite(w).all())
+
+
+@pytest.mark.cuda
+def test_graph_recaptures_when_params_are_replaced_and_spares_the_old(cuda):
+    run = build_scenario("mnist-noniid-ring", device=cuda, tau2=2)
+    sched, src = run.runtime.scheduler, run.batch_source()
+    local = sched._graphs["local"]
+    for _ in range(3):  # local: warm-up, capture and replay, replay
+        run.runtime.step(src)
+    assert (local.captured, local.replays) == (1, 2)
+    old = sched.params
+    torch.cuda.synchronize()
+    kept = {k: v.clone() for k, v in old.items()}
+    sched.params = {k: v.clone() for k, v in old.items()}
+    for _ in range(4):  # iteration 4: warm-up on the new tensors; 5 intra; 6-7 replays
+        run.runtime.step(src)
+    torch.cuda.synchronize()
+    assert (local.captured, local.replays, len(local._entries)) == (1, 4, 1)
+    for k, v in old.items():
+        assert torch.equal(v, kept[k]), k
+    assert any(not torch.equal(v, kept[k]) for k, v in sched.params.items())

@@ -185,6 +185,7 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     assert {"profiles.py", "timing.py"} <= {f.name for f in files if f.parent.name == "hetero"}
+    assert {"cuda_graph.py", "pipeline.py"} <= {f.name for f in files if f.parent.name == "core"}
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
