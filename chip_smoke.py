@@ -116,7 +116,27 @@ Phases, one result line each; any failure exits non-zero without the final
             gossip_mix), the strided w_final leaves copied before eq. 19,
             and from the profiler the device-busy ms per event, its share,
             and kernel and copy launches per event.
-7. lm       federated LM training: ``federated-lm-ring`` as registered
+7. fleet    the fleet axes, every kernel counter zeroed just before the
+            phase and read just after (each of the five fleet kernels must
+            have launched): ``sampled-k-ring`` (sync, C = 20 in D = 4,
+            uniform-k with k = 2, ``tau2=2``, 30 iterations, one CUDA graph
+            per event kind) and ``chaos-ring`` (round supersteps, R = 2, 6
+            supersteps: 12 rounds under the fault trace, one graph), each
+            run in turns eager, graph, eager under cuDNN's deterministic
+            algorithms and the profiler: kernel runs on the device held
+            exactly (graph equal to eager), host launches held to the
+            graph's warm-ups and captures, parameters and losses graph
+            against eager at 0.0, the kernel backend against dense (graph)
+            within 1e-4; then under cuDNN's defaults warm it/s of an eager,
+            a graph and an eager run.  ``dropout-participation-async``
+            (eager, 24 events, masked weights in ``cluster_agg``) against
+            dense on the card: the same events, ``y`` within 1e-4, one
+            launch of each async kernel per cluster event.  FedAvg,
+            HierFAVG and FEEL (the paper's §V baselines, C = 20), 20
+            iterations each on the ``sgd_update`` kernel against their
+            plain path: parameters within 1e-4, eval losses 1e-4 relative,
+            wall-clock equal, 20 kernel runs each.
+8. lm       federated LM training: ``federated-lm-ring`` as registered
             (reduced granite: d_model 256, 4 heads of 64, 2 layers, vocab
             512, S = 64; C = 8 in D = 4, tau1 = tau2 = 2, alpha = 2, R = 2)
             through ``build_scenario`` on the default device, backend auto
@@ -135,7 +155,7 @@ Phases, one result line each; any failure exits non-zero without the final
             loss).  The split of one iteration, then the eager-vs-graph A/B
             of the main phase over 4 supersteps a run (tokens/s too; the
             kernel runs by flash route held exactly on both sides).
-8. lm-width eager (``graph=False``): the same scenario at granite-8b's
+9. lm-width eager (``graph=False``): the same scenario at granite-8b's
             published widths (d_model
             4096, d_ff 14336, 32 heads, 8 KV heads of 128, vocab 49152,
             S = 2048, bf16), cut to 2 layers, per-client batch 1 and no
@@ -149,7 +169,8 @@ Phases, one result line each; any failure exits non-zero without the final
 
 The line before the last is the kernels' JSON record (the flash,
 transition and SGD entries also carry, under ``width``, their granite-8b
-bf16 numbers and the ``lm-width`` launches); the last line is
+bf16 numbers and the ``lm-width`` launches, and ``fleet_host_launches``
+the fleet phase's host counts); the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -227,6 +248,11 @@ LM_STEPS, LM_WIDTH_STEPS = 4, 2
 # and three inter events, so each event kind's graph warms up on its first
 # call, captures on its second and is replayed twice
 SYNC_ITERS = 30
+# the fleet phase: chaos-ring supersteps a run (12 rounds at R = 2, past every
+# fault event and server 2's rejoin), warm steps timed after the held runs,
+# and each baseline's iterations
+FLEET_SUPERSTEPS, FLEET_WARM, FLEET_BASELINE_ITERS = 6, 30, 20
+FLEET_PROFILED = 10  # steps profiled after the warm ones (busy ms, kernel launches)
 LM_WIDTH = dict(
     arch_overrides=dict(num_layers=2, d_model=4096, d_ff=14336, num_heads=32, num_kv_heads=8,
                         head_dim=128, dtype="bfloat16", attn_chunk=512),
@@ -1273,6 +1299,9 @@ class Smoke:
         # (``.contiguous()`` of a strided tensor) among them
         kernels = [name for name, _, _ in spans if not name.startswith(("Memcpy", "Memset"))]
         copies = sum("copy" in name for name in kernels)
+        counts: dict = {}  # runs by full kernel name (templates tell functors apart)
+        for name in kernels:
+            counts[name] = counts.get(name, 0) + 1
         return {"iters": iters, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "busy_ms_per_step": busy_ms / iters, "busy_share": busy_ms / wall_ms,
                 "kernel_launches_per_step": len(kernels) / iters,
@@ -1280,7 +1309,8 @@ class Smoke:
                 "flash_kernels_ms": flash_ms, "flash_share_of_busy": flash_ms / busy_ms,
                 "flash_split_ms": {k: round(ms, 4) for k, ms in flash_split.items()},
                 "leaf_table_ms": {k: round(ms, 4) for k, ms in leaf_table.items()},
-                "top_kernels_ms": [(k[:60], round(ms, 4)) for k, ms in top]}
+                "top_kernels_ms": [(k[:60], round(ms, 4)) for k, ms in top],
+                "kernel_counts": counts}
 
     def iteration_split(self, run) -> dict:
         """CUDA-event times of the three stages of one iteration, each
@@ -1749,6 +1779,252 @@ class Smoke:
                                 "events_per_s_warm": warm, "split": split, "profile": busy,
                                 "eval_loss": loss, "eval_acc": acc, "references": ref}
 
+    # -- fleet: participation, faults, the profile, the §V baselines ------------
+    def fleet(self):
+        """The fleet axes' path, driven with every kernel counter set to 0
+        just before it and read just after: sampled-k-ring (sync, uniform-k,
+        one CUDA graph per event kind) and chaos-ring (round supersteps under
+        the fault trace, one graph), held graph against eager to 0.0 under
+        deterministic cuDNN and against dense; dropout-participation-async
+        (eager) against dense; FedAvg, HierFAVG and FEEL on the SGD kernel
+        against their plain path.  Each fleet kernel must have run."""
+        from repro_torch import kernels
+
+        names = ("fused_transition", "sgd_update", "normalized_update", "cluster_agg",
+                 "gossip_mix")
+        for k in names:
+            getattr(kernels, k).launches = 0
+        sync = self.fleet_lane("sampled-k-ring", SYNC_ITERS, self.sync_launches, tau2=2)
+        rnd = self.fleet_lane("chaos-ring", FLEET_SUPERSTEPS, self.round_launches)
+        events = self.fleet_async()
+        base = self.fleet_baselines()
+        host = {k: getattr(kernels, k).launches for k in names}
+        if not all(host.values()):
+            raise AssertionError(f"fleet path: a kernel never launched: {host}")
+        print(f"fleet path host launches (counters zeroed before it, read after): "
+              f"{json.dumps(host)}", flush=True)
+        for k, n in host.items():
+            self.record[k]["fleet_host_launches"] = n
+        self.detail["fleet"] = {"sampled-k-ring": sync, "chaos-ring": rnd,
+                                "dropout-participation-async": events, "baselines": base,
+                                "host_launches": host,
+                                "sampled_vs_main_kernels": self.kernels_vs_main(sync)}
+
+    def kernels_vs_main(self, lane) -> dict:
+        """The kernels whose runs an iteration differ between a sync fleet
+        lane's eager profile and the main path's (``mnist-noniid-ring``, the
+        same C, D and schedule on static weights): name -> [lane, main]."""
+        try:
+            main = self.detail["main_path"]["eager_vs_graph"]["eager"][0]["profile"]
+        except (KeyError, IndexError):
+            return {}
+        ours = lane["per_iteration_profile"]["eager"]["kernel_counts_per_iteration"]
+        theirs = {n: c / main["iters"] for n, c in main["kernel_counts"].items()}
+        out = {n: [ours.get(n, 0.0), theirs.get(n, 0.0)] for n in sorted({*ours, *theirs})
+               if abs(ours.get(n, 0.0) - theirs.get(n, 0.0)) > 1e-9}
+        print(f"fleet sampled-k-ring vs main, kernel runs an iteration that differ "
+              f"(eager, profiled): {json.dumps(out)}", flush=True)
+        return out
+
+    def round_launches(self, sched, steps, host=False) -> dict:
+        """Exact kernel runs of ``steps`` round supersteps: one SGD launch an
+        iteration, one transition per intra and inter event, each times the
+        tree's launch groups; ``host`` on a graph: the first two supersteps'
+        (warm-up, capture)."""
+        if host and sched._graph is not None:
+            steps = min(steps, 2)
+        groups = self.launch_groups(sched.params)
+        return {"fused_transition": steps * sched.rounds_per_step * (sched.fl.tau2 + 1) * groups,
+                "sgd_update": steps * sched.iterations_per_step * groups}
+
+    def fleet_lane(self, name, steps, expected, **overrides) -> dict:
+        """One fleet lane: runs in turns eager, graph, eager under cuDNN's
+        deterministic algorithms, each under the profiler (its kernel runs on
+        the device held to ``expected(sched)``, its host launches to
+        ``expected(sched, host=True)``); the graph run's parameters and losses
+        held to the eager runs' at 0.0; the dense backend's run (graph) within
+        1e-4; then, with cuDNN's defaults, an eager and a graph run each timed
+        over ``FLEET_WARM`` more steps after their first ``steps`` (warm it/s),
+        then profiled over ``FLEET_PROFILED`` steps (busy ms, busy share and
+        kernel launches an iteration)."""
+        import gc
+
+        torch = self.torch
+        from repro_torch.kernels import device_launches
+        from repro_torch.scenarios import build_scenario
+
+        def drive(graph, **kw):
+            before = self.host_counts()
+            run = build_scenario(name, graph=graph, **overrides, **kw)
+            src = run.batch_source()
+            t0 = time.perf_counter()
+            evs, ran = device_launches(lambda: [run.runtime.step(src) for _ in range(steps)])
+            dt = time.perf_counter() - t0
+            host = {k: n - before[k] for k, n in self.host_counts().items() if n != before[k]}
+            sched = run.runtime.scheduler
+            losses = [e.losses for e in evs if e.losses is not None]
+            losses = (torch.cat(losses).float().cpu() if losses else
+                      torch.tensor([run.runtime.evaluate(run.eval_batch)[0]]))
+            params = {k: w.detach().float().cpu() for k, w in sched.params.items()}
+            return run, {"params": params, "losses": losses}, ran, host, dt, evs
+
+        def diff(a, b):
+            return max(max((a["params"][k] - v).abs().max().item() for k, v in b["params"].items()),
+                       (a["losses"] - b["losses"]).abs().max().item())
+
+        out, vals = {}, {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for label, graph in (("eager", False), ("graph", True), ("eager2", False)):
+                gc.collect()
+                run, vals[label], ran, host, dt, evs = drive(graph)
+                sched = run.runtime.scheduler
+                if (sched.backend.name, run.runtime.device.type) != ("cuda", "cuda"):
+                    raise AssertionError(f"{name}: {sched.backend.name} on {run.runtime.device}")
+                want, host_want = expected(sched, steps), expected(sched, steps, host=True)
+                if ran != want or host != host_want:
+                    raise AssertionError(f"{name} {label}: kernel runs {ran} (expected {want}), "
+                                         f"host launches {host} (expected {host_want})")
+                graphed = getattr(sched, "_graphs", getattr(sched, "_graph", None))
+                if (graphed is not None) != graph:
+                    raise AssertionError(f"{name} {label}: graph {graphed is not None}")
+                self.check_finite(sched.params, f"{name} {label}")
+                per_step = getattr(sched, "iterations_per_step", 1)
+                out[label] = {"kernel_runs": ran, "host_launches": host,
+                              "it_per_s_cold": steps * per_step / dt}
+                if graph:
+                    replays = getattr(sched, "_graphs", None) or {"superstep": sched._graph}
+                    replays = {e: g.replays for e, g in replays.items()}
+                del run, sched, graphed
+            ee, ge = diff(vals["eager"], vals["eager2"]), max(
+                diff(vals["graph"], vals[e]) for e in ("eager", "eager2"))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if not ge == ee == 0.0:
+            raise AssertionError(f"{name}: graph vs eager {ge}, eager vs eager {ee} (want 0.0)")
+        dense_run, dense_vals, _, _, _, _ = drive(None, backend="dense")
+        dense = diff(vals["graph"], dense_vals)
+        if not dense <= 1e-4:
+            raise AssertionError(f"{name}: graph on kernels vs dense {dense:.3e} (tol 1e-4)")
+        del dense_run
+        warm, busy = {}, {}
+        for label, graph in (("eager", False), ("graph", True), ("eager2", False)):
+            gc.collect()
+            run = build_scenario(name, graph=graph, **overrides)
+            src = run.batch_source()
+            for _ in range(steps):
+                run.runtime.step(src)
+            warm[label] = self.warm_rate(run, FLEET_WARM) * per_step
+            prof = self.profile_steps(run, FLEET_PROFILED)
+            busy[label] = {k: prof[k] / (per_step if k.endswith("per_step") else 1)
+                           for k in ("busy_ms_per_step", "busy_share",
+                                     "kernel_launches_per_step")}
+            busy[label]["kernel_counts_per_iteration"] = {
+                n: c / (FLEET_PROFILED * per_step) for n, c in prof["kernel_counts"].items()}
+            del run, src
+        given = ", ".join(f"{k}={v}" for k, v in overrides.items()) or "as registered"
+        print(f"fleet {name} ({given}"
+              f"; {steps} steps): cuDNN deterministic, graph vs eager max abs diff {ge:.1e}, "
+              f"eager vs eager {ee:.1e} (held to 0.0); graph on kernels vs dense {dense:.3e} "
+              f"(tol 1e-4); kernel runs on the device (the profiler's records), eager "
+              f"{json.dumps(out['eager']['kernel_runs'])}, graph "
+              f"{json.dumps(out['graph']['kernel_runs'])} (held equal, exactly); host launches "
+              f"graph {json.dumps(out['graph']['host_launches'])}; graph replays "
+              f"{json.dumps(replays)}; warm it/s over {FLEET_WARM} steps, cuDNN defaults: "
+              f"eager {warm['eager']:.3f}, graph {warm['graph']:.3f}, eager {warm['eager2']:.3f} "
+              f"(graph/eager {2 * warm['graph'] / (warm['eager'] + warm['eager2']):.3f}x); "
+              f"an iteration, {FLEET_PROFILED} steps profiled: "
+              + "; ".join(f"{k} busy {b['busy_ms_per_step']:.4f} ms, "
+                          f"{100 * b['busy_share']:.1f}% busy, "
+                          f"{b['kernel_launches_per_step']:.2f} kernel launches"
+                          for k, b in busy.items()), flush=True)
+        return {**out, "graph_vs_eager": ge, "eager_vs_eager": ee, "graph_vs_dense": dense,
+                "it_per_s_warm": warm, "per_iteration_profile": busy, "graph_replays": replays}
+
+    def fleet_async(self) -> dict:
+        """dropout-participation-async on the kernels against dense on the
+        card: the same events, ``y`` within 1e-4; one launch of each async
+        kernel per cluster event, none per skipped one."""
+        from repro_torch.kernels import device_launches
+
+        name = "dropout-participation-async"
+        (run, dt, events, (loss, _)), ran = device_launches(
+            lambda: self.run_async(name, ASYNC_EVENTS))
+        kinds = [k for k, _, _ in events]
+        fired = kinds.count("cluster") * self.launch_groups(run.runtime.scheduler.y)
+        if ran != {k: fired for k in ASYNC_KERNELS}:
+            raise AssertionError(f"{name}: kernel runs {ran}, events {kinds}")
+        sched = run.runtime.scheduler
+        # events whose weights dropped a client (weight exactly 0 in cluster_agg)
+        masked = sum(not sched.axes.plan.mask(k)[sched._members[c]].all()
+                     for k, (kind, c, _) in enumerate(events) if kind == "cluster")
+        ref, _, revents, (rloss, _) = self.run_async(name, ASYNC_EVENTS, backend="dense")
+        err = max((v.float() - ref.runtime.scheduler.y[k].float()).abs().max().item()
+                  for k, v in run.runtime.scheduler.y.items())
+        rel = abs(rloss - loss) / abs(rloss)
+        if not (revents == events and err <= 1e-4 and rel <= 1e-4):
+            raise AssertionError(f"{name}: vs dense events equal {revents == events}, "
+                                 f"y diff {err:.3e}, loss rel {rel:.3e}")
+        print(f"fleet {name} (eager, {ASYNC_EVENTS} events): kinds {kinds}, {masked} "
+              f"cluster events with a client sampled out; kernel runs "
+              f"{json.dumps(ran)} (one per cluster event, none per skipped one); vs dense on "
+              f"the card: same events, max abs y diff {err:.3e} (tol 1e-4), eval loss rel diff "
+              f"{rel:.3e}; {ASYNC_EVENTS / dt:.3f} events/s cold under the profiler", flush=True)
+        return {"kinds": kinds, "masked_events": masked, "kernel_runs": ran,
+                "max_abs_y_diff": err, "loss_rel_diff": rel}
+
+    def fleet_baselines(self) -> dict:
+        """FedAvg, HierFAVG and FEEL (the paper's §V baselines) on MNIST-like
+        data, C = 20 (D = 4 for HierFAVG), 20 iterations each, the local step
+        on the SGD kernel (backend auto) against the plain path (dense):
+        parameters within 1e-4, eval losses 1e-4 relative, wall-clock equal."""
+        import numpy as np
+        from repro_torch.core import (
+            FEELTrainer, FedAvgTrainer, HierFAVGTrainer, MNIST_LATENCY, ClusterSpec,
+        )
+        from repro_torch.data import FederatedDataset, mnist_like, skewed_label_partition
+        from repro_torch.kernels import device_launches
+        from repro_torch.models import MnistCNN
+
+        train, test = mnist_like(2400, seed=0).split(0.85)
+        ds = FederatedDataset(train, skewed_label_partition(train.y, C, seed=0))
+        ev = {"x": test.x[:512], "y": test.y[:512]}
+        makers = {
+            "FedAvg": lambda b: FedAvgTrainer(MnistCNN(), C, tau=5, lr=LR, latency=MNIST_LATENCY,
+                                              backend=b),
+            "HierFAVG": lambda b: HierFAVGTrainer(MnistCNN(), ClusterSpec.uniform(C, D), tau1=5,
+                                                  tau2=2, lr=LR, latency=MNIST_LATENCY,
+                                                  backend=b),
+            "FEEL": lambda b: FEELTrainer(MnistCNN(), C, schedule_size=5, tau=5, lr=LR,
+                                          latency=MNIST_LATENCY, backend=b),
+        }
+        out = {}
+        for name, make in makers.items():
+            res = {}
+            for backend in ("auto", "dense"):
+                tr = make(backend)
+                hist, ran = device_launches(lambda: tr.run(
+                    FLEET_BASELINE_ITERS,
+                    lambda k: ds.stacked_batch(10, np.random.default_rng(100 + k)), ev,
+                    eval_every=10))
+                res[tr.route] = (tr, hist, ran)
+            (tr, hist, ran), (plain, phist, pran) = res["cuda"], res["dense"]
+            err = max((w - plain.params[k]).abs().max().item() for k, w in tr.params.items())
+            rel = max(abs(a - b) / abs(b) for a, b in zip(hist.loss, phist.loss))
+            want = {"sgd_update": FLEET_BASELINE_ITERS * self.launch_groups(tr.params)}
+            if not (ran == want and not pran and err <= 1e-4 and rel <= 1e-4
+                    and hist.wallclock == phist.wallclock):
+                raise AssertionError(f"{name}: kernel runs {ran} (want {want}), plain {pran}; "
+                                     f"param diff {err:.3e}, loss rel {rel:.3e}")
+            print(f"fleet baseline {name}: {FLEET_BASELINE_ITERS} iterations, kernel runs "
+                  f"{json.dumps(ran)}; vs the plain path max abs param diff {err:.3e} (tol 1e-4), "
+                  f"eval losses {[round(x, 6) for x in hist.loss]} (rel diff {rel:.3e}), "
+                  f"wall-clock {hist.wallclock[-1]:.6f} s (§V-B, equal)", flush=True)
+            out[name] = {"kernel_runs": ran, "max_abs_param_diff": err, "loss_rel_diff": rel,
+                         "eval_loss": hist.loss, "wallclock": hist.wallclock}
+        return out
+
     def lm_counters(self) -> dict:
         """The LM path's wrappers, their launch counts (and the flash
         wrappers' counts by route) set to 0."""
@@ -2085,6 +2361,7 @@ class Smoke:
             self.phase("main", self.main_path)
             self.phase("cifar", self.cifar)
             self.phase("async", self.async_path)
+            self.phase("fleet", self.fleet)
             self.phase("lm", self.lm_path)
             self.phase("lm-width", self.lm_width)
         if "jax" in sys.modules:
@@ -2099,7 +2376,7 @@ class Smoke:
         kernels = [dict(name=k, route="cuda", **KERNELS[k], **{f: self.record[k][f] for f in keys})
                    for k in KERNELS]
         for entry in kernels:  # granite-8b's numbers (bf16; the f32 forward's too)
-            for extra in ("width", "f32_width", "host_launches"):
+            for extra in ("width", "f32_width", "host_launches", "fleet_host_launches"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

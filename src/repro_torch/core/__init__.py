@@ -1,5 +1,8 @@
 """SD-FEEL core in PyTorch: protocol math, aggregation backends, runtime."""
-from .topology import Topology, ring, star, fully_connected, chain, partially_connected, torus_2d, mixing_matrix, zeta, TOPOLOGIES
+from .topology import (
+    Topology, ring, star, fully_connected, chain, partially_connected, torus_2d, mixing_matrix,
+    zeta, TOPOLOGIES, connected_components, from_edges,
+)
 from .protocol import ClusterSpec, SDFEELConfig, transition_matrix
 from .aggregation import apply_transition_dense, dense_gossip_reference
 from .backends import (
@@ -21,10 +24,12 @@ from .sdfeel import FLSpec, init_stacked
 from .round_engine import build_fl_round_step
 from .staleness import psi_constant, psi_exponential, psi_inverse, staleness_mixing_matrix
 from .async_engine import AsyncConfig, make_speeds
+from .baselines import FedAvgTrainer, HierFAVGTrainer, FEELTrainer
+from . import theory
 
 __all__ = [
     "Topology", "ring", "star", "fully_connected", "chain", "partially_connected",
-    "torus_2d", "mixing_matrix", "zeta", "TOPOLOGIES",
+    "torus_2d", "mixing_matrix", "zeta", "TOPOLOGIES", "connected_components", "from_edges",
     "ClusterSpec", "SDFEELConfig", "transition_matrix",
     "apply_transition_dense", "dense_gossip_reference",
     "AggregationBackend", "DenseBackend", "CudaBackend",
@@ -40,4 +45,6 @@ __all__ = [
     "TrainHistory", "make_run", "register_scheduler", "stacked_init", "SCHEDULER_REGISTRY",
     "psi_constant", "psi_exponential", "psi_inverse", "staleness_mixing_matrix",
     "AsyncConfig", "make_speeds",
+    "FedAvgTrainer", "HierFAVGTrainer", "FEELTrainer",
+    "theory",
 ]

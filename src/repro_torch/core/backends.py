@@ -97,7 +97,11 @@ def _t_matrix(clusters: ClusterSpec, p: np.ndarray, alpha: int,
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+    """``x`` as f32 on ``device``.  A per-call operand (``weights``, ``p``)
+    that is already an f32 tensor there is used as it is (inside a captured
+    graph, the graph's static buffer); anything else is copied once, and a
+    tensor never goes through numpy."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +130,7 @@ class DenseBackend:
 
     def _v(self, weights: torch.Tensor) -> torch.Tensor:
         # V(w): (C, D) one-hot rows of B^T scaled by the per-client weight
-        return self._b_ind * weights.to(self.device, torch.float32)[:, None]
+        return self._b_ind * _f32(weights, self.device)[:, None]
 
     def intra_cluster(self, stacked: dict, weights: torch.Tensor) -> dict:
         return apply_transition_dense(stacked, self._v(weights))
@@ -209,7 +213,7 @@ class CudaBackend:
             vt = self._vt
         else:
             # V(w)^T: bt.T is the exact 0/1 indicator, so vt rows carry w verbatim
-            vt = self._bt.T * weights.to(self.device, torch.float32)[None, :]
+            vt = self._bt.T * _f32(weights, self.device)[None, :]
         p_call = self._p if p is None or event != "inter" else _f32(p, self.device)
         return fused_transition_tree(stacked, vt, p_call, self._bt, alpha=alpha, inplace=True)
 

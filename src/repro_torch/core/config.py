@@ -8,11 +8,12 @@ The port's copy of ``repro.core.config``::
         num_clients=20, num_clusters=4, seed=0,
     )
 
-The port runs resident dense client state, full participation, no faults
-and no device mesh; a device profile (``profile``/``profile_seed``) is taken
-by the async scheduler only.  ``validate`` rejects every other ``FleetSpec``
-value and ``exec.mesh`` with ``NotImplementedError`` naming their ROADMAP
-item.
+Every scheduler of the port (``sync``, ``round``, ``async``) takes the
+fleet's device profile (``profile``/``profile_seed``), its ``participation``
+plan and its ``faults`` schedule, on resident dense client state.
+``validate`` checks their structure as the reference does, and rejects a
+client-state ``store`` and ``exec.mesh`` with ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,15 +26,9 @@ MODEL_KINDS = ("mnist-cnn", "cifar-cnn")
 
 # what is not ported yet, and where ROADMAP.md queues it
 _NOT_PORTED = {
-    "profile": "queue 1, 'Fleet axes' (profile-paced sync scheduler)",
-    "profile_seed": "queue 1, 'Fleet axes' (profile-paced sync scheduler)",
-    "participation": "queue 1, 'Fleet axes' (participation/)",
     "store": "queue 1, 'Fleet axes' (state/ client-state stores)",
-    "faults": "queue 1, 'Fleet axes' (faults/)",
     "mesh": "queue 1, 'Multi-device and launch'",
 }
-# fleet keys a scheduler of the port takes; every other non-default raises
-_PORTED_FLEET_KEYS = {"async": ("profile", "profile_seed")}
 
 
 def _model_registry() -> dict:
@@ -75,8 +70,11 @@ class DataSpec:
 
 @dataclasses.dataclass
 class FleetSpec:
-    """Who the clients are.  ``profile`` is ported for the async scheduler;
-    every other field runs at its default (``None``) only."""
+    """Who the clients are: device ``profile`` (a ``repro_torch.hetero``
+    sampler spec), ``participation`` (a ``repro_torch.participation`` spec or
+    plan) and ``faults`` (a ``repro_torch.faults`` event list, spec dict,
+    JSON string or schedule).  ``store`` runs at its default (``None``,
+    resident client state) only."""
 
     profile: Any = None
     profile_seed: Optional[int] = None
@@ -97,13 +95,28 @@ class FleetSpec:
 
     def require_ported(self, scheduler: str) -> None:
         """Raise ``NotImplementedError`` for a field ``scheduler`` cannot take yet."""
-        allowed = _PORTED_FLEET_KEYS.get(scheduler, ())
-        for k in _FLEET_KEYS:
-            if k not in allowed and getattr(self, k) is not None:
-                raise NotImplementedError(
-                    f"fleet.{k}={getattr(self, k)!r} is not ported yet for scheduler "
-                    f"{scheduler!r} (ROADMAP.md {_NOT_PORTED[k]})"
-                )
+        if self.store is not None:
+            raise NotImplementedError(
+                f"fleet.store={self.store!r} is not ported yet for scheduler "
+                f"{scheduler!r} (ROADMAP.md {_NOT_PORTED['store']})"
+            )
+
+    def validate(self) -> None:
+        """The reference's structural checks of ``participation`` and
+        ``faults``; sizes are checked when a scheduler resolves them."""
+        part = self.participation
+        if part is not None and not isinstance(part, (str, dict)) and not hasattr(part, "mask"):
+            raise TypeError(
+                f"fleet.participation must be a strategy name, spec dict or "
+                f"ParticipationPlan, got {type(part).__name__}"
+            )
+        faults = self.faults
+        if faults is None:
+            return
+        from ..faults import FaultSchedule, parse_fault_spec, validate_fault_events
+
+        if not isinstance(faults, FaultSchedule):
+            validate_fault_events(parse_fault_spec(faults)[0])
 
 
 @dataclasses.dataclass
@@ -220,6 +233,7 @@ class RunConfig:
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"exec.{k} must be an int >= 1, got {v!r}")
         self.fleet.require_ported(sched)
+        self.fleet.validate()
         if self.exec.mesh is not None:
             raise NotImplementedError(
                 f"exec.mesh is not ported yet (ROADMAP.md {_NOT_PORTED['mesh']})"

@@ -30,13 +30,15 @@ def fused_sgd_applicable(opt, backend) -> bool:
     """True when the (optimizer, backend) pair routes through ``sgd_update``.
 
     The kernel implements ``w - lr * g`` with f32 arithmetic, so it only
-    substitutes for stateless SGD; the backend gate keeps dense runs on the
-    plain expression and lets ``backend="cuda"`` opt in to the kernel.
+    substitutes for stateless SGD; the backend gate (a backend or its name)
+    keeps dense runs on the plain expression and lets ``"cuda"`` opt in to
+    the kernel.
     """
+    route = backend if isinstance(backend, str) else getattr(backend, "name", "")
     return (
         getattr(opt, "name", "") == "sgd"
         and getattr(opt, "lr", None) is not None
-        and getattr(backend, "name", "") == "cuda"
+        and route == "cuda"
     )
 
 

@@ -1,8 +1,8 @@
 """Whole-round engine: one call = ``R`` full SD-FEEL protocol rounds.
 
-The port's ``repro.core.round_engine.build_fl_round_step``, for the
-resident, full-participation path (``round_step`` and ``superstep``).  The
-reference's nested ``lax.scan`` is a Python loop here::
+The port's ``repro.core.round_engine.build_fl_round_step`` on resident
+client state, with the reference's ``participation`` and ``mixing``
+operands.  The reference's nested ``lax.scan`` is a Python loop here::
 
     for r in 1..R:
         for j in 1..tau2:
@@ -22,8 +22,16 @@ every stage returns new tensors.  Losses stay one device tensor of shape
 The function built here is the eager reference path and, unchanged, the
 body that ``RoundScheduler`` captures as one CUDA graph per (super)step
 (``core/cuda_graph.py``), the counterpart of the reference's jitted
-``lax.scan``.  The ``participation`` and ``mixing`` operand variants come
-with 'Fleet axes'.
+``lax.scan``.
+
+With ``participation=True`` the step takes a fourth operand, ``weights``
+of shape ``(R, C)``: round ``r``'s masked and renormalized intra-cluster
+weights, threaded into every transition of that round.  With
+``mixing=True`` (which requires ``participation=True``) a fifth,
+``mixing`` of shape ``(R, D, D)``: round ``r``'s faulted mixing matrix,
+threaded into its inter transition.  Both are device tensors read where
+they lie, so a captured step reads them from its static input buffers and
+a new round's values never change the graph.
 """
 from __future__ import annotations
 
@@ -36,44 +44,52 @@ __all__ = ["build_fl_round_step"]
 
 def build_fl_round_step(model, opt, fl: FLSpec, backend=None, rounds_per_step: int = 1,
                         participation: bool = False, mixing: bool = False, device=None):
-    """Returns ``round_step(params, opt_state, batches) -> (params, opt_state,
-    losses)``; ``losses`` is the ``(rounds_per_step * tau1 * tau2,)`` mean
-    loss per iteration.  ``backend`` defaults to the dense Lemma-1 backend
+    """Returns ``round_step(params, opt_state, batches[, weights[, mixing]])
+    -> (params, opt_state, losses)``; ``losses`` is the ``(rounds_per_step *
+    tau1 * tau2,)`` mean loss per iteration.  ``weights`` (``(R, C)``) is
+    taken with ``participation=True``, ``mixing`` (``(R, D, D)``) with
+    ``mixing=True`` too.  ``backend`` defaults to the dense Lemma-1 backend
     on ``device``."""
     from .backends import resolve_backend
     from .local_update import build_local_update
 
     if rounds_per_step < 1:
         raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
-    if participation or mixing:
-        raise NotImplementedError(
-            "the round engine's participation/mixing operands are not ported yet "
-            "(ROADMAP.md queue 1, 'Fleet axes')"
-        )
+    if mixing and not participation:
+        # the fault path always renormalizes per-round weights, as the reference
+        raise ValueError("mixing=True requires participation=True")
     proto = fl.protocol()
     if backend is None:
         backend = resolve_backend("dense", proto.clusters, proto.P(), fl.alpha, device=device)
     tau1, tau2 = fl.tau1, fl.tau2
     ipr = tau1 * tau2
+    mixing_on = mixing
     local_update = build_local_update(model, opt, backend=backend)
 
-    def round_step(params, opt_state, batches):
+    def round_step(params, opt_state, batches, weights=None, mixing=None):
         n = next(iter(batches.values())).shape[0]
         if n != rounds_per_step * ipr:
             raise ValueError(f"batches hold {n} iterations, expected "
                              f"{rounds_per_step} x {tau1} x {tau2}")
+        if (weights is not None) != participation or (mixing is not None) != mixing_on:
+            raise TypeError(f"this round step takes weights: {participation}, "
+                            f"mixing: {mixing_on}")
         losses = []
         it = 0
-        for _ in range(rounds_per_step):
+        for r in range(rounds_per_step):
+            # round r's operands (None: the backend's bound m^ and P)
+            w = None if weights is None else weights[r]
+            p = None if mixing is None else mixing[r]
             for _ in range(tau2):
                 for _ in range(tau1):
                     params, opt_state, client_losses = local_update(
                         params, opt_state, {k: v[it] for k, v in batches.items()})
                     losses.append(client_losses.mean())
                     it += 1
-                params = backend.transition(params, "intra")
-            # T_intra @ T_inter = T_inter (B V = I_D), as in the reference
-            params = backend.transition(params, "inter")
+                params = backend.transition(params, "intra", weights=w)
+            # T_intra @ T_inter = T_inter (B V = I_D), as in the reference; under
+            # participation both factors use the round's weights
+            params = backend.transition(params, "inter", weights=w, p=p)
         return params, opt_state, torch.stack(losses)
 
     return round_step

@@ -6,8 +6,18 @@ the consensus model, the Section V-B wall-clock accounting, eval cadence
 and ``TrainHistory`` — and delegates *how a step advances the federation*
 to a scheduler.  Ported: ``SyncScheduler`` (Algorithm 1 / Lemma 1) and
 ``RoundScheduler`` (whole Algorithm-1 rounds per step) on the default
-fleet, and ``AsyncScheduler`` (Section IV, Algorithm 2) with an optional
-device profile.
+fleet, and ``AsyncScheduler`` (Section IV, Algorithm 2).  Every scheduler
+takes the fleet axes of a ``FleetSpec``: a device profile that prices its
+wall-clock, a participation plan (``repro_torch.participation``) and a
+fault schedule (``repro_torch.faults``), on resident client state.
+
+Per-round participation weights and faulted mixing matrices are runtime
+operands of fixed shape: the sync and round schedulers stage them with
+each step's batches, as the batch entries ``WEIGHTS`` (``(C,)``, a
+superstep's ``(R, C)``) and ``MIXING`` (``(D, D)``, ``(R, D, D)``), so a
+captured step reads them from its static input buffers and a new round
+changes values, never a graph.  ``"full"`` participation and an empty
+fault schedule take the static path, as in the reference.
 
 Everything runs on an explicit ``device``.  Entry points take
 ``device=None``, which means ``"cuda"``, and raise when there is no GPU and
@@ -30,7 +40,7 @@ import numpy as np
 import torch
 
 from .backends import resolve_backend
-from .config import RunConfig
+from .config import FleetSpec, RunConfig
 from .cuda_graph import GraphedStep, copy_into, resolve_graph
 from .device import resolve_device
 from .latency import LatencyModel
@@ -51,7 +61,106 @@ __all__ = [
     "register_scheduler",
     "make_run",
     "stacked_init",
+    "FleetAxes",
+    "WEIGHTS",
+    "MIXING",
 ]
+
+# the batch entries that carry a step's fleet operands to the device: the
+# round's (C,) client weights and its (D, D) mixing matrix (a superstep's
+# (R, C) and (R, D, D) stacks)
+WEIGHTS = "fleet.weights"
+MIXING = "fleet.mixing"
+_OPERANDS = (WEIGHTS, MIXING)
+
+
+class FleetAxes:
+    """A run's participation plan, fault schedule and device pricing,
+    resolved once at ``bind``: who aggregates in each round, what they
+    weigh, how the edge servers mix and what the round's wall-clock pays.
+    Every scheduler reads its fleet axes through one of these.
+
+    ``sampling`` is False for ``"full"`` participation (the static-weight
+    path, as in the reference), an empty fault schedule resolves to
+    ``faults=None`` (the fault-free path), and ``active`` says whether the
+    rounds carry runtime weights at all.
+    """
+
+    def __init__(self, fleet: FleetSpec, clusters: ClusterSpec, topology: Topology,
+                 profile=None, latency: Optional[LatencyModel] = None, seed: int = 0):
+        from ..faults import resolve_faults
+        from ..participation import resolve_plan
+
+        self.clusters = clusters
+        self.plan = resolve_plan(fleet.participation, clusters, profile=profile, seed=seed)
+        self.faults = resolve_faults(fleet.faults, topology, clusters)
+        self.sampling = self.plan is not None and not self.plan.is_full
+        self.active = self.sampling or self.faults is not None
+        self.timing = None
+        if profile is not None:
+            from ..hetero import FleetTiming
+
+            self.timing = FleetTiming(profile, latency)
+        # a trace-scheduled fleet is priced by each round's own speeds
+        self.traced = profile is not None and profile.schedule is not None
+
+    def mask(self, r: int, fault_round: Optional[int] = None) -> np.ndarray:
+        """Round ``r``'s aggregating clients: the plan's mask (everyone
+        without sampling), under faults ANDed with the clients the schedule
+        lets aggregate in ``fault_round`` (default ``r``)."""
+        m = self.plan.mask(r) if self.sampling else np.ones(self.clusters.num_clients, dtype=bool)
+        if self.faults is not None:
+            m = m & self.faults.client_mask(r if fault_round is None else fault_round)
+        return m
+
+    def weights(self, r: int) -> np.ndarray:
+        """Round ``r``'s renormalized ``(C,)`` intra-cluster weights: a crashed or
+        sampled-out client weighs exactly 0, and a cluster left with nobody falls
+        back to its full ``m^`` column, so the transition stays column-stochastic."""
+        if self.faults is None:
+            return self.plan.weights(r)
+        from ..participation import renormalize_weights
+
+        return renormalize_weights(self.clusters.m_hat(), self.clusters.assignments,
+                                   self.mask(r))
+
+    def operands(self, r: int) -> dict:
+        """Round ``r``'s batch entries, f32: the ``(C,)`` weights and, under
+        faults, the ``(D, D)`` mixing matrix over the surviving edges."""
+        ops = {WEIGHTS: self.weights(r).astype(np.float32)}
+        if self.faults is not None:
+            ops[MIXING] = self.faults.mixing_at(r).astype(np.float32)
+        return ops
+
+    def uplink_penalty(self, r: int, members=None) -> float:
+        """Capped-backoff retries of round ``r``'s failed uplinks (only
+        ``members``' when given); 0 without faults or a profile."""
+        if self.faults is None or self.timing is None:
+            return 0.0
+        failed = self.faults.uplink_failed(r)
+        if members is not None:
+            only = np.zeros_like(failed)
+            only[members] = failed[members]
+            failed = only
+        return self.timing.uplink_retry_penalty(failed)
+
+    def round_pricing(self, r: int) -> tuple[Optional[np.ndarray], float, Optional[int]]:
+        """``(pacing mask, uplink penalty, trace round)`` of round ``r``: the
+        surviving mask under faults, else the plan's effective mask (None:
+        the full fleet), and ``r`` when the fleet is trace-scheduled."""
+        if self.faults is not None:
+            mask = self.mask(r)
+        else:
+            mask = self.plan.effective_mask(r) if self.sampling else None
+        return mask, self.uplink_penalty(r), (r if self.traced else None)
+
+
+def _split_operands(batch: dict) -> tuple[dict, list]:
+    """``(model batch, [weights[, mixing]])`` of a staged step batch."""
+    ops = [batch[k] for k in _OPERANDS if k in batch]
+    if not ops:
+        return batch, ops
+    return {k: v for k, v in batch.items() if k not in _OPERANDS}, ops
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +182,10 @@ class TrainHistory:
 class StepEvent:
     """What one scheduler step did to the federation.
 
-    ``kind`` is the aggregation event ("local"/"intra"/"inter", or
-    "cluster" for an async cluster event), ``iteration`` the
+    ``kind`` is the aggregation event ("local"/"intra"/"inter", "round" for
+    a round step, "cluster" for an async cluster event, "skipped" for one
+    none of whose clients participated, "outage" for one whose edge server
+    is down), ``iteration`` the
     protocol-iteration count after the step, ``dt`` the Section V-B
     wall-clock the step consumed, ``cluster`` the cluster an async event
     fired.  ``losses`` (round steps: "round") is the ``(R * tau1 * tau2,)``
@@ -104,8 +215,22 @@ def stacked_init(model, num_copies: int, seed, device) -> dict:
     }
 
 
-def _event_time(latency: Optional[LatencyModel], alpha: int, event: str) -> float:
-    """Per-iteration wall-clock of Section V-B for one sync protocol event."""
+def _event_time(latency: Optional[LatencyModel], alpha: int, event: str, profile=None,
+                participants=None, clusters=None, t=None) -> float:
+    """Per-iteration wall-clock of Section V-B for one sync protocol event.
+
+    With a ``DeviceProfile`` the event is paced by the slowest effective
+    client and the narrowest uplink (``FleetTiming.sync_event_time``):
+    ``participants`` (a round's mask) restricts pacing to the round's
+    clients, ``clusters`` prices each cluster's own critical path, and ``t``
+    (the round) prices a trace-scheduled fleet by that round's speeds.
+    """
+    if profile is not None:
+        from ..hetero import FleetTiming
+
+        return FleetTiming(profile, latency).sync_event_time(
+            event, alpha, participants=participants, clusters=clusters, t=t
+        )
     if latency is None:
         return 0.0
     t = latency.t_comp()
@@ -152,23 +277,40 @@ class SyncScheduler:
     its tensors across steps.  ``graph=False`` is the eager loop.  Batches
     are staged through a :class:`~repro_torch.core.pipeline.BatchFeed`.
 
-    Only the default fleet is ported (resident state, full participation,
-    no profile, no faults, no mesh); ``RunConfig.validate`` rejects the rest.
+    ``fleet`` (a ``FleetSpec``) carries the device profile, the
+    participation plan and the fault schedule.  A plan samples who
+    aggregates each round (``tau1 * tau2`` iterations); faults AND the
+    round's surviving clients into its mask and give the round a mixing
+    matrix.  The round's renormalized ``(C,)`` weights (and under faults its
+    ``(D, D)`` matrix) are drawn for iteration ``i`` from ``i``'s round
+    alone, so the batch feed can stage them ahead with the batches
+    (``WEIGHTS``, ``MIXING``), and every transition of the round takes
+    them.  With a profile the round's wall-clock is paced by the clients it
+    aggregates, along each cluster's critical path, and under faults the
+    inter event pays the round's uplink retries.  ``"full"`` participation
+    runs the static-weight step.
     """
 
     name = "sync"
 
     def __init__(self, cfg: SDFEELConfig, latency: Optional[LatencyModel] = None,
-                 backend=None, prefetch: bool = True, graph: Optional[bool] = None):
+                 backend=None, prefetch: bool = True, graph: Optional[bool] = None,
+                 fleet: Optional[FleetSpec] = None):
         self.cfg = cfg
         self.latency = latency
         self.prefetch = prefetch
         self.params: Optional[dict] = None
         self._backend_spec = backend
         self._graph_spec = graph
-        # §V-B per-event wall-clock depends only on construction args
+        self.fleet = fleet if fleet is not None else FleetSpec()
+        self.profile = self.fleet.resolve_profile(cfg.clusters.num_clients)
+        self.axes: Optional[FleetAxes] = None
+        self._round_cache = None    # (round, pacing mask, uplink penalty, trace round, {event: dt})
+        self._operand_cache = None  # (round, {entry: f32 array}), the feed's side
+        # §V-B per-event wall-clock of the full fleet, priced once
         self._event_times = {
-            e: _event_time(latency, cfg.alpha, e) for e in ("local", "intra", "inter")
+            e: _event_time(latency, cfg.alpha, e, self.profile, clusters=cfg.clusters)
+            for e in ("local", "intra", "inter")
         }
 
     def bind(self, model, seed: int, device: torch.device) -> None:
@@ -178,6 +320,8 @@ class SyncScheduler:
         cfg = self.cfg
         self.model = model
         self.device = device
+        self.axes = FleetAxes(self.fleet, cfg.clusters, cfg.topology, self.profile,
+                              self.latency, seed)
         self.params = stacked_init(model, cfg.clusters.num_clients, seed, device)
         self.backend = resolve_backend(
             self._backend_spec, cfg.clusters, cfg.P(), cfg.alpha, device=device
@@ -197,26 +341,70 @@ class SyncScheduler:
                                self.device, pool) for e in ("local", "intra", "inter")}
 
     def _update(self, event: str, batch: dict) -> dict:
-        """One protocol iteration: the local SGD step, then the transition."""
+        """One protocol iteration: the local SGD step, then the transition
+        with the round's weights and mixing matrix where the batch has them."""
+        batch, ops = _split_operands(batch)
         params, _, _ = self._local(self.params, (), batch)
         if event != "local":
-            params = self.backend.transition(params, event)
+            params = self.backend.transition(params, event, *ops)
         return params
 
     def _body(self, event: str, batch: dict) -> None:
         """The captured step: ``_update`` written into ``self.params``."""
         copy_into(self.params, self._update(event, batch))
 
+    # -- fleet operands --------------------------------------------------------
+    def _round_of(self, k: int) -> int:
+        return (k - 1) // (self.cfg.tau1 * self.cfg.tau2)
+
+    def _operands(self, r: int) -> dict:
+        """Round ``r``'s staged batch entries, f32: the renormalized ``(C,)``
+        weights and, under faults, the ``(D, D)`` mixing matrix.  A pure
+        function of ``r``, cached for the round: the feed stages iterations
+        ahead of the one that runs."""
+        if self._operand_cache is None or self._operand_cache[0] != r:
+            self._operand_cache = (r, self.axes.operands(r))
+        return self._operand_cache[1]
+
+    def _event_dt(self, k: int, event: str) -> float:
+        """Iteration ``k``'s §V-B wall-clock.  With a profile the round is
+        paced by the clients it aggregates (the plan's effective mask, or
+        under faults the surviving mask, and its inter event pays the
+        round's uplink retries), a trace-scheduled fleet by the round's
+        speeds; each event kind is priced once per round."""
+        if self.profile is None:
+            return self._event_times[event]
+        r = self._round_of(k)
+        if self._round_cache is None or self._round_cache[0] != r:
+            self._round_cache = (r, *self.axes.round_pricing(r), {})
+        _, mask, penalty, t, times = self._round_cache
+        if mask is None and t is None:
+            return self._event_times[event]
+        if event not in times:
+            times[event] = _event_time(
+                self.latency, self.cfg.alpha, event, self.profile, participants=mask,
+                clusters=self.cfg.clusters, t=t)
+        return times[event] + penalty if event == "inter" else times[event]
+
+    # -- one protocol iteration --------------------------------------------------
     def _apply(self, k: int, batch: dict) -> tuple[str, float]:
         event = self.cfg.event_at(k)
         if self._graphs is None:
             self.params = self._update(event, batch)
         else:
             self._graphs[event](batch)
-        return event, self._event_times[event]
+        return event, self._event_dt(k, event)
+
+    def _producer(self, batch_source) -> Optional[Callable[[int], dict]]:
+        """Iteration ``i``'s host batch with its round's operands, or None
+        (the batch source alone) on the static path."""
+        if not self.axes.active:
+            return None
+        return lambda i: {**batch_source(i), **self._operands(self._round_of(i))}
 
     def step(self, k: int, batch_source) -> StepEvent:
-        event, dt = self._apply(k, self._feed.get(k, batch_source))
+        batch = self._feed.get(k, batch_source, self._producer(batch_source))
+        event, dt = self._apply(k, batch)
         return StepEvent(kind=event, iteration=k, dt=dt)
 
     def global_params(self) -> dict:
@@ -264,17 +452,23 @@ class RoundScheduler:
     then copied into ``self.params``.  ``graph=False`` is the eager loop.
     ``StepEvent.losses`` stays on the device.
 
+    ``fleet`` carries the device profile, participation plan and fault
+    schedule, as for ``SyncScheduler``.  Sampling or faults run the round
+    engine's operand variant: the superstep's ``(R, C)`` weights and, under
+    faults, its ``(R, D, D)`` mixing stack are staged with its batches
+    (``WEIGHTS``, ``MIXING``), one row per round.  With a profile each round
+    is paced by the clients it aggregates, and under faults it pays its
+    uplink retries.
+
     ``backend=None`` takes the one ``FLSpec.impl`` names (``dense`` by
     default, as the reference's round engine); scenarios pass ``"auto"``.
-    Ported for resident state and full participation, without a profile,
-    faults or a mesh; ``RunConfig.validate`` rejects the rest.
     """
 
     name = "round"
 
     def __init__(self, fl, optimizer=None, latency: Optional[LatencyModel] = None,
                  backend=None, rounds_per_step: int = 1, prefetch: bool = True,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None):
         if rounds_per_step < 1:
             raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
         self.fl = fl
@@ -286,10 +480,14 @@ class RoundScheduler:
         self.opt_state = None
         self._backend_spec = backend
         self._graph_spec = graph
+        self.fleet = fleet if fleet is not None else FleetSpec()
+        self.profile = self.fleet.resolve_profile(fl.num_clients)
+        self.axes: Optional[FleetAxes] = None
         self._proto = fl.protocol()
-        # §V-B wall-clock of one full round, priced once
+        # §V-B wall-clock of one full round of the full fleet, priced once
         self._round_time = sum(
-            _event_time(latency, fl.alpha, self._proto.event_at(i))
+            _event_time(latency, fl.alpha, self._proto.event_at(i), self.profile,
+                        clusters=self._proto.clusters)
             for i in range(1, self.iterations_per_round + 1)
         )
 
@@ -311,16 +509,19 @@ class RoundScheduler:
         self.device = device
         opt = self.optimizer or optim.sgd(fl.learning_rate)
         self.optimizer = opt
+        clusters = self._proto.clusters
+        self.axes = FleetAxes(self.fleet, clusters, self._proto.topology, self.profile,
+                              self.latency, seed)
         self.params = stacked_init(model, fl.num_clients, seed, device)
         self.opt_state = opt.init(self.params)
-        clusters = self._proto.clusters
         spec = self._backend_spec
         self.backend = resolve_backend(
             _impl_backend(fl.impl) if spec is None else spec, clusters, self._proto.P(),
             fl.alpha, device=device,
         )
         self._round_step = build_fl_round_step(
-            model, opt, fl, backend=self.backend, rounds_per_step=self.rounds_per_step
+            model, opt, fl, backend=self.backend, rounds_per_step=self.rounds_per_step,
+            participation=self.axes.active, mixing=self.axes.faults is not None,
         )
         self._m = torch.as_tensor(clusters.m(), dtype=torch.float32, device=device)
         self._v = torch.as_tensor(clusters.V(), dtype=torch.float32, device=device)
@@ -330,26 +531,71 @@ class RoundScheduler:
     def _build_graph(self) -> GraphedStep:
         return GraphedStep(self._body, lambda: (self.params, self.opt_state), self.device)
 
+    def _round_step_on(self, batches: dict):
+        """The round step on a staged batch, its fleet operands passed on."""
+        batches, ops = _split_operands(batches)
+        return self._round_step(self.params, self.opt_state, batches, *ops)
+
     def _body(self, batches: dict) -> torch.Tensor:
         """The captured step: one round step written into the state."""
-        params, opt_state, losses = self._round_step(self.params, self.opt_state, batches)
+        params, opt_state, losses = self._round_step_on(batches)
         copy_into((self.params, self.opt_state), (params, opt_state))
         return losses
+
+    # -- fleet operands ----------------------------------------------------------
+    def _operands(self, k: int) -> dict:
+        """Superstep ``k``'s staged batch entries, f32, one row per round: the
+        ``(R, C)`` weights and, under faults, the ``(R, D, D)`` mixing stack
+        (a pure function of ``k``: the feed stages the next superstep ahead)."""
+        if not self.axes.active:
+            return {}
+        r0 = (k - 1) * self.rounds_per_step
+        rounds = [self.axes.operands(r) for r in range(r0, r0 + self.rounds_per_step)]
+        return {key: np.stack([ops[key] for ops in rounds]) for key in rounds[0]}
+
+    # -- wall-clock --------------------------------------------------------------
+    def _mask_round_time(self, mask, t: Optional[int] = None) -> float:
+        """One round's schedule priced by ``mask``'s members (None: the full
+        fleet) — three ``FleetTiming`` reductions, not ``tau1 * tau2``.  ``t``
+        prices a trace-scheduled fleet by round ``t``'s speeds."""
+        times = {
+            e: _event_time(self.latency, self.fl.alpha, e, self.profile,
+                           participants=mask, clusters=self._proto.clusters, t=t)
+            for e in ("local", "intra", "inter")
+        }
+        return sum(times[self._proto.event_at(i)]
+                   for i in range(1, self.iterations_per_round + 1))
+
+    def _step_dt(self, k: int) -> float:
+        """§V-B wall-clock of superstep ``k``.  With a profile each round is
+        paced by the clients it aggregates (the plan's effective mask, or
+        under faults the surviving mask plus the round's uplink retries), a
+        trace-scheduled fleet by the round's speeds."""
+        rps = self.rounds_per_step
+        if self.profile is None or not (self.axes.active or self.axes.traced):
+            return rps * self._round_time
+        r0 = (k - 1) * rps
+        dt = 0.0
+        for r in range(r0, r0 + rps):
+            mask, penalty, t = self.axes.round_pricing(r)
+            dt += penalty
+            dt += self._mask_round_time(mask, t)
+        return dt
 
     def step(self, k: int, batch_source) -> StepEvent:
         from .pipeline import stack_window
 
         ips = self.iterations_per_step
         stacked = self._feed.get(
-            k, batch_source, lambda step: stack_window(batch_source, (step - 1) * ips + 1, ips))
+            k, batch_source,
+            lambda step: {**stack_window(batch_source, (step - 1) * ips + 1, ips),
+                          **self._operands(step)})
         if self._graph is None:
-            self.params, self.opt_state, losses = self._round_step(
-                self.params, self.opt_state, stacked
-            )
+            self.params, self.opt_state, losses = self._round_step_on(stacked)
         else:
             losses = self._graph(stacked)
         return StepEvent(kind="round", iteration=k * self.iterations_per_step,
-                         dt=self.rounds_per_step * self._round_time, losses=losses)
+                         dt=self._step_dt(k), losses=losses)
 
     def global_params(self) -> dict:
         """``sum_i m_i w^(i)`` in f32 (the reference's einsum promotes to f32)."""
@@ -393,17 +639,30 @@ class AsyncScheduler:
     so its batches are gathered and copied (non-blocking) right after the
     current event's launches; ``prefetch=False`` draws the same streams.
 
-    Ported for resident state, full participation and no faults; a device
-    profile prices the queue (``hetero.FleetTiming``) and, with availability
-    below 1, stretches it with dropout retries.
+    A device profile prices the queue (``hetero.FleetTiming``) and, with
+    availability below 1, stretches it with dropout retries.  ``fleet``
+    carries the participation plan and the fault schedule: the fired
+    cluster's eq. 20 weights ``m^`` are masked to the event's participants
+    (the plan's mask of event ``k``, ANDed under faults with the clients
+    the schedule lets aggregate at iteration ``t``) and renormalized, so a
+    non-participant weighs exactly 0 in ``cluster_agg``.  An event none of
+    whose members participate is ``"skipped"``, and a downed edge server's
+    event is an ``"outage"``: no update, no mixing, ``t`` unchanged, while
+    the wall-clock moves on (the batches are still drawn, so the streams
+    stay the reference's).  Under faults eq. 21-22 mixes over the
+    iteration's surviving edge set, and the next firing pays the cluster's
+    failed uplinks' retries.
     """
 
     name = "async"
 
-    def __init__(self, cfg, backend=None, prefetch: bool = True):
+    def __init__(self, cfg, backend=None, prefetch: bool = True,
+                 fleet: Optional[FleetSpec] = None):
         self.cfg = cfg
         self.prefetch = prefetch
         self._backend_spec = backend
+        self.fleet = fleet if fleet is not None else FleetSpec()
+        self.axes: Optional[FleetAxes] = None
         self._prefetched = None
 
     def bind(self, model, seed: int, device: torch.device) -> None:
@@ -416,13 +675,12 @@ class AsyncScheduler:
         self.device = device
         self.theta = cfg.theta()
         self.iter_times = cfg.iter_times()
+        # the async fault axis is indexed by the global iteration count t
+        self.axes = FleetAxes(self.fleet, clusters, cfg.topology, cfg.profile,
+                              cfg.alpha_latency, seed)
         self._dropout = None
         if cfg.profile is not None and np.any(cfg.profile.availability < 1.0):
-            from ..hetero import FleetTiming
-
-            self._dropout = FleetTiming(cfg.profile, cfg.alpha_latency).dropout_process(
-                clusters, seed=seed
-            )
+            self._dropout = self.axes.timing.dropout_process(clusters, seed=seed)
         self.y = stacked_init(model, d_count, seed, device)
         self.t = 0
         self.last_update = np.zeros(d_count, dtype=np.int64)  # t'(d)
@@ -448,6 +706,7 @@ class AsyncScheduler:
         # (theta_max, g) step masks: client i steps while s < theta_i
         self._masks = [(steps[:, None] < t[None, :]).float() for t in self._thetas]
         self._vgrad = torch.func.vmap(torch.func.grad(model.loss))
+        self._m_hat_np = m_hat
 
     def _gather(self, batch_source, d: int, non_blocking: bool = False) -> dict:
         """``theta_max`` batches per member of cluster ``d``, staged on the device."""
@@ -471,11 +730,30 @@ class AsyncScheduler:
             w = {k: v - lm.view((g,) + (1,) * (v.dim() - 1)) * grads[k] for k, v in w.items()}
         return w0, w
 
-    def _cluster_update(self, d: int, batches: dict) -> None:
-        """Eq. 19-20 for cluster ``d``: ``y[d]`` is overwritten in place."""
+    def _event_weights(self, k: int, d: int) -> tuple[Optional[torch.Tensor], bool]:
+        """``(m^ of the event, participated)`` for event ``k`` on cluster ``d``.
+
+        The plan's mask of event ``k`` (ones without sampling), under faults
+        ANDed with the clients that survive iteration ``t``; the fired
+        cluster's ``m^`` is masked to them and renormalized.  A cluster with
+        nobody left reports ``participated=False``.
+        """
+        idx = self._members[d]
+        mask = self.axes.mask(k - 1, fault_round=self.t)[idx]
+        if not mask.any():
+            return None, False
+        w = np.where(mask, self._m_hat_np[idx], 0.0)
+        return torch.as_tensor(w / w.sum(), dtype=torch.float32, device=self.device), True
+
+    def _cluster_update(self, d: int, batches: dict, m_hat: Optional[torch.Tensor] = None) -> None:
+        """Eq. 19-20 for cluster ``d``: ``y[d]`` is overwritten in place.
+        ``m_hat`` is the event's masked weights (default: the cluster's own)."""
         g = len(self._members[d])
         w0, w = self._local_steps(d, batches)
-        theta_bar = self._theta_bars[d]
+        if m_hat is None:
+            m_hat, theta_bar = self._m_hats[d], self._theta_bars[d]
+        else:
+            theta_bar = torch.sum(m_hat * self._thetas[d])
         if self._use_kernels:
             from ..kernels import cluster_agg_tree, normalized_update_tree
 
@@ -485,14 +763,14 @@ class AsyncScheduler:
             # on a strided one)
             wf = {k: v.contiguous() for k, v in w.items()}
             deltas = normalized_update_tree(wf, w0, self._inv_thetas[d])  # one launch
-            rs = cluster_agg_tree(deltas, self._m_hats[d], 1)  # one launch
+            rs = cluster_agg_tree(deltas, m_hat, 1)  # one launch
             for k, y in self.y.items():
                 y[d].add_(theta_bar * rs[k].view(y.shape[1:]))
         else:
             for k, y in self.y.items():
                 theta = self._thetas[d].view((g,) + (1,) * (y.dim() - 1))
                 delta = (w[k] - w0[k]) / theta
-                r = torch.einsum("c...,c->...", delta, self._m_hats[d])
+                r = torch.einsum("c...,c->...", delta, m_hat)
                 y[d].add_(theta_bar * r)
 
     def step(self, k: int, batch_source) -> StepEvent:
@@ -506,22 +784,35 @@ class AsyncScheduler:
             batches = self._gather(batch_source, d)
         self._prefetched = None
 
-        self._cluster_update(d, batches)
-        # staleness-aware inter-cluster mixing (eq. 21-22) via the backend
-        gaps = (self.t - self.last_update).astype(np.float64)
-        gaps[d] = 0.0
-        p_t = staleness_mixing_matrix(cfg.topology, d, gaps, cfg.psi)
-        self.y = self.backend.inter_cluster(
-            self.y, torch.as_tensor(p_t, dtype=torch.float32), 1
-        )
-        self.t += 1
-        self.last_update[d] = self.t
+        faults = self.axes.faults
+        r_fault = self.t  # the fault round this event runs in
+        # a dead edge server fires nothing: its gap grows through the outage
+        outage = faults is not None and not bool(faults.server_alive(r_fault)[d])
+        m_hat, participated = self._event_weights(k, d) if self.axes.active else (None, True)
+        if outage:
+            participated = False
+        if participated:
+            self._cluster_update(d, batches, m_hat)
+            # staleness-aware inter-cluster mixing (eq. 21-22) via the backend,
+            # over the surviving edge set under faults
+            gaps = (self.t - self.last_update).astype(np.float64)
+            gaps[d] = 0.0
+            graph = cfg.topology if faults is None else faults.adjacency_at(r_fault)
+            p_t = staleness_mixing_matrix(graph, d, gaps, cfg.psi)
+            self.y = self.backend.inter_cluster(
+                self.y, torch.as_tensor(p_t, dtype=torch.float32), 1
+            )
+            self.t += 1
+            self.last_update[d] = self.t
 
         # next firing: service time, stretched by dropout retries when the
-        # profile says some of the cluster's devices are flaky
+        # profile says some of the cluster's devices are flaky, plus the
+        # capped-backoff retries of this iteration's failed uplinks
         service = self.iter_times[d]
         if self._dropout is not None:
             service *= self._dropout.attempts(d)
+        if faults is not None and self.axes.timing is not None and not outage:
+            service += self.axes.uplink_penalty(r_fault, self._members[d])
         heapq.heappush(self._queue, (self.clock + service, d))
         if self.prefetch:
             # the queue top is the next event: gather its batches while the
@@ -529,8 +820,8 @@ class AsyncScheduler:
             nxt = self._queue[0][1]
             self._prefetched = (batch_source, nxt,
                                 self._gather(batch_source, nxt, non_blocking=True))
-        return StepEvent(kind="cluster", iteration=self.t, dt=self.clock - prev_clock,
-                         cluster=d)
+        kind = "outage" if outage else "cluster" if participated else "skipped"
+        return StepEvent(kind=kind, iteration=self.t, dt=self.clock - prev_clock, cluster=d)
 
     def global_params(self) -> dict:
         """``sum_d m~_d y^(d)``: the consensus model."""
@@ -642,10 +933,32 @@ def _as_clusters(s: dict) -> ClusterSpec:
     return ClusterSpec.uniform(s.pop("num_clients"), s.pop("num_clusters"))
 
 
+def _as_fleet(s: dict) -> FleetSpec:
+    """Pop the who-axis keys into one ``FleetSpec``.
+
+    Accepts either a ready ``"fleet"`` entry (``FleetSpec`` or kwargs dict)
+    or the flat ``profile``/``profile_seed``/``participation``/``store``/
+    ``faults`` keys that ``RunConfig.to_dict`` emits.
+    """
+    fleet = s.pop("fleet", None)
+    if fleet is not None:
+        if not isinstance(fleet, FleetSpec):
+            fleet = FleetSpec(**dict(fleet))
+        return fleet
+    return FleetSpec(
+        profile=s.pop("profile", None),
+        profile_seed=s.pop("profile_seed", None),
+        participation=s.pop("participation", None),
+        store=s.pop("store", None),
+        faults=s.pop("faults", None),
+    )
+
+
 @register_scheduler("sync")
 def _make_sync(s: dict) -> SyncScheduler:
     clusters = _as_clusters(s)
     topology = _as_topology(s.pop("topology", "ring"), clusters.num_clusters)
+    fleet = _as_fleet(s)
     cfg = SDFEELConfig(
         clusters=clusters,
         topology=topology,
@@ -656,7 +969,7 @@ def _make_sync(s: dict) -> SyncScheduler:
     )
     return SyncScheduler(
         cfg, latency=s.pop("latency", None), backend=s.pop("backend", None),
-        prefetch=s.pop("prefetch", True), graph=s.pop("graph", None),
+        prefetch=s.pop("prefetch", True), graph=s.pop("graph", None), fleet=fleet,
     )
 
 
@@ -664,6 +977,7 @@ def _make_sync(s: dict) -> SyncScheduler:
 def _make_round(s: dict) -> RoundScheduler:
     from .sdfeel import FLSpec
 
+    fleet = _as_fleet(s)
     fl = s.pop("fl", None)
     if fl is None:
         fl = FLSpec(
@@ -679,19 +993,18 @@ def _make_round(s: dict) -> RoundScheduler:
     return RoundScheduler(
         fl, optimizer=s.pop("optimizer", None), latency=s.pop("latency", None),
         backend=s.pop("backend", None), rounds_per_step=s.pop("rounds_per_step", 1),
-        prefetch=s.pop("prefetch", True), graph=s.pop("graph", None),
+        prefetch=s.pop("prefetch", True), graph=s.pop("graph", None), fleet=fleet,
     )
 
 
 @register_scheduler("async")
 def _make_async(s: dict) -> AsyncScheduler:
     from .async_engine import AsyncConfig, make_speeds
-    from .config import FleetSpec
     from .staleness import psi_constant, psi_exponential, psi_inverse
 
     clusters = _as_clusters(s)
     topology = _as_topology(s.pop("topology", "ring"), clusters.num_clusters)
-    fleet = FleetSpec(profile=s.pop("profile", None), profile_seed=s.pop("profile_seed", None))
+    fleet = _as_fleet(s)
     profile = fleet.resolve_profile(clusters.num_clients)
     speeds = s.pop("speeds", None)
     if speeds is None and profile is None:
@@ -717,7 +1030,8 @@ def _make_async(s: dict) -> AsyncScheduler:
         alpha_latency=s.pop("latency", None),
         profile=profile,
     )
-    return AsyncScheduler(cfg, backend=s.pop("backend", None), prefetch=s.pop("prefetch", True))
+    return AsyncScheduler(cfg, backend=s.pop("backend", None), prefetch=s.pop("prefetch", True),
+                          fleet=fleet)
 
 
 def make_run(scenario, device=None) -> FederationRuntime:

@@ -11,12 +11,12 @@ of the second-largest eigenvalue, ``zeta = |lambda_2(P)|``, governs consensus
 speed (Remark 2, Fig. 3).
 
 A numpy copy of ``repro.core.topology`` (which cannot be imported without
-JAX); the fault path's ``from_edges``/``connected_components`` wait for the
-fleet-axes slice.
+JAX), with the fault path's ``from_edges`` and ``connected_components``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -28,11 +28,41 @@ __all__ = [
     "partially_connected",
     "chain",
     "torus_2d",
+    "from_edges",
     "laplacian",
     "mixing_matrix",
     "zeta",
+    "connected_components",
     "TOPOLOGIES",
 ]
+
+
+def connected_components(adjacency: np.ndarray) -> list[np.ndarray]:
+    """Connected components of a symmetric adjacency matrix.
+
+    Returns sorted index arrays, one per component (singletons included).
+    Operates on a raw array rather than a ``Topology`` because the callers
+    that need components — the fault-injection degradation path — hold
+    adjacencies that are *not* connected, which ``Topology`` rejects.
+    """
+    a = np.asarray(adjacency)
+    d = a.shape[0]
+    seen = np.zeros(d, dtype=bool)
+    comps: list[np.ndarray] = []
+    for s in range(d):
+        if seen[s]:
+            continue
+        stack, members = [s], [s]
+        seen[s] = True
+        while stack:
+            u = stack.pop()
+            for v in np.nonzero(a[u])[0]:
+                if not seen[v]:
+                    seen[v] = True
+                    stack.append(int(v))
+                    members.append(int(v))
+        comps.append(np.array(sorted(members), dtype=np.int64))
+    return comps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +106,10 @@ class Topology:
 
     def max_degree(self) -> int:
         return int(self.degree().max())
+
+    def connected_components(self) -> list[np.ndarray]:
+        """Component index arrays (a valid ``Topology`` has exactly one)."""
+        return connected_components(self.adjacency)
 
 
 # -- constructors ----------------------------------------------------------
@@ -152,6 +186,23 @@ def torus(d: int) -> Topology:
     if rows <= 1:
         raise ValueError(f"torus requires a composite server count, got {d}")
     return torus_2d(rows, d // rows)
+
+
+def from_edges(d: int, edges: Sequence[tuple[int, int]], name: str = "custom") -> Topology:
+    a = np.zeros((d, d), dtype=np.int64)
+    seen: set[tuple[int, int]] = set()
+    for i, j in edges:
+        i, j = int(i), int(j)
+        if not (0 <= i < d and 0 <= j < d):
+            raise ValueError(f"edge ({i}, {j}) out of range for D={d} servers")
+        if i == j:
+            raise ValueError(f"self-loop ({i}, {j}) is not a valid edge")
+        key = (min(i, j), max(i, j))
+        if key in seen:
+            raise ValueError(f"duplicate edge ({i}, {j})")
+        seen.add(key)
+        a[i, j] = a[j, i] = 1
+    return Topology(name, d, a)
 
 
 TOPOLOGIES = {

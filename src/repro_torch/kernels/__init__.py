@@ -63,7 +63,15 @@ def device_launches(fn):
     """``(fn(), count_kernels(...))`` of the kernels ``fn`` ran on the
     device, graph replays included, from ``torch.profiler``'s CUDA records
     (read raw: one record per kernel run, without building the event
-    tree); ``fn`` is followed by a synchronize."""
+    tree); ``fn`` is followed by a synchronize and a short settle.
+
+    The settle: on the H100 a session has, rarely, come back short of
+    kernel records while the values were right (the last 11 of 30
+    iterations once; one step's count off its eager twin once).  CUPTI
+    hands records over from a thread of its own; the settle gives it time
+    before the session stops.  That this is the cause is not shown."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -71,6 +79,7 @@ def device_launches(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     return out, count_kernels(e.name() for e in prof.profiler.kineto_results.events()
                               if e.device_type() == DeviceType.CUDA)
 

@@ -2,11 +2,13 @@
 
 The port's ``repro.scenarios`` for the scenarios it runs, with the
 reference's parameters: the synchronous ``mnist-iid-ring``,
-``mnist-noniid-ring``, ``mnist-noniid-star``, ``cifar-dirichlet-torus``; the
-round-engine ``round-compiled-ring``, ``round-superstep-ring`` and the
-federated-LM ``federated-lm-ring``; and the asynchronous
+``mnist-noniid-ring``, ``mnist-noniid-star``, ``cifar-dirichlet-torus`` and
+``sampled-k-ring`` (uniform-k participation); the round-engine
+``round-compiled-ring``, ``round-superstep-ring``, ``chaos-ring`` (fault
+injection) and the federated-LM ``federated-lm-ring``; and the asynchronous
 ``straggler-bimodal-async``, ``straggler-bimodal-vanilla``,
-``dropout-heavy``, ``exponential-hetero-async``::
+``dropout-heavy``, ``exponential-hetero-async`` and
+``dropout-participation-async`` (availability participation)::
 
     run = build_scenario("mnist-noniid-ring", tau2=2)   # on the GPU
     run.run(10)
@@ -48,6 +50,8 @@ class Scenario:
     topology: str = "ring"
     backend: str = "auto"
     profile: Union[str, dict, None] = None   # repro_torch.hetero sampler spec
+    participation: Union[str, dict, None] = None  # repro_torch.participation spec
+    faults: Union[dict, list, None] = None   # repro_torch.faults event list / spec
     num_clients: int = 20
     num_clusters: int = 4
     tau1: int = 5
@@ -170,6 +174,10 @@ class Scenario:
             cfg.update(psi=self.psi, min_batches=self.min_batches, theta_max=self.theta_max)
         if self.profile is not None:
             cfg["profile"] = self.profile
+        if self.participation is not None:
+            cfg["participation"] = self.participation
+        if self.faults is not None:
+            cfg["faults"] = self.faults
         cfg.update(overrides)
         # the fleet sampler follows the run seed whether the profile came
         # from the template or an override (unless explicitly pinned)
@@ -271,6 +279,16 @@ register_scenario(Scenario(
 ))
 
 
+register_scenario(Scenario(
+    name="sampled-k-ring",
+    description="FedAvg-style partial participation: 2 of each cluster's 5 "
+                "clients sampled per round (uniform-k), label-skew ring.",
+    scheduler="sync", partition="label_skew",
+    partition_params={"classes_per_client": 2},
+    participation={"strategy": "uniform-k", "k": 2},
+))
+
+
 # ---------------------------------------------------------------------------
 # The round-engine scenarios, as registered in the reference
 # ---------------------------------------------------------------------------
@@ -298,6 +316,26 @@ register_scenario(Scenario(
     rounds_per_step=2, learning_rate=0.1,
     arch="granite-8b", batch_size=2, num_samples=1024,
     seq_len=64, vocab_size=512,
+))
+
+
+register_scenario(Scenario(
+    name="chaos-ring",
+    description="Fault-injection lane: round supersteps on a ring of 4 edge "
+                "servers that degrades to a line (link 0-3 down), loses server 2 "
+                "outright (local-only rounds, staleness re-entry on rejoin), and "
+                "sees client crashes and uplink drops, all as per-round "
+                "weight and mixing operands of one captured graph.",
+    scheduler="round", partition="iid", tau1=2, tau2=1, alpha=1,
+    num_clients=8, num_clusters=4, rounds_per_step=2,
+    profile={"kind": "uniform", "heterogeneity": 2.0},
+    faults={"events": [
+        {"kind": "link-down", "round": 2, "link": [0, 3], "until": 6},
+        {"kind": "server-down", "round": 4, "server": 2, "until": 8},
+        {"kind": "client-crash", "round": 3, "client": 5, "until": 7},
+        {"kind": "uplink-drop", "round": 5, "client": 1},
+        {"kind": "uplink-drop", "round": 9, "client": 6},
+    ]},
 ))
 
 
@@ -341,4 +379,14 @@ register_scenario(Scenario(
     scheduler="async", partition="iid",
     profile={"kind": "exponential", "scale": 2.0},
     psi="staleness",
+))
+
+register_scenario(Scenario(
+    name="dropout-participation-async",
+    description="Flaky fleet where dropout gates aggregation itself: "
+                "Bernoulli availability participation on the async event "
+                "queue (all-down cluster events are skipped).",
+    scheduler="async", partition="iid",
+    profile={"kind": "uniform", "heterogeneity": 4.0, "availability": 0.7},
+    participation="availability", psi="staleness",
 ))

@@ -125,3 +125,21 @@ def test_cuda_backend_transition_is_in_place():
     params = params_from_numpy(tree, "cpu")
     out = tcore.CudaBackend(tcl, p, alpha, device="cpu").transition(params, "inter")
     assert all(out[k] is params[k] for k in tree)
+
+
+@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transition_takes_tensor_operands_as_they_are(backend, dtype):
+    """A per-call ``p`` (and ``weights``) tensor is converted on its device,
+    never through numpy: a tensor that numpy() refuses (it requires grad)
+    is taken, in either float type, and gives the numpy operands' result."""
+    _, tcl, p, alpha, tree, weights, p_fault = _setup()
+    be = tcore.resolve_backend(backend, tcl, p, alpha, device="cpu")
+    want = be.transition(params_from_numpy(tree, "cpu"), "inter", weights=weights, p=p_fault)
+    p_t = torch.tensor(p_fault, dtype=dtype, requires_grad=True)
+    w_t = torch.tensor(weights, dtype=dtype, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        np.asarray(p_t)
+    got = be.transition(params_from_numpy(tree, "cpu"), "inter", weights=w_t, p=p_t)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v.detach().numpy(), want[k].numpy(), err_msg=k)

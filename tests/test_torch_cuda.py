@@ -665,6 +665,10 @@ def _graph_run(device, name, steps, graph, **kw):
     ("mnist-noniid-ring", 30, {"tau2": 2}),
     ("round-superstep-ring", 3, {"num_samples": 400}),
     ("federated-lm-ring", 3, {}),
+    # the fleet axes: a uniform-k draw a round (sync), and the fault trace's
+    # weights and mixing stacks (round supersteps), read from static buffers
+    ("sampled-k-ring", 30, {"tau2": 2}),
+    ("chaos-ring", 6, {}),
 ])
 def test_graph_replays_match_eager(cuda, name, steps, kw):
     """Graph runs against eager runs, in turns eager, graph, graph, eager,
@@ -687,6 +691,8 @@ def test_graph_replays_match_eager(cuda, name, steps, kw):
     ee = diff(runs["eager"], runs["eager2"])
     ge = max(diff(runs[g], runs[e]) for g in ("graph", "graph2") for e in ("eager", "eager2"))
     assert ge <= ee, (ge, ee)
+    if name in ("sampled-k-ring", "chaos-ring"):
+        assert ge == ee == 0.0, (ge, ee)
     # every step runs the eager step's kernels on the device; the host counts
     # a graph's launches at its warm-up and capture (the first two steps of
     # each kind), and none at a replay
@@ -744,3 +750,133 @@ def test_graph_recaptures_when_params_are_replaced_and_spares_the_old(cuda):
     for k, v in old.items():
         assert torch.equal(v, kept[k]), k
     assert any(not torch.equal(v, kept[k]) for k, v in sched.params.items())
+
+
+@pytest.mark.cuda
+def test_graph_replays_new_masks_round_after_round(cuda):
+    """sampled-k-ring: every round draws another uniform-k mask; the replayed
+    steps read each round's weights from their static buffers and move
+    exactly as eager does, iteration by iteration."""
+    from repro_torch.core.runtime import WEIGHTS
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [build_scenario("sampled-k-ring", device=cuda, graph=graph, tau2=2)
+                for graph in (False, True)]
+        srcs = [r.batch_source() for r in runs]
+        eager, graphed = (r.runtime.scheduler for r in runs)
+        masks = {tuple(eager.axes.plan.mask(r)) for r in range(4)}
+        assert len(masks) == 4  # four rounds, four draws
+        for k in range(1, 41):
+            for run, src in zip(runs, srcs):
+                run.runtime.step(src)
+            for key, v in eager.params.items():
+                assert torch.equal(graphed.params[key], v), (k, key)
+            if k % 10 == 0:  # an inter event: its buffers hold this round's weights
+                (entry,) = graphed._graphs["inter"]._entries.values()
+                want = torch.as_tensor(graphed.axes.plan.weights(graphed._round_of(k)),
+                                       dtype=torch.float32, device=cuda)
+                assert torch.equal(entry.static[WEIGHTS], want)
+        assert all(g.replays >= 2 for g in graphed._graphs.values())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "dense"])
+def test_transition_reads_p_and_weights_from_device_buffers_in_a_graph(cuda, backend):
+    """``transition(..., weights=, p=)`` on CUDA tensors captured in a graph:
+    a replay after new values are written into the buffers gives the eager
+    result for those values (nothing was baked in at capture)."""
+    c, d = 20, 4
+    spec = ClusterSpec(c, tuple(i // (c // d) for i in range(c)), tuple(RNG.uniform(0.5, 2, c)))
+    be = resolve_backend(backend, spec, mixing_matrix(ring(d), spec.m_tilde()), 2, device=cuda)
+    tree = {"w": torch.tensor(RNG.normal(size=(c, 3, 50)), dtype=torch.float32, device=cuda),
+            "b": torch.tensor(RNG.normal(size=(c, 7)), dtype=torch.float32, device=cuda)}
+    operands = []
+    for topo in (ring(d), chain(d)):
+        mask = RNG.uniform(size=c) > 0.4
+        mask[:: c // d] = True
+        w = np.where(mask, spec.m_hat(), 0.0)
+        w = w / np.bincount(spec.assignments, weights=w)[list(spec.assignments)]
+        operands.append((torch.tensor(w, dtype=torch.float32, device=cuda),
+                         torch.tensor(mixing_matrix(topo, spec.m_tilde()), dtype=torch.float32,
+                                      device=cuda)))
+    w_buf, p_buf = (t.clone() for t in operands[0])
+    state = {k: v.clone() for k, v in tree.items()}
+    out = {}
+
+    def body():
+        res = be.transition(state, "inter", weights=w_buf, p=p_buf)
+        for k, v in res.items():
+            if v is not state[k]:
+                out[k] = v
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for w, p in operands[::-1]:
+        for k in tree:
+            state[k].copy_(tree[k])
+        w_buf.copy_(w)
+        p_buf.copy_(p)
+        graph.replay()
+        want = be.transition({k: v.clone() for k, v in tree.items()}, "inter", weights=w, p=p)
+        for k in tree:
+            got = out.get(k, state[k])
+            assert torch.equal(got, want[k]), k
+
+
+@pytest.mark.cuda
+def test_dropout_participation_async_on_kernels_matches_dense(cuda):
+    small = {"num_clients": 8, "num_clusters": 4, "num_samples": 400}
+    runs = {}
+    for backend in ("cuda", "dense"):
+        run = build_scenario("dropout-participation-async", device=cuda, backend=backend,
+                             **small)
+        src = run.batch_source()
+        n = cluster_agg.launches
+        kinds = [run.runtime.step(src).kind for _ in range(12)]
+        runs[backend] = (run.runtime.scheduler.y, kinds, cluster_agg.launches - n)
+    kinds = runs["cuda"][1]
+    assert kinds == runs["dense"][1] and {"cluster", "skipped"} == set(kinds)
+    assert runs["cuda"][2] == kinds.count("cluster") and runs["dense"][2] == 0
+    for k, v in runs["cuda"][0].items():
+        torch.testing.assert_close(v, runs["dense"][0][k], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fedavg", "hierfavg", "feel"])
+def test_baselines_on_the_sgd_kernel_match_the_plain_path(cuda, name):
+    from repro_torch.core import FEELTrainer, FedAvgTrainer, HierFAVGTrainer, MNIST_LATENCY
+    from repro_torch.data import FederatedDataset, iid_partition, mnist_like
+
+    train, test = mnist_like(400, seed=0).split(0.85)
+    ds = FederatedDataset(train, iid_partition(train.y, 8, seed=0))
+    ev = {"x": test.x[:64], "y": test.y[:64]}
+    make = {
+        "fedavg": lambda b: FedAvgTrainer(MnistCNN(), 8, tau=3, lr=0.05, latency=MNIST_LATENCY,
+                                          device=cuda, backend=b),
+        "hierfavg": lambda b: HierFAVGTrainer(MnistCNN(), ClusterSpec.uniform(8, 4), tau1=2,
+                                              tau2=2, lr=0.05, device=cuda, backend=b),
+        "feel": lambda b: FEELTrainer(MnistCNN(), 8, schedule_size=3, tau=2, lr=0.05,
+                                      device=cuda, backend=b),
+    }[name]
+    out = {}
+    for backend in ("auto", "dense"):
+        tr = make(backend)
+        n = sgd_update.launches
+        hist = tr.run(10, lambda k: ds.stacked_batch(4, np.random.default_rng(100 + k)), ev,
+                      eval_every=5)
+        out[tr.route] = (tr.params, hist, sgd_update.launches - n)
+    assert out["cuda"][2] == 10 and out["dense"][2] == 0
+    assert out["cuda"][1].wallclock == out["dense"][1].wallclock
+    np.testing.assert_allclose(out["cuda"][1].loss, out["dense"][1].loss, rtol=1e-4)
+    for k, v in out["cuda"][0].items():
+        torch.testing.assert_close(v, out["dense"][0][k], atol=1e-4, rtol=0)

@@ -221,3 +221,46 @@ def test_round_body_matches_eager_bitwise_and_tracks_jax(jax_superstep):
     for k, v in got[True][0].items():
         np.testing.assert_array_equal(v, got[False][0][k], err_msg=k)
         np.testing.assert_allclose(v, ref["params"][k], atol=1e-4, err_msg=k)
+
+
+# -- (e) the fleet axes' operands through the captured body ---------------------
+
+@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("name,steps,kw", [
+    # 12 iterations of 4: three rounds, each with its own uniform-k draw
+    ("sampled-k-ring", 12, {"tau1": 2, "tau2": 2, "num_samples": 400, "batch_size": 2}),
+    # 6 supersteps of 2 rounds: past every fault event and server 2's rejoin
+    ("chaos-ring", 6, {"num_samples": 400, "batch_size": 2}),
+])
+def test_fleet_body_matches_eager_bitwise(name, steps, kw, backend):
+    """A round's weights (and mixing matrix) reach the captured body as
+    batch entries copied into its static buffers, so one set of buffers per
+    event kind (per superstep) serves every round's values: the body moves
+    bitwise as the eager loop, round after round."""
+    from repro_torch.core.runtime import MIXING, WEIGHTS
+
+    got = {}
+    for graphed in (False, True):
+        run = tscenarios.build_scenario(name, device="cpu", backend=backend, **kw)
+        sched = run.runtime.scheduler
+        if graphed:
+            if hasattr(sched, "_graphs"):
+                sched._graphs = sched._build_graphs()
+            else:
+                sched._graph = sched._build_graph()
+        src = run.batch_source()
+        events = [run.runtime.step(src) for _ in range(steps)]
+        losses = [e.losses for e in events if e.losses is not None]
+        got[graphed] = (params_to_numpy(sched.params), [e.dt for e in events],
+                        torch.cat(losses).numpy() if losses else None)
+        if graphed:
+            steps_ = (sched._graphs.values() if hasattr(sched, "_graphs") else [sched._graph])
+            for g in steps_:
+                (entry,) = g._entries.values()  # one key: the operands' shapes are fixed
+                want = {WEIGHTS, MIXING} if sched.axes.faults is not None else {WEIGHTS}
+                assert want <= set(entry.static)
+    assert got[True][1] == got[False][1]
+    if got[True][2] is not None:
+        np.testing.assert_array_equal(got[True][2], got[False][2])
+    for k, v in got[True][0].items():
+        np.testing.assert_array_equal(v, got[False][0][k], err_msg=k)

@@ -84,13 +84,20 @@ def test_round_step_matches_jax(kind, backend):
 
 
 def test_round_engine_refuses_unported_variants():
+    # the participation and mixing operands are ported (test_torch_participation.py,
+    # test_torch_faults.py); a mixing stack without weights has no caller, as in
+    # the reference, and client-state stores and the gossip engine wait
     fl = tcore.FLSpec(num_clients=4, num_clusters=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="requires participation=True"):
         tcore.build_fl_round_step(tmodels.MnistCNN(), toptim.sgd(0.1), fl,
-                                  participation=True, device="cpu")
+                                  mixing=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
-                        "participation": {"strategy": "uniform-k", "k": 1}}, device="cpu")
+                        "participation": {"strategy": "uniform-k", "k": 1},
+                        "store": {"kind": "host-offload", "k_max": 4}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
+                        "backend": None, "impl": "gossip"}, device="cpu")
 
 
 LM_SMALL = dict(arch_overrides=dict(d_model=64, d_ff=128), seq_len=16, num_samples=64)

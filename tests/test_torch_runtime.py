@@ -129,16 +129,17 @@ def test_backends_default_to_cuda(entry):
 
 
 @pytest.mark.parametrize("override", [
-    {"participation": {"strategy": "uniform-k", "k": 2}},
-    {"profile": {"kind": "uniform"}},
+    # client-state stores and the device mesh are not ported; every scheduler
+    # refuses them, beside the fleet axes it takes
     {"store": {"kind": "host-offload", "k_max": 4}},
-    {"faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
+    {"store": "host-offload", "participation": {"strategy": "uniform-k", "k": 2}},
     {"mesh": "auto"},
-    # the round scheduler is ported for the default fleet only
+    {"mesh": "auto", "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
     {"scheduler": "round", "store": {"kind": "host-offload", "k_max": 4}},
-    # the reference's dropout-participation-async: async with availability sampling
-    {"scheduler": "async", "participation": "availability", "psi": "staleness",
+    {"scheduler": "async", "store": "host-offload", "participation": "availability",
+     "psi": "staleness",
      "profile": {"kind": "uniform", "heterogeneity": 4.0, "availability": 0.7}},
+    {"scheduler": "async", "mesh": "auto", "psi": "staleness"},
 ])
 def test_non_default_fleet_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -146,12 +147,42 @@ def test_non_default_fleet_raises(override):
                        device="cpu")
 
 
+@pytest.mark.parametrize("scenario,extra", [
+    ("mnist-iid-ring", {}), ("round-compiled-ring", {}),
+    ("straggler-bimodal-async", {"num_clients": 8, "profile": None})])
+@pytest.mark.parametrize("axis", [
+    {"profile": {"kind": "uniform", "heterogeneity": 2.0}, "profile_seed": 3},
+    {"participation": {"strategy": "uniform-k", "k": 2}},
+    {"faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
+])
+def test_fleet_axes_are_taken_by_every_scheduler(scenario, extra, axis):
+    run = tcore.make_run({"scenario": scenario, "num_samples": 400, **extra, **axis},
+                         device="cpu")
+    sched = run.scheduler
+    assert (sched.fleet.profile, sched.fleet.participation, sched.fleet.faults) == (
+        axis.get("profile"), axis.get("participation"), axis.get("faults"))
+    assert (sched.axes.plan is not None) == ("participation" in axis)
+    assert (sched.axes.faults is not None) == ("faults" in axis)
+
+
+def test_store_refusal_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match=r"'Fleet axes' \(state/ client-state stores\)"):
+        tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400,
+                        "store": "host-offload"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="'Multi-device and launch'"):
+        tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "mesh": "auto"},
+                       device="cpu")
+    with pytest.raises(TypeError, match="fleet.participation must be"):
+        tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400,
+                        "participation": 3}, device="cpu")
+
+
 def test_unknown_keys_and_scenarios_raise():
     with pytest.raises(TypeError, match="unused scenario keys"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "tua1": 3},
                        device="cpu")
     with pytest.raises(KeyError, match="unknown scenario"):
-        tcore.make_run("sampled-k-ring", device="cpu")
+        tcore.make_run("million-client-ring", device="cpu")
 
 
 def test_registered_scenarios_match_reference():
@@ -159,7 +190,8 @@ def test_registered_scenarios_match_reference():
         ref = jscenarios.get_scenario(name)
         for field in ("scheduler", "dataset", "partition", "partition_params", "topology",
                       "backend", "num_clients", "num_clusters", "tau1", "tau2", "alpha",
-                      "learning_rate", "batch_size", "num_samples", "profile", "psi",
+                      "learning_rate", "batch_size", "num_samples", "profile",
+                      "participation", "faults", "psi",
                       "min_batches", "theta_max", "rounds_per_step", "arch",
                       "arch_overrides", "seq_len", "vocab_size"):
             assert getattr(sc, field) == getattr(ref, field), (name, field)
@@ -167,7 +199,8 @@ def test_registered_scenarios_match_reference():
         "mnist-iid-ring", "mnist-noniid-ring", "mnist-noniid-star", "cifar-dirichlet-torus",
         "round-compiled-ring", "round-superstep-ring", "federated-lm-ring",
         "straggler-bimodal-async", "straggler-bimodal-vanilla", "dropout-heavy",
-        "exponential-hetero-async",
+        "exponential-hetero-async", "sampled-k-ring", "chaos-ring",
+        "dropout-participation-async",
     }
 
 
@@ -185,7 +218,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     assert {"profiles.py", "timing.py"} <= {f.name for f in files if f.parent.name == "hetero"}
-    assert {"cuda_graph.py", "pipeline.py"} <= {f.name for f in files if f.parent.name == "core"}
+    assert {"cuda_graph.py", "pipeline.py", "baselines.py", "theory.py"} <= {
+        f.name for f in files if f.parent.name == "core"}
+    assert {"participation", "faults"} <= {f.parent.name for f in files if f.name == "__init__.py"}
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
