@@ -166,11 +166,40 @@ Phases, one result line each; any failure exits non-zero without the final
             then the transition (the inter event: D=4, alpha=2) and SGD timed
             on the run's own 12-leaf bf16 tree in place, against the bytes
             bound and the library calls.
+10. offload host-offloaded client state (``repro_torch.state``), every
+            kernel counter zeroed just before the phase and read just after
+            (each of the five fleet kernels must have launched):
+            ``million-client-ring`` as registered (10^6 procedural clients,
+            a ``host-offload`` store of k_max = 32 slots in D = 8 clusters,
+            uniform-k with k = 4, round supersteps of tau1 = 2) in turns
+            eager, graph, graph, eager under deterministic cuDNN and the
+            profiler, 6 supersteps each: graph = eager at 0.0, kernel runs on
+            the device held exactly and equal, host launches held to the
+            graph's warm-up and capture, the graph captured once and replayed
+            for every residency; then warm supersteps/s of eager and graph
+            runs, their busy ms, busy share and kernel and copy launches a
+            superstep, peak memory, and the host's milliseconds a superstep
+            by part (residency plan, weights, batch draw, staging, gather,
+            scatter, replay).  Peak device memory at 10^6 against 10^3
+            clients (10^3, then 10^6), held within 10%.  The
+            transition at the lane's shapes (32 rows, D = 8: the kernel's
+            MAXD = 8 instantiation, a padding slot at weight 0) against its
+            plain version (1e-5) and timed against it, per-leaf matmul and
+            the bound.  The main path's backend: its factors contiguous, one
+            inter transition copying nothing (the allocator's count: 0
+            static, 1 weighted, the product ``B * w``).
+            Identity offload (k_max = N = 20) against the dense store on
+            ``mnist-noniid-ring`` (sync, graphs): 0.0.  Client mode at 10^6
+            clients spilled to a temporary directory: exactly the
+            participants stored, and equal to cluster mode at 0.0.
+            ``dropout-participation-async`` with a store against resident
+            state: the same events, ``y`` at 0.0.
 
 The line before the last is the kernels' JSON record (the flash,
 transition and SGD entries also carry, under ``width``, their granite-8b
-bf16 numbers and the ``lm-width`` launches, and ``fleet_host_launches``
-the fleet phase's host counts); the last line is
+bf16 numbers and the ``lm-width`` launches, ``fleet_host_launches`` and
+``offload_host_launches`` the fleet and offload phases' host counts, and
+the transition's ``offload_maxd8`` its D = 8 numbers); the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -253,6 +282,13 @@ SYNC_ITERS = 30
 # and each baseline's iterations
 FLEET_SUPERSTEPS, FLEET_WARM, FLEET_BASELINE_ITERS = 6, 30, 20
 FLEET_PROFILED = 10  # steps profiled after the warm ones (busy ms, kernel launches)
+# the offload phase: million-client-ring (10^6 clients, k_max = 32 slots in D = 8
+# clusters, R = 1 round of tau1 = 2 iterations a superstep); supersteps a held
+# run (a graph's warm-up, capture and 4 replays), warm supersteps timed after
+# it, the fleet its memory is compared at, and the host parts' timed supersteps
+OFFLOAD_STEPS, OFFLOAD_WARM, OFFLOAD_SMALL, OFFLOAD_HOST_STEPS = 6, 10, 1000, 10
+OFFLOAD_EVENTS = 12  # dropout-participation-async events with and without a store
+OFFLOAD = "million-client-ring"
 LM_WIDTH = dict(
     arch_overrides=dict(num_layers=2, d_model=4096, d_ff=14336, num_heads=32, num_kv_heads=8,
                         head_dim=128, dtype="bfloat16", attn_chunk=512),
@@ -304,6 +340,8 @@ class Smoke:
 
     # -- helpers -------------------------------------------------------------
     def phase(self, name, fn):
+        import gc
+
         t0 = time.perf_counter()
         try:
             fn()
@@ -313,6 +351,10 @@ class Smoke:
             print(f"[{name}] FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
         else:
             print(f"[{name}] ok in {time.perf_counter() - t0:.1f}s", flush=True)
+        # what a phase left (its runs, their graphs, pools and staged batches,
+        # also when it failed) is freed before the next phase captures
+        gc.collect()
+        self.torch.cuda.synchronize()
 
     def cuda_ms(self, fn, reps=20, warmup=3) -> float:
         torch = self.torch
@@ -1122,16 +1164,11 @@ class Smoke:
     def device_kernels(self, fn) -> list:
         """Names of the device kernels one call of ``fn`` launches, as the
         profiler saw them."""
-        torch = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.kernels import device_kernel_names
 
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+        self.torch.cuda.synchronize()
+        return sorted(set(device_kernel_names(fn)[1]))
 
     def flash_ab(self, q, k, v, shape, flops, reps) -> dict:
         """The split-TF32 forward against the forward it replaced (built from
@@ -2352,6 +2389,471 @@ class Smoke:
         torch.cuda.empty_cache()
         return out
 
+    # -- the offload phase ---------------------------------------------------
+    def offload(self):
+        """Host-offloaded client state, driven with every kernel counter set to
+        0 just before it and read just after (each of the five fleet kernels
+        must have launched): ``million-client-ring`` at 10^6 clients on round
+        supersteps, graph against eager in turns (graph = eager at 0.0 under
+        deterministic cuDNN, equal kernel runs, one capture a run), then warm
+        rates, the host's parts and device busy time; its device memory at 10^6
+        against 10^3 clients; the D = 8 transition (``MAXD = 8``) against its
+        plain version; the main path's transition copying nothing;
+        identity offload against the dense store on the sync path; client mode
+        spilled to a temporary directory against cluster mode; and
+        ``dropout-participation-async`` with the store against resident state."""
+        from repro_torch import kernels
+
+        names = ("fused_transition", "sgd_update", "normalized_update", "cluster_agg",
+                 "gossip_mix")
+        for k in names:
+            getattr(kernels, k).launches = 0
+        out = {"maxd8_transition": self.hold_maxd8(),
+               "main_transition_copies": self.main_transition_copies()}
+        out["million"] = self.offload_ab()
+        out["memory"] = self.offload_memory()
+        out["identity_sync"] = self.offload_identity()
+        out["client_mode"] = self.offload_client()
+        out["async"] = self.offload_async()
+        host = {k: getattr(kernels, k).launches for k in names}
+        if not all(host.values()):
+            raise AssertionError(f"offload path: a kernel never launched: {host}")
+        print(f"offload path host launches (counters zeroed before it, read after): "
+              f"{json.dumps(host)}", flush=True)
+        for k, n in host.items():
+            self.record.setdefault(k, {})["offload_host_launches"] = n
+        self.record.setdefault("fused_transition", {})["offload_maxd8"] = {
+            k: out["maxd8_transition"][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        out["host_launches"] = host
+        self.detail["offload"] = out
+
+    def hold_maxd8(self) -> dict:
+        """The transition at million-client-ring's shapes: MnistCNN's 8 f32
+        leaves over its 32 slots in D = 8 clusters (the kernel's MAXD = 8
+        instantiation), the slots' weights with a pad at 0, the ring of 8,
+        alpha 1 (the inter event) and 0 (intra), against the plain version at
+        1e-5; then timed (graph replays) against the plain version, per-leaf
+        ``torch.matmul`` and the bytes bound."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import ClusterSpec, mixing_matrix, ring
+        from repro_torch.kernels import fused_transition_ref, fused_transition_tree
+        from repro_torch.models import MnistCNN
+
+        k_max, d = 32, 8
+        spec = ClusterSpec.uniform(k_max, d)
+        rng = np.random.default_rng(8)
+        w = rng.uniform(0.5, 2.0, k_max)
+        w[3] = 0.0  # a padding slot
+        tot = np.bincount(spec.assignment_array, weights=w, minlength=d)
+        f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=self.dev)
+        bt = f32(np.ascontiguousarray(spec.B().T))
+        vt = f32(spec.B() * (w / tot[spec.assignment_array])[None, :])
+        p = f32(mixing_matrix(ring(d), spec.m_tilde()))
+        tree = self.stacked_leaves(MnistCNN, torch.float32, seed=8, rows=k_max)
+        errs = {}
+        for alpha in (1, 0):
+            errs[alpha], _ = self.hold_transition_tree(tree, vt, p, bt, alpha, 1e-5,
+                                                       "million-client-ring D=8", 1)
+        leaves = {k: t.view(k_max, -1) for k, t in tree.items()}
+        t_lib = (vt.T @ p @ bt.T).T.contiguous()
+        nbytes = sum(t.numel() * 4 for t in leaves.values())
+        m_total = sum(t.shape[1] for t in leaves.values())
+        bound, by = self.bound(2 * nbytes + 4 * (vt.numel() + p.numel() + bt.numel()),
+                               2 * m_total * (2 * k_max * d + d * d))
+        times = {
+            "ms": self.graph_ms(lambda: fused_transition_tree(tree, vt, p, bt, 1, inplace=True)),
+            "plain_ms": self.graph_ms(lambda: [fused_transition_ref(t, vt, p, bt, 1)
+                                               for t in leaves.values()]),
+            "library_ms": self.graph_ms(lambda: [torch.matmul(t_lib, t)
+                                                 for t in leaves.values()]),
+        }
+        print(f"offload transition at million-client-ring's shapes (MnistCNN, 32 slots, D=8: "
+              f"the MAXD=8 instantiation; a pad slot at weight 0): vs the plain version max abs "
+              f"err alpha=1 {errs[1]:.3e}, alpha=0 {errs[0]:.3e} (tol 1e-5); graph replays "
+              f"{times['ms']:.5f} ms, plain {times['plain_ms']:.5f} ms, per-leaf matmul "
+              f"{times['library_ms']:.5f} ms, bound {bound:.5f} ms ({by})", flush=True)
+        return {"max_abs_err": max(errs.values()), "errs_by_alpha": errs, **times,
+                "bound_ms": bound, "bound_by": by}
+
+    def main_transition_copies(self) -> dict:
+        """The main path's backend (``mnist-noniid-ring``) binds its factors
+        contiguous, so one inter transition copies nothing: held by the
+        caching allocator's count of allocations during the call, 0 static
+        and 1 with runtime weights (the product ``B * w``; strided factors
+        would add a copy each).  The device records of the same calls are
+        printed (no copy kernel among them; ``ROADMAP.md`` §3 says why a
+        session may come back empty), and the copy kernels an iteration of
+        the main phase's eager profile."""
+        torch = self.torch
+        from repro_torch.kernels import device_kernel_names, fused_transition
+        from repro_torch.scenarios import build_scenario
+
+        run = build_scenario("mnist-noniid-ring", tau2=2)
+        sched = run.runtime.scheduler
+        backend, params = sched.backend, sched.params
+        factors = {"_vt": backend._vt, "_bt": backend._bt, "_b": backend._b}
+        if not all(t.is_contiguous() for t in factors.values()):
+            raise AssertionError(f"strided factors: "
+                                 f"{ {k: t.stride() for k, t in factors.items()} }")
+        weights = torch.full((C,), 1.0 / G, device=self.dev)
+        seen, allocs = {}, {}
+        for label, kw, want in (("static", {}, 0), ("weights", {"weights": weights}, 1)):
+            backend.transition(params, "inter", **kw)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_stats(self.dev)["allocation.all.allocated"]
+            backend.transition(params, "inter", **kw)
+            allocs[label] = torch.cuda.memory_stats(self.dev)["allocation.all.allocated"] - before
+            if allocs[label] != want:
+                raise AssertionError(f"main transition ({label}): {allocs[label]} allocations, "
+                                     f"expected {want}")
+            n = fused_transition.launches
+            _, names = device_kernel_names(lambda: backend.transition(params, "inter", **kw))
+            seen[label] = {"host_launches": fused_transition.launches - n,
+                           "device_records": sorted(names)}
+            if any("copy" in name.lower() for name in names):
+                raise AssertionError(f"main transition ({label}) ran {names}")
+        per_it = {}
+        try:
+            main = self.detail["main_path"]["eager_vs_graph"]["eager"][0]["profile"]
+            per_it = {n[:120]: c / main["iters"] for n, c in main["kernel_counts"].items()
+                      if "copy" in n.lower()}
+        except (KeyError, IndexError):
+            pass
+        print(f"offload: main's transition factors contiguous; one inter transition allocates "
+              f"{allocs['static']} tensors static and {allocs['weights']} weighted (held to 0 and "
+              f"1: no copy); its device records "
+              + "; ".join(f"{k}: {v['host_launches']} host launch, "
+                          f"{[n[:60] for n in v['device_records']]}" for k, v in seen.items())
+              + f"; the main phase's eager profile, copy kernels an iteration: "
+              f"{json.dumps(per_it)}", flush=True)
+        return {"allocations": allocs, "records": seen, "main_copy_kernels_per_iteration": per_it}
+
+    def offload_run(self, graph, steps, **overrides):
+        """(run, {"params": cluster models, "losses"}, kernel runs on the
+        device, host launches, host seconds) of ``steps`` supersteps of
+        million-client-ring, under the profiler."""
+        torch = self.torch
+        from repro_torch.kernels import device_launches
+        from repro_torch.scenarios import build_scenario
+
+        before = self.host_counts()
+        run = build_scenario(OFFLOAD, graph=graph, **overrides)
+        src = run.batch_source()
+        t0 = time.perf_counter()
+        evs, ran = device_launches(lambda: [run.runtime.step(src) for _ in range(steps)])
+        dt = time.perf_counter() - t0
+        host = {k: n - before[k] for k, n in self.host_counts().items() if n != before[k]}
+        store = run.runtime.scheduler.store
+        vals = {"params": {k: v.float().cpu() for k, v in store.cluster_models.items()},
+                "losses": torch.cat([e.losses for e in evs]).float().cpu()}
+        return run, vals, ran, host, dt
+
+    def offload_ab(self) -> dict:
+        """million-client-ring at 10^6 clients: eager, graph, graph, eager
+        under deterministic cuDNN, each ``OFFLOAD_STEPS`` supersteps under the
+        profiler; every run's kernel runs on the device held to the exact
+        count, its host launches to its warm-up and capture (graph), the
+        graph captured once and replayed every later superstep whoever is
+        resident, graph = eager at 0.0.  Then, under cuDNN's defaults, warm
+        rates of an eager and a graph run, their busy time, the host's parts
+        and the peak memory."""
+        import gc
+
+        torch = self.torch
+        vals, runs = {}, {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for label, graph in (("eager", False), ("graph", True), ("graph2", True),
+                                 ("eager2", False)):
+                gc.collect()
+                run, vals[label], ran, host, dt = self.offload_run(graph, OFFLOAD_STEPS)
+                sched = run.runtime.scheduler
+                if (sched.backend.name, run.runtime.device.type) != ("cuda", "cuda"):
+                    raise AssertionError(f"{OFFLOAD}: {sched.backend.name} on "
+                                         f"{run.runtime.device}")
+                if sched.store.num_clients != 1_000_000 or sched.store.k_max != 32:
+                    raise AssertionError(f"{OFFLOAD}: {sched.store.num_clients} clients, "
+                                         f"k_max {sched.store.k_max}")
+                want = self.round_launches(sched, OFFLOAD_STEPS)
+                host_want = self.round_launches(sched, OFFLOAD_STEPS, host=True)
+                if ran != want or host != host_want:
+                    raise AssertionError(f"{OFFLOAD} {label}: kernel runs {ran} (expected "
+                                         f"{want}), host launches {host} (expected {host_want})")
+                residents = {tuple(sched._residency_for_step(k).clients)
+                             for k in range(1, OFFLOAD_STEPS + 1)}
+                if len(residents) != OFFLOAD_STEPS:
+                    raise AssertionError(f"{OFFLOAD}: residents repeat across supersteps")
+                g = sched._graph
+                if graph and not (g.captured == 1 and len(g._entries) == 1
+                                  and g.replays == OFFLOAD_STEPS - 1):
+                    raise AssertionError(f"{OFFLOAD} {label}: {g.captured} captures, "
+                                         f"{len(g._entries)} keys, {g.replays} replays")
+                self.check_finite(sched.store.cluster_models, f"{OFFLOAD} {label}")
+                runs[label] = {"kernel_runs": ran, "host_launches": host,
+                               "supersteps_per_s_cold": OFFLOAD_STEPS / dt}
+                del run, sched, g
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+        def diff(a, b):
+            return max(max((a["params"][k] - v).abs().max().item()
+                           for k, v in b["params"].items()),
+                       (a["losses"] - b["losses"]).abs().max().item())
+
+        ee = diff(vals["eager"], vals["eager2"])
+        ge = max(diff(vals[g], vals[e]) for g in ("graph", "graph2") for e in ("eager", "eager2"))
+        if not ge == ee == 0.0:
+            raise AssertionError(f"{OFFLOAD}: graph vs eager {ge}, eager vs eager {ee} "
+                                 f"(want 0.0)")
+        from repro_torch.scenarios import build_scenario
+
+        warm, busy, peaks = {}, {}, {}
+        for label, graph in (("eager", False), ("graph", True), ("eager2", False),
+                             ("graph2", True)):
+            gc.collect()
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run = build_scenario(OFFLOAD, graph=graph)
+            src = run.batch_source()
+            for _ in range(OFFLOAD_STEPS):
+                run.runtime.step(src)
+            warm[label] = self.warm_rate(run, OFFLOAD_WARM)
+            prof = self.profile_steps(run, FLEET_PROFILED)
+            busy[label] = {k: prof[k] for k in ("busy_ms_per_step", "busy_share",
+                                                "kernel_launches_per_step",
+                                                "copy_launches_per_step")}
+            peaks[label] = (torch.cuda.max_memory_allocated() - start) / 2**20
+            if label == "graph2":
+                split = self.offload_host_split(run)
+            del run, src
+        ips = 2  # tau1 * tau2 iterations a superstep, R = 1
+        print(f"offload {OFFLOAD} (10^6 clients, k_max 32, D=8, uniform-k k=4; "
+              f"{OFFLOAD_STEPS} supersteps a run): cuDNN deterministic, graph vs eager max abs "
+              f"diff {ge:.1e}, eager vs eager {ee:.1e} (held to 0.0); kernel runs on the device "
+              f"eager {json.dumps(runs['eager']['kernel_runs'])}, graph "
+              f"{json.dumps(runs['graph']['kernel_runs'])} (held equal, exactly); host launches "
+              f"graph {json.dumps(runs['graph']['host_launches'])} (warm-up and capture: one "
+              f"capture a run, replayed for every residency); warm over {OFFLOAD_WARM} "
+              f"supersteps, cuDNN defaults: "
+              + ", ".join(f"{k} {v:.3f} supersteps/s ({ips * v:.3f} it/s)"
+                          for k, v in warm.items())
+              + f" (graph/eager {(warm['graph'] + warm['graph2']) / (warm['eager'] + warm['eager2']):.3f}x); "
+              + "; ".join(f"{k} busy {b['busy_ms_per_step']:.4f} ms a superstep, "
+                          f"{100 * b['busy_share']:.2f}% busy, "
+                          f"{b['kernel_launches_per_step']:.2f} kernel and "
+                          f"{b['copy_launches_per_step']:.2f} copy launches"
+                          for k, b in busy.items())
+              + "; peak MiB above the run's start: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in peaks.items()), flush=True)
+        print(f"offload {OFFLOAD} host ms a superstep (graph run, {OFFLOAD_HOST_STEPS} "
+              f"supersteps): " + ", ".join(f"{k}={v:.4f}" for k, v in split.items()),
+              flush=True)
+        return {**runs, "graph_vs_eager": ge, "eager_vs_eager": ee,
+                "supersteps_per_s_warm": warm, "busy": busy, "peak_mib": peaks,
+                "host_ms_per_superstep": split}
+
+    def offload_host_split(self, run) -> dict:
+        """Host milliseconds a superstep of each part of an offloaded step,
+        called as the round scheduler calls them, over supersteps past the
+        run's: the residency plan (the uniform-k draw over 10^6 clients and
+        the slot packing), the slots' weights (the round's renormalized
+        weights over 10^6, sliced), the batch draw (32 procedural generators an
+        iteration), staging (pinning and queueing the copies), gather and
+        scatter (queueing the device takes), and a replay."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.pipeline import CopyStream, stack_window
+        from repro_torch.core.runtime import WEIGHTS, _participant_batches
+        from repro_torch.state import sub_weights
+
+        sched, src = run.runtime.scheduler, run.batch_source()
+        store, n = sched.store, OFFLOAD_HOST_STEPS
+        ks = range(1000, 1000 + n)
+        part = {}
+        t0 = time.perf_counter()
+        res = [sched._draw_residency(k) for k in ks]
+        part["residency_ms"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        weights = [sub_weights(sched.axes.plan.weights(k - 1), r)[None].astype(np.float32)
+                   for k, r in zip(ks, res)]  # (R, k_max) at R = 1
+        part["weights_ms"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        windows = [stack_window(lambda i, r=r: _participant_batches(src, i, r), 2 * k - 1, 2)
+                   for k, r in zip(ks, res)]
+        part["draw_ms"] = time.perf_counter() - t0
+        copy = CopyStream(self.dev)
+        staged = []
+        t0 = time.perf_counter()
+        for wdw, w in zip(windows, weights):
+            staged.append(copy.stage({**wdw, WEIGHTS: w}))
+        part["stage_ms"] = time.perf_counter() - t0
+        for st in staged:
+            copy.take(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in res:
+            store.gather(r)
+        part["gather_ms"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in res:
+            store.scatter(r, store.buffer)
+        part["scatter_ms"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        entry = next(iter(sched._graph._entries.values()))
+        t0 = time.perf_counter()
+        for _ in ks:
+            entry.graph.replay()
+        part["replay_ms"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return {k: v / n * 1e3 for k, v in part.items()}
+
+    def offload_memory(self) -> dict:
+        """Peak device memory above a run's start (allocated), the CUDA graph's
+        pool included, over ``OFFLOAD_STEPS`` graph supersteps at 10^3 and then
+        10^6 clients: within 10% of each other (the reference's claim,
+        ``benchmarks/state_scaling.py``)."""
+        import gc
+
+        torch = self.torch
+        from repro_torch.scenarios import build_scenario
+
+        peaks = []
+        for n in (OFFLOAD_SMALL, 1_000_000):
+            gc.collect()
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run = build_scenario(OFFLOAD, num_clients=n)
+            src = run.batch_source()
+            for _ in range(OFFLOAD_STEPS):
+                run.runtime.step(src)
+            torch.cuda.synchronize()
+            peaks.append((n, (torch.cuda.max_memory_allocated() - start) / 2**20,
+                          run.runtime.scheduler.store.device_bytes()))
+            del run, src
+        small = [p for n, p, _ in peaks if n == OFFLOAD_SMALL]
+        big = [p for n, p, _ in peaks if n != OFFLOAD_SMALL]
+        ratio = max(big + small) / min(big + small)
+        print(f"offload memory: peak MiB above the run's start, graph, {OFFLOAD_STEPS} "
+              f"supersteps: "
+              + ", ".join(f"N={n} {p:.3f}" for n, p, _ in peaks)
+              + f"; max/min {ratio:.4f} (held to 1.10); the store's persistent device bytes "
+              f"{peaks[0][2]} (32 slots + 8 cluster models)", flush=True)
+        if not ratio <= 1.10:
+            raise AssertionError(f"offload memory at 10^6 vs 10^3 clients: ratio {ratio}")
+        if len({b for _, _, b in peaks}) != 1:
+            raise AssertionError(f"store bytes depend on N: {peaks}")
+        return {"peaks_mib": peaks, "ratio": ratio}
+
+    def offload_identity(self) -> dict:
+        """Identity offload (``k_max = N = 20``) against the dense store on the
+        sync path: mnist-noniid-ring, ``tau2=2``, ``SYNC_ITERS`` iterations on
+        graphs under deterministic cuDNN, every client's state at 0.0."""
+        import numpy as np
+
+        torch = self.torch
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = [self.run_scenario("mnist-noniid-ring", SYNC_ITERS, tau2=2, store=store)[0]
+                    for store in (None, {"kind": "host-offload"})]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        dense, off = (r.runtime.scheduler for r in runs)
+        if off.store.k_max != C or off._graphs is None:
+            raise AssertionError(f"identity store k_max {off.store.k_max}, graphs {off._graphs}")
+        names = sorted(dense.params)
+        err = max(float(np.abs(dense.params[k][c].cpu().numpy() - x).max())
+                  for c in range(C) for k, x in zip(names, off.store.state_of(c)))
+        if err != 0.0:
+            raise AssertionError(f"identity offload vs dense store: {err}")
+        print(f"offload identity store (k_max = N = {C}) vs the dense store, sync "
+              f"mnist-noniid-ring tau2=2, {SYNC_ITERS} iterations on graphs, cuDNN "
+              f"deterministic: max abs client diff {err} (held to 0.0)", flush=True)
+        return {"max_abs_client_diff": err}
+
+    def offload_client(self) -> dict:
+        """Client mode at 10^6 clients with its rows spilled to a temporary
+        directory, 3 graph supersteps: the stored clients are exactly the
+        supersteps' participants, each record a file, and (no client drawn
+        twice, each cold one starting from its cluster model) the run equals
+        cluster mode's at 0.0 under deterministic cuDNN."""
+        import os
+        import tempfile
+
+        torch = self.torch
+        steps = 3
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with tempfile.TemporaryDirectory() as spill:
+                store = {"kind": "host-offload", "k_max": 32, "mode": "client",
+                         "spill_dir": spill}
+                run, vals, ran, _, dt = self.offload_run(True, steps, store=store)
+                sched = run.runtime.scheduler
+                drawn = set()
+                for k in range(1, steps + 1):
+                    res = sched._residency_for_step(k)
+                    drawn |= set(res.clients[res.valid].tolist())
+                keys = sched.store._host.keys()
+                files = len(os.listdir(spill))
+                if keys != sorted(drawn) or files != len(drawn):
+                    raise AssertionError(f"client mode stored {len(keys)} clients in {files} "
+                                         f"files, drew {len(drawn)}")
+                _, cvals, _, _, _ = self.offload_run(True, steps)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        err = max(max((vals["params"][k] - v).abs().max().item()
+                      for k, v in cvals["params"].items()),
+                  (vals["losses"] - cvals["losses"]).abs().max().item())
+        if err != 0.0:
+            raise AssertionError(f"client mode vs cluster mode: {err}")
+        print(f"offload client mode (10^6 clients, spilled to a temporary directory, {steps} "
+              f"graph supersteps): {len(keys)} clients stored, one file each, exactly the "
+              f"participants; vs cluster mode max abs diff {err} (held to 0.0); kernel runs "
+              f"{json.dumps(ran)}; {steps / dt:.3f} supersteps/s cold under the profiler",
+              flush=True)
+        return {"stored_clients": len(keys), "vs_cluster_mode": err, "kernel_runs": ran}
+
+    def offload_async(self) -> dict:
+        """dropout-participation-async with ``store="host-offload"`` (y held as
+        one pseudo-client a cluster) against resident state, eager on the
+        kernels under deterministic cuDNN: the same events, ``y`` and the
+        store's cluster stack at 0.0, one launch of each async kernel per
+        cluster event; events/s."""
+        from repro_torch.kernels import device_launches
+
+        torch = self.torch
+        name = "dropout-participation-async"
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            (run, dt, events, _), ran = device_launches(
+                lambda: self.run_async(name, OFFLOAD_EVENTS, store="host-offload"))
+            ref, _, revents, _ = self.run_async(name, OFFLOAD_EVENTS)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        sched = run.runtime.scheduler
+        fired = [k for k, _, _ in events].count("cluster") * self.launch_groups(sched.y)
+        if ran != {k: fired for k in ASYNC_KERNELS}:
+            raise AssertionError(f"{name} offload: kernel runs {ran}")
+        err = max(max((v - ref.runtime.scheduler.y[k]).abs().max().item(),
+                      (sched.store.cluster_models[k] - v).abs().max().item())
+                  for k, v in sched.y.items())
+        if not (revents == events and err == 0.0 and sched.store.kind == "host-offload"):
+            raise AssertionError(f"{name}: store vs resident events equal {revents == events}, "
+                                 f"y diff {err}")
+        print(f"offload {name} with a host-offload store ({OFFLOAD_EVENTS} events, eager, cuDNN "
+              f"deterministic): the resident run's events, max abs y and store diff {err} "
+              f"(held to 0.0); kernel runs {json.dumps(ran)}; "
+              f"{OFFLOAD_EVENTS / dt:.3f} events/s cold under the profiler", flush=True)
+        return {"max_abs_y_diff": err, "kernel_runs": ran, "events_per_s_cold": OFFLOAD_EVENTS / dt}
+
     def run(self):
         torch = self.torch
         self.phase("device", self.device)
@@ -2364,6 +2866,7 @@ class Smoke:
             self.phase("fleet", self.fleet)
             self.phase("lm", self.lm_path)
             self.phase("lm-width", self.lm_width)
+            self.phase("offload", self.offload)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
         out = HERE / "chiprun_out"
@@ -2376,7 +2879,8 @@ class Smoke:
         kernels = [dict(name=k, route="cuda", **KERNELS[k], **{f: self.record[k][f] for f in keys})
                    for k in KERNELS]
         for entry in kernels:  # granite-8b's numbers (bf16; the f32 forward's too)
-            for extra in ("width", "f32_width", "host_launches", "fleet_host_launches"):
+            for extra in ("width", "f32_width", "host_launches", "fleet_host_launches",
+                          "offload_host_launches", "offload_maxd8"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

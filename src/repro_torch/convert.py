@@ -7,13 +7,17 @@ per-leaf copy.  The JAX side hands over ``{name: np.ndarray}``
 nested tree crosses as dotted names: ``flatten_params`` turns
 ``{"blocks": {"pos0": {"attn": {"wq": a}}}}`` into ``{"blocks.pos0.attn.wq":
 a}``, the port's layout, and ``unflatten_params`` undoes it.
+``store_from_numpy`` loads a reference ``HostOffloadStore``'s state (its
+cluster stack and its host rows) into a bound port store, so both stores
+hold the same clients' states.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "params_to_numpy", "flatten_params", "unflatten_params"]
+__all__ = ["params_from_numpy", "params_to_numpy", "flatten_params", "unflatten_params",
+           "store_from_numpy"]
 
 
 def _leaf(v, device) -> torch.Tensor:
@@ -61,3 +65,19 @@ def unflatten_params(flat: dict) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = v
     return out
+
+
+def store_from_numpy(store, cluster_models: dict, host_rows: dict | None = None) -> None:
+    """Write a reference ``HostOffloadStore``'s state into a bound port store.
+
+    ``cluster_models`` is its ``(D, ...)`` cluster stack as ``{name: array}``
+    (``jax.tree.map(np.asarray, store.cluster_models)``); ``host_rows`` maps a
+    client to its stored leaves (client mode, ``store._host``), listed in the
+    checkpoint layer's leaf order, which both packages share.  The port's
+    tensors are written in place, so the store's buffers keep their addresses.
+    """
+    for k, v in cluster_models.items():
+        dst = store.cluster_models[k]
+        dst.copy_(_leaf(v, dst.device).to(dst.dtype))
+    for c, leaves in (host_rows or {}).items():
+        store._host.put(int(c), [np.asarray(x) for x in leaves])

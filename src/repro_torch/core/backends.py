@@ -182,8 +182,11 @@ class CudaBackend:
         self.alpha = alpha
         dev = resolve_device(device)
         self.device = dev
-        self._vt = _f32(clusters.V().T, dev)   # (D, C)
-        self._bt = _f32(clusters.B().T, dev)   # (C, D)
+        # the factors bound contiguous once: the kernel reads them as dense
+        # row-major matrices, so a strided one would cost a copy every call
+        self._vt = _f32(np.ascontiguousarray(clusters.V().T), dev)   # (D, C)
+        self._bt = _f32(np.ascontiguousarray(clusters.B().T), dev)   # (C, D)
+        self._b = _f32(clusters.B(), dev)                            # (D, C) = bt.T
         self._p = _f32(p, dev)
 
     def intra_cluster(self, stacked: dict, weights: torch.Tensor) -> dict:
@@ -212,8 +215,9 @@ class CudaBackend:
         if weights is None:
             vt = self._vt
         else:
-            # V(w)^T: bt.T is the exact 0/1 indicator, so vt rows carry w verbatim
-            vt = self._bt.T * _f32(weights, self.device)[None, :]
+            # V(w)^T: B is the exact 0/1 indicator, so vt rows carry w verbatim
+            # (and come out contiguous, as B is)
+            vt = self._b * _f32(weights, self.device)[None, :]
         p_call = self._p if p is None or event != "inter" else _f32(p, self.device)
         return fused_transition_tree(stacked, vt, p_call, self._bt, alpha=alpha, inplace=True)
 

@@ -10,10 +10,10 @@ The port's copy of ``repro.core.config``::
 
 Every scheduler of the port (``sync``, ``round``, ``async``) takes the
 fleet's device profile (``profile``/``profile_seed``), its ``participation``
-plan and its ``faults`` schedule, on resident dense client state.
-``validate`` checks their structure as the reference does, and rejects a
-client-state ``store`` and ``exec.mesh`` with ``NotImplementedError`` naming
-their ROADMAP item.
+plan, its ``faults`` schedule and its client-state ``store``
+(``repro_torch.state``).  ``validate`` checks their structure as the
+reference does, and rejects ``exec.mesh`` with ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,10 +25,7 @@ __all__ = ["ModelSpec", "DataSpec", "FleetSpec", "ExecSpec", "RunConfig", "MODEL
 MODEL_KINDS = ("mnist-cnn", "cifar-cnn")
 
 # what is not ported yet, and where ROADMAP.md queues it
-_NOT_PORTED = {
-    "store": "queue 1, 'Fleet axes' (state/ client-state stores)",
-    "mesh": "queue 1, 'Multi-device and launch'",
-}
+_NOT_PORTED = {"mesh": "queue 1, 'Multi-device and launch'"}
 
 
 def _model_registry() -> dict:
@@ -72,9 +69,10 @@ class DataSpec:
 class FleetSpec:
     """Who the clients are: device ``profile`` (a ``repro_torch.hetero``
     sampler spec), ``participation`` (a ``repro_torch.participation`` spec or
-    plan) and ``faults`` (a ``repro_torch.faults`` event list, spec dict,
-    JSON string or schedule).  ``store`` runs at its default (``None``,
-    resident client state) only."""
+    plan), ``store`` (a ``repro_torch.state`` client-state store: a kind, a
+    ``{"kind": ..., **params}`` dict or a store; ``None`` is dense resident
+    state) and ``faults`` (a ``repro_torch.faults`` event list, spec dict,
+    JSON string or schedule)."""
 
     profile: Any = None
     profile_seed: Optional[int] = None
@@ -93,23 +91,28 @@ class FleetSpec:
             seed=0 if self.profile_seed is None else self.profile_seed,
         )
 
-    def require_ported(self, scheduler: str) -> None:
-        """Raise ``NotImplementedError`` for a field ``scheduler`` cannot take yet."""
-        if self.store is not None:
-            raise NotImplementedError(
-                f"fleet.store={self.store!r} is not ported yet for scheduler "
-                f"{scheduler!r} (ROADMAP.md {_NOT_PORTED['store']})"
-            )
+    def resolve_store(self, num_clients: int):
+        """The client-state store of this fleet (``repro_torch.state``)."""
+        from ..state import resolve_store
+
+        return resolve_store(self.store, num_clients)
 
     def validate(self) -> None:
-        """The reference's structural checks of ``participation`` and
-        ``faults``; sizes are checked when a scheduler resolves them."""
+        """The reference's structural checks of ``participation``, ``store``
+        and ``faults``; sizes are checked when a scheduler resolves them."""
         part = self.participation
         if part is not None and not isinstance(part, (str, dict)) and not hasattr(part, "mask"):
             raise TypeError(
                 f"fleet.participation must be a strategy name, spec dict or "
                 f"ParticipationPlan, got {type(part).__name__}"
             )
+        if isinstance(self.store, (str, dict)):
+            from ..state import STORE_REGISTRY
+
+            kind = self.store if isinstance(self.store, str) else self.store.get("kind")
+            if kind not in STORE_REGISTRY:
+                raise KeyError(f"unknown state store {kind!r}; registered: "
+                               f"{sorted(STORE_REGISTRY)}")
         faults = self.faults
         if faults is None:
             return
@@ -232,7 +235,6 @@ class RunConfig:
             v = getattr(self.exec, k)
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"exec.{k} must be an int >= 1, got {v!r}")
-        self.fleet.require_ported(sched)
         self.fleet.validate()
         if self.exec.mesh is not None:
             raise NotImplementedError(

@@ -14,6 +14,7 @@ a copy of ``repro.core.protocol`` so the port never imports the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal
 
 import numpy as np
@@ -43,9 +44,15 @@ class ClusterSpec:
         if present != set(range(d)):
             raise ValueError("every cluster in [0, D) must have >= 1 client")
 
-    @property
+    @functools.cached_property
+    def assignment_array(self) -> np.ndarray:
+        """``assignments`` as an int64 array, built once (a fleet of 10^6
+        clients reads it every round)."""
+        return np.asarray(self.assignments, dtype=np.int64)
+
+    @functools.cached_property
     def num_clusters(self) -> int:
-        return max(self.assignments) + 1
+        return int(self.assignment_array.max()) + 1
 
     @staticmethod
     def uniform(num_clients: int, num_clusters: int) -> "ClusterSpec":
@@ -79,40 +86,35 @@ class ClusterSpec:
         s = np.asarray(self.data_sizes, dtype=np.float64)
         return s / s.sum()
 
+    # The per-cluster sums are np.bincount's, which adds in client order, as
+    # the reference's loop does: the same float64 values, bit for bit.
     def m_tilde(self) -> np.ndarray:
         """m~_d = |S~_d| / |S| — cluster data ratios."""
         s = np.asarray(self.data_sizes, dtype=np.float64)
-        out = np.zeros(self.num_clusters)
-        for i, d in enumerate(self.assignments):
-            out[d] += s[i]
+        out = np.bincount(self.assignment_array, weights=s, minlength=self.num_clusters)
         return out / s.sum()
 
     def m_hat(self) -> np.ndarray:
         """m^_i = |S_i| / |S~_{d(i)}| — within-cluster client data ratios."""
         s = np.asarray(self.data_sizes, dtype=np.float64)
-        totals = np.zeros(self.num_clusters)
-        for i, d in enumerate(self.assignments):
-            totals[d] += s[i]
-        return s / totals[list(self.assignments)]
+        totals = np.bincount(self.assignment_array, weights=s, minlength=self.num_clusters)
+        return s / totals[self.assignment_array]
 
     # -- Lemma-1 matrices ----------------------------------------------------
     def V(self) -> np.ndarray:
         """V[i, d] = m^_i 1{i in C_d}  (C x D)."""
         v = np.zeros((self.num_clients, self.num_clusters))
-        mh = self.m_hat()
-        for i, d in enumerate(self.assignments):
-            v[i, d] = mh[i]
+        v[np.arange(self.num_clients), self.assignment_array] = self.m_hat()
         return v
 
     def B(self) -> np.ndarray:
         """B[d, i] = 1{i in C_d}  (D x C)."""
         b = np.zeros((self.num_clusters, self.num_clients))
-        for i, d in enumerate(self.assignments):
-            b[d, i] = 1.0
+        b[self.assignment_array, np.arange(self.num_clients)] = 1.0
         return b
 
     def clients_of(self, d: int) -> list[int]:
-        return [i for i, dd in enumerate(self.assignments) if dd == d]
+        return np.flatnonzero(self.assignment_array == d).tolist()
 
 
 AggregationEvent = Literal["local", "intra", "inter"]

@@ -8,8 +8,13 @@ to a scheduler.  Ported: ``SyncScheduler`` (Algorithm 1 / Lemma 1) and
 ``RoundScheduler`` (whole Algorithm-1 rounds per step) on the default
 fleet, and ``AsyncScheduler`` (Section IV, Algorithm 2).  Every scheduler
 takes the fleet axes of a ``FleetSpec``: a device profile that prices its
-wall-clock, a participation plan (``repro_torch.participation``) and a
-fault schedule (``repro_torch.faults``), on resident client state.
+wall-clock, a participation plan (``repro_torch.participation``), a fault
+schedule (``repro_torch.faults``) and a client-state store
+(``repro_torch.state``).  With a ``host-offload`` store the sync and round
+schedulers step a fixed ``(k_max, ...)`` buffer of the round's
+participants, which the store gathers before the round and scatters after
+it; the buffer's tensors never change, so a captured step is captured once
+for every residency.
 
 Per-round participation weights and faulted mixing matrices are runtime
 operands of fixed shape: the sync and round schedulers stage them with
@@ -155,6 +160,53 @@ class FleetAxes:
         return mask, self.uplink_penalty(r), (r if self.traced else None)
 
 
+def _participant_batches(batch_source, k: int, res) -> dict:
+    """Iteration ``k``'s host batches for the resident slots only.
+
+    A source with ``supports_clients`` (``data.ProceduralFederated``) draws
+    just the requested rows, O(``k_max``) a step, the batching that scales to
+    a million clients; any other source draws the full ``(N, ...)`` stack,
+    which is sliced."""
+    if getattr(batch_source, "supports_clients", False):
+        return batch_source(k, clients=res.clients)
+    return {key: np.asarray(x)[res.clients] for key, x in batch_source(k).items()}
+
+
+def _split_store_rows(batch: dict) -> tuple[dict, Optional[dict]]:
+    """``(batch, staged rows or None)``: a client-mode store's rows
+    (``state.ROWS``/``state.STAGED`` entries) taken out of a staged batch."""
+    from ..state import ROWS, STAGED
+
+    if STAGED not in batch:
+        return batch, None
+    rows = {k: v for k, v in batch.items() if k == STAGED or k.startswith(ROWS)}
+    return {k: v for k, v in batch.items() if k not in rows}, rows
+
+
+class _ResidencyCache:
+    """A scheduler's residencies by round (or superstep), each a pure function
+    of its index, kept for the few indices the feed stages ahead."""
+
+    def __init__(self, draw: Callable, keep: int = 8):
+        self._draw = draw
+        self._keep = keep
+        self._by_index: dict = {}
+
+    def __call__(self, i: int):
+        res = self._by_index.get(i)
+        if res is None:
+            res = self._by_index[i] = self._draw(i)
+            while len(self._by_index) > self._keep:
+                del self._by_index[min(self._by_index)]
+        return res
+
+
+_OFFLOAD_FAULTS = ("fault injection requires a resident client-state store; "
+                   "host-offload runs cannot thread per-round fault operands")
+_OFFLOAD_CLUSTERS = ("cluster_params requires a resident client-state store; "
+                     "serve host-offload runs from checkpoints instead")
+
+
 def _split_operands(batch: dict) -> tuple[dict, list]:
     """``(model batch, [weights[, mixing]])`` of a staged step batch."""
     ops = [batch[k] for k in _OPERANDS if k in batch]
@@ -289,6 +341,15 @@ class SyncScheduler:
     aggregates, along each cluster's critical path, and under faults the
     inter event pays the round's uplink retries.  ``"full"`` participation
     runs the static-weight step.
+
+    With a ``host-offload`` store (``fleet.store``) ``self.params`` is the
+    store's fixed ``(k_max, ...)`` buffer: the round's residents are gathered
+    into it at the round's first iteration, stepped by the same steps (and
+    graphs), bound over the store's sub-fleet, and scattered back at the
+    round's inter event.  Each iteration draws its batches for the resident
+    slots only, and a sampled round's weights are those of the slots
+    (``state.sub_weights``: a padding slot weighs exactly 0).  Faults need
+    resident state and raise ``ValueError``, as in the reference.
     """
 
     name = "sync"
@@ -322,15 +383,34 @@ class SyncScheduler:
         self.device = device
         self.axes = FleetAxes(self.fleet, cfg.clusters, cfg.topology, self.profile,
                               self.latency, seed)
-        self.params = stacked_init(model, cfg.clusters.num_clients, seed, device)
+        self.store = self.fleet.resolve_store(cfg.clusters.num_clients)
+        if self.store.resident:
+            self.params = stacked_init(model, cfg.clusters.num_clients, seed, device)
+            self.store.attach(self)
+            agg_clusters = cfg.clusters
+        else:
+            if self.axes.faults is not None:
+                raise ValueError(_OFFLOAD_FAULTS)
+            # the aggregation runs over the store's sub-fleet (same clusters,
+            # slot-sized), on its fixed buffer
+            self.store.bind(cfg.clusters, model, seed, device)
+            self.params = self.store.buffer
+            self._res = None        # residency of the round the buffer holds, or None
+            self._buf_round = None
+            # round r's residency, a pure function of r (the feed stages ahead)
+            self._residency_for_round = _ResidencyCache(lambda r: self.store.residency(
+                self.axes.plan.mask(r) if self.axes.sampling else None))
+            agg_clusters = self.store.sub_clusters
         self.backend = resolve_backend(
-            self._backend_spec, cfg.clusters, cfg.P(), cfg.alpha, device=device
+            self._backend_spec, agg_clusters, cfg.P(), cfg.alpha, device=device
         )
         self._local = build_local_update(
             model, optim.sgd(cfg.learning_rate), backend=self.backend
         )
-        self._m = torch.as_tensor(cfg.clusters.m(), dtype=torch.float32, device=device)
-        self._v = torch.as_tensor(cfg.clusters.V(), dtype=torch.float32, device=device)
+        # the consensus weights, (N,) on the device: resident state only (an
+        # offloaded run's consensus is the store's, and keeps N off the device)
+        self._m = (torch.as_tensor(cfg.clusters.m(), dtype=torch.float32, device=device)
+                   if self.store.resident else None)
         self._feed = BatchFeed(device, self.prefetch)
         self._graphs = self._build_graphs() if resolve_graph(self._graph_spec, device) else None
 
@@ -363,7 +443,14 @@ class SyncScheduler:
         function of ``r``, cached for the round: the feed stages iterations
         ahead of the one that runs."""
         if self._operand_cache is None or self._operand_cache[0] != r:
-            self._operand_cache = (r, self.axes.operands(r))
+            if self.store.resident:
+                ops = self.axes.operands(r)
+            else:
+                from ..state import sub_weights
+
+                w = sub_weights(self.axes.plan.weights(r), self._residency_for_round(r))
+                ops = {WEIGHTS: w.astype(np.float32)}
+            self._operand_cache = (r, ops)
         return self._operand_cache[1]
 
     def _event_dt(self, k: int, event: str) -> float:
@@ -376,7 +463,11 @@ class SyncScheduler:
             return self._event_times[event]
         r = self._round_of(k)
         if self._round_cache is None or self._round_cache[0] != r:
-            self._round_cache = (r, *self.axes.round_pricing(r), {})
+            mask, penalty, t = self.axes.round_pricing(r)
+            if not self.store.resident and self.axes.sampling:
+                # an offloaded round is paced by its residents, as the reference
+                mask = self._residency_for_round(r).participant_mask(self.cfg.clusters.num_clients)
+            self._round_cache = (r, mask, penalty, t, {})
         _, mask, penalty, t, times = self._round_cache
         if mask is None and t is None:
             return self._event_times[event]
@@ -389,15 +480,31 @@ class SyncScheduler:
     # -- one protocol iteration --------------------------------------------------
     def _apply(self, k: int, batch: dict) -> tuple[str, float]:
         event = self.cfg.event_at(k)
+        offload = not self.store.resident
+        if offload and self._buf_round != self._round_of(k):
+            # the round's first iteration: its residents into the buffer
+            self._buf_round = self._round_of(k)
+            self._res = self._residency_for_round(self._buf_round)
+            self.params = self.store.gather(self._res)
         if self._graphs is None:
             self.params = self._update(event, batch)
         else:
             self._graphs[event](batch)
+        if offload and event == "inter":
+            # the round's boundary: every resident holds its cluster's
+            # post-gossip aggregate, which the store keeps
+            self.store.scatter(self._res, self.params)
+            self._buf_round = None
         return event, self._event_dt(k, event)
 
     def _producer(self, batch_source) -> Optional[Callable[[int], dict]]:
-        """Iteration ``i``'s host batch with its round's operands, or None
-        (the batch source alone) on the static path."""
+        """Iteration ``i``'s host batch (the resident slots' rows under
+        offload) with its round's operands, or None (the batch source alone)
+        on the static path."""
+        if not self.store.resident:
+            return lambda i: {
+                **_participant_batches(batch_source, i, self._residency_for_round(self._round_of(i))),
+                **(self._operands(self._round_of(i)) if self.axes.active else {})}
         if not self.axes.active:
             return None
         return lambda i: {**batch_source(i), **self._operands(self._round_of(i))}
@@ -407,8 +514,21 @@ class SyncScheduler:
         event, dt = self._apply(k, batch)
         return StepEvent(kind=event, iteration=k, dt=dt)
 
+    def advance(self, k: int, stacked_batch: dict) -> str:
+        """Iteration ``k`` on a given full-fleet host batch (no prefetch):
+        under offload its resident slots' rows; returns the event."""
+        from .pipeline import device_batch
+
+        producer = self._producer(lambda i: stacked_batch) or (lambda i: stacked_batch)
+        return self._apply(k, device_batch(producer(k), self.device))[0]
+
     def global_params(self) -> dict:
-        """Consensus-phase output: sum_d m~_d y_K^(d) == sum_i m_i w_K^(i)."""
+        """Consensus-phase output: sum_d m~_d y_K^(d) == sum_i m_i w_K^(i).
+        Under offload the store's, mid-round with the buffer's residents."""
+        if not self.store.resident:
+            if self._buf_round is None:
+                return self.store.global_params()
+            return self.store.global_params(resident=self._res, buffer=self.params)
         return {
             k: torch.tensordot(self._m, w.float(), dims=([0], [0])).to(w.dtype)
             for k, w in self.params.items()
@@ -416,10 +536,11 @@ class SyncScheduler:
 
     def cluster_params(self) -> dict:
         """Stacked ``(D, ...)`` per-cluster models y^(d) = sum_{i in d} m^_i w^(i)."""
-        return {
-            k: torch.tensordot(self._v, w.float(), dims=([0], [0])).to(w.dtype)
-            for k, w in self.params.items()
-        }
+        if not self.store.resident:
+            raise NotImplementedError(_OFFLOAD_CLUSTERS)
+        v = torch.as_tensor(self.cfg.clusters.V(), dtype=torch.float32, device=self.device)
+        return {k: torch.tensordot(v, w.float(), dims=([0], [0])).to(w.dtype)
+                for k, w in self.params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +583,17 @@ class RoundScheduler:
 
     ``backend=None`` takes the one ``FLSpec.impl`` names (``dense`` by
     default, as the reference's round engine); scenarios pass ``"auto"``.
+
+    With a ``host-offload`` store the round engine is built over the store's
+    ``k_max`` slots, always in its participation variant (a padding slot
+    weighs exactly 0), and ``self.params`` is the store's fixed buffer.  One
+    participation draw a superstep picks the residents
+    (``_residency_for_step``); their batches, their slots' weights tiled
+    over the R rounds (``WEIGHTS``) and, in client mode, the host rows no
+    step in flight can change (``store.stage``) are staged together ahead
+    of the step.  A step gathers, resets the optimizer state, runs the
+    superstep (replayed from one graph for every residency) and scatters, so
+    device memory is bounded by ``k_max`` whatever the fleet's size.
     """
 
     name = "round"
@@ -512,19 +644,34 @@ class RoundScheduler:
         clusters = self._proto.clusters
         self.axes = FleetAxes(self.fleet, clusters, self._proto.topology, self.profile,
                               self.latency, seed)
-        self.params = stacked_init(model, fl.num_clients, seed, device)
+        self.store = self.fleet.resolve_store(fl.num_clients)
+        if self.store.resident:
+            self.params = stacked_init(model, fl.num_clients, seed, device)
+            self.store.attach(self)
+            engine_fl, agg_clusters = fl, clusters
+        else:
+            if self.axes.faults is not None:
+                raise ValueError(_OFFLOAD_FAULTS)
+            self.store.bind(clusters, model, seed, device)
+            self.params = self.store.buffer
+            engine_fl = dataclasses.replace(fl, num_clients=self.store.k_max)
+            agg_clusters = self.store.sub_clusters
+            self._full_w = clusters.m_hat()
+            # superstep k's residency, a pure function of k (staged ahead)
+            self._residency_for_step = _ResidencyCache(self._draw_residency)
         self.opt_state = opt.init(self.params)
         spec = self._backend_spec
         self.backend = resolve_backend(
-            _impl_backend(fl.impl) if spec is None else spec, clusters, self._proto.P(),
+            _impl_backend(fl.impl) if spec is None else spec, agg_clusters, self._proto.P(),
             fl.alpha, device=device,
         )
         self._round_step = build_fl_round_step(
-            model, opt, fl, backend=self.backend, rounds_per_step=self.rounds_per_step,
-            participation=self.axes.active, mixing=self.axes.faults is not None,
+            model, opt, engine_fl, backend=self.backend, rounds_per_step=self.rounds_per_step,
+            participation=self.axes.active or not self.store.resident,
+            mixing=self.axes.faults is not None,
         )
-        self._m = torch.as_tensor(clusters.m(), dtype=torch.float32, device=device)
-        self._v = torch.as_tensor(clusters.V(), dtype=torch.float32, device=device)
+        self._m = (torch.as_tensor(clusters.m(), dtype=torch.float32, device=device)
+                   if self.store.resident else None)  # as SyncScheduler's
         self._feed = BatchFeed(device, self.prefetch)
         self._graph = self._build_graph() if resolve_graph(self._graph_spec, device) else None
 
@@ -582,30 +729,89 @@ class RoundScheduler:
             dt += self._mask_round_time(mask, t)
         return dt
 
+    def _run(self, stacked: dict) -> torch.Tensor:
+        """The round step on a staged batch, replayed or eager; the losses."""
+        if self._graph is None:
+            self.params, self.opt_state, losses = self._round_step_on(stacked)
+            return losses
+        return self._graph(stacked)
+
     def step(self, k: int, batch_source) -> StepEvent:
         from .pipeline import stack_window
 
+        if not self.store.resident:
+            return self._offload_step(k, batch_source)
         ips = self.iterations_per_step
         stacked = self._feed.get(
             k, batch_source,
             lambda step: {**stack_window(batch_source, (step - 1) * ips + 1, ips),
                           **self._operands(step)})
-        if self._graph is None:
-            self.params, self.opt_state, losses = self._round_step_on(stacked)
-        else:
-            losses = self._graph(stacked)
         return StepEvent(kind="round", iteration=k * self.iterations_per_step,
-                         dt=self._step_dt(k), losses=losses)
+                         dt=self._step_dt(k), losses=self._run(stacked))
+
+    # -- host-offload stores -------------------------------------------------------
+    def _draw_residency(self, k: int):
+        """Superstep ``k``'s slots: one participation draw a superstep (round
+        ``(k-1)*R``'s mask covers all R rounds), a pure function of ``k``."""
+        if not self.axes.sampling:
+            return self.store.residency()
+        return self.store.residency(self.axes.plan.mask((k - 1) * self.rounds_per_step))
+
+    def _offload_batch(self, batch_source, step: int) -> dict:
+        """Superstep ``step``'s host entries: the residents' batches, their
+        slots' weights tiled over the R rounds and, in client mode, the host
+        rows that no superstep still in flight can change."""
+        from ..state import sub_weights
+        from .pipeline import stack_window
+
+        ips, rps = self.iterations_per_step, self.rounds_per_step
+        res = self._residency_for_step(step)
+        window = stack_window(lambda i: _participant_batches(batch_source, i, res),
+                              (step - 1) * ips + 1, ips)
+        w_full = self.axes.plan.weights((step - 1) * rps) if self.axes.sampling else self._full_w
+        window[WEIGHTS] = np.tile(sub_weights(w_full, res), (rps, 1)).astype(np.float32)
+        # the feed stages up to two supersteps ahead of the one that runs, so
+        # the two before ``step`` may not have scattered yet
+        in_flight = [self._residency_for_step(j) for j in range(max(1, step - 2), step)]
+        return {**window, **(self.store.stage(res, in_flight=in_flight) or {})}
+
+    def _offload_step(self, k: int, batch_source) -> StepEvent:
+        stacked, staged = _split_store_rows(
+            self._feed.get(k, batch_source, functools.partial(self._offload_batch, batch_source)))
+        res = self._residency_for_step(k)
+        self.params = self.store.gather(res, staged)
+        # sgd's state is (); a stateful optimizer restarts every superstep
+        # under offload, as in the reference
+        copy_into(self.opt_state, self.optimizer.init(self.params))
+        losses = self._run(stacked)
+        self.store.scatter(res, self.params)
+        rps = self.rounds_per_step
+        if self.profile is None:
+            dt = rps * self._round_time
+        else:  # paced by the residents, as the reference
+            mask = res.participant_mask(self.fl.num_clients)
+            if self.axes.traced:
+                dt = sum(self._mask_round_time(mask, t=(k - 1) * rps + i) for i in range(rps))
+            else:
+                dt = rps * self._mask_round_time(mask)
+        return StepEvent(kind="round", iteration=k * self.iterations_per_step, dt=dt,
+                         losses=losses)
 
     def global_params(self) -> dict:
-        """``sum_i m_i w^(i)`` in f32 (the reference's einsum promotes to f32)."""
+        """``sum_i m_i w^(i)`` in f32 (the reference's einsum promotes to f32);
+        under offload the store's (every superstep scatters before it ends)."""
+        if not self.store.resident:
+            return self.store.global_params()
         return {k: torch.tensordot(self._m, w.float(), dims=([0], [0]))
                 for k, w in self.params.items()}
 
     def cluster_params(self) -> dict:
         """Stacked ``(D, ...)`` per-cluster models at the last round boundary
         (steps end on the inter-cluster gossip), in f32."""
-        return {k: torch.tensordot(self._v, w.float(), dims=([0], [0]))
+        if not self.store.resident:
+            raise NotImplementedError(_OFFLOAD_CLUSTERS)
+        v = torch.as_tensor(self._proto.clusters.V(), dtype=torch.float32, device=self.device)
+        return {k: torch.tensordot(v, w.float(), dims=([0], [0]))
                 for k, w in self.params.items()}
 
 
@@ -652,6 +858,12 @@ class AsyncScheduler:
     stay the reference's).  Under faults eq. 21-22 mixes over the
     iteration's surviving edge set, and the next firing pays the cluster's
     failed uplinks' retries.
+
+    The async state is already cluster-sized, so a ``host-offload`` store
+    holds ``y`` as one pseudo-client per cluster (mass ``m~_d``) in identity
+    residency: ``y`` is its buffer, and every event that updates ``y``
+    scatters it into the store's cluster stack.  A store over fewer slots
+    than clusters raises ``ValueError``, as in the reference.
     """
 
     name = "async"
@@ -681,7 +893,24 @@ class AsyncScheduler:
         self._dropout = None
         if cfg.profile is not None and np.any(cfg.profile.availability < 1.0):
             self._dropout = self.axes.timing.dropout_process(clusters, seed=seed)
+        self.store = self.fleet.resolve_store(d_count)
         self.y = stacked_init(model, d_count, seed, device)
+        self._store_res = None
+        if self.store.resident:
+            self.store.attach(self, "y")
+        else:
+            if self.store.k_max not in (None, d_count):
+                raise ValueError(
+                    f"async state is per-cluster: a host-offload store must cover all "
+                    f"{d_count} clusters (k_max in (None, {d_count})), got "
+                    f"k_max={self.store.k_max}")
+            sizes = np.bincount(clusters.assignment_array,
+                                weights=np.asarray(clusters.data_sizes, dtype=np.float64),
+                                minlength=d_count)
+            pseudo = ClusterSpec(d_count, tuple(range(d_count)), tuple(sizes.tolist()))
+            self.store.bind(pseudo, model, seed, device)
+            self._store_res = self.store.residency()
+            self.y = self.store.gather(self._store_res)
         self.t = 0
         self.last_update = np.zeros(d_count, dtype=np.int64)  # t'(d)
         self.clock = 0.0
@@ -804,6 +1033,10 @@ class AsyncScheduler:
             )
             self.t += 1
             self.last_update[d] = self.t
+            if self._store_res is not None:
+                # a device-side take on the identity map: the store's cluster
+                # stack follows the live y
+                self.store.scatter(self._store_res, self.y)
 
         # next firing: service time, stretched by dropout retries when the
         # profile says some of the cluster's devices are flaky, plus the
@@ -824,7 +1057,9 @@ class AsyncScheduler:
         return StepEvent(kind=kind, iteration=self.t, dt=self.clock - prev_clock, cluster=d)
 
     def global_params(self) -> dict:
-        """``sum_d m~_d y^(d)``: the consensus model."""
+        """``sum_d m~_d y^(d)``: the consensus model (the store's under offload)."""
+        if self._store_res is not None:
+            return self.store.global_params()
         return {
             k: torch.tensordot(self._m_tilde, y.float(), dims=([0], [0])).to(y.dtype)
             for k, y in self.y.items()

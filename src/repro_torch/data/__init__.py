@@ -1,6 +1,6 @@
 from .synthetic import FederatedLM, SyntheticClassification, SyntheticLM, cifar_like, mnist_like
 from .partition import dirichlet_partition, skewed_label_partition, iid_partition
-from .loader import ClientBatcher, FederatedDataset
+from .loader import ClientBatcher, FederatedDataset, ProceduralFederated
 
 __all__ = [
     "SyntheticClassification",
@@ -13,4 +13,5 @@ __all__ = [
     "iid_partition",
     "FederatedDataset",
     "ClientBatcher",
+    "ProceduralFederated",
 ]

@@ -12,7 +12,8 @@ though nothing runs yet, and a replay runs the kernel without a host launch,
 so these counters count host launches.  What ran on the device is counted
 from the profiler's kernel records: ``device_launches(fn)`` runs ``fn``
 under ``torch.profiler`` and ``count_kernels`` maps the device kernels'
-names to the wrappers (keys ``<wrapper>`` and ``<wrapper>.<route>``).
+names to the wrappers (keys ``<wrapper>`` and ``<wrapper>.<route>``);
+``device_kernel_names(fn)`` gives every kernel's name.
 """
 import re
 
@@ -59,17 +60,17 @@ def count_kernels(names) -> dict:
     return out
 
 
-def device_launches(fn):
-    """``(fn(), count_kernels(...))`` of the kernels ``fn`` ran on the
-    device, graph replays included, from ``torch.profiler``'s CUDA records
-    (read raw: one record per kernel run, without building the event
-    tree); ``fn`` is followed by a synchronize and a short settle.
+def device_kernel_names(fn):
+    """``(fn(), [name, ...])``: the device kernels ``fn`` ran, graph replays
+    included, one demangled name per run, from ``torch.profiler``'s CUDA
+    records (read raw, without building the event tree).
 
-    The settle: on the H100 a session has, rarely, come back short of
-    kernel records while the values were right (the last 11 of 30
-    iterations once; one step's count off its eager twin once).  CUPTI
-    hands records over from a thread of its own; the settle gives it time
-    before the session stops.  That this is the cause is not shown."""
+    The session idles ``MARGIN_S`` after it starts and again after ``fn``
+    and a synchronize, before it stops.  On the H100 a session sometimes
+    comes back with none of its kernel records though the host's launch
+    is recorded; ``kernels.session_check`` counts how often, with and
+    without the margins, and ``ROADMAP.md`` §3 keeps the record.  The
+    margins made such sessions rarer there; they did not end them."""
     import time
 
     import torch
@@ -77,15 +78,26 @@ def device_launches(fn):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(MARGIN_S)
         out = fn()
         torch.cuda.synchronize()
-        time.sleep(0.05)
-    return out, count_kernels(e.name() for e in prof.profiler.kineto_results.events()
-                              if e.device_type() == DeviceType.CUDA)
+        time.sleep(MARGIN_S)
+    return out, [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+
+
+def device_launches(fn):
+    """``(fn(), count_kernels(...))`` of the kernels ``fn`` ran on the
+    device, graph replays included (``device_kernel_names``)."""
+    out, names = device_kernel_names(fn)
+    return out, count_kernels(names)
+
+
+MARGIN_S = 0.05  # device_launches's idle time at each end of a session
 
 
 __all__ = [
-    "DEVICE_KERNELS", "count_kernels", "device_launches",
+    "DEVICE_KERNELS", "count_kernels", "device_kernel_names", "device_launches",
     "sgd_update", "sgd_update_ref", "sgd_update_tree",
     "normalized_update", "normalized_update_ref", "normalized_update_tree",
     "fused_transition", "fused_transition_ref", "fused_transition_tree",

@@ -5,7 +5,9 @@ reference's parameters: the synchronous ``mnist-iid-ring``,
 ``mnist-noniid-ring``, ``mnist-noniid-star``, ``cifar-dirichlet-torus`` and
 ``sampled-k-ring`` (uniform-k participation); the round-engine
 ``round-compiled-ring``, ``round-superstep-ring``, ``chaos-ring`` (fault
-injection) and the federated-LM ``federated-lm-ring``; and the asynchronous
+injection), ``million-client-ring`` (10^6 procedural clients behind a
+host-offload store of 32 slots) and the federated-LM
+``federated-lm-ring``; and the asynchronous
 ``straggler-bimodal-async``, ``straggler-bimodal-vanilla``,
 ``dropout-heavy``, ``exponential-hetero-async`` and
 ``dropout-participation-async`` (availability participation)::
@@ -15,6 +17,7 @@ injection) and the federated-LM ``federated-lm-ring``; and the asynchronous
     build_scenario("straggler-bimodal-async", device="cpu", backend="cuda").run(12)
     build_scenario("federated-lm-ring", device="cpu",
                    arch_overrides=dict(d_model=64, d_ff=128), seq_len=16).run(2)
+    build_scenario("million-client-ring", device="cpu").run(2)
 
 ``build_scenario`` materializes the data environment (dataset, partition,
 eval batch) from numpy with the reference's rng streams, so a seed gives
@@ -44,13 +47,14 @@ class Scenario:
     name: str
     description: str
     scheduler: str                      # "sync" | "round" | "async"
-    dataset: str = "mnist"              # "mnist" | "cifar" | "lm" | "lm-clustered"
+    dataset: str = "mnist"    # "mnist" | "cifar" | "procedural" | "lm" | "lm-clustered"
     partition: str = "label_skew"       # "iid" | "label_skew" | "dirichlet"
     partition_params: Optional[dict] = None
     topology: str = "ring"
     backend: str = "auto"
     profile: Union[str, dict, None] = None   # repro_torch.hetero sampler spec
     participation: Union[str, dict, None] = None  # repro_torch.participation spec
+    store: Union[str, dict, None] = None     # repro_torch.state client-state store
     faults: Union[dict, list, None] = None   # repro_torch.faults event list / spec
     num_clients: int = 20
     num_clusters: int = 4
@@ -83,14 +87,15 @@ class Scenario:
                 arch, vocab_size=self.vocab_size, **(self.arch_overrides or {})
             )
             return CausalLM(arch)
-        return {"mnist": MnistCNN, "cifar": CifarCNN}[self.dataset]()
+        # procedural data is MNIST-shaped (28x28x1 class prototypes)
+        return {"mnist": MnistCNN, "cifar": CifarCNN, "procedural": MnistCNN}[self.dataset]()
 
     def _latency(self):
         from ..core import CIFAR_LATENCY, MNIST_LATENCY
 
         # no §V-B measurement exists for the LM tasks: pacing stays off
-        return {"mnist": MNIST_LATENCY, "cifar": CIFAR_LATENCY, "lm": None,
-                "lm-clustered": None}[self.dataset]
+        return {"mnist": MNIST_LATENCY, "cifar": CIFAR_LATENCY, "procedural": MNIST_LATENCY,
+                "lm": None, "lm-clustered": None}[self.dataset]
 
     def _partition(self, labels: np.ndarray, num_clients: int, seed: int):
         from ..data import dirichlet_partition, iid_partition, skewed_label_partition
@@ -106,7 +111,8 @@ class Scenario:
 
     def _env(self, num_clients: int, num_samples: int, seed: int, seq_len: int,
              vocab_size: int, num_clusters: int):
-        from ..data import FederatedDataset, FederatedLM, cifar_like, mnist_like
+        from ..data import (FederatedDataset, FederatedLM, ProceduralFederated, cifar_like,
+                            mnist_like)
 
         if self.dataset == "lm-clustered":
             ds = FederatedLM.generate_clustered(num_clients, num_samples, seq_len, vocab_size,
@@ -115,6 +121,13 @@ class Scenario:
         if self.dataset == "lm":
             ds = FederatedLM.generate(num_clients, num_samples, seq_len, vocab_size, seed=seed)
             return ds, ds.eval_batch(64, seed=seed)
+        if self.dataset == "procedural":
+            # batches made per (client, iteration) on demand: nothing is
+            # materialized per client, so num_clients can be 10^6
+            ds = ProceduralFederated(
+                num_clients, batch_size=self.batch_size, seed=seed,
+                classes_per_client=(self.partition_params or {}).get("classes_per_client", 2))
+            return ds, ds.eval_batch(512)
         data = {"mnist": mnist_like, "cifar": cifar_like}[self.dataset](num_samples, seed=seed)
         train, test = data.split(0.85)
         ds = FederatedDataset(train, self._partition(train.y, num_clients, seed))
@@ -152,8 +165,11 @@ class Scenario:
         if c % d:
             raise ValueError(f"{self.name}: {c} clients do not divide into {d} clusters")
         ds, eval_batch = template._env(c, n, seed, seq_len, vocab_size, d)
+        # an overriding scheduler gets its own keys (the reference's gives the
+        # template's, which the overriding factory then refuses)
+        scheduler = overrides.pop("scheduler", self.scheduler)
         cfg: dict = {
-            "scheduler": self.scheduler,
+            "scheduler": scheduler,
             "model": model,
             "topology": self.topology,
             "backend": self.backend,
@@ -161,21 +177,28 @@ class Scenario:
             "latency": self._latency(),
             "seed": seed,
         }
-        if self.scheduler == "round":
+        if scheduler == "round":
             # the round engine lays clients out uniformly itself
             cfg.update(num_clients=c, num_clusters=d, tau1=self.tau1, tau2=self.tau2,
                        alpha=self.alpha, rounds_per_step=self.rounds_per_step)
         else:
             assign = tuple(i * d // c for i in range(c))
             cfg["clusters"] = ClusterSpec(c, assign, ds.data_sizes())
-        if self.scheduler == "sync":
+        if scheduler == "sync":
             cfg.update(tau1=self.tau1, tau2=self.tau2, alpha=self.alpha)
-        if self.scheduler == "async":
+        if scheduler == "async":
             cfg.update(psi=self.psi, min_batches=self.min_batches, theta_max=self.theta_max)
         if self.profile is not None:
             cfg["profile"] = self.profile
         if self.participation is not None:
             cfg["participation"] = self.participation
+        if self.store is not None:
+            store = self.store
+            if isinstance(store, dict) and store.get("k_max") is not None:
+                # the template's buffer size is an upper bound: a smaller
+                # override fleet clips it to its client count
+                store = dict(store, k_max=min(int(store["k_max"]), c))
+            cfg["store"] = store
         if self.faults is not None:
             cfg["faults"] = self.faults
         cfg.update(overrides)
@@ -208,10 +231,15 @@ class ScenarioRun:
     seed: int
 
     def batch_source(self):
-        """The batch source of the scheduler's contract: a ``ClientBatcher``
-        for async, else ``k -> stacked batch`` from an rng seeded with the
-        run seed."""
-        if self.scenario.scheduler == "async":
+        """The batch source of the scheduler's contract: a procedural dataset
+        itself (``(k, clients=None)`` with ``supports_clients``, and
+        ``next_batch`` for async), a ``ClientBatcher`` for async, else ``k ->
+        stacked batch`` from an rng seeded with the run seed."""
+        from ..data import ProceduralFederated
+
+        if isinstance(self.dataset, ProceduralFederated):
+            return self.dataset
+        if self.runtime.scheduler.name == "async":
             from ..data import ClientBatcher
 
             return ClientBatcher(self.dataset, self.batch_size, seed=self.seed)
@@ -286,6 +314,21 @@ register_scenario(Scenario(
     scheduler="sync", partition="label_skew",
     partition_params={"classes_per_client": 2},
     participation={"strategy": "uniform-k", "k": 2},
+))
+
+
+register_scenario(Scenario(
+    name="million-client-ring",
+    description="Scale lane: 10^6 procedurally-generated clients on a ring of "
+                "8 edge servers; uniform-k sampling plus a host-offload state "
+                "store keep the device footprint at k_max=32 client models "
+                "regardless of fleet size.",
+    scheduler="round", dataset="procedural", partition="label_skew",
+    partition_params={"classes_per_client": 2},
+    num_clients=1_000_000, num_clusters=8, tau1=2, tau2=1, alpha=1,
+    participation={"strategy": "uniform-k", "k": 4},
+    store={"kind": "host-offload", "k_max": 32},
+    batch_size=4,
 ))
 
 

@@ -669,6 +669,10 @@ def _graph_run(device, name, steps, graph, **kw):
     # weights and mixing stacks (round supersteps), read from static buffers
     ("sampled-k-ring", 30, {"tau2": 2}),
     ("chaos-ring", 6, {}),
+    # host-offloaded client state: the residents change every round (sync, 8
+    # slots for C = 20) and every superstep (10^6 clients, 32 slots)
+    ("sampled-k-ring", 30, {"tau2": 2, "store": {"kind": "host-offload", "k_max": 8}}),
+    ("million-client-ring", 6, {}),
 ])
 def test_graph_replays_match_eager(cuda, name, steps, kw):
     """Graph runs against eager runs, in turns eager, graph, graph, eager,
@@ -691,13 +695,15 @@ def test_graph_replays_match_eager(cuda, name, steps, kw):
     ee = diff(runs["eager"], runs["eager2"])
     ge = max(diff(runs[g], runs[e]) for g in ("graph", "graph2") for e in ("eager", "eager2"))
     assert ge <= ee, (ge, ee)
-    if name in ("sampled-k-ring", "chaos-ring"):
+    if name in ("sampled-k-ring", "chaos-ring", "million-client-ring"):
         assert ge == ee == 0.0, (ge, ee)
     # every step runs the eager step's kernels on the device; the host counts
     # a graph's launches at its warm-up and capture (the first two steps of
     # each kind), and none at a replay
     ran = [r for _, r, _ in runs["eager"][1]]
-    assert all(ran) and all([r for _, r, _ in run[1]] == ran for run in runs.values())
+    assert all(ran) and all([r for _, r, _ in run[1]] == ran for run in runs.values()), [
+        (label, i, r, ran[i]) for label, run in runs.items()
+        for i, (_, r, _) in enumerate(run[1]) if r != ran[i]]
     for label, run in runs.items():
         seen: dict = {}
         for kind, dev, host in run[1]:
@@ -880,3 +886,82 @@ def test_baselines_on_the_sgd_kernel_match_the_plain_path(cuda, name):
     np.testing.assert_allclose(out["cuda"][1].loss, out["dense"][1].loss, rtol=1e-4)
     for k, v in out["cuda"][0].items():
         torch.testing.assert_close(v, out["dense"][0][k], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,steps,kw", [
+    ("million-client-ring", 5, {}),
+    ("sampled-k-ring", 40, {"tau2": 2, "store": {"kind": "host-offload", "k_max": 8}}),
+])
+def test_offload_captures_once_across_residencies(cuda, name, steps, kw):
+    """The store's buffer keeps its addresses: the residents change every
+    round, and each event kind (sync) or the superstep (round) is captured
+    exactly once, by the wrappers' host counters, and replayed after."""
+    from repro_torch.kernels import fused_transition, sgd_update
+
+    run = build_scenario(name, device=cuda, **kw)
+    sched, src = run.runtime.scheduler, run.batch_source()
+    ptrs = [t.data_ptr() for t in sched.params.values()]
+    before = (fused_transition.launches, sgd_update.launches)
+    for _ in range(steps):
+        run.runtime.step(src)
+    torch.cuda.synchronize()
+    host = (fused_transition.launches - before[0], sgd_update.launches - before[1])
+    assert [t.data_ptr() for t in sched.params.values()] == ptrs
+    if name == "million-client-ring":
+        residents = {tuple(sched._residency_for_step(k).clients) for k in range(1, steps + 1)}
+        assert len(residents) == steps
+        g = sched._graph
+        assert (g.captured, len(g._entries), g.replays) == (1, 1, steps - 1)
+        assert host == (4, 4)  # two supersteps (warm-up, capture) of 2 transitions, 2 SGDs
+    else:
+        residents = {tuple(sched._residency_for_round(r).clients) for r in range(4)}
+        assert len(residents) == 4
+        assert all(g.captured == 1 and len(g._entries) == 1 for g in sched._graphs.values())
+        assert all(g.replays >= 2 for g in sched._graphs.values())
+        # each kind's warm-up and capture: local 2 x SGD, intra and inter 2 x (SGD + transition)
+        assert host == (4, 6)
+    for v in sched.store.cluster_models.values():
+        assert bool(torch.isfinite(v).all())
+
+
+@pytest.mark.cuda
+def test_transition_factors_are_contiguous_and_copy_free(cuda):
+    """``CudaBackend`` binds V^T and B^T contiguous (and B for the weights
+    path), so an inter transition, static or with runtime weights, runs the
+    transition kernel once on the device and no copy (the weights path also
+    runs its one product ``B * w``)."""
+    from repro_torch.kernels import device_kernel_names
+
+    run = build_scenario("mnist-noniid-ring", device=cuda, tau2=2)
+    backend, params = run.runtime.scheduler.backend, run.runtime.scheduler.params
+    assert all(t.is_contiguous() for t in (backend._vt, backend._bt, backend._b))
+    for kw in ({}, {"weights": torch.full((20,), 0.2, device=cuda)}):
+        backend.transition(params, "inter", **kw)
+        torch.cuda.synchronize()
+        _, names = device_kernel_names(lambda: backend.transition(params, "inter", **kw))
+        assert sum("fused_transition_kernel" in n for n in names) == 1, names
+        assert not any("copy" in n.lower() for n in names), names
+        assert len(names) == (1 if not kw else 2), names
+
+
+@pytest.mark.cuda
+def test_device_launches_repeated_sessions(cuda):
+    """200 profiler sessions over replayed sync iterations, each counted
+    exactly by ``kernels.device_launches``: one-step sessions (the kind that
+    came back empty without the session's starting margin) and ten-step ones."""
+    run = build_scenario("mnist-noniid-ring", device=cuda, tau2=2)
+    src = run.batch_source()
+    for _ in range(20):  # every event kind warmed up, captured and replayed
+        run.runtime.step(src)
+    off = []
+    for _ in range(100):
+        ev, got = device_launches(lambda: run.runtime.step(src))
+        if got != {"sgd_update": 1, **({"fused_transition": 1} if ev.kind != "local" else {})}:
+            off.append((ev.kind, got))
+    want = {"fused_transition": 2, "sgd_update": 10}
+    for _ in range(100):
+        got = device_launches(lambda: [run.runtime.step(src) for _ in range(10)])[1]
+        if got != want:
+            off.append(("ten steps", got))
+    assert off == []

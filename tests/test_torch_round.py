@@ -85,16 +85,18 @@ def test_round_step_matches_jax(kind, backend):
 
 def test_round_engine_refuses_unported_variants():
     # the participation and mixing operands are ported (test_torch_participation.py,
-    # test_torch_faults.py); a mixing stack without weights has no caller, as in
-    # the reference, and client-state stores and the gossip engine wait
+    # test_torch_faults.py) and so are client-state stores (test_torch_state.py);
+    # a mixing stack without weights has no caller, as in the reference, and the
+    # gossip engine waits
     fl = tcore.FLSpec(num_clients=4, num_clusters=2)
     with pytest.raises(ValueError, match="requires participation=True"):
         tcore.build_fl_round_step(tmodels.MnistCNN(), toptim.sgd(0.1), fl,
                                   mixing=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
-                        "participation": {"strategy": "uniform-k", "k": 1},
-                        "store": {"kind": "host-offload", "k_max": 4}}, device="cpu")
+    run = tscenarios.build_scenario("round-compiled-ring", device="cpu", num_samples=400,
+                                    participation={"strategy": "uniform-k", "k": 1},
+                                    store={"kind": "host-offload", "k_max": 4})
+    ev = run.runtime.step(run.batch_source())
+    assert run.runtime.scheduler.store.k_max == 4 and bool(torch.isfinite(ev.losses).all())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
                         "backend": None, "impl": "gossip"}, device="cpu")

@@ -128,23 +128,41 @@ def test_backends_default_to_cuda(entry):
         build(None)
 
 
-@pytest.mark.parametrize("override", [
-    # client-state stores and the device mesh are not ported; every scheduler
-    # refuses them, beside the fleet axes it takes
-    {"store": {"kind": "host-offload", "k_max": 4}},
-    {"store": "host-offload", "participation": {"strategy": "uniform-k", "k": 2}},
-    {"mesh": "auto"},
-    {"mesh": "auto", "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
-    {"scheduler": "round", "store": {"kind": "host-offload", "k_max": 4}},
-    {"scheduler": "async", "store": "host-offload", "participation": "availability",
-     "psi": "staleness",
-     "profile": {"kind": "uniform", "heterogeneity": 4.0, "availability": 0.7}},
-    {"scheduler": "async", "mesh": "auto", "psi": "staleness"},
+@pytest.mark.parametrize("override,error", [
+    # client-state stores run on every scheduler, or raise the reference's own
+    # ValueError (a sparse store with no participation plan); the device mesh
+    # is not ported and every scheduler refuses it
+    ({"store": {"kind": "host-offload", "k_max": 4}}, ValueError),
+    ({"store": "host-offload", "participation": {"strategy": "uniform-k", "k": 2}}, None),
+    ({"mesh": "auto"}, NotImplementedError),
+    ({"mesh": "auto", "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
+     NotImplementedError),
+    ({"scenario": "round-compiled-ring", "store": {"kind": "host-offload", "k_max": 4}},
+     ValueError),
+    ({"scenario": "dropout-participation-async", "num_clients": 8, "theta_max": 2,
+      "store": "host-offload"}, None),
+    ({"scheduler": "async", "mesh": "auto", "psi": "staleness"}, NotImplementedError),
 ])
-def test_non_default_fleet_raises(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, **override},
-                       device="cpu")
+def test_non_default_fleet_raises(override, error):
+    override = dict(override)
+    name = override.pop("scenario", "mnist-iid-ring")
+
+    def build_and_step():
+        run = tscenarios.build_scenario(name, device="cpu", num_samples=400, batch_size=2,
+                                        **override)
+        run.runtime.step(run.batch_source())
+        return run.runtime
+
+    if error is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_and_step()
+    elif error is ValueError:
+        with pytest.raises(ValueError, match="needs a participation mask"):
+            build_and_step()
+    else:
+        run = build_and_step()
+        assert run.scheduler.store.kind == "host-offload"
+        assert run.scheduler.store.device_bytes() > 0
 
 
 @pytest.mark.parametrize("scenario,extra", [
@@ -166,9 +184,13 @@ def test_fleet_axes_are_taken_by_every_scheduler(scenario, extra, axis):
 
 
 def test_store_refusal_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match=r"'Fleet axes' \(state/ client-state stores\)"):
+    # a store is ported: what it refuses is the reference's (faults need
+    # resident state); the mesh's refusal still names its ROADMAP item
+    with pytest.raises(ValueError, match="fault injection requires a resident"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400,
-                        "store": "host-offload"}, device="cpu")
+                        "store": "host-offload",
+                        "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="'Multi-device and launch'"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "mesh": "auto"},
                        device="cpu")
@@ -182,7 +204,7 @@ def test_unknown_keys_and_scenarios_raise():
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "tua1": 3},
                        device="cpu")
     with pytest.raises(KeyError, match="unknown scenario"):
-        tcore.make_run("million-client-ring", device="cpu")
+        tcore.make_run("federated-lm-serving", device="cpu")
 
 
 def test_registered_scenarios_match_reference():
@@ -191,7 +213,7 @@ def test_registered_scenarios_match_reference():
         for field in ("scheduler", "dataset", "partition", "partition_params", "topology",
                       "backend", "num_clients", "num_clusters", "tau1", "tau2", "alpha",
                       "learning_rate", "batch_size", "num_samples", "profile",
-                      "participation", "faults", "psi",
+                      "participation", "store", "faults", "psi",
                       "min_batches", "theta_max", "rounds_per_step", "arch",
                       "arch_overrides", "seq_len", "vocab_size"):
             assert getattr(sc, field) == getattr(ref, field), (name, field)
@@ -200,7 +222,7 @@ def test_registered_scenarios_match_reference():
         "round-compiled-ring", "round-superstep-ring", "federated-lm-ring",
         "straggler-bimodal-async", "straggler-bimodal-vanilla", "dropout-heavy",
         "exponential-hetero-async", "sampled-k-ring", "chaos-ring",
-        "dropout-participation-async",
+        "dropout-participation-async", "million-client-ring",
     }
 
 
@@ -220,7 +242,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"profiles.py", "timing.py"} <= {f.name for f in files if f.parent.name == "hetero"}
     assert {"cuda_graph.py", "pipeline.py", "baselines.py", "theory.py"} <= {
         f.name for f in files if f.parent.name == "core"}
-    assert {"participation", "faults"} <= {f.parent.name for f in files if f.name == "__init__.py"}
+    assert {"participation", "faults", "state", "checkpoint"} <= {
+        f.parent.name for f in files if f.name == "__init__.py"}
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
