@@ -198,10 +198,13 @@ class CudaBackend:
     def inter_cluster(self, y: dict, p: torch.Tensor, alpha: int = 1) -> dict:
         from ..kernels import gossip_mix_tree
 
-        # p stays where the caller built it: the kernel takes it by value from
-        # host memory, so a host P_t (the async path's) costs no device copy
-        return gossip_mix_tree(y, torch.as_tensor(p, dtype=torch.float32), alpha=alpha,
-                               inplace=True)
+        # the kernel reads P from device memory: a P built on the host goes
+        # there in one non-blocking copy from pinned memory (a captured step
+        # passes its static device buffer, which is used as it is)
+        p = torch.as_tensor(p, dtype=torch.float32)
+        if p.device.type == "cpu" and self.device.type == "cuda":
+            p = p.contiguous().pin_memory().to(self.device, non_blocking=True)
+        return gossip_mix_tree(y, p, alpha=alpha, inplace=True)
 
     def transition(self, stacked: dict, event: AggregationEvent,
                    weights: Optional[torch.Tensor] = None,

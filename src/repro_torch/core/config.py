@@ -97,6 +97,11 @@ class FleetSpec:
 
         return resolve_store(self.store, num_clients)
 
+    def is_default(self) -> bool:
+        return (self.profile is None and self.profile_seed is None
+                and self.participation is None and self.store is None
+                and self.faults is None)
+
     def validate(self) -> None:
         """The reference's structural checks of ``participation``, ``store``
         and ``faults``; sizes are checked when a scheduler resolves them."""
@@ -138,7 +143,7 @@ class ExecSpec:
     alpha: Optional[int] = None
     learning_rate: Optional[float] = None
     prefetch: Optional[bool] = None
-    graph: Optional[bool] = None    # sync, round: CUDA-graph steps (None: on CUDA)
+    graph: Optional[bool] = None    # sync, round, async: CUDA-graph steps (None: on CUDA)
     latency: Any = None
     mesh: Any = None
     extras: dict = dataclasses.field(default_factory=dict)
@@ -149,6 +154,11 @@ _FLEET_KEYS = ("profile", "profile_seed", "participation", "store", "faults")
 _EXEC_KEYS = ("scheduler", "backend", "topology", "tau1", "tau2", "alpha",
               "learning_rate", "prefetch", "graph", "latency", "mesh")
 _DATA_KEYS = ("dataset", "partition", "partition_params", "num_samples", "batch_size")
+# the exec keys ``describe`` lists, the reference's: ``rounds_per_step`` is an
+# ExecSpec field there and an extra here; ``graph``, the port's own key, is
+# listed with the extras, where the reference keeps a key it has no field for
+_DESCRIBE_EXEC_KEYS = ("scheduler", "backend", "topology", "tau1", "tau2", "alpha",
+                       "learning_rate", "rounds_per_step", "prefetch", "latency", "mesh")
 
 
 @dataclasses.dataclass
@@ -248,3 +258,34 @@ class RunConfig:
                 "num_clients/num_clusters, not both"
             )
         return self
+
+    # -- checkpoint metadata -------------------------------------------------
+    def describe(self) -> dict:
+        """JSON-safe summary for checkpoint metadata / manifests (the
+        reference's layout)."""
+
+        def safe(v):
+            if v is None or isinstance(v, (bool, int, float, str)):
+                return v
+            if isinstance(v, dict):
+                return {str(k): safe(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [safe(x) for x in v]
+            if hasattr(v, "describe"):  # FaultSchedule and friends
+                return safe(v.describe())
+            return repr(v)
+
+        extras = dict(self.exec.extras)
+        exec_ = {k: getattr(self.exec, k, None) for k in _DESCRIBE_EXEC_KEYS}
+        exec_["rounds_per_step"] = extras.pop("rounds_per_step", None)
+        if self.exec.graph is not None:
+            extras["graph"] = self.exec.graph
+        return {
+            "model": safe(self.model.kind or type(self.model.instance).__name__),
+            "data": None if self.data is None else safe(dataclasses.asdict(self.data)),
+            "fleet": {k: safe(getattr(self.fleet, k)) for k in _FLEET_KEYS},
+            "exec": {k: safe(v) for k, v in exec_.items()} | {"extras": safe(extras)},
+            "num_clients": self.num_clients,
+            "num_clusters": self.num_clusters,
+            "seed": self.seed,
+        }

@@ -26,10 +26,18 @@ None.  Per call of a ``GraphedStep``:
 * **Capture, then replay.** The second call captures the body over static
   input buffers into a graph, then replays it; every later call copies its
   batch into the static buffers and replays.  A failed capture raises: the
-  step never carries on eagerly.  Every graph of a ``GraphedStep``, and of
-  the steps given the same ``pool`` (``torch.cuda.graph_pool_handle()``),
-  is captured into one private memory pool: they replay one at a time, and
-  what outlives a replay is either the caller's state or cloned out at once.
+  step never carries on eagerly.  Cyclic garbage is collected before a
+  capture and the collector is off during it: a dead run's captured graph
+  freed mid-capture invalidates a global-mode capture
+  (``core/capture_check.py`` shows which frees do).  When the body raises
+  during its capture, the capture is ended and its graph discarded, the
+  current stream restored, and the body's own error raised (an error of
+  ending the capture rides along as a note); a capture that fails to end
+  after its body returned raises ``CaptureError``, which says why.  Every
+  graph of a ``GraphedStep``, and of the steps given the same ``pool``
+  (``torch.cuda.graph_pool_handle()``), is captured into one private memory
+  pool: they replay one at a time, and what outlives a replay is either the
+  caller's state or cloned out at once.
 * **Output.** Cloned out of the graph's static output, on the device,
   before a later replay can overwrite it.
 
@@ -43,11 +51,17 @@ reach the captured body without a card.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional
 
 import torch
 
-__all__ = ["GraphedStep", "copy_into", "graph_key", "resolve_graph"]
+__all__ = ["CaptureError", "GraphedStep", "copy_into", "graph_key", "resolve_graph"]
+
+
+class CaptureError(RuntimeError):
+    """A capture that could not be ended after its body returned: CUDA
+    invalidated it.  Nothing of it is kept."""
 
 
 def resolve_graph(graph: Optional[bool], device) -> bool:
@@ -163,6 +177,43 @@ class GraphedStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            entry.out = self._body(entry.static)
-        entry.graph = graph
+        capture = torch.cuda.graph(graph, pool=self._pool)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            capture.__enter__()
+            try:
+                out = self._body(entry.static)
+            except BaseException as err:
+                end_err = _end_capture(capture)
+                if end_err is not None:
+                    err.add_note(f"ending the failed capture raised too: {end_err}")
+                graph.reset()  # its graph and pool go now, not when the traceback dies
+                raise
+            end_err = _end_capture(capture)
+            if end_err is not None:
+                graph.reset()
+                raise CaptureError(
+                    f"a step's capture could not end after its body returned ({end_err}): "
+                    f"CUDA invalidates a global-mode capture when a call it forbids runs "
+                    f"meanwhile on any thread (core/capture_check.py lists the calls the "
+                    f"port has met); the graph is discarded") from end_err
+        finally:
+            if collecting:
+                gc.enable()
+        entry.out, entry.graph = out, graph
+
+
+def _end_capture(capture: "torch.cuda.graph") -> Optional[RuntimeError]:
+    """End ``capture`` and restore the stream it made current, whatever
+    happened inside it; returns the error of ending it, or None.  A graph
+    that could not end holds nothing to replay, and one that ended after a
+    failed body is discarded by its caller."""
+    try:
+        capture.cuda_graph.capture_end()
+    except RuntimeError as err:
+        return err
+    finally:
+        capture.stream_ctx.__exit__(None, None, None)
+    return None

@@ -19,6 +19,10 @@ batch.  On the CPU (and with ``prefetch=False``) ``device_batch`` stages with
 (the async scheduler's prefetch) goes through pinned memory on the current
 stream.
 
+``OperandStage`` takes the async scheduler's small per-event operands (the
+fired cluster's index, factors, weights, step mask and ``P_t``) to the
+device in one non-blocking copy out of a ring of two pinned host buffers.
+
 ``stack_window`` stacks a round engine's window of iteration batches on a
 new leading axis.  ``gather_client_batches`` draws the async scheduler's
 per-client batches from a ``ClientBatcher``-like source, as
@@ -32,8 +36,8 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["BatchFeed", "BatchPipeline", "CopyStream", "device_batch", "gather_client_batches",
-           "stack_window"]
+__all__ = ["BatchFeed", "BatchPipeline", "CopyStream", "OperandStage", "device_batch",
+           "gather_client_batches", "stack_window"]
 
 
 def device_batch(batch: dict, device, non_blocking: bool = False) -> dict:
@@ -180,6 +184,56 @@ class BatchFeed:
             self._source = source
         staged = self._pipeline.get(k)
         return self._copy.take(staged) if self._copy else staged
+
+
+class OperandStage:
+    """Small host arrays to the device in one non-blocking copy.
+
+    ``stage({name: array})`` packs the arrays (16-byte aligned, any dtypes)
+    into one pinned host buffer, queues one copy of it on the current
+    stream and returns device views of the copy, one per array.  The host
+    does not wait for the copy, as it would for a copy out of pageable
+    memory.  The pinned buffers form a ring of ``slots``: a buffer is
+    written again only after the copy out of it has run (an event recorded
+    behind each copy, waited on before the buffer is rewritten), so a
+    staged operand never changes under a copy still queued.  On the CPU the
+    arrays become tensors as they are.
+    """
+
+    ALIGN = 16
+
+    def __init__(self, device, slots: int = 2):
+        self.device = torch.device(device)
+        self._ring: list = [None] * slots  # (pinned uint8 buffer, event) a slot
+        self._next = 0
+
+    def stage(self, arrays: dict) -> dict:
+        arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+        offsets, total = {}, 0
+        for k, a in arrays.items():
+            offsets[k] = total
+            total += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        slot = self._ring[self._next]
+        if slot is None or slot[0].numel() < total:
+            size = max(total, 1 << 12)
+            slot = (torch.empty(size, dtype=torch.uint8).pin_memory(), torch.cuda.Event())
+            self._ring[self._next] = slot
+        else:
+            slot[1].synchronize()  # the copy out of this buffer has run
+        self._next = (self._next + 1) % len(self._ring)
+        host, copied = slot
+        raw = host.numpy()
+        for k, a in arrays.items():
+            raw[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = host[:total].to(self.device, non_blocking=True)
+        copied.record()
+        return {k: dev[offsets[k]:offsets[k] + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+                for k, a in arrays.items()}
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int64): torch.int64}
 
 
 def gather_client_batches(batch_source, clients: Sequence[int], count: int) -> dict:

@@ -26,10 +26,10 @@ fault schedule take the static path, as in the reference.
 
 Everything runs on an explicit ``device``.  Entry points take
 ``device=None``, which means ``"cuda"``, and raise when there is no GPU and
-the caller did not pass ``device="cpu"``.  On a CUDA device the sync and
-round schedulers replay their steps from CUDA graphs (``graph=None``, see
-``core/cuda_graph.py``); ``graph=False`` runs the eager loop, the
-reference path, and the async scheduler is eager::
+the caller did not pass ``device="cpu"``.  On a CUDA device the sync, round
+and async schedulers replay their steps from CUDA graphs (``graph=None``,
+see ``core/cuda_graph.py``); ``graph=False`` runs the eager loop, the
+reference path::
 
     runtime = make_run({"scenario": "mnist-noniid-ring", "tau2": 2})
     history = runtime.run(200, batch_fn, eval_batch, eval_every=20)
@@ -49,7 +49,7 @@ from .config import FleetSpec, RunConfig
 from .cuda_graph import GraphedStep, copy_into, resolve_graph
 from .device import resolve_device
 from .latency import LatencyModel
-from .pipeline import BatchFeed
+from .pipeline import BatchFeed, OperandStage
 from .protocol import ClusterSpec, SDFEELConfig
 from .staleness import staleness_mixing_matrix
 from .topology import TOPOLOGIES, Topology
@@ -69,6 +69,11 @@ __all__ = [
     "FleetAxes",
     "WEIGHTS",
     "MIXING",
+    "CLUSTER",
+    "INV_THETA",
+    "THETA",
+    "M_HAT",
+    "STEP_MASK",
 ]
 
 # the batch entries that carry a step's fleet operands to the device: the
@@ -77,6 +82,16 @@ __all__ = [
 WEIGHTS = "fleet.weights"
 MIXING = "fleet.mixing"
 _OPERANDS = (WEIGHTS, MIXING)
+# the async event's operands, staged with its client batches: the fired
+# cluster's index ((1,) int64), its members' eq. 19 factors 1 / theta_i and
+# theta_i, the event's eq. 20 weights m^ (each (g,)), the (theta_max, g) step
+# mask and the eq. 21-22 mixing matrix P_t (MIXING, (D, D)), all f32
+CLUSTER = "async.cluster"
+INV_THETA = "async.inv_theta"
+THETA = "async.theta"
+M_HAT = "async.m_hat"
+STEP_MASK = "async.step_mask"
+_EVENT_OPERANDS = (CLUSTER, INV_THETA, THETA, M_HAT, STEP_MASK, MIXING)
 
 
 class FleetAxes:
@@ -522,6 +537,10 @@ class SyncScheduler:
         producer = self._producer(lambda i: stacked_batch) or (lambda i: stacked_batch)
         return self._apply(k, device_batch(producer(k), self.device))[0]
 
+    def iteration_time(self, event: str) -> float:
+        """Full-fleet §V-B pacing (participation-masked rounds may be cheaper)."""
+        return self._event_times[event]
+
     def global_params(self) -> dict:
         """Consensus-phase output: sum_d m~_d y_K^(d) == sum_i m_i w_K^(i).
         Under offload the store's, mid-round with the buffer's residents."""
@@ -631,6 +650,18 @@ class RoundScheduler:
     def iterations_per_step(self) -> int:
         """Protocol iterations consumed by one (super)step."""
         return self.iterations_per_round * self.rounds_per_step
+
+    def rounds_for(self, iterations: int) -> int:
+        """Whole compiled rounds covering ``iterations`` protocol iterations."""
+        return max(1, -(-iterations // self.iterations_per_round))
+
+    def steps_for(self, iterations: int) -> int:
+        """Scheduler steps (superstep dispatches) covering ``iterations``."""
+        return -(-self.rounds_for(iterations) // self.rounds_per_step)
+
+    def round_time(self) -> float:
+        """Section V-B wall-clock of one full round (priced once at init)."""
+        return self._round_time
 
     def bind(self, model, seed: int, device: torch.device) -> None:
         from .. import optim
@@ -826,24 +857,42 @@ class AsyncScheduler:
     optionally, the bulk ``next_batches(clients, count)`` (a
     ``repro_torch.data.ClientBatcher``); see ``pipeline.gather_client_batches``.
 
-    The state is the ``(D, ...)`` stack ``y`` of cluster models, updated in
-    place.  When cluster ``d`` fires, its ``g`` clients take ``theta_max``
-    masked SGD steps from ``y[d]`` (``torch.func.vmap(grad)`` over the
-    clients, a Python loop over the steps), then
+    The state is the ``(D, ...)`` stack ``y`` of cluster models, whose
+    tensors never change: every event writes into them.  When cluster ``d``
+    fires, its ``g`` clients take ``theta_max`` masked SGD steps from
+    ``y[d]`` (``torch.func.vmap(grad)`` over the clients, a Python loop over
+    the steps), then
 
     * eq. 19: ``delta_i = (w_final - w_start) / theta_i``;
     * eq. 20: ``y[d] <- y[d] + theta_bar * sum_i m^_i delta_i``;
     * eq. 21-22: ``y <- y @ P_t`` through ``backend.inter_cluster``, with
       ``P_t`` built on the host in float64 from the iteration gaps.
 
+    One event is the body ``_event(batch)``, the counterpart of the
+    reference's donated ``jax.jit(cluster_update)`` and its mixing: it reads
+    every per-event value from its batch, the client batches and the
+    operands ``CLUSTER``, ``INV_THETA``, ``THETA``, ``M_HAT``, ``STEP_MASK``
+    and ``MIXING`` (``P_t`` in f32), which the host stages in one
+    non-blocking copy out of pinned memory (``pipeline.OperandStage``).  It
+    takes ``w_start`` with ``index_select(y, 0, d)``, forms ``theta_bar =
+    sum(m^ * theta)`` on the device and writes ``y[d]`` with ``index_copy_``
+    on one index.  ``graph`` (``None``: on for a CUDA device, off on the
+    CPU; ``True`` on the CPU raises) replays the body from a CUDA graph, one
+    ``GraphedStep`` whose key is the batch shapes: one graph per cluster size
+    ``g``, whichever cluster fires, as the reference's traced ``d_idx``
+    serves every cluster of a size.  ``graph=False`` calls the same body
+    eagerly.
+
     On the ``cuda`` backend eq. 19 runs through ``normalized_update_tree``
     (one factor ``1 / theta_i`` per client row), eq. 20's reduction through
     ``cluster_agg_tree`` (the fired cluster's ``(g, ...)`` stacks to ``(1,
-    ...)``) and eq. 21-22 through ``gossip_mix_tree``, one launch each for
-    the tree; on ``dense`` all three are the plain expressions the reference
-    writes.  The queue already names the next event when a step finishes,
-    so its batches are gathered and copied (non-blocking) right after the
-    current event's launches; ``prefetch=False`` draws the same streams.
+    ...)``) and eq. 21-22 through ``gossip_mix_tree``, which reads ``P_t``
+    from device memory, one launch each for the tree; on ``dense`` all
+    three are the plain expressions the reference writes, the mixed stack
+    copied into ``y``.  The queue already names the next event when a step
+    finishes, so its batches are gathered and copied (non-blocking) right
+    after the current event's launches; ``prefetch=False`` draws the same
+    streams.
 
     A device profile prices the queue (``hetero.FleetTiming``) and, with
     availability below 1, stretches it with dropout retries.  ``fleet``
@@ -853,7 +902,7 @@ class AsyncScheduler:
     the schedule lets aggregate at iteration ``t``) and renormalized, so a
     non-participant weighs exactly 0 in ``cluster_agg``.  An event none of
     whose members participate is ``"skipped"``, and a downed edge server's
-    event is an ``"outage"``: no update, no mixing, ``t`` unchanged, while
+    event is an ``"outage"``: nothing is replayed, ``t`` is unchanged, while
     the wall-clock moves on (the batches are still drawn, so the streams
     stay the reference's).  Under faults eq. 21-22 mixes over the
     iteration's surviving edge set, and the next firing pays the cluster's
@@ -862,17 +911,19 @@ class AsyncScheduler:
     The async state is already cluster-sized, so a ``host-offload`` store
     holds ``y`` as one pseudo-client per cluster (mass ``m~_d``) in identity
     residency: ``y`` is its buffer, and every event that updates ``y``
-    scatters it into the store's cluster stack.  A store over fewer slots
-    than clusters raises ``ValueError``, as in the reference.
+    scatters it into the store's cluster stack, after the event.  A store
+    over fewer slots than clusters raises ``ValueError``, as in the
+    reference.
     """
 
     name = "async"
 
     def __init__(self, cfg, backend=None, prefetch: bool = True,
-                 fleet: Optional[FleetSpec] = None):
+                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None):
         self.cfg = cfg
         self.prefetch = prefetch
         self._backend_spec = backend
+        self._graph_spec = graph
         self.fleet = fleet if fleet is not None else FleetSpec()
         self.axes: Optional[FleetAxes] = None
         self._prefetched = None
@@ -922,20 +973,28 @@ class AsyncScheduler:
             device=device,
         )
         self._use_kernels = self.backend.name == "cuda"
-        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
-        self._m_tilde = f32(clusters.m_tilde())
-        m_hat = clusters.m_hat()
-        # per-cluster constants staged once instead of per event
+        self._m_tilde = torch.as_tensor(clusters.m_tilde(), dtype=torch.float32, device=device)
+        # per-cluster host operands, f32, staged with each event
+        self._m_hat_np = clusters.m_hat()
         self._members = [clusters.clients_of(j) for j in range(d_count)]
-        self._thetas = [f32(self.theta[idx]) for idx in self._members]
-        self._inv_thetas = [1.0 / t for t in self._thetas]  # eq. 19 factors, f32
-        self._m_hats = [f32(m_hat[idx]) for idx in self._members]
-        self._theta_bars = [torch.sum(m * t) for m, t in zip(self._m_hats, self._thetas)]
-        steps = torch.arange(self._theta_max, device=device)
-        # (theta_max, g) step masks: client i steps while s < theta_i
-        self._masks = [(steps[:, None] < t[None, :]).float() for t in self._thetas]
+        steps = np.arange(self._theta_max)
+        self._host_ops = []
+        for idx in self._members:
+            theta = self.theta[idx].astype(np.float32)
+            self._host_ops.append({
+                INV_THETA: np.float32(1.0) / theta,  # eq. 19 factors
+                THETA: theta,
+                M_HAT: self._m_hat_np[idx].astype(np.float32),
+                # client i steps while s < theta_i
+                STEP_MASK: (steps[:, None] < theta[None, :]).astype(np.float32),
+            })
         self._vgrad = torch.func.vmap(torch.func.grad(model.loss))
-        self._m_hat_np = m_hat
+        self._stage = OperandStage(device)
+        self._graph = self._build_graph() if resolve_graph(self._graph_spec, device) else None
+
+    def _build_graph(self) -> GraphedStep:
+        """One ``GraphedStep`` over ``_event``, in a memory pool of its own."""
+        return GraphedStep(self._event, lambda: self.y, self.device)
 
     def _gather(self, batch_source, d: int, non_blocking: bool = False) -> dict:
         """``theta_max`` batches per member of cluster ``d``, staged on the device."""
@@ -944,23 +1003,9 @@ class AsyncScheduler:
         host = gather_client_batches(batch_source, self._members[d], self._theta_max)
         return device_batch(host, self.device, non_blocking=non_blocking)
 
-    def _local_steps(self, d: int, batches: dict) -> tuple[dict, dict]:
-        """``(w_start, w_final)`` of cluster ``d``'s members, each ``(g, ...)``:
-        ``theta_max`` vmapped SGD steps, masked beyond each client's theta_i."""
-        lr = self.cfg.learning_rate
-        g = len(self._members[d])
-        mask = self._masks[d]
-        # w_start: y[d] for every member; contiguous, as the kernels stream rows
-        w0 = {k: y[d].expand((g,) + tuple(y.shape[1:])).contiguous() for k, y in self.y.items()}
-        w = w0
-        for s in range(self._theta_max):
-            grads = self._vgrad(w, {k: v[:, s] for k, v in batches.items()})
-            lm = lr * mask[s]  # (g,): lr on the steps a client still takes, else 0
-            w = {k: v - lm.view((g,) + (1,) * (v.dim() - 1)) * grads[k] for k, v in w.items()}
-        return w0, w
-
     def _event_weights(self, k: int, d: int) -> tuple[Optional[torch.Tensor], bool]:
-        """``(m^ of the event, participated)`` for event ``k`` on cluster ``d``.
+        """``(m^ of the event, participated)`` for event ``k`` on cluster ``d``,
+        the weights a host f32 tensor.
 
         The plan's mask of event ``k`` (ones without sampling), under faults
         ANDed with the clients that survive iteration ``t``; the fired
@@ -972,17 +1017,33 @@ class AsyncScheduler:
         if not mask.any():
             return None, False
         w = np.where(mask, self._m_hat_np[idx], 0.0)
-        return torch.as_tensor(w / w.sum(), dtype=torch.float32, device=self.device), True
+        return torch.from_numpy((w / w.sum()).astype(np.float32)), True
 
-    def _cluster_update(self, d: int, batches: dict, m_hat: Optional[torch.Tensor] = None) -> None:
-        """Eq. 19-20 for cluster ``d``: ``y[d]`` is overwritten in place.
-        ``m_hat`` is the event's masked weights (default: the cluster's own)."""
-        g = len(self._members[d])
-        w0, w = self._local_steps(d, batches)
-        if m_hat is None:
-            m_hat, theta_bar = self._m_hats[d], self._theta_bars[d]
-        else:
-            theta_bar = torch.sum(m_hat * self._thetas[d])
+    def _operands(self, d: int, m_hat: Optional[torch.Tensor], p_t: np.ndarray) -> dict:
+        """The event's operands on the device, in one non-blocking copy."""
+        ops = dict(self._host_ops[d])
+        if m_hat is not None:
+            ops[M_HAT] = m_hat.numpy()
+        ops[CLUSTER] = np.array([d], dtype=np.int64)
+        ops[MIXING] = p_t.astype(np.float32)
+        return self._stage.stage(ops)
+
+    def _event(self, batch: dict) -> None:
+        """One cluster event (eq. 19-22) on the batch's client batches and
+        operands, written into ``self.y``: the captured step."""
+        data = {k: v for k, v in batch.items() if k not in _EVENT_OPERANDS}
+        d, inv, theta, m_hat, mask = (batch[k] for k in _EVENT_OPERANDS[:5])
+        g = theta.shape[0]
+        lr = self.cfg.learning_rate
+        y_d = {k: torch.index_select(y, 0, d) for k, y in self.y.items()}  # (1, ...)
+        # w_start: y[d] for every member; contiguous, as the kernels stream rows
+        w0 = {k: v.expand((g,) + tuple(v.shape[1:])).contiguous() for k, v in y_d.items()}
+        w = w0
+        for s in range(self._theta_max):
+            grads = self._vgrad(w, {k: v[:, s] for k, v in data.items()})
+            lm = lr * mask[s]  # (g,): lr on the steps a client still takes, else 0
+            w = {k: v - lm.view((g,) + (1,) * (v.dim() - 1)) * grads[k] for k, v in w.items()}
+        theta_bar = torch.sum(m_hat * theta)
         if self._use_kernels:
             from ..kernels import cluster_agg_tree, normalized_update_tree
 
@@ -991,16 +1052,18 @@ class AsyncScheduler:
             # contiguous rows (a no-op on a contiguous leaf, one copy launch
             # on a strided one)
             wf = {k: v.contiguous() for k, v in w.items()}
-            deltas = normalized_update_tree(wf, w0, self._inv_thetas[d])  # one launch
+            deltas = normalized_update_tree(wf, w0, inv)  # one launch
             rs = cluster_agg_tree(deltas, m_hat, 1)  # one launch
-            for k, y in self.y.items():
-                y[d].add_(theta_bar * rs[k].view(y.shape[1:]))
+            sums = {k: rs[k].view(y_d[k].shape) for k in self.y}
         else:
+            sums = {}
             for k, y in self.y.items():
-                theta = self._thetas[d].view((g,) + (1,) * (y.dim() - 1))
-                delta = (w[k] - w0[k]) / theta
-                r = torch.einsum("c...,c->...", delta, m_hat)
-                y[d].add_(theta_bar * r)
+                delta = (w[k] - w0[k]) / theta.view((g,) + (1,) * (y.dim() - 1))
+                sums[k] = torch.einsum("c...,c->...", delta, m_hat)[None]
+        for k, y in self.y.items():  # eq. 20, one index: each element written once
+            y.index_copy_(0, d, y_d[k] + theta_bar * sums[k])
+        # staleness-aware inter-cluster mixing (eq. 21-22) via the backend
+        copy_into(self.y, self.backend.inter_cluster(self.y, batch[MIXING], 1))
 
     def step(self, k: int, batch_source) -> StepEvent:
         cfg = self.cfg
@@ -1021,16 +1084,17 @@ class AsyncScheduler:
         if outage:
             participated = False
         if participated:
-            self._cluster_update(d, batches, m_hat)
-            # staleness-aware inter-cluster mixing (eq. 21-22) via the backend,
-            # over the surviving edge set under faults
+            # staleness-aware mixing (eq. 21-22) over the surviving edge set
+            # under faults, P_t built on the host in float64
             gaps = (self.t - self.last_update).astype(np.float64)
             gaps[d] = 0.0
             graph = cfg.topology if faults is None else faults.adjacency_at(r_fault)
             p_t = staleness_mixing_matrix(graph, d, gaps, cfg.psi)
-            self.y = self.backend.inter_cluster(
-                self.y, torch.as_tensor(p_t, dtype=torch.float32), 1
-            )
+            batch = {**batches, **self._operands(d, m_hat, p_t)}
+            if self._graph is None:
+                self._event(batch)
+            else:
+                self._graph(batch)
             self.t += 1
             self.last_update[d] = self.t
             if self._store_res is not None:
@@ -1266,7 +1330,7 @@ def _make_async(s: dict) -> AsyncScheduler:
         profile=profile,
     )
     return AsyncScheduler(cfg, backend=s.pop("backend", None), prefetch=s.pop("prefetch", True),
-                          fleet=fleet)
+                          graph=s.pop("graph", None), fleet=fleet)
 
 
 def make_run(scenario, device=None) -> FederationRuntime:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["iid_partition", "skewed_label_partition", "dirichlet_partition"]
+__all__ = ["iid_partition", "skewed_label_partition", "dirichlet_partition", "partition_stats"]
 
 
 def iid_partition(labels: np.ndarray, num_clients: int, seed: int = 0) -> list[np.ndarray]:
@@ -99,3 +99,25 @@ def dirichlet_partition(
         f"{num_clients} clients within {max_retries} retries (beta={beta}); "
         "lower min_samples or raise beta"
     )
+
+
+def partition_stats(labels: np.ndarray, parts: list[np.ndarray]) -> dict:
+    """Per-client class histograms + an empirical non-IIDness proxy.
+
+    The proxy is the mean total-variation distance between each client's label
+    distribution and the global one — a cheap stand-in for the paper's kappa.
+    """
+    num_classes = int(labels.max()) + 1
+    global_hist = np.bincount(labels, minlength=num_classes).astype(np.float64)
+    global_hist /= global_hist.sum()
+    tvs, hists = [], []
+    for p in parts:
+        h = np.bincount(labels[p], minlength=num_classes).astype(np.float64)
+        h = h / max(h.sum(), 1)
+        hists.append(h)
+        tvs.append(0.5 * np.abs(h - global_hist).sum())
+    return {
+        "histograms": np.stack(hists),
+        "sizes": np.array([len(p) for p in parts]),
+        "mean_tv_distance": float(np.mean(tvs)),
+    }

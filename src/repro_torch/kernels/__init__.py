@@ -13,7 +13,8 @@ so these counters count host launches.  What ran on the device is counted
 from the profiler's kernel records: ``device_launches(fn)`` runs ``fn``
 under ``torch.profiler`` and ``count_kernels`` maps the device kernels'
 names to the wrappers (keys ``<wrapper>`` and ``<wrapper>.<route>``);
-``device_kernel_names(fn)`` gives every kernel's name.
+``device_kernel_names(fn)`` gives every kernel's name, and raises
+``EmptySessionError`` when a session lost its device records.
 """
 import re
 
@@ -60,6 +61,25 @@ def count_kernels(names) -> dict:
     return out
 
 
+class EmptySessionError(RuntimeError):
+    """A profiler session that recorded the host's kernel launches but came
+    back with no CUDA record at all: what ran on the device is unknown, and
+    no count is made of it.  ``host_launches`` holds the launch calls the
+    session did record, ``(name, ms from the session's start)``."""
+
+    def __init__(self, host_launches: list):
+        self.host_launches = host_launches
+        super().__init__(
+            f"the profiler session recorded {len(host_launches)} host launch calls "
+            f"({host_launches[:8]}) and no CUDA record: the device's records were lost, "
+            f"so the kernels that ran are not counted (ROADMAP.md §3)")
+
+
+# the host calls that put kernels on the device, graph replays included
+HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernelEx")
+
+
 def device_kernel_names(fn):
     """``(fn(), [name, ...])``: the device kernels ``fn`` ran, graph replays
     included, one demangled name per run, from ``torch.profiler``'s CUDA
@@ -67,10 +87,10 @@ def device_kernel_names(fn):
 
     The session idles ``MARGIN_S`` after it starts and again after ``fn``
     and a synchronize, before it stops.  On the H100 a session sometimes
-    comes back with none of its kernel records though the host's launch
-    is recorded; ``kernels.session_check`` counts how often, with and
-    without the margins, and ``ROADMAP.md`` §3 keeps the record.  The
-    margins made such sessions rarer there; they did not end them."""
+    comes back with none of its kernel records though the host's launch is
+    recorded; such a session raises ``EmptySessionError`` rather than
+    return a short count.  ``kernels.session_check`` counts how often, and
+    ``ROADMAP.md`` §3 keeps the record."""
     import time
 
     import torch
@@ -82,8 +102,16 @@ def device_kernel_names(fn):
         out = fn()
         torch.cuda.synchronize()
         time.sleep(MARGIN_S)
-    return out, [e.name() for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA]
+    res = prof.profiler.kineto_results
+    events = list(res.events())
+    names = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+    if not names:
+        t0 = res.trace_start_ns() if hasattr(res, "trace_start_ns") else 0
+        host = [(e.name(), round((e.start_ns() - t0) / 1e6, 3)) for e in events
+                if e.device_type() != DeviceType.CUDA and e.name() in HOST_LAUNCH_CALLS]
+        if host:
+            raise EmptySessionError(host)
+    return out, names
 
 
 def device_launches(fn):
@@ -97,7 +125,8 @@ MARGIN_S = 0.05  # device_launches's idle time at each end of a session
 
 
 __all__ = [
-    "DEVICE_KERNELS", "count_kernels", "device_kernel_names", "device_launches",
+    "DEVICE_KERNELS", "EmptySessionError", "HOST_LAUNCH_CALLS", "count_kernels",
+    "device_kernel_names", "device_launches",
     "sgd_update", "sgd_update_ref", "sgd_update_tree",
     "normalized_update", "normalized_update_ref", "normalized_update_tree",
     "fused_transition", "fused_transition_ref", "fused_transition_tree",

@@ -12,31 +12,35 @@
 // Design:
 // * One launch per tree: a table of up to kMaxLeaves leaves travels by value
 //   in the kernel's parameters (each leaf's Y and out base pointers, M, first
-//   column tile as a prefix sum, and a bit for vector access), beside P,
-//   zero-padded to 16 x 16.  The asynchronous path builds a fresh P_t on the
-//   host every event, and a by-value operand needs neither a device
-//   allocation nor a host-to-device copy that would make the host wait;
-//   nothing is copied to the device, so a CUDA graph captures the launch as
-//   it is.  With the padded stride the unrolled loops index P at compile-time
-//   offsets, so every P operand is a broadcast read from the constant bank.
+//   column tile as a prefix sum, and a bit for vector access).  P is read
+//   from device memory through a pointer beside the table: the asynchronous
+//   path's P_t changes every event, and a CUDA graph that captures the launch
+//   reads it from a fixed device buffer written before each replay, where a
+//   by-value P would be baked in at capture.  Each block stages P into shared
+//   memory, zero-padded to 16 x 16 (one value a thread: kThreads == 16 * 16),
+//   before it reads its columns; with the padded stride the unrolled loops
+//   index it at compile-time offsets, and every P operand is a broadcast
+//   read, one address for the whole warp.
 // * One block per column tile over all leaves: a binary search of the prefix
 //   sums finds the block's leaf.
 // * A thread owns COLS columns and holds their D values in f32 registers,
-//   v[MAXD][COLS].  COLS = min(16 / sizeof(T), 64 / MAXD) keeps that array at
-//   64 floats or fewer in every (T, MAXD) instantiation, so ptxas spills in
-//   none: 16-byte accesses (4 f32 or 8 bf16 columns) everywhere except bf16 at
-//   MAXD = 16, which takes 4 columns in 8-byte accesses.  Vector access where
+//   v[MAXD][COLS], and a pass's results beside them.  COLS = min(16 /
+//   sizeof(T), 64 / MAXD) keeps each array at 64 floats or fewer in every
+//   (T, MAXD) instantiation, so ptxas spills in none: 16-byte accesses (4
+//   f32 or 8 bf16 columns) everywhere except bf16 at MAXD = 16, which takes
+//   4 columns in 8-byte accesses.  Vector access where
 //   the leaf's pointers are 16-byte aligned and M is a multiple of 16 bytes of
 //   columns; elsewhere the scalar path of the same kernel, its COLS columns
 //   kThreads apart, so every warp load stays coalesced.
 // * The arithmetic of a column is fixed, whatever the leaf or its path:
 //   alpha passes of v'[d] = fmaf(p[j, d], v[j], acc) over j = 0 .. MAXD-1 in
 //   order (P is 0 outside D x D), one cast to T at the end, so a tree is
-//   bitwise equal to its one-leaf calls.  A column is read whole before it is
-//   written and belongs to one thread, so ``out`` may alias Y (the async path
-//   mixes in place).  alpha, P and D are runtime values; MAXD (4, 8 or 16) is
-//   chosen at launch; D > 16 is refused.  Ragged tails are masked in the
-//   kernel: nothing is padded.
+//   bitwise equal to its one-leaf calls, and to the kernel that took P by
+//   value in its launch parameters (commit 28b3742) on the same P.  A column
+//   is read whole before it is written and belongs to one thread, so ``out``
+//   may alias Y (the async path mixes in place).  alpha, P and D are runtime
+//   values; MAXD (4, 8 or 16) is chosen at launch; D > 16 is refused.
+//   Ragged tails are masked in the kernel: nothing is padded.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -48,10 +52,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxD = 16;
 constexpr int kMaxLeaves = 64;     // MAX_LEAVES in kernels/_leaves.py
 
-struct PMat {
-  float v[kMaxD * kMaxD];  // p[j, d] at v[j * kMaxD + d], zero outside D x D
-};
-
 struct LeafTable {
   const void* y[kMaxLeaves];
   void* out[kMaxLeaves];
@@ -60,8 +60,8 @@ struct LeafTable {
   unsigned long long vec;                // bit l set: leaf l takes vector accesses
   int count;
 };
-static_assert(sizeof(LeafTable) + sizeof(PMat) + 64 <= 4096,
-              "leaf table and P must fit the 4 KB parameter space");
+static_assert(sizeof(LeafTable) + 64 <= 4096, "the leaf table must fit the 4 KB parameter space");
+static_assert(kThreads == kMaxD * kMaxD, "a block stages the padded P one value a thread");
 
 // columns a thread owns: a 16-byte access, or fewer where MAXD * COLS would pass 64 floats
 template <typename T, int MAXD>
@@ -85,11 +85,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 template <typename T, int MAXD>
 __global__ void __launch_bounds__(kThreads)
-gossip_mix_kernel(const __grid_constant__ LeafTable tab, const __grid_constant__ PMat p, int D,
+gossip_mix_kernel(const __grid_constant__ LeafTable tab, const float* __restrict__ p_dev, int D,
                   int alpha) {
   constexpr int COLS = Cols<T, MAXD>::value;
   constexpr long long kTile = (long long)kThreads * COLS;  // columns per tile
   using V = typename Access<COLS * (int)sizeof(T)>::type;
+  // p[j, d] at p[j * kMaxD + d], zero outside D x D; staged before any
+  // thread of the block can leave at its leaf's tail
+  __shared__ float p[kMaxD * kMaxD];
+  {
+    const int j = threadIdx.x / kMaxD, d = threadIdx.x % kMaxD;
+    p[threadIdx.x] = j < D && d < D ? p_dev[j * D + d] : 0.f;
+  }
+  __syncthreads();
   const long long t = blockIdx.x;  // its leaf: first_tile[l] <= t < first_tile[l + 1]
   int l = 0;
   for (int hi = tab.count - 1; l < hi;) {
@@ -129,20 +137,31 @@ gossip_mix_kernel(const __grid_constant__ LeafTable tab, const __grid_constant__
       }
     }
   }
-  // each column: v <- P^T v, alpha times:  v'[d] = sum_j p[j, d] v[j]
+  // each column: v <- P^T v, alpha times:  v'[d] = sum_j p[j, d] v[j].  Each
+  // P value is read once a pass and used at once for the thread's COLS
+  // columns; the compiler barrier keeps a pass's MAXD^2 reads in that pass
+  // (hoisted out of the alpha loop, 256 live values would spill at MAXD 16)
   for (int a = 0; a < alpha; ++a) {
+    asm volatile("" ::: "memory");
+    float z[MAXD][COLS];
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      float z[MAXD];
+    for (int d = 0; d < MAXD; ++d) {
+      float acc[COLS];
 #pragma unroll
-      for (int d = 0; d < MAXD; ++d) {
-        float acc = 0.f;
+      for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
 #pragma unroll
-        for (int j = 0; j < MAXD; ++j) acc = fmaf(p.v[j * kMaxD + d], v[j][c], acc);
-        z[d] = acc;
+      for (int j = 0; j < MAXD; ++j) {
+        const float pj = p[j * kMaxD + d];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[c] = fmaf(pj, v[j][c], acc[c]);
       }
 #pragma unroll
-      for (int d = 0; d < MAXD; ++d) v[d][c] = z[d];
+      for (int c = 0; c < COLS; ++c) z[d][c] = acc[c];
+    }
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d) {
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) v[d][c] = z[d][c];
     }
   }
   if (vec) {
@@ -170,7 +189,7 @@ gossip_mix_kernel(const __grid_constant__ LeafTable tab, const __grid_constant__
 
 // leaves: count rows of (y, out, M, vec) as 64-bit integers
 template <typename T, int MAXD>
-cudaError_t launch(const long long* leaves, int count, const PMat& p, int D, int alpha,
+cudaError_t launch(const long long* leaves, int count, const float* p, int D, int alpha,
                    cudaStream_t stream) {
   constexpr long long kTile = (long long)kThreads * Cols<T, MAXD>::value;
   LeafTable tab = {};
@@ -191,7 +210,7 @@ cudaError_t launch(const long long* leaves, int count, const PMat& p, int D, int
 }
 
 template <typename T>
-cudaError_t launch_d(const long long* leaves, int count, const PMat& p, int D, int alpha,
+cudaError_t launch_d(const long long* leaves, int count, const float* p, int D, int alpha,
                      cudaStream_t s) {
   if (D <= 4) return launch<T, 4>(leaves, count, p, D, alpha, s);
   if (D <= 8) return launch<T, 8>(leaves, count, p, D, alpha, s);
@@ -203,22 +222,20 @@ cudaError_t launch_d(const long long* leaves, int count, const PMat& p, int D, i
 // ``leaves`` points at ``count`` host rows of four 64-bit integers (y, out,
 // M, vec): each leaf's (D, M) input and output base addresses on the device
 // (they may be equal), its column count and whether it takes vector
-// accesses (16-byte aligned pointers, M a multiple of 16 bytes of columns).
-// ``p_host`` points at D * D row-major f32 values in host memory.  Both are
-// copied into the launch's parameters before this function returns.
-extern "C" int gossip_mix_launch(const long long* leaves, int count, const float* p_host, int D,
+// accesses (16-byte aligned pointers, M a multiple of 16 bytes of columns);
+// the rows are copied into the launch's parameters before this function
+// returns.  ``p_dev`` points at D * D row-major f32 values in device memory,
+// which the kernel reads when it runs.
+extern "C" int gossip_mix_launch(const long long* leaves, int count, const float* p_dev, int D,
                                  int alpha, int dtype, void* stream) {
   if (leaves == nullptr || count < 1 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
-  if (D < 1 || D > kMaxD || alpha < 0 || p_host == nullptr) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxD || alpha < 0 || p_dev == nullptr) return (int)cudaErrorInvalidValue;
   for (int l = 0; l < count; ++l)
     if (leaves[4 * l + 2] < 0) return (int)cudaErrorInvalidValue;
-  PMat p = {};
-  for (int j = 0; j < D; ++j)
-    for (int d = 0; d < D; ++d) p.v[j * kMaxD + d] = p_host[j * D + d];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case DT_F32: return (int)launch_d<float>(leaves, count, p, D, alpha, s);
-    case DT_BF16: return (int)launch_d<__nv_bfloat16>(leaves, count, p, D, alpha, s);
+    case DT_F32: return (int)launch_d<float>(leaves, count, p_dev, D, alpha, s);
+    case DT_BF16: return (int)launch_d<__nv_bfloat16>(leaves, count, p_dev, D, alpha, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

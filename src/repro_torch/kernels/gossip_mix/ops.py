@@ -13,10 +13,11 @@ Dispatch is by the tensor's device: a CPU tensor takes the plain version
 (``ref.py``), a CUDA tensor launches the kernel or raises — there is no
 fallback.  ``gossip_mix.launches`` counts kernel launches.
 
-``P`` travels by value in the kernel's parameters, so the kernel reads it
-from host memory at launch: a CPU ``p`` costs nothing, a CUDA ``p`` is first
-copied back to the host once per call (the host waits for it).  The async
-scheduler builds its per-event ``P_t`` on the host for that reason.
+``P`` is read from device memory: the kernel takes a pointer to the
+row-major ``(D, D)`` f32 matrix beside its leaf table, so a CUDA graph that
+captures the launch reads whatever the buffer holds at each replay (the async
+scheduler writes each event's ``P_t`` there).  ``p`` must lie on the leaves'
+device: a host ``p`` with CUDA leaves is refused, not copied.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from .ref import gossip_mix_ref
 __all__ = ["gossip_mix", "gossip_mix_tree", "plan_launches", "MAX_D", "MAX_LEAVES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 16  # largest register array (and by-value P) the kernel is built for
+MAX_D = 16  # largest register array (and shared-memory P) the kernel is built for
 
 
 @functools.cache
@@ -57,9 +58,11 @@ def _mix(flats: list, outs: list, p: torch.Tensor, alpha: int) -> list:
     alike, all on one device) into ``outs`` (a ``(D, M)`` tensor, which may
     alias its input, or None for a new one); returns the results."""
     device = flats[0].device
+    if p.device != device:
+        raise ValueError(f"p on {p.device}, the leaves on {device}: p must lie on the "
+                         f"leaves' device")
     if device.type == "cpu":
-        p_cpu = p.to("cpu")
-        res = [gossip_mix_ref(y, p_cpu, alpha) for y in flats]
+        res = [gossip_mix_ref(y, p, alpha) for y in flats]
         return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]
     if device.type != "cuda":
         raise ValueError(f"gossip_mix runs on cpu or cuda tensors, got {device}")
@@ -73,8 +76,9 @@ def _mix(flats: list, outs: list, p: torch.Tensor, alpha: int) -> list:
             raise ValueError("gossip_mix kernel needs a contiguous y and out")
     outs = leaf_outputs([(tuple(y.shape), y.dtype) for y in flats], outs, device)
     leaves = [(y.dtype, y.shape[1], (y.data_ptr(), o.data_ptr())) for y, o in zip(flats, outs)]
-    # host copy of P, read by the launcher into the kernel's parameters
-    p_host = p.detach().to("cpu", torch.float32).contiguous()
+    # the kernel reads P from device memory when it runs: the stream keeps a
+    # converted copy alive until then (the caching allocator is stream-ordered)
+    p_dev = p.detach().to(torch.float32).contiguous()
     lib, fn = _bind()
     stream = stream_of(device)
     for dtype, members in plan_launches(leaves):
@@ -82,7 +86,7 @@ def _mix(flats: list, outs: list, p: torch.Tensor, alpha: int) -> list:
         for i, vec in members:
             _, m, (y_ptr, o_ptr) = leaves[i]
             rows += (y_ptr, o_ptr, m, vec)
-        rc = fn((ctypes.c_longlong * len(rows))(*rows), len(members), p_host.data_ptr(), d,
+        rc = fn((ctypes.c_longlong * len(rows))(*rows), len(members), p_dev.data_ptr(), d,
                 alpha, _DTYPES[dtype], stream)
         check(lib, rc, "gossip_mix")
         if any(leaves[i][1] for i, _ in members):  # the launcher skips a launch with no work
@@ -92,7 +96,8 @@ def _mix(flats: list, outs: list, p: torch.Tensor, alpha: int) -> list:
 
 def gossip_mix(y: torch.Tensor, p: torch.Tensor, alpha: int = 1,
                out: torch.Tensor | None = None) -> torch.Tensor:
-    """``y (D, M)``; ``p (D, D)`` with column convention (``Y @ P^alpha``).
+    """``y (D, M)``; ``p (D, D)`` on ``y``'s device, with column convention
+    (``Y @ P^alpha``).
 
     ``alpha`` gossip rounds (0 copies).  ``out`` (may be ``y`` itself)
     receives the result; otherwise a new tensor is returned.
@@ -114,9 +119,9 @@ def gossip_mix_tree(tree: dict, p: torch.Tensor, alpha: int = 1,
     """Gossip-mix every ``(D, ...)`` leaf of a parameter dict.
 
     Every leaf is checked before any is touched: D rows, contiguous, all on
-    one device (and, on CUDA, float32 or bfloat16).  On CUDA the tree takes
-    one launch per group of ``plan_launches``, and a CUDA ``p`` is copied to
-    the host once.  With ``inplace`` every leaf is overwritten and the same
+    one device with ``p`` (and, on CUDA, float32 or bfloat16).  On CUDA the
+    tree takes one launch per group of ``plan_launches``, each reading ``p``
+    from device memory.  With ``inplace`` every leaf is overwritten and the same
     tensors are returned — safe because each column of a leaf belongs to one
     thread, which reads it whole before writing it.
     """

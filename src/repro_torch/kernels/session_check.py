@@ -1,6 +1,6 @@
 """Repeated profiler sessions: does ``device_launches`` ever come back short?
 
-    python -m repro_torch.kernels.session_check [--sessions 1000] [--runs 3]
+    python -m repro_torch.kernels.session_check [--sessions 1000] [--runs 3] [--only async]
 
 A session counts, from ``torch.profiler``'s CUDA records, the kernels of one
 iteration of ``mnist-noniid-ring`` (``tau2=2``) replayed from the sync
@@ -20,6 +20,14 @@ on a host-offload store of 8 slots, eager and on graphs, every step
 (warm-ups and captures included) in a session of its own through
 ``device_launches``, as ``tests/test_torch_cuda.py`` counts them.
 
+The ``async`` variant: ``straggler-bimodal-async`` on its CUDA graph (one
+graph for its one cluster size, warmed up and captured first), then
+``--sessions`` one-event sessions, each counting the event's
+``normalized_update``, ``cluster_agg`` and ``gossip_mix`` runs (one each);
+``empty`` counts the sessions that recorded the host's launches and no CUDA
+record, the sessions ``device_kernel_names`` refuses to count.
+``--only async`` runs that variant alone.
+
 For an off session it keeps the CUDA records it did see and the launch
 calls the host made (``cudaGraphLaunch``, ``cudaLaunchKernel``), with their
 times from the session's start.  Prints one line a variant, writes
@@ -34,7 +42,7 @@ import os
 import sys
 import time
 
-from . import MARGIN_S
+from . import HOST_LAUNCH_CALLS, MARGIN_S
 
 
 def _session(fn, before: float = 0.0, after: float = 0.0):
@@ -57,7 +65,7 @@ def _session(fn, before: float = 0.0, after: float = 0.0):
     t0 = res.trace_start_ns() if hasattr(res, "trace_start_ns") else 0
     cuda = [e for e in events if e.device_type() == DeviceType.CUDA]
     launches = [e for e in events if e.device_type() != DeviceType.CUDA
-                and e.name() in ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel")]
+                and e.name() in HOST_LAUNCH_CALLS]
     detail = {"cuda": [(e.name()[:50], (e.start_ns() - t0) / 1e6, (e.end_ns() - t0) / 1e6)
                        for e in cuda],
               "host_launches": [(e.name(), (e.start_ns() - t0) / 1e6) for e in launches]}
@@ -68,10 +76,38 @@ def _want(kind: str) -> dict:
     return {"sgd_update": 1, **({"fused_transition": 1} if kind != "local" else {})}
 
 
+def _async_sessions(sessions: int) -> dict:
+    """``sessions`` one-event sessions of the graphed async event (margins at
+    both ends, as ``device_launches``): off and empty sessions."""
+    import torch
+
+    from repro_torch.scenarios import build_scenario
+
+    run = build_scenario("straggler-bimodal-async")
+    src = run.batch_source()
+    sched = run.runtime.scheduler
+    for _ in range(8):  # the cluster size's warm-up, capture and replays
+        run.runtime.step(src)
+    torch.cuda.synchronize()
+    if sched._graph is None or sched._graph.captured != 1:
+        raise AssertionError(f"async: not on one captured graph ({sched._graph})")
+    want = {"normalized_update": 1, "cluster_agg": 1, "gossip_mix": 1}
+    off, empty, t0 = [], 0, time.perf_counter()
+    for i in range(sessions):
+        ev, got, detail = _session(lambda: run.runtime.step(src), MARGIN_S, MARGIN_S)
+        if got != (want if ev.kind == "cluster" else {}):
+            empty += not detail["cuda"] and bool(detail["host_launches"])
+            off.append({"session": i, "kind": ev.kind, "got": got, **detail})
+    return {"sessions": sessions, "off_sessions": len(off), "empty_sessions": empty,
+            "replays": sched._graph.replays, "off": off[:10],
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1000)
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--only", choices=["async"], default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -82,6 +118,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels import device_launches
     from repro_torch.scenarios import build_scenario
 
+    out = {"device": torch.cuda.get_device_name(0), "sessions": args.sessions}
+    out["async"] = _async_sessions(args.sessions)
+    off_any = bool(out["async"]["off_sessions"])
+    print(f"session_check async: {args.sessions} one-event sessions of the graphed event, "
+          f"{out['async']['off_sessions']} off, {out['async']['empty_sessions']} empty; first "
+          f"off: {json.dumps(out['async']['off'][:2])[:1500]}; "
+          f"{out['async']['seconds']:.2f}s", flush=True)
+    if args.only == "async":
+        _write(out)
+        return 1 if off_any else 0
     run = build_scenario("mnist-noniid-ring", tau2=2)
     src = run.batch_source()
     for _ in range(30):  # every event kind warmed up, captured and replayed
@@ -89,8 +135,6 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     step = lambda: run.runtime.step(src)
     variants = {"sync": (0.0, 0.0), "settle": (0.0, MARGIN_S), "margin": (MARGIN_S, MARGIN_S)}
-    out = {"device": torch.cuda.get_device_name(0), "sessions": args.sessions}
-    off_any = False
     seen = {name: {"off": [], "seconds": 0.0} for name in variants}
     for _ in range(max(1, args.sessions // 100)):
         for name, (before, after) in variants.items():
@@ -133,10 +177,14 @@ def main(argv=None) -> int:
     print(f"session_check per-step (device_launches): {sessions} one-step sessions over fresh "
           f"runs, eager and graph, warm-ups and captures included, {len(off)} off: {off[:5]}",
           flush=True)
+    _write(out)
+    return 1 if off_any else 0
+
+
+def _write(out: dict) -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "session_check.json"), "w") as f:
         json.dump(out, f, indent=1, default=str)
-    return 1 if off_any else 0
 
 
 if __name__ == "__main__":

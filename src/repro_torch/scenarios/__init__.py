@@ -36,6 +36,7 @@ __all__ = [
     "SCENARIOS",
     "register_scenario",
     "get_scenario",
+    "list_scenarios",
     "build_scenario",
 ]
 
@@ -267,6 +268,10 @@ def get_scenario(name: str) -> Scenario:
     if name not in SCENARIOS:
         raise KeyError(f"unknown scenario {name!r}; registered: {sorted(SCENARIOS)}")
     return SCENARIOS[name]
+
+
+def list_scenarios() -> list[Scenario]:
+    return [SCENARIOS[k] for k in sorted(SCENARIOS)]
 
 
 def build_scenario(name: str, device=None, **overrides) -> ScenarioRun:

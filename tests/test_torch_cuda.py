@@ -190,11 +190,13 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="one device"):
         fused_transition(torch.zeros(20, 8, device=cuda), vt.cpu(), p, bt)
     with pytest.raises(TypeError):
-        gossip_mix(torch.zeros(4, 8, dtype=torch.float64, device=cuda), torch.eye(4))
+        gossip_mix(torch.zeros(4, 8, dtype=torch.float64, device=cuda), torch.eye(4, device=cuda))
     with pytest.raises(ValueError, match="D <= 16"):
-        gossip_mix(torch.zeros(17, 8, device=cuda), torch.eye(17))
+        gossip_mix(torch.zeros(17, 8, device=cuda), torch.eye(17, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
-        gossip_mix(torch.zeros(8, 4, device=cuda).T, torch.eye(4))
+        gossip_mix(torch.zeros(8, 4, device=cuda).T, torch.eye(4, device=cuda))
+    with pytest.raises(ValueError, match="leaves' device"):  # no silent host round trip
+        gossip_mix(torch.zeros(4, 8, device=cuda), torch.eye(4))
     with pytest.raises(ValueError, match="one device"):
         cluster_agg(torch.zeros(20, 8, device=cuda), torch.ones(20), 4)
     with pytest.raises(TypeError, match="float32 weights"):
@@ -210,7 +212,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
 def _p_t(device, d=4, trigger=1):
     gaps = RNG.integers(0, 6, d).astype(float)
     gaps[trigger] = 0.0
-    return torch.tensor(staleness_mixing_matrix(ring(d), trigger, gaps), dtype=torch.float32)
+    return torch.tensor(staleness_mixing_matrix(ring(d), trigger, gaps), dtype=torch.float32,
+                        device=device)
 
 
 @pytest.mark.cuda
@@ -219,15 +222,15 @@ def _p_t(device, d=4, trigger=1):
 @pytest.mark.parametrize("m", [10, 333, 16_000])
 @pytest.mark.parametrize("mixing", ["ring", "p_t"])
 def test_gossip_mix_matches_plain_in_place(cuda, dtype, tol, alpha, m, mixing):
-    p = _p_t(cuda) if mixing == "p_t" else _factors("cpu")[1]
+    p = _p_t(cuda) if mixing == "p_t" else _factors(cuda)[1]
     y = torch.tensor(RNG.normal(size=(4, m)), dtype=torch.float32, device=cuda).to(dtype)
-    ref = gossip_mix_ref(y, p.to(cuda), alpha)
+    ref = gossip_mix_ref(y, p, alpha)
     n = gossip_mix.launches
     out = gossip_mix(y, p, alpha=alpha)
     torch.cuda.synchronize()
     assert gossip_mix.launches == n + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
-    gossip_mix(y, p.to(cuda), alpha=alpha, out=y)  # in place, P read back from the card
+    gossip_mix(y, p, alpha=alpha, out=y)  # in place
     torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=0)
 
 
@@ -310,9 +313,9 @@ def test_normalized_update_matches_plain(cuda, dtype, tol, m, offset):
                                .float(), atol=tol, rtol=0)
 
 
-def _column_stochastic(d, seed):
+def _column_stochastic(d, seed, device):
     p = np.random.default_rng(seed).uniform(0.0, 1.0, (d, d))
-    return torch.tensor(p / p.sum(axis=0), dtype=torch.float32)
+    return torch.tensor(p / p.sum(axis=0), dtype=torch.float32, device=device)
 
 
 @pytest.mark.cuda
@@ -323,7 +326,7 @@ def test_gossip_mix_tree_in_place_every_maxd(cuda, dtype, tol, d):
     tree (vector and scalar leaves, an offset view) is one launch, each leaf
     within ``tol`` of the plain version and bitwise its one-leaf call, and
     the in-place call bitwise the out-of-place one."""
-    p = _column_stochastic(d, d)
+    p = _column_stochastic(d, d, cuda)
     tree = _ragged_tree(cuda, dtype, d, seed=d)
     for alpha in (0, 1, 2):
         n = gossip_mix.launches
@@ -333,14 +336,14 @@ def test_gossip_mix_tree_in_place_every_maxd(cuda, dtype, tol, d):
         for k, y in tree.items():
             flat = y.reshape(d, -1)
             assert out[k].shape == y.shape and out[k].dtype == dtype
-            ref = gossip_mix_ref(flat, p.to(cuda), alpha).view(y.shape)
+            ref = gossip_mix_ref(flat, p, alpha).view(y.shape)
             torch.testing.assert_close(out[k].float(), ref.float(), atol=tol, rtol=0)
             assert torch.equal(gossip_mix(flat, p, alpha=alpha).view(y.shape), out[k])
         inplace = {k: y.clone() for k, y in tree.items()}  # the offset view stays off 16 bytes
         inplace["offset"] = torch.empty(d * 1024 + 1, device=cuda, dtype=dtype)[1:].view(
             d, 1024).copy_(tree["offset"])
         n = gossip_mix.launches
-        res = gossip_mix_tree(inplace, p.to(cuda), alpha=alpha, inplace=True)
+        res = gossip_mix_tree(inplace, p, alpha=alpha, inplace=True)
         torch.cuda.synchronize()
         assert gossip_mix.launches == n + 1
         for k in tree:
@@ -422,7 +425,10 @@ def test_async_events_on_kernels_match_dense(cuda):
     small = {"num_clients": 8, "num_clusters": 4, "num_samples": 400}
     runs = {}
     for backend in ("cuda", "dense"):
-        run = build_scenario("straggler-bimodal-async", device=cuda, backend=backend, **small)
+        # eager: the wrappers' host counters move at every event (a graph
+        # launches from the host at its warm-up and capture only)
+        run = build_scenario("straggler-bimodal-async", device=cuda, backend=backend,
+                             graph=False, **small)
         assert run.runtime.scheduler.backend.name == backend
         src = run.batch_source()
         n = (normalized_update.launches, cluster_agg.launches, gossip_mix.launches)
@@ -845,7 +851,7 @@ def test_dropout_participation_async_on_kernels_matches_dense(cuda):
     runs = {}
     for backend in ("cuda", "dense"):
         run = build_scenario("dropout-participation-async", device=cuda, backend=backend,
-                             **small)
+                             graph=False, **small)
         src = run.batch_source()
         n = cluster_agg.launches
         kinds = [run.runtime.step(src).kind for _ in range(12)]
@@ -965,3 +971,223 @@ def test_device_launches_repeated_sessions(cuda):
         if got != want:
             off.append(("ten steps", got))
     assert off == []
+
+
+# -- the async event on a CUDA graph, and gossip_mix reading P from the card ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_mix_reads_p_from_device_memory_in_a_graph(cuda, dtype):
+    """The tree call reads P from device memory: bitwise its one-leaf calls,
+    and a captured launch replayed after a new P is written into its buffer
+    gives the eager call on that P, bitwise (nothing was baked in)."""
+    tree = _ragged_tree(cuda, dtype, 4, seed=7)
+    ps = [_p_t(cuda, trigger=t) for t in (1, 3)]
+    for p in ps:
+        out = gossip_mix_tree(tree, p, alpha=1)
+        for k, y in tree.items():
+            assert torch.equal(out[k].reshape(4, -1), gossip_mix(y.reshape(4, -1), p, alpha=1))
+    p_buf = ps[0].clone()
+    state = {k: y.clone() for k, y in tree.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gossip_mix_tree(state, p_buf, alpha=1, inplace=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gossip_mix_tree(state, p_buf, alpha=1, inplace=True)
+    for p in ps[::-1]:
+        for k in tree:
+            state[k].copy_(tree[k])
+        p_buf.copy_(p)
+        graph.replay()
+        want = gossip_mix_tree(tree, p, alpha=1)
+        for k in tree:
+            assert torch.equal(state[k], want[k]), k
+
+
+def _async_run(device, name, events, graph, **kw):
+    """(scheduler, [(kind, device kernel runs, host launches)] an event, y)."""
+    run = build_scenario(name, device=device, graph=graph, **kw)
+    src = run.batch_source()
+    counted = []
+    for _ in range(events):
+        before = {k: fn.launches for k, fn in _ASYNC_COUNTED.items()}
+        ev, ran = device_launches(lambda: run.runtime.step(src))
+        host = {k: fn.launches - before[k] for k, fn in _ASYNC_COUNTED.items()
+                if fn.launches != before[k]}
+        counted.append((ev.kind, ran, host))
+    sched = run.runtime.scheduler
+    return sched, counted, {k: v.clone() for k, v in sched.y.items()}
+
+
+_ASYNC_COUNTED = {"normalized_update": normalized_update, "cluster_agg": cluster_agg,
+                  "gossip_mix": gossip_mix}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("straggler-bimodal-async", {}),
+    ("dropout-participation-async", {}),  # masked m^ and skipped events
+    ("straggler-bimodal-async", {"store": "host-offload"}),
+])
+def test_async_graph_replays_match_eager(cuda, name, kw):
+    """The graphed async event against its eager twin, in turns eager,
+    graph, graph, eager under cuDNN's deterministic algorithms: y at 0.0,
+    the same event sequence, the same device kernel runs in every event (one
+    of each async kernel per cluster event, none per skipped one), host
+    launches only at the graph's warm-up and capture."""
+    events = 12
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {label: _async_run(cuda, name, events, graph, **kw)
+                for label, graph in (("eager", False), ("graph", True), ("graph2", True),
+                                     ("eager2", False))}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    kinds = [k for k, _, _ in runs["eager"][1]]
+    one = dict.fromkeys(_ASYNC_COUNTED, 1)
+    for label, (sched, counted, y) in runs.items():
+        assert [k for k, _, _ in counted] == kinds, label
+        assert [r for _, r, _ in counted] == [one if k == "cluster" else {} for k in kinds], label
+        for k, v in y.items():
+            assert torch.equal(v, runs["eager"][2][k]), (label, k)
+        fired = 0
+        for kind, _, host in counted:
+            fired += kind == "cluster"
+            want = one if kind == "cluster" and (label.startswith("eager") or fired <= 2) else {}
+            assert host == want, (label, kind, fired, host)
+        if label.startswith("graph"):
+            assert sched._graph.captured == 1 and sched._graph.replays == fired - 1
+        else:
+            assert sched._graph is None
+        if kw.get("store"):
+            for k, v in sched.store.cluster_models.items():
+                assert torch.equal(v, y[k]), (label, k)
+    assert "cluster" in kinds
+
+
+@pytest.mark.cuda
+def test_capture_after_a_body_raised_during_its_capture(cuda):
+    """A body that raises on its capturing call: the step raises the body's
+    own error, ends and discards the capture and restores the stream; a
+    fresh step then captures and replays, though the failed step and a dead
+    captured graph are freed by a collection in the middle of its capture
+    (a graph freed mid-capture invalidates a global-mode capture:
+    ``core/capture_check.py``)."""
+    import gc
+
+    from repro_torch.core.cuda_graph import GraphedStep
+
+    state = {"w": torch.zeros(256, device=cuda)}
+    x = {"x": torch.ones(256, device=cuda)}
+    calls = []
+
+    def failing_body(batch):
+        state["w"].add_(batch["x"])
+        calls.append(1)
+        if len(calls) == 2:
+            raise ValueError("the body fails while it is captured")
+
+    failing = GraphedStep(failing_body, lambda: state, cuda)
+    failing(x)  # warm-up
+    with pytest.raises(ValueError, match="fails while it is captured"):
+        failing(x)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    assert failing.captured == 0
+    dead = GraphedStep(lambda b: state["w"].mul_(b["x"]), lambda: state, cuda)
+    for _ in range(3):
+        dead(x)
+    assert dead.captured == 1
+    cycle = [failing, dead]
+    cycle.append(cycle)
+    del cycle, failing, dead
+    fresh_state = {"w": torch.zeros(256, device=cuda)}
+
+    def fresh_body(batch):
+        fresh_state["w"].add_(batch["x"])
+        gc.collect()
+
+    fresh = GraphedStep(fresh_body, lambda: fresh_state, cuda)
+    for i in range(4):
+        fresh({"x": torch.full((256,), float(i), device=cuda)})
+    torch.cuda.synchronize()
+    assert (fresh.captured, fresh.replays) == (1, 3)
+    assert float(fresh_state["w"][0]) == 6.0
+
+
+@pytest.mark.cuda
+def test_capture_after_an_offload_superstep_raised(cuda):
+    """million-client-ring on its graph raises mid-way through a superstep
+    (after the replay, in the store's scatter); with the failed run kept
+    alive by its traceback in a cycle, as a failed smoke phase kept it, a
+    fresh run captures its steps, one of whose bodies runs the collector
+    mid-capture."""
+    import gc
+    import sys
+
+    run = build_scenario("million-client-ring")
+    sched, src = run.runtime.scheduler, run.batch_source()
+    for _ in range(3):  # warm-up, capture, replay
+        run.runtime.step(src)
+    assert sched._graph.captured == 1
+
+    def scatter(*args):
+        raise AssertionError("a check fails mid-superstep")
+
+    sched.store.scatter = scatter
+    with pytest.raises(AssertionError, match="mid-superstep"):
+        run.runtime.step(src)
+    kept = [sys.exc_info(), run]
+    kept.append(kept)
+    del kept, run, sched, src
+    fresh = build_scenario("mnist-noniid-ring", tau2=2)
+    fsched, fsrc = fresh.runtime.scheduler, fresh.batch_source()
+    real = fsched._update
+
+    def collecting(event, batch):
+        out = real(event, batch)
+        gc.collect()
+        return out
+
+    fsched._update = collecting
+    for _ in range(12):  # local: warm-up, capture, replays; intra and inter warm-ups
+        fresh.runtime.step(fsrc)
+    torch.cuda.synchronize()
+    assert fsched._graphs["local"].captured == 1 and fsched._graphs["local"].replays >= 2
+    for w in fsched.params.values():
+        assert bool(torch.isfinite(w).all())
+
+
+@pytest.mark.cuda
+def test_device_kernel_names_raises_on_a_session_without_device_records(cuda, monkeypatch):
+    """A session whose CUDA records are lost (dropped here after the session
+    stops) while the host's launches are recorded raises rather than
+    counting; the same session with its records counts exactly."""
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels import EmptySessionError
+
+    y = torch.randn(4, 1024, device=cuda)
+    p = _p_t(cuda)
+    gossip_mix(y, p)
+    assert device_launches(lambda: gossip_mix(y, p))[1] == {"gossip_mix": 1}
+    real = torch.profiler.profile
+
+    class LosesDeviceRecords(real):
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            res = self.profiler.kineto_results
+            kept = [e for e in res.events() if e.device_type() != DeviceType.CUDA]
+            self.profiler.kineto_results = type("Lost", (), {
+                "events": lambda s: kept, "trace_start_ns": lambda s: res.trace_start_ns()})()
+            return out
+
+    monkeypatch.setattr(torch.profiler, "profile", LosesDeviceRecords)
+    with pytest.raises(EmptySessionError) as err:
+        device_launches(lambda: gossip_mix(y, p))
+    assert any(name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+               for name, _ in err.value.host_launches)

@@ -50,6 +50,7 @@ def test_resolve_graph():
     ("mnist-noniid-ring", "_graphs", {"num_samples": 400}),
     ("round-compiled-ring", "_graph", {"num_samples": 400}),
     ("federated-lm-ring", "_graph", LM_SMALL),
+    ("straggler-bimodal-async", "_graph", {"num_samples": 400}),
 ])
 def test_schedulers_resolve_graph_on_the_cpu(name, attr, extra):
     with pytest.raises(ValueError, match="graph=True needs a CUDA device"):
@@ -66,9 +67,14 @@ def test_graph_is_no_scenario_field_and_async_takes_none():
     # the registered scenarios keep the reference's fields (see
     # test_torch_runtime.py::test_registered_scenarios_match_reference)
     assert "graph" not in {f.name for f in dataclasses.fields(tscenarios.Scenario)}
-    with pytest.raises(TypeError, match="unused scenario keys"):
-        make_run({"scenario": "straggler-bimodal-async", "num_samples": 400,
-                  "graph": False}, device="cpu")
+    # async takes the key now, as sync and round do: its event is a captured step
+    for graph in (None, False):
+        sched = make_run({"scenario": "straggler-bimodal-async", "num_samples": 400,
+                          "graph": graph}, device="cpu").scheduler
+        assert sched._graph is None and sched._graph_spec is graph
+    with pytest.raises(ValueError, match="graph=True needs a CUDA device"):
+        make_run({"scenario": "straggler-bimodal-async", "num_samples": 400, "graph": True},
+                 device="cpu")
 
 
 # -- (b) counting launches on the device ------------------------------------

@@ -242,8 +242,10 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"profiles.py", "timing.py"} <= {f.name for f in files if f.parent.name == "hetero"}
     assert {"cuda_graph.py", "pipeline.py", "baselines.py", "theory.py"} <= {
         f.name for f in files if f.parent.name == "core"}
-    assert {"participation", "faults", "state", "checkpoint"} <= {
+    assert {"participation", "faults", "state", "checkpoint", "examples"} <= {
         f.parent.name for f in files if f.name == "__init__.py"}
+    assert {"quickstart.py", "async_heterogeneous.py", "train_federated_lm.py"} <= {
+        f.name for f in files if f.parent.name == "examples"}
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
