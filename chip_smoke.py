@@ -57,14 +57,18 @@ Phases, one result line each; any failure exits non-zero without the final
             against their plain versions at federated-lm-ring's (16, 64, 4,
             4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's (1, 8192,
             8, 4, 256) with window 4096 and cap 50, a GQA case with hd 96
-            and a ragged S = 80, and S = 16 (below one tile), f32 and bf16
+            and a ragged S = 80, S = 16 (below one tile), mixtral-8x7b's
+            (4, 2048, 32, 8, 128) with window 4096 and pixtral-12b's hd 160,
+            (2, 2048, 32, 8, 160), f32 and bf16
             (f32 forwards on the split-TF32 route, f32 backwards on the
-            CUDA cores; bf16 on the tensor-core route except gemma2-2b's
-            backward at hd 256, which stays on the CUDA cores; 2e-5 f32 and
+            CUDA cores; bf16 on the tensor-core route except the backwards
+            wider than hd 128, gemma2-2b's and pixtral-12b's, which stay on
+            the CUDA cores; 2e-5 f32 and
             3e-2 bf16 forward, as the reference's kernel tests; lse 1e-4;
             gradients 1e-4 f32 and 3e-2 bf16 relative to the largest
             reference entry),
-            then timed at both LM phases' shapes and the f32 forward also at
+            then timed at both LM phases' shapes, mixtral-8x7b's and
+            pixtral-12b's (bf16), and the f32 forward also at
             granite-8b's heads, (2, 2048, 32, 8, 128), against
             ``scaled_dot_product_attention`` (the kernel the profiler saw it
             launch is named), with the achieved TFLOP/s and the share of the
@@ -179,7 +183,53 @@ Phases, one result line each; any failure exits non-zero without the final
             then the transition (the inter event: D=4, alpha=2) and SGD timed
             on the run's own 12-leaf bf16 tree in place, against the bytes
             bound and the library calls.
-10. offload host-offloaded client state (``repro_torch.state``), every
+10. families the model families at ``reduced()`` widths (f32), every LM
+            counter set to 0 just before the phase and read just after:
+            ``federated-lm-ring`` with ``model=CausalLM(...)`` for
+            mixtral-8x7b, grok-1-314b, mamba2-780m, jamba-1.5-large-398b
+            (one block of 8 layers) and pixtral-12b, 3 supersteps each,
+            an eager and a graph run under deterministic algorithms (``warn_only``; the ops without
+            a deterministic implementation are named) and the profiler:
+            graph = eager at 0.0, the graph replayed, kernel runs on the
+            device exact (flash per attention layer, none for mamba2; the
+            leaf-table kernels per table of one dtype), an eager session
+            short of its host launches raising ``ShortSessionError``; the
+            dense backend with plain attention within 1e-4 on parameters
+            and per-iteration losses (jamba's reported, ``FAMILY_CHAOTIC``);
+            one fleet iteration from the graph run's state, flash against
+            plain, within 1e-4; musicgen-large's reduced model on (2, 4,
+            64) codebook tokens, loss and gradients flash against plain
+            within 1e-5.
+11. moe-width mixtral-8x7b at its published widths (d_model 4096, d_ff
+            14336, 8 experts top-2, capacity factor 1.25, 32/8 heads of
+            128, window 4096, vocab 32000, bf16), cut to 1 layer, C = 4 in
+            D = 2, S = 2048, b = 1, no evaluate, on the round's CUDA graph
+            (its peak leaves room for the pool): host launches held to the
+            graph's warm-up and capture (two leaf tables a tree call: the
+            f32 router and the bf16 rest; every flash launch on the tensor
+            cores), cold and warm it/s and tokens/s, peak memory, one
+            replayed superstep's kernel runs held exactly and its device
+            time by part from the kernels' names (GEMMs, sort, index,
+            gather and scatter, flash, SGD, transition, the rest) and busy
+            share, the expert GEMMs timed alone with CUDA events at the
+            run's shapes (``expert_gemms_ms``), the first MoE layer's
+            dropped assignments and the tokens that flash and plain
+            attention route to different experts, at the initial and the
+            trained state; the first layer's attention flash vs plain at
+            the model's activations (output and vjp within 5e-2 in relative
+            norm), one client's loss flash vs plain within 1e-2 (its
+            gradients reported: a token moved across a router tie sends its
+            gradients to other experts), and the mixed trees against their
+            plain versions, then timed.
+12. ssm-width eager: mamba2-780m at its published widths (d_model 1536,
+            48 SSD heads of 64, state 128, conv 4, chunk 128, vocab 50280,
+            tied, bf16), cut to 4 layers (what 80 GB holds at C = 8),
+            C = 8 in D = 4, S = 2048, b = 1: no flash launch, the mixed SGD
+            and transition launches held, finite losses, the same rates and
+            split by kernel name, the SSD core and its inter-chunk loop
+            timed alone with CUDA events (``ssd_ms``), and the mixed trees
+            against their plain versions.
+13. offload host-offloaded client state (``repro_torch.state``), every
             kernel counter zeroed just before the phase and read just after
             (each of the five fleet kernels must have launched):
             ``million-client-ring`` as registered (10^6 procedural clients,
@@ -207,7 +257,7 @@ Phases, one result line each; any failure exits non-zero without the final
             participants stored, and equal to cluster mode at 0.0.
             ``dropout-participation-async`` with a store against resident
             state: the same events, ``y`` at 0.0.
-11. examples the port's examples (``repro_torch.examples``) through their
+14. examples the port's examples (``repro_torch.examples``) through their
             ``main`` on the card, cut in run length: ``quickstart`` 20
             iterations, ``async_heterogeneous`` 12 events (its async runs on
             the graph), ``train_federated_lm`` 16 iterations at d_model 256
@@ -215,7 +265,11 @@ Phases, one result line each; any failure exits non-zero without the final
 
 The line before the last is the kernels' JSON record (the flash,
 transition and SGD entries also carry, under ``width``, their granite-8b
-bf16 numbers and the ``lm-width`` launches, ``fleet_host_launches`` and
+bf16 numbers and the ``lm-width`` launches, the flash entries under
+``mixtral_width`` and ``hd160`` those shapes', the LM kernels
+``families_host_launches`` and ``moe_width_launches``, the transition and
+SGD ``moe_width``/``ssm_width`` (their mixed trees) and
+``ssm_width_launches``, ``fleet_host_launches`` and
 ``offload_host_launches`` the fleet and offload phases' host counts, the
 transition's ``offload_maxd8`` its D = 8 numbers, and gossip_mix's
 ``by_value_ab`` its A/B against the by-value kernel at MNIST); the async
@@ -225,6 +279,7 @@ graphed run, ``host_launches`` the wrappers' counts there; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -276,13 +331,16 @@ KERNELS = {
 }
 # (B, S, Hq, Hkv, hd, window, cap): federated-lm-ring's registered shape (C*B
 # = 8*2 folded), granite-8b's (C = 8, batch 1), gemma2-2b's local layer, a
-# GQA case with hd 96 and a ragged S, and S below one tile
+# GQA case with hd 96 and a ragged S, S below one tile, mixtral-8x7b's at the
+# moe-width lane (C = 4, its window 4096 past S) and pixtral-12b's hd 160
 FLASH_SHAPES = {
     "federated-lm-ring": (16, 64, 4, 4, 64, None, None),
     "granite-8b": (8, 2048, 32, 8, 128, None, None),
     "gemma2-2b": (1, 8192, 8, 4, 256, 4096, 50.0),
     "gqa-hd96-ragged": (2, 80, 8, 2, 96, None, None),
     "short-s16": (2, 16, 8, 2, 128, None, None),
+    "mixtral-8x7b": (4, 2048, 32, 8, 128, 4096, None),
+    "pixtral-12b": (2, 2048, 32, 8, 160, None, None),
 }
 # the f32 forward at granite-8b's head layout (B = 2), timed beside the lm shape
 GRANITE_F32 = (2, 2048, 32, 8, 128, None, None)
@@ -296,6 +354,35 @@ FLASH_SM90 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
                 "flash_bwd_dq_sm90_kernel")
 LM_STEPS, LM_WIDTH_STEPS = 4, 2
+# the families phase: federated-lm-ring on each family's reduced() model (f32),
+# supersteps a run (the graph's warm-up, capture and a replay)
+FAMILIES = ("mixtral-8x7b", "grok-1-314b", "mamba2-780m", "jamba-1.5-large-398b", "pixtral-12b")
+FAMILY_STEPS = 3
+# layers a family lane keeps where reduced() has more: jamba's one block of 8
+# (attention at offset 4, MoE every second layer), for the phase's time
+FAMILY_LAYERS = {"jamba-1.5-large-398b": 8}
+# families whose training amplifies f32 rounding so fast that two runs of the
+# same math drift apart within a superstep: reduced jamba (16 layers, or the
+# lane's 8, at the scenario's learning rate 0.1; the CPU's plain versions
+# against dense+plain over 3 supersteps: 2.3e-2 and 2.8e-2) grows a 2.4e-7 difference about 3x an
+# iteration and then flips MoE routing (the CPU, one client, plain attention
+# against the flash op's plain version: 1.5e-2 after 10 steps; on the card,
+# 5.5e-2 over 3 supersteps).  Its full-run difference from dense+plain is
+# reported; one fleet iteration from the same state is held, as for every
+# family
+FAMILY_CHAOTIC = ("jamba-1.5-large-398b",)
+# the width lanes: a published config cut in depth, eager, supersteps a run
+MOE_WIDTH = dict(num_layers=1, num_clients=4, num_clusters=2, seq_len=2048, batch_size=1)
+# mamba2's depth as memory allows: a layer takes 1.26 GB of a client's
+# activations at S = 2048 and the tied head 1.5 GB (a CPU trace of live
+# tensors at these widths, C = 1), so C = 8 holds 4 layers in about 57 GB
+SSM_WIDTH = dict(num_layers=4, num_clients=8, num_clusters=4, seq_len=2048, batch_size=1)
+WIDTH_STEPS = 3  # a graph's warm-up, capture and a replay
+# a width lane's device time by part, from kernel names (first match wins)
+WIDTH_PARTS = (("flash", ("flash_",)), ("sgd_update", ("sgd_update_kernel",)),
+               ("fused_transition", ("fused_transition_kernel",)),
+               ("gemm", ("gemm", "nvjet", "cutlass", "xmma")), ("sort", ("sort", "Sort")),
+               ("index_gather_scatter", ("index", "gather", "scatter")))
 # sync iterations a run is compared over: at tau1 = 5, tau2 = 2 three intra
 # and three inter events, so each event kind's graph warms up on its first
 # call, captures on its second and is replayed twice
@@ -739,13 +826,18 @@ class Smoke:
             t = flash["federated-lm-ring"] if kname in flash["federated-lm-ring"] else \
                 timings["mnist"]
             self.record[kname] = dict(t[kname], max_abs_err=main_err[kname])
-            if kname in flash["granite-8b"]:
-                w = flash["granite-8b"][kname]
-                self.record[kname]["width"] = {
-                    "shape": w["shape"], "dtype": w["dtype"], "route": w["route"],
-                    "source": FLASH_SM90, "max_abs_err": main_err[f"{kname}@granite-8b"],
-                    **{f: w[f] for f in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "tflops", "bound_share")}}
+            for sname, extra in (("granite-8b", "width"), ("mixtral-8x7b", "mixtral_width"),
+                                 ("pixtral-12b", "hd160")):
+                if kname in flash[sname]:
+                    w = flash[sname][kname]
+                    self.record[kname][extra] = {
+                        "shape": w["shape"], "dtype": w["dtype"], "route": w["route"],
+                        "source": FLASH_SM90 if w["route"] == "tensor_core" else
+                        KERNELS["flash_attention_backward"]["source"],
+                        "max_abs_err": main_err[f"{kname}@{sname}"],
+                        **{f: w[f] for f in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "tflops",
+                                             "bound_share")}}
         g = flash["granite-f32"]["flash_attention"]  # the split-TF32 forward at width
         self.record["flash_attention"]["f32_width"] = {
             "max_abs_err": main_err["flash_attention@granite-f32"],
@@ -1174,9 +1266,9 @@ class Smoke:
                 worst["flash_attention_backward"] = max(worst["flash_attention_backward"], g_err)
                 if (sname, dtype) == ("federated-lm-ring", torch.float32):
                     main_err["flash_attention"], main_err["flash_attention_backward"] = err, g_err
-                if (sname, dtype) == ("granite-8b", torch.bfloat16):
-                    main_err["flash_attention@granite-8b"] = err
-                    main_err["flash_attention_backward@granite-8b"] = g_err
+                if dtype == torch.bfloat16:
+                    main_err[f"flash_attention@{sname}"] = err
+                    main_err[f"flash_attention_backward@{sname}"] = g_err
                 print(f"  flash {sname} {shape[:5]} window={window} cap={cap} "
                       f"{str(dtype)[6:]} ({route(dtype, shape[4])} forward, "
                       f"{route(dtype, shape[4], backward=True)} backward): forward max abs err "
@@ -1232,8 +1324,12 @@ class Smoke:
         for sname, shape, dtype, backward in (
                 ("federated-lm-ring", FLASH_SHAPES["federated-lm-ring"], torch.float32, True),
                 ("granite-8b", FLASH_SHAPES["granite-8b"], torch.bfloat16, True),
-                ("granite-f32", GRANITE_F32, torch.float32, False)):
+                ("granite-f32", GRANITE_F32, torch.float32, False),
+                ("mixtral-8x7b", FLASH_SHAPES["mixtral-8x7b"], torch.bfloat16, True),
+                ("pixtral-12b", FLASH_SHAPES["pixtral-12b"], torch.bfloat16, True)):
             window, cap = shape[5:]
+            if min(window or shape[1], shape[1]) < shape[1] or cap is not None:
+                raise AssertionError(f"{sname}: SDPA's causal mask is not this shape's")
             small = shape[1] <= 256
             q, k, v, dout = self.flash_inputs(shape, dtype, seed=1)
             o, lse = flash_attention_fwd(q, k, v, window, cap)
@@ -1728,7 +1824,7 @@ class Smoke:
         import gc
 
         torch = self.torch
-        from repro_torch.kernels import device_launches
+        from repro_torch.kernels import check_eager_session, device_launches
 
         graph = label == "graph"
         gc.collect()  # a scheduler and its graphs hold each other
@@ -1742,6 +1838,8 @@ class Smoke:
         graphed = getattr(sched, "_graphs", getattr(sched, "_graph", None))
         if (graphed is not None) != graph:
             raise AssertionError(f"{what} {label}: graph {graphed is not None}")
+        if not graph:
+            check_eager_session(ran, host)
         want, host_want = expected(sched, False), expected(sched, True)
         if ran != want:
             raise AssertionError(f"{what} {label}: kernel runs {ran}, expected {want}")
@@ -2076,7 +2174,7 @@ class Smoke:
         import gc
 
         torch = self.torch
-        from repro_torch.kernels import device_launches
+        from repro_torch.kernels import check_eager_session, device_launches
         from repro_torch.scenarios import build_scenario
 
         def drive(graph, **kw):
@@ -2108,6 +2206,8 @@ class Smoke:
                 sched = run.runtime.scheduler
                 if (sched.backend.name, run.runtime.device.type) != ("cuda", "cuda"):
                     raise AssertionError(f"{name}: {sched.backend.name} on {run.runtime.device}")
+                if not graph:
+                    check_eager_session(ran, host)
                 want, host_want = expected(sched, steps), expected(sched, steps, host=True)
                 if ran != want or host != host_want:
                     raise AssertionError(f"{name} {label}: kernel runs {ran} (expected {want}), "
@@ -2295,17 +2395,19 @@ class Smoke:
 
     def lm_launches(self, sched, cfg, steps, evaluate, host=False) -> dict:
         """Exact launches of ``steps`` supersteps: one attention launch per
-        layer per iteration (clients folded), plus the evaluate's forward;
-        one leaf-table launch per launch group per SGD step and transition.
-        ``host``: the launches the wrappers count on the host, which on a
-        CUDA graph are those of the first two supersteps (warm-up, capture)."""
+        attention layer (a mamba layer has none) per iteration (clients
+        folded), plus the evaluate's forward; one leaf-table launch per launch
+        group (dtype, 64 leaves) per SGD step and transition.  ``host``: the
+        launches the wrappers count on the host, which on a CUDA graph are
+        those of the first two supersteps (warm-up, capture)."""
         if host and sched._graph is not None:
             steps = min(steps, 2)
         iters = steps * sched.iterations_per_step
         transitions = steps * sched.rounds_per_step * (sched.fl.tau2 + 1)
         groups = self.launch_groups(sched.params)
-        return {"flash_attention": cfg.num_layers * (iters + evaluate),
-                "flash_attention_backward": cfg.num_layers * iters,
+        attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+        return {"flash_attention": attn * (iters + evaluate),
+                "flash_attention_backward": attn * iters,
                 "fused_transition": transitions * groups, "sgd_update": iters * groups}
 
     def lm_path(self):
@@ -2450,11 +2552,31 @@ class Smoke:
         print(f"lm-width warm: {wiph:.4f} it/s, {wiph * c * b * s:.1f} tokens/s (1 superstep, "
               f"{warm_dt:.3f}s); profiled 1 superstep: {json.dumps(busy)}", flush=True)
 
-        # one client's loss and gradients: flash kernels against plain attention
+        held = self.hold_client_grads(run, "lm-width")
+        tree_times = self.time_width_trees(run, launches)
+        self.detail["lm_width"] = {
+            "launches": launches, "flash_routes": routes, "params_per_client": n_params,
+            "peak_bytes": peak,
+            "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
+            "tokens_per_s_warm": wiph * c * b * s, "profile": busy,
+            "losses": losses.tolist(), "cuts": {"num_layers": [36, cfg.num_layers],
+                                                "batch_size": [2, b], "evaluate": False},
+            "cuda_vs_plain": held, "leaf_table_kernels": tree_times}
+
+    def hold_client_grads(self, run, what, p0=None, hold_grads=True) -> dict:
+        """Client 0's loss and gradients on its first batch, at the run's
+        state or at ``p0``, ``attn_impl`` ``cuda`` (the flash kernels)
+        against ``plain``: the loss within 1e-2 relative and, with
+        ``hold_grads``, every leaf's gradient within 5e-2 in relative norm
+        (the three leaves furthest apart are named)."""
         import dataclasses
+
+        torch = self.torch
         from repro_torch.models import CausalLM
 
-        p0 = {k: w[0] for k, w in sched.params.items()}
+        cfg = run.runtime.model.cfg
+        if p0 is None:
+            p0 = {k: w[0] for k, w in run.runtime.scheduler.params.items()}
         batch = {k: torch.as_tensor(v[0], device=self.dev)
                  for k, v in run.batch_source()(0).items()}
         got = {}
@@ -2465,31 +2587,70 @@ class Smoke:
             del g
         lrel = abs(got["cuda"][0] - got["plain"][0]) / abs(got["plain"][0])
         # per leaf: the norm of the difference over the norm of the plain
-        # gradient (the largest over leaves), and the same with max norms
-        gerr = max(((got["cuda"][1][k].float() - g.float()).norm() / g.float().norm()).item()
-                   for k, g in got["plain"][1].items())
+        # gradient, and the same with max norms
+        rel = {k: ((got["cuda"][1][k].float() - g.float()).norm() / g.float().norm()).item()
+               for k, g in got["plain"][1].items()}
+        gerr = max(rel.values())
         gmax = max((got["cuda"][1][k].float() - g.float()).abs().max().item()
                    / max(g.float().abs().max().item(), 1e-30)
                    for k, g in got["plain"][1].items())
-        print(f"  one client at width, attn_impl cuda vs plain: loss {got['cuda'][0]:.6f} vs "
+        worst = sorted(rel.items(), key=lambda r: -r[1])[:3]
+        print(f"  {what}, one client, attn_impl cuda vs plain: loss {got['cuda'][0]:.6f} vs "
               f"{got['plain'][0]:.6f} (rel {lrel:.3e}, tol 1e-2); gradients |diff| / |plain| "
-              f"{gerr:.3e} (tol 5e-2: bf16 keeps 8 bits, and both paths round every "
-              f"activation to bf16, from sums taken in different orders), max-norm "
-              f"{gmax:.3e}", flush=True)
-        if not (lrel <= 1e-2 and gerr <= 5e-2):
-            raise AssertionError("lm-width: flash and plain attention disagree")
+              f"{gerr:.3e} ({'tol 5e-2' if hold_grads else 'reported, not held'}: bf16 keeps "
+              f"8 bits, and both paths round every activation to bf16, from sums taken in "
+              f"different orders), max-norm {gmax:.3e}; furthest leaves "
+              f"{[(k, round(v, 5)) for k, v in worst]}", flush=True)
+        if not lrel <= 1e-2 or (hold_grads and not gerr <= 5e-2):
+            raise AssertionError(f"{what}: flash and plain attention disagree")
         del got, p0, batch
         torch.cuda.empty_cache()
-        tree_times = self.time_width_trees(run, launches)
-        self.detail["lm_width"] = {
-            "launches": launches, "flash_routes": routes, "params_per_client": n_params,
-            "peak_bytes": peak,
-            "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
-            "tokens_per_s_warm": wiph * c * b * s, "profile": busy,
-            "losses": losses.tolist(), "cuts": {"num_layers": [36, cfg.num_layers],
-                                                "batch_size": [2, b], "evaluate": False},
-            "cuda_vs_plain": {"loss_rel": lrel, "grad_rel_norm": gerr, "grad_rel_max": gmax},
-            "leaf_table_kernels": tree_times}
+        return {"loss_rel": lrel, "grad_rel_norm": gerr, "grad_rel_max": gmax,
+                "furthest_leaves": worst}
+
+    def hold_attention_grads(self, run, what, p0) -> dict:
+        """The first layer's attention (projections, RoPE, flash or plain
+        attention, output projection) at client 0's first batch from ``p0``:
+        its output and the vjp of a fixed random cotangent with respect to
+        its input and its four weights, ``attn_impl`` ``cuda`` against
+        ``plain``, each within 5e-2 in relative norm."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.models import transformer
+        from repro_torch.models.layers import rms_norm
+
+        cfg = run.runtime.model.cfg
+        names = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
+        p = {k[len("blocks.pos0."):]: w[0] for k, w in p0.items() if k.startswith("blocks.pos0.")}
+        tokens = torch.as_tensor(run.batch_source()(0)["tokens"][0], device=self.dev)
+        pos = torch.arange(tokens.shape[-1], device=self.dev)
+        with torch.no_grad():
+            h = rms_norm(run.runtime.model.embed_tokens(p0, tokens), p["ln_mix"], cfg.norm_eps)
+        gen = torch.Generator(device=self.dev).manual_seed(7)
+        gout = torch.randn(h.shape, generator=gen, device=self.dev).to(h.dtype)
+        got = {}
+        for impl in ("cuda", "plain"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+
+            def attn(hh, *ws, c=c):
+                return transformer._attention(dict(zip(names, ws)), hh, c,
+                                              window=cfg.window_for_layer(0), positions=pos)
+
+            out, vjp = torch.func.vjp(attn, h, *(p[k] for k in names))
+            got[impl] = (out, vjp(gout))
+        rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+        res = {"output": rel(got["cuda"][0], got["plain"][0])}
+        res.update({k: rel(a, b) for k, a, b in zip(("input",) + names, got["cuda"][1],
+                                                    got["plain"][1])})
+        print(f"  {what}: the first layer's attention at client 0's state, flash vs plain, "
+              f"|diff| / |plain| {json.dumps({k: round(v, 6) for k, v in res.items()})} "
+              f"(tol 5e-2)", flush=True)
+        del got, h, gout
+        torch.cuda.empty_cache()
+        if not max(res.values()) <= 5e-2:
+            raise AssertionError(f"{what}: the attention's flash and plain paths disagree")
+        return res
 
     def time_width_trees(self, run, launches) -> dict:
         """The two leaf-table kernels at the lm-width run's bf16 shapes (C = 8
@@ -2577,6 +2738,580 @@ class Smoke:
         del grads, scratch, ws, gs, flat
         torch.cuda.empty_cache()
         return out
+
+    # -- the model families ----------------------------------------------------
+    @contextlib.contextmanager
+    def deterministic(self):
+        """``torch.use_deterministic_algorithms(True, warn_only=True)``, with
+        cuBLAS's deterministic workspace: ops that have a deterministic
+        implementation take it (the index and scatter backwards), and an op
+        that has none warns; yields the list of those warnings' texts."""
+        import os
+        import warnings
+
+        torch = self.torch
+        before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        refused: list = []
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                yield refused
+            refused.extend(sorted({str(w.message)[:160] for w in caught
+                                   if "deterministic" in str(w.message)}))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if before is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+
+    def families(self):
+        """The model families at ``reduced()`` widths (f32) on the round's CUDA
+        graph: ``federated-lm-ring`` with ``model=CausalLM(get_config(name)
+        .reduced())`` for each of ``FAMILIES``, every LM counter set to 0
+        just before the phase and read just after (flash forward and
+        backward, SGD and transition must each have launched), each lane
+        held as ``lm`` is (``family_lane``); then musicgen's codebook model,
+        flash against plain (``family_audio``)."""
+        counters = self.lm_counters()
+        out = {name: self.family_lane(name) for name in FAMILIES}
+        out["musicgen-large"] = self.family_audio()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if not all(launches.values()):
+            raise AssertionError(f"families: a kernel of the path never launched: {launches}")
+        for kname, n in launches.items():
+            self.record[kname]["families_host_launches"] = n
+        print(f"families: host launches over the phase {json.dumps(launches)}", flush=True)
+        self.detail["families"] = out
+
+    def family_lane(self, name) -> dict:
+        """``FAMILY_STEPS`` supersteps of federated-lm-ring on ``name``'s reduced
+        model (cut to ``FAMILY_LAYERS``): an eager and a graph run under
+        deterministic algorithms
+        and the profiler (kernel runs on the device exactly
+        ``lm_launches``: flash per attention layer, the leaf-table kernels
+        per launch group; an eager session short of its host launches raises
+        ``ShortSessionError``; host launches the graph's warm-up and capture),
+        graph = eager at 0.0, the graph replayed; then the dense backend with
+        plain attention (graph) within 1e-4 on parameters and per-iteration
+        losses."""
+        import dataclasses
+        import gc
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import check_eager_session, device_launches
+        from repro_torch.models import CausalLM
+
+        t0 = time.perf_counter()
+        cfg = get_config(name).reduced()
+        if name in FAMILY_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS[name])
+
+        def drive(graph, impl="cuda", **kw):
+            gc.collect()
+            model = CausalLM(dataclasses.replace(cfg, attn_impl=impl))
+            before = self.host_counts()
+            (run, dt, losses), ran = device_launches(
+                lambda: self.run_lm(FAMILY_STEPS, model=model, graph=graph, **kw))
+            host = {k: n - before[k] for k, n in self.host_counts().items() if n != before[k]}
+            params = {k: w.detach().float().cpu() for k, w in run.runtime.scheduler.params.items()}
+            return run, dt, {"params": params, "losses": losses}, ran, host
+
+        def diff(a, b):
+            return max(max((a["params"][k] - v).abs().max().item() for k, v in b["params"].items()),
+                       (a["losses"] - b["losses"]).abs().max().item())
+
+        vals, runs = {}, {}
+        with self.deterministic() as refused:
+            for label, graph in (("eager", False), ("graph", True)):
+                run, dt, vals[label], ran, host = drive(graph)
+                sched = run.runtime.scheduler
+                if (sched.backend.name, run.runtime.device.type) != ("cuda", "cuda"):
+                    raise AssertionError(f"{name}: {sched.backend.name} on {run.runtime.device}")
+                if (sched._graph is not None) != graph or (graph and sched._graph.replays < 1):
+                    raise AssertionError(f"{name} {label}: graph {sched._graph}")
+                if not graph:
+                    check_eager_session(ran, host)
+                want = self.by_wrapper(self.lm_launches(sched, cfg, FAMILY_STEPS, False),
+                                       "split_tf32", "cuda_core")
+                host_want = self.by_wrapper(
+                    self.lm_launches(sched, cfg, FAMILY_STEPS, False, host=True),
+                    "split_tf32", "cuda_core")
+                if ran != want or host != host_want:
+                    raise AssertionError(f"{name} {label}: kernel runs {ran} (expected {want}), "
+                                         f"host launches {host} (expected {host_want})")
+                self.check_finite(sched.params, f"{name} {label}")
+                runs[label] = {"kernel_runs": ran, "host_launches": host,
+                               "it_per_s_cold": FAMILY_STEPS * sched.iterations_per_step / dt}
+                if graph:
+                    runs[label]["replays"] = sched._graph.replays
+                    batch = run.batch_source()(0)
+                groups, leaves = self.launch_groups(sched.params), len(sched.params)
+                del run, sched
+        ge = diff(vals["graph"], vals["eager"])
+        if not ge == 0.0:
+            raise AssertionError(f"{name}: graph vs eager {ge} (want 0.0)")
+        dense_run, _, dense_vals, _, _ = drive(None, impl="plain", backend="dense")
+        dense = {"params": max((vals["graph"]["params"][k] - v).abs().max().item()
+                               for k, v in dense_vals["params"].items()),
+                 "losses": (vals["graph"]["losses"] - dense_vals["losses"]).abs().max().item()}
+        del dense_run
+        chaotic = name in FAMILY_CHAOTIC
+        if not chaotic and not (dense["params"] <= 1e-4 and dense["losses"] <= 1e-4):
+            raise AssertionError(f"{name}: kernels vs dense+plain {dense} (tol 1e-4)")
+        step = self.fleet_step(cfg, vals["graph"]["params"], batch)
+        attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+        moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+        print(f"families {name} reduced ({cfg.num_layers} layers: {attn} attention, "
+              f"{cfg.num_layers - attn} mamba, {moe} MoE; d_model {cfg.d_model}, f32, "
+              f"{leaves} leaves = {groups} launch groups): {FAMILY_STEPS} supersteps, "
+              f"deterministic algorithms, graph vs eager {ge:.1e} (held to 0.0); ops without a deterministic implementation: "
+              f"{refused or 'none'}; kernel runs on the device {json.dumps(runs['graph']['kernel_runs'])} "
+              f"(every turn, exactly), host launches graph "
+              f"{json.dumps(runs['graph']['host_launches'])}, {runs['graph']['replays']} "
+              f"replays; cold it/s eager {runs['eager']['it_per_s_cold']:.3f}, graph "
+              f"{runs['graph']['it_per_s_cold']:.3f}; vs dense+plain max abs diff params "
+              f"{dense['params']:.3e}, losses {dense['losses']:.3e} "
+              f"({'reported, not held: see FAMILY_CHAOTIC' if chaotic else 'tol 1e-4'}); one "
+              f"fleet iteration from the graph run's state, flash vs plain: losses "
+              f"{step['losses']:.3e}, gradients {step['grads']:.3e} (tol 1e-4); "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        return {**runs, "graph_vs_eager": ge, "vs_dense_plain": dense,
+                "vs_dense_plain_held": not chaotic, "fleet_step_flash_vs_plain": step,
+                "no_deterministic_impl": refused, "launch_groups": groups, "leaves": leaves,
+                "losses": vals["graph"]["losses"].tolist()}
+
+    def fleet_step(self, cfg, params, batch) -> dict:
+        """One fleet iteration's losses and gradients (``vmap(grad_and_value)``
+        over the clients) from ``params`` on ``batch``, the flash kernels
+        against plain attention: both within 1e-4 (a gradient leaf's of
+        max(1, its largest entry)); returns the two differences."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.models import CausalLM
+
+        params = {k: w.to(self.dev) for k, w in params.items()}
+        batch = {k: torch.as_tensor(v, device=self.dev) for k, v in batch.items()}
+        got = {}
+        for impl in ("cuda", "plain"):
+            model = CausalLM(dataclasses.replace(cfg, attn_impl=impl))
+            got[impl] = torch.func.vmap(torch.func.grad_and_value(model.loss))(params, batch)
+        (g, loss), (gp, lp) = got["cuda"], got["plain"]
+        out = {"losses": (loss - lp).abs().max().item(),
+               "grads": max(((g[k] - r).abs().max() / max(1.0, r.abs().max().item())).item()
+                            for k, r in gp.items())}
+        del got, g, gp, params
+        if not (out["losses"] <= 1e-4 and out["grads"] <= 1e-4):
+            raise AssertionError(f"{cfg.name}: one fleet iteration, flash vs plain {out} "
+                                 f"(tol 1e-4)")
+        return out
+
+    def family_audio(self) -> dict:
+        """musicgen-large's reduced ``CausalLM`` (4 codebooks) on ``(B, 4, S)``
+        tokens: loss and gradients with the flash kernels against plain
+        attention, within 1e-5 (of a leaf's largest entry where that is
+        above 1)."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import CausalLM
+
+        cfg = get_config("musicgen-large").reduced()
+        gen = torch.Generator().manual_seed(0)
+        params = {k: w.to(self.dev) for k, w in CausalLM(cfg).init(gen).items()}
+        shape = (2, cfg.num_codebooks, 64)
+        batch = {k: torch.randint(0, cfg.vocab_size, shape, generator=gen).to(self.dev)
+                 for k in ("tokens", "labels")}
+        got = {}
+        for impl in ("cuda", "plain"):
+            model = CausalLM(dataclasses.replace(cfg, attn_impl=impl))
+            got[impl] = torch.func.grad_and_value(model.loss)(params, batch)
+        (g, loss), (gp, lp) = got["cuda"], got["plain"]
+        lerr = abs(loss.item() - lp.item())
+        gerr = max(((g[k] - r).abs().max() / max(1.0, r.abs().max().item())).item()
+                   for k, r in gp.items())
+        print(f"families musicgen-large reduced ({cfg.num_codebooks} codebooks, tokens "
+              f"{shape}, {cfg.num_layers} layers, f32): loss flash {loss.item():.6f} vs plain "
+              f"{lp.item():.6f} (diff {lerr:.3e}, tol 1e-5); gradients max abs diff "
+              f"{gerr:.3e} of max(1, the leaf's largest entry) (tol 1e-5)", flush=True)
+        if not (lerr <= 1e-5 and gerr <= 1e-5):
+            raise AssertionError("musicgen-large: flash and plain attention disagree")
+        return {"tokens": list(shape), "loss": loss.item(), "loss_diff": lerr, "grad_diff": gerr}
+
+    def width_lane(self, what, model, steps, graph, **overrides):
+        """federated-lm-ring at a published width, on the round's CUDA graph
+        or eager (``graph``): (run, cold host seconds, losses, host launches
+        by the LM counters, each set to 0 just before and held exactly to
+        ``lm_launches`` (a graph's warm-up and capture), peak bytes, client
+        0's initial parameters)."""
+        torch = self.torch
+        from repro_torch.scenarios import build_scenario
+
+        counters = self.lm_counters()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = build_scenario("federated-lm-ring", model=model, graph=None if graph else False,
+                             **overrides)
+        p_init = {k: w[0].clone() for k, w in run.runtime.scheduler.params.items()}
+        src = run.batch_source()
+        t0 = time.perf_counter()
+        losses = torch.cat([run.runtime.step(src).losses for _ in range(steps)]).float().cpu()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        sched = run.runtime.scheduler
+        if (sched._graph is not None) != graph or (graph and sched._graph.replays < 1):
+            raise AssertionError(f"{what}: graph {sched._graph}")
+        expected = self.lm_launches(sched, model.cfg, steps, evaluate=False, host=True)
+        if launches != expected or not launches["sgd_update"]:
+            raise AssertionError(f"{what} host launches {launches}, expected {expected}")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{what}: non-finite losses {losses.tolist()}")
+        self.check_finite(sched.params, what)
+        return run, dt, losses, launches, peak, p_init
+
+    def width_split(self, run) -> dict:
+        """Device milliseconds of one warm superstep by part, from the
+        profiler's kernel names (``WIDTH_PARTS``, the first match of each
+        name; the rest as ``other``), the busy share and the wall time; the
+        kernel runs of the path's wrappers in it held to ``lm_launches``.  (A
+        session that also records the ops' input shapes, to tell one GEMM
+        from another, ran out of memory at these widths: it keeps what the
+        step frees.)"""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.kernels import count_kernels
+
+        src = run.batch_source()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run.runtime.step(src)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = {(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+        busy_us, end = 0.0, float("-inf")
+        for _, a, b in sorted(spans, key=lambda x: x[1]):
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+        parts: dict = {}
+        for name, a, b in spans:
+            key = next((part for part, marks in WIDTH_PARTS
+                        if any(m in name for m in marks)), "other")
+            parts[key] = parts.get(key, 0.0) + (b - a) / 1e3
+        ran = count_kernels(name for name, _, _ in spans)
+        want = self.by_wrapper(self.lm_launches(run.runtime.scheduler, run.runtime.model.cfg, 1,
+                                                False), "tensor_core", "tensor_core")
+        if ran != want:
+            raise AssertionError(f"width superstep: kernel runs {ran}, expected {want}")
+        return {"kernel_runs": ran, "wall_ms": wall_ms, "busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
+                "kernels": len(spans), "parts_ms": {k: round(v, 4) for k, v in sorted(parts.items())}}
+
+    def moe_width(self):
+        """mixtral-8x7b at its published widths (``MOE_WIDTH``), cut in depth,
+        eager: the launches held exactly, rates, peak memory, the device time
+        of a superstep by part, the share of (token, expert) assignments the
+        capacity drops, one client's gradients flash vs plain, and the mixed
+        f32/bf16 trees against their plain versions."""
+        import dataclasses
+        import gc
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import flash_attention_bwd, flash_attention_fwd
+        from repro_torch.models import CausalLM
+
+        w = MOE_WIDTH
+        pub = get_config("mixtral-8x7b")
+        cfg = dataclasses.replace(pub, num_layers=w["num_layers"], remat=False)
+        run, dt, losses, launches, peak, p_init = self.width_lane(
+            "moe-width", CausalLM(cfg), WIDTH_STEPS, True, num_clients=w["num_clients"],
+            num_clusters=w["num_clusters"], seq_len=w["seq_len"], batch_size=w["batch_size"],
+            vocab_size=pub.vocab_size, num_samples=16)
+        for kname in launches:
+            self.record[kname]["moe_width_launches"] = launches[kname]
+        sched = run.runtime.scheduler
+        c, b, s = sched.fl.num_clients, run.batch_size, w["seq_len"]
+        iters = WIDTH_STEPS * sched.iterations_per_step
+        from repro_torch.models.moe import moe_capacity
+
+        cap = moe_capacity(s, cfg.num_experts_per_tok, cfg.num_experts, cfg.moe_capacity_factor)
+        routes = self.check_routes({"flash_attention": flash_attention_fwd,
+                                    "flash_attention_backward": flash_attention_bwd},
+                                   {"flash_attention": "tensor_core",
+                                    "flash_attention_backward": "tensor_core"}, "moe-width")
+        wiph = sched.iterations_per_step * self.warm_rate(run, 1)
+        split = self.width_split(run)
+        replays = sched._graph.replays
+        # the graph and its private pool are not needed past here: the holds
+        # below take copies of the 13.7 GB tree
+        sched._graph = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        split["expert_gemms_ms"] = self.expert_gemms_ms(run, cap) * sched.iterations_per_step
+        drop = self.moe_routing(run, cfg, cap)
+        drop_init = self.moe_routing(run, cfg, cap, p_init)
+        n_params = sum(w_[0].numel() for w_ in sched.params.values())
+        print(f"moe-width federated-lm-ring at mixtral-8x7b's published widths, on the "
+              f"round's CUDA graph ({replays} replays; peak {peak / 2**30:.2f} "
+              f"GiB with its pool): "
+              f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_experts} experts top-"
+              f"{cfg.num_experts_per_tok}, capacity factor {cfg.moe_capacity_factor} "
+              f"(capacity {cap} a sequence), {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.head_dim}, window {cfg.sliding_window}, rope {cfg.rope_theta}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}; cuts: depth {pub.num_layers} -> "
+              f"{cfg.num_layers}, remat off, C={c} in D={sched.fl.num_clusters}, S={s}, b={b}, "
+              f"no evaluate; {n_params} params per client; {iters} iterations in {dt:.3f}s "
+              f"= {iters / dt:.4f} it/s, {iters * c * b * s / dt:.1f} tokens/s cold; warm "
+              f"{wiph:.4f} it/s, {wiph * c * b * s:.1f} tokens/s; launches "
+              f"{json.dumps(launches)}, flash routes {json.dumps(routes)}; device split of a "
+              f"warm superstep {json.dumps(split)}; dropped assignments {drop['dropped']} "
+              f"of {drop['assignments']} ({100 * drop['fraction']:.3f}%; at the initial "
+              f"state {100 * drop_init['fraction']:.3f}%), tokens whose experts differ "
+              f"between flash and plain attention {drop['tokens_routed_differently']} (at the "
+              f"initial state {drop_init['tokens_routed_differently']}); losses "
+              f"{[round(x, 4) for x in losses.tolist()]}", flush=True)
+        # bf16's rounding of the two attentions moves a few tokens across a
+        # near tie of the router (14 of 2048 in the first layer at the initial
+        # state, on the card), and a moved token's gradients go to other
+        # experts, and the router's with them: one client's whole gradient
+        # tree flash vs plain is reported (its loss held), and the attention
+        # that the flash kernels compute is held on its own, at the model's
+        # activations and shapes
+        held = {"attention_initial": self.hold_attention_grads(
+                    run, "moe-width, initial state", p_init),
+                "initial": self.hold_client_grads(run, "moe-width, initial state", p_init,
+                                                  hold_grads=False),
+                "trained": self.hold_client_grads(run, "moe-width, trained state",
+                                                  hold_grads=False)}
+        del p_init
+        trees = self.hold_mixed_trees(run, "moe-width")
+        self.detail["moe_width"] = {
+            "launches": launches, "params_per_client": n_params, "peak_bytes": peak,
+            "capacity": cap, "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
+            "tokens_per_s_cold": iters * c * b * s / dt, "tokens_per_s_warm": wiph * c * b * s,
+            "flash_routes": routes, "split": split, "drops": drop, "drops_initial": drop_init,
+            "losses": losses.tolist(),
+            "cuda_vs_plain": held, "trees": trees, "graph": True, "graph_replays": replays,
+            "cuts": {"num_layers": [pub.num_layers, cfg.num_layers], "remat": [True, False],
+                     "clients": c, "clusters": sched.fl.num_clusters, "seq_len": s,
+                     "batch_size": b, "evaluate": False}}
+        del run, sched
+        torch.cuda.empty_cache()
+
+    def expert_gemms_ms(self, run, cap) -> float:
+        """CUDA-event ms of one iteration's expert GEMMs, forward and
+        backward, for the fleet: ``models.moe._experts`` vmapped over the
+        clients on random ``(b, E, cap, d)`` slots and the run's first MoE
+        layer's expert weights (its own tensors, detached), gradients of the
+        slots and the weights as the training step takes them."""
+        torch = self.torch
+        from repro_torch.models.moe import _experts
+
+        params = run.runtime.scheduler.params
+        ws = [params[f"blocks.pos0.ffn.{k}"][:, 0].detach().requires_grad_()
+              for k in ("w_gate", "w_up", "w_down")]
+        c, e, d = ws[0].shape[0], ws[0].shape[1], ws[0].shape[2]
+        gen = torch.Generator(device=self.dev).manual_seed(5)
+        buf = torch.randn((c, run.batch_size, e, cap, d), generator=gen, device=self.dev
+                          ).to(ws[0].dtype).requires_grad_()
+        gout = torch.randn(buf.shape, generator=gen, device=self.dev).to(buf.dtype)
+        experts = torch.func.vmap(
+            lambda bb, g, u, dn: _experts(bb, {"w_gate": g, "w_up": u, "w_down": dn}))
+
+        def step():
+            torch.autograd.grad(experts(buf, *ws), (buf, *ws), gout)
+
+        ms = self.cuda_ms(step, reps=3, warmup=1)
+        del ws, buf, gout
+        torch.cuda.empty_cache()
+        return ms
+
+    def ssd_ms(self, run, cfg) -> dict:
+        """CUDA-event ms of one layer's SSD core for the fleet, forward and
+        backward, at the run's shapes (``models.mamba.ssd_chunked`` vmapped
+        over the clients on random inputs): the whole core, and its
+        inter-chunk recurrence loop alone (``_ssd_recurrence``)."""
+        torch = self.torch
+        from repro_torch.models.mamba import _ssd_recurrence, ssd_chunked
+
+        c, b, s = run.runtime.scheduler.fl.num_clients, run.batch_size, SSM_WIDTH["seq_len"]
+        h, p, n, q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        gen = torch.Generator(device=self.dev).manual_seed(6)
+
+        def rand(*shape, dtype=torch.float32, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=self.dev) * scale).to(
+                dtype).requires_grad_()
+
+        act = cfg.act_dtype
+        dt = torch.nn.functional.softplus(rand(c, b, s, h)).detach().requires_grad_()
+        core_in = (rand(c, b, s, h, p, dtype=act), rand(c, b, s, n, dtype=act),
+                   rand(c, b, s, n, dtype=act), (-dt * 4).detach().requires_grad_(), dt,
+                   torch.zeros((c, b, h, n, p), device=self.dev))
+        core = torch.func.vmap(lambda *a: ssd_chunked(*a, chunk=q))
+        nc = s // q
+        loop_in = (rand(c, b, nc, h, n, p, scale=0.1), rand(c, b, nc, h, scale=0.1),
+                   rand(c, b, nc, q, n), rand(c, b, nc, q, h, scale=0.1),
+                   torch.zeros((c, b, h, n, p), device=self.dev))
+        loop = torch.func.vmap(_ssd_recurrence)
+
+        def grad(fn, inputs):
+            y, hf = fn(*inputs)
+            leaves = [x for x in inputs if x.requires_grad]
+            torch.autograd.grad((y, hf), leaves, (torch.ones_like(y), torch.ones_like(hf)))
+
+        out = {"ssd_core_ms": self.cuda_ms(lambda: grad(core, core_in), reps=3, warmup=1),
+               "ssd_recurrence_loop_ms": self.cuda_ms(lambda: grad(loop, loop_in), reps=3,
+                                                      warmup=1)}
+        del core_in, loop_in, dt
+        torch.cuda.empty_cache()
+        return out
+
+    def moe_routing(self, run, cfg, cap, params=None) -> dict:
+        """The first MoE layer's routing at the run's state (client 0's, or
+        ``params``) on client 0's first batch, through the layer's attention
+        half to the router: the (token, expert) assignments past ``cap``
+        dropped (flash attention), and the tokens whose chosen experts
+        differ between the flash kernels and plain attention."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.models import transformer
+        from repro_torch.models.layers import rms_norm
+        from repro_torch.models.moe import router_topk
+
+        if params is None:
+            params = {k: w_[0] for k, w_ in run.runtime.scheduler.params.items()}
+        p = {k[len("blocks.pos0."):]: w_[0] for k, w_ in params.items()
+             if k.startswith("blocks.pos0.")}
+        tokens = torch.as_tensor(run.batch_source()(0)["tokens"][0], device=self.dev)
+        pos = torch.arange(tokens.shape[-1], device=self.dev)
+        ids = {}
+        with torch.no_grad():
+            x = run.runtime.model.embed_tokens(params, tokens)
+            for impl in ("cuda", "plain"):
+                c = dataclasses.replace(cfg, attn_impl=impl)
+                y = x + transformer._attention(p, rms_norm(x, p["ln_mix"], cfg.norm_eps), c,
+                                               window=cfg.window_for_layer(0), positions=pos)
+                h = rms_norm(y, p["ln_ffn"], cfg.norm_eps)
+                ids[impl] = torch.stack([router_topk(seq, p["ffn.w_router"],
+                                                     cfg.num_experts_per_tok)[0] for seq in h])
+        experts = torch.arange(cfg.num_experts, device=self.dev)
+        counts = (ids["cuda"].reshape(ids["cuda"].shape[0], -1)[..., None] == experts).sum(1)
+        dropped = int(torch.clamp(counts - cap, min=0).sum())
+        moved = int((ids["cuda"].sort(-1).values != ids["plain"].sort(-1).values).any(-1).sum())
+        n = ids["cuda"].numel()
+        return {"dropped": dropped, "assignments": n, "fraction": dropped / n,
+                "tokens_routed_differently": moved}
+
+    def hold_mixed_trees(self, run, what) -> dict:
+        """The transition (D = the run's, alpha = the run's) and SGD on random
+        leaves of the run's mixed f32/bf16 tree, out of place, against their
+        plain versions (bf16 3e-2 for the transition, SGD bitwise; one launch
+        a dtype group), then each timed in place on the run's own tree."""
+        torch = self.torch
+        from repro_torch.kernels import sgd_update_tree
+
+        sched = run.runtime.scheduler
+        backend, params = sched.backend, sched.params
+        groups = self.launch_groups(params)
+        dtypes = sorted({str(w_.dtype)[6:] for w_ in params.values()})
+        gen = torch.Generator(device=self.dev).manual_seed(4)
+        rand = {k: torch.randn(w_.shape, generator=gen, device=self.dev).to(w_.dtype)
+                for k, w_ in params.items()}
+        chunk = 1 << 24
+        tr_err, moved = self.hold_transition_tree(rand, backend._vt, backend._p, backend._bt,
+                                                  backend.alpha, 3e-2, f"{what} mixed", groups,
+                                                  chunk)
+        sgd_err = self.hold_sgd_tree(params, rand, 0.0, f"{what} mixed", groups,
+                                     chunk * backend._bt.shape[0])
+        tr_ms = self.cuda_ms(lambda: backend.transition(params, "inter"), reps=3, warmup=1)
+        sgd_ms = self.cuda_ms(lambda: sgd_update_tree(params, rand, 1e-6, inplace=True),
+                              reps=3, warmup=1)
+        nbytes = sum(w_.numel() * w_.element_size() for w_ in params.values())
+        del rand
+        torch.cuda.empty_cache()
+        print(f"  {what} trees ({len(params)} leaves, dtypes {dtypes}, {groups} launches a "
+              f"call, {nbytes / 1e9:.3f} GB): fused_transition vs plain max abs err "
+              f"{tr_err:.3e} (tol 3e-2; moves its input by up to {moved:.3e}), sgd_update "
+              f"bitwise ({sgd_err:.1e}); in place on the run's tree: transition (inter) "
+              f"{tr_ms:.4f} ms, sgd_update {sgd_ms:.4f} ms (bytes bound "
+              f"{self.bound(2 * nbytes, 0)[0]:.4f} and {self.bound(3 * nbytes, 0)[0]:.4f} ms)",
+              flush=True)
+        out = {"leaves": len(params), "dtypes": dtypes, "launches_per_call": groups,
+               "bytes": nbytes, "fused_transition_max_abs_err": tr_err,
+               "sgd_update_max_abs_err": sgd_err, "fused_transition_ms": tr_ms,
+               "sgd_update_ms": sgd_ms, "fused_transition_bound_ms": self.bound(2 * nbytes, 0)[0],
+               "sgd_update_bound_ms": self.bound(3 * nbytes, 0)[0]}
+        for kname in ("fused_transition", "sgd_update"):
+            self.record[kname][what.replace("-", "_")] = {
+                k: v for k, v in out.items() if not k.startswith(
+                    "sgd" if kname == "fused_transition" else "fused")}
+        return out
+
+    def ssm_width(self):
+        """mamba2-780m at its published widths (``SSM_WIDTH``), cut in depth,
+        eager: no attention (no flash launch), the mixed f32/bf16 SGD and
+        transition launches held exactly, finite losses, rates, peak memory,
+        the device time of a superstep by part, and the mixed trees against
+        their plain versions."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import CausalLM
+
+        w = SSM_WIDTH
+        pub = get_config("mamba2-780m")
+        cfg = dataclasses.replace(pub, num_layers=w["num_layers"], remat=False)
+        run, dt, losses, launches, peak, _ = self.width_lane(
+            "ssm-width", CausalLM(cfg), WIDTH_STEPS, False, num_clients=w["num_clients"],
+            num_clusters=w["num_clusters"], seq_len=w["seq_len"], batch_size=w["batch_size"],
+            vocab_size=pub.vocab_size, num_samples=16)
+        if launches["flash_attention"] or launches["fused_transition"] == 0:
+            raise AssertionError(f"ssm-width launches {launches}")
+        for kname in ("sgd_update", "fused_transition"):
+            self.record[kname]["ssm_width_launches"] = launches[kname]
+        sched = run.runtime.scheduler
+        c, b, s = sched.fl.num_clients, run.batch_size, w["seq_len"]
+        iters = WIDTH_STEPS * sched.iterations_per_step
+        wiph = sched.iterations_per_step * self.warm_rate(run, 1)
+        split = self.width_split(run)
+        per_layer = self.ssd_ms(run, cfg)
+        split.update({k: v * cfg.num_layers * sched.iterations_per_step
+                      for k, v in per_layer.items()})
+        n_params = sum(w_[0].numel() for w_ in sched.params.values())
+        print(f"ssm-width federated-lm-ring at mamba2-780m's published widths, eager "
+              f"(graph=False; peak {peak / 2**30:.2f} GiB): d_model {cfg.d_model}, d_inner "
+              f"{cfg.d_inner}, {cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+              f"{cfg.ssm_state}, conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}, vocab "
+              f"{cfg.vocab_size} (padded {cfg.padded_vocab}), tied embeddings, {cfg.dtype}; "
+              f"cuts: depth {pub.num_layers} -> {cfg.num_layers}, remat off, C={c} in "
+              f"D={sched.fl.num_clusters}, S={s}, b={b}, no evaluate; {n_params} params per "
+              f"client; {iters} iterations in {dt:.3f}s = {iters / dt:.4f} it/s, "
+              f"{iters * c * b * s / dt:.1f} tokens/s cold; warm {wiph:.4f} it/s, "
+              f"{wiph * c * b * s:.1f} tokens/s; launches {json.dumps(launches)}; device split "
+              f"of a warm superstep {json.dumps(split)}; losses "
+              f"{[round(x, 4) for x in losses.tolist()]}", flush=True)
+        trees = self.hold_mixed_trees(run, "ssm-width")
+        self.detail["ssm_width"] = {
+            "launches": launches, "params_per_client": n_params, "peak_bytes": peak,
+            "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
+            "tokens_per_s_cold": iters * c * b * s / dt, "tokens_per_s_warm": wiph * c * b * s,
+            "split": split, "losses": losses.tolist(), "trees": trees, "graph": False,
+            "cuts": {"num_layers": [pub.num_layers, cfg.num_layers], "remat": [True, False],
+                     "clients": c, "clusters": sched.fl.num_clusters, "seq_len": s,
+                     "batch_size": b, "evaluate": False}}
+        del run, sched
+        torch.cuda.empty_cache()
 
     # -- the offload phase ---------------------------------------------------
     def offload(self):
@@ -3092,6 +3827,9 @@ class Smoke:
             self.phase("fleet", self.fleet)
             self.phase("lm", self.lm_path)
             self.phase("lm-width", self.lm_width)
+            self.phase("families", self.families)
+            self.phase("moe-width", self.moe_width)
+            self.phase("ssm-width", self.ssm_width)
             self.phase("offload", self.offload)
             self.phase("examples", self.examples)
         if "jax" in sys.modules:
@@ -3107,7 +3845,9 @@ class Smoke:
                    for k in KERNELS]
         for entry in kernels:  # granite-8b's numbers (bf16; the f32 forward's too)
             for extra in ("width", "f32_width", "host_launches", "fleet_host_launches",
-                          "offload_host_launches", "offload_maxd8", "by_value_ab"):
+                          "offload_host_launches", "offload_maxd8", "by_value_ab",
+                          "families_host_launches", "moe_width_launches", "moe_width",
+                          "ssm_width_launches", "ssm_width", "mixtral_width", "hd160"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

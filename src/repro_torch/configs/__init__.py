@@ -1,10 +1,10 @@
-"""Registry of the architectures the port runs: the dense text configs.
+"""Registry of the architectures the port runs: the reference's ten.
 
-The port's ``repro.configs`` for the federated-LM slice: ``granite-8b``,
-``qwen2.5-3b`` (QKV bias), ``command-r-35b`` and ``gemma2-2b`` (local/global
-windows, logit softcaps, post norms, embed scale, tied embeddings), with
-the reference's published widths.  The MoE, SSM, hybrid, VLM and audio
-families are named but raise ``NotImplementedError`` until their slice.
+The port's ``repro.configs``, with the reference's published widths: the
+dense text configs (``granite-8b``, ``qwen2.5-3b``, ``command-r-35b``,
+``gemma2-2b``), the MoE configs (``mixtral-8x7b``, ``grok-1-314b``), the
+SSM ``mamba2-780m``, the hybrid ``jamba-1.5-large-398b``, the VLM
+``pixtral-12b`` and the audio ``musicgen-large``.
 """
 from __future__ import annotations
 
@@ -15,30 +15,22 @@ from ..models.config import ArchConfig
 __all__ = ["ARCH_NAMES", "get_config"]
 
 _MODULES = {
+    "grok-1-314b": "grok_1_314b",
     "granite-8b": "granite_8b",
+    "pixtral-12b": "pixtral_12b",
     "command-r-35b": "command_r_35b",
+    "mamba2-780m": "mamba2_780m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "musicgen-large": "musicgen_large",
+    "mixtral-8x7b": "mixtral_8x7b",
     "gemma2-2b": "gemma2_2b",
-}
-# the reference's other architectures, and where ROADMAP.md queues them
-_NOT_PORTED = {
-    "grok-1-314b": "MoE",
-    "mixtral-8x7b": "MoE",
-    "mamba2-780m": "SSM",
-    "jamba-1.5-large-398b": "hybrid",
-    "pixtral-12b": "VLM",
-    "musicgen-large": "audio",
 }
 
 ARCH_NAMES = tuple(_MODULES)
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} ({_NOT_PORTED[name]} family) is not ported yet "
-            f"(ROADMAP.md queue 1, 'Model families')"
-        )
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
     mod = importlib.import_module(f"{__name__}.{_MODULES[name]}")

@@ -14,7 +14,10 @@ from the profiler's kernel records: ``device_launches(fn)`` runs ``fn``
 under ``torch.profiler`` and ``count_kernels`` maps the device kernels'
 names to the wrappers (keys ``<wrapper>`` and ``<wrapper>.<route>``);
 ``device_kernel_names(fn)`` gives every kernel's name, and raises
-``EmptySessionError`` when a session lost its device records.
+``EmptySessionError`` when a session lost its device records.  On an eager
+run each host launch is one device run, so ``check_eager_session(ran,
+host)`` raises ``ShortSessionError``, naming the kernels whose records are
+missing, when a session counted fewer runs than the wrappers launched.
 """
 import re
 
@@ -75,6 +78,29 @@ class EmptySessionError(RuntimeError):
             f"so the kernels that ran are not counted (ROADMAP.md §3)")
 
 
+class ShortSessionError(RuntimeError):
+    """A profiler session around an eager run that recorded fewer device runs
+    of a wrapper's kernel than the wrapper launched from the host: the
+    session lost some of its records, and no count is made of it.
+    ``missing`` maps each such wrapper key to ``(device runs, host launches)``."""
+
+    def __init__(self, missing: dict):
+        self.missing = missing
+        super().__init__(
+            f"the profiler session recorded fewer device runs than the host launched "
+            f"(key: (device runs, host launches)) for {missing}: the device's records of "
+            f"these kernels were lost, so the run is not counted (ROADMAP.md §3)")
+
+
+def check_eager_session(ran: dict, host: dict) -> None:
+    """Raise ``ShortSessionError`` unless ``ran`` (device runs by wrapper key,
+    ``count_kernels``) holds at least ``host`` (host launches by the same keys)
+    for every key: on an eager run every host launch runs once on the device."""
+    missing = {k: (ran.get(k, 0), n) for k, n in host.items() if ran.get(k, 0) < n}
+    if missing:
+        raise ShortSessionError(missing)
+
+
 # the host calls that put kernels on the device, graph replays included
 HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernelEx")
@@ -125,8 +151,8 @@ MARGIN_S = 0.05  # device_launches's idle time at each end of a session
 
 
 __all__ = [
-    "DEVICE_KERNELS", "EmptySessionError", "HOST_LAUNCH_CALLS", "count_kernels",
-    "device_kernel_names", "device_launches",
+    "DEVICE_KERNELS", "EmptySessionError", "HOST_LAUNCH_CALLS", "ShortSessionError",
+    "check_eager_session", "count_kernels", "device_kernel_names", "device_launches",
     "sgd_update", "sgd_update_ref", "sgd_update_tree",
     "normalized_update", "normalized_update_ref", "normalized_update_tree",
     "fused_transition", "fused_transition_ref", "fused_transition_tree",

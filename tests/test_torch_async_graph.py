@@ -206,6 +206,20 @@ def test_device_kernel_names_refuses_a_session_without_device_records(monkeypatc
     assert kernels.device_launches(lambda: 7) == (7, {})
 
 
+def test_check_eager_session_names_the_kernels_whose_records_are_missing():
+    """An eager run's device runs short of its host launches raise
+    ``ShortSessionError`` naming each short kernel; a whole session passes."""
+    from repro_torch import kernels
+
+    host = {"sgd_update": 32, "fused_transition": 12, "flash_attention_fwd": 66,
+            "flash_attention_fwd.split_tf32": 66}
+    kernels.check_eager_session(dict(host), host)
+    short = dict(host, sgd_update=31, **{"flash_attention_fwd.split_tf32": 0})
+    with pytest.raises(kernels.ShortSessionError, match="records of these kernels") as err:
+        kernels.check_eager_session(short, host)
+    assert err.value.missing == {"sgd_update": (31, 32), "flash_attention_fwd.split_tf32": (0, 66)}
+
+
 # -- the public API the examples call ---------------------------------------------
 
 def test_round_scheduler_rounds_steps_and_round_time_equal_reference():

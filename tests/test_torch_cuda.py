@@ -630,6 +630,107 @@ def test_federated_lm_ring_on_kernels_matches_dense_plain(cuda):
     assert abs(runs["cuda"][3] - runs["dense"][3]) <= 1e-4 * abs(runs["dense"][3])
 
 
+# -- the model families ----------------------------------------------------------
+
+@pytest.mark.cuda
+def test_moe_superstep_graph_replays_equal_eager(cuda):
+    """Reduced mixtral's federated-lm-ring superstep captures into one CUDA
+    graph (no host sync in the MoE dispatch) and its replays equal the eager
+    loop bitwise, under deterministic algorithms (the index backwards'
+    atomics otherwise sum in any order)."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import CausalLM
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = {}
+        for graph in (False, True):
+            run = build_scenario("federated-lm-ring", device=cuda, graph=graph,
+                                 model=CausalLM(cfg), num_samples=64)
+            src = run.batch_source()
+            losses = torch.cat([run.runtime.step(src).losses for _ in range(3)])
+            sched = run.runtime.scheduler
+            assert (sched._graph is not None) == graph
+            if graph:
+                assert sched._graph.replays >= 1
+            got[graph] = (losses, {k: w.clone() for k, w in sched.params.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+    assert torch.equal(got[True][0], got[False][0])
+    for k, w in got[False][1].items():
+        assert torch.equal(got[True][1][k], w), k
+
+
+@pytest.mark.cuda
+def test_flash_attention_hd160_bf16_matches_plain(cuda):
+    """pixtral-12b's head width, 160, in bf16: the forward on the tensor
+    cores (``fwd<256, 64, 2>``), the backward on the CUDA cores, each
+    against the plain version (3e-2 forward, lse 1e-4, gradients 3e-2 of the
+    largest reference entry)."""
+    b, s, hq, hkv, hd = 2, 320, 8, 2, 160
+    q, k, v, dout = _qkvg(cuda, torch.bfloat16, b, s, hq, hkv, hd)
+    assert (route(torch.bfloat16, hd), route(torch.bfloat16, hd, backward=True)) == (
+        "tensor_core", "cuda_core")
+    n = flash_attention_fwd.routes["tensor_core"], flash_attention_bwd.routes["cuda_core"]
+    out, lse = flash_attention_fwd(q, k, v)
+    ref_out, ref_lse = flash_attention_fwd_ref(q, k, v)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.routes["tensor_core"] - n[0],
+            flash_attention_bwd.routes["cuda_core"] - n[1]) == (1, 1)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    for got, ref in zip(grads, refs):
+        _close(got, ref, 3e-2)
+
+
+@pytest.mark.cuda
+def test_mixed_dtype_family_trees_match_plain(cuda):
+    """A bf16 jamba tree (its MoE router and mamba ``A_log``, ``D`` and
+    ``dt_bias`` stay f32) stacked over 8 clients: the transition and SGD each
+    take one launch a table of one dtype (four: 138 bf16 leaves in three
+    tables of up to 64, 25 f32 leaves in one), the transition within 1e-5 (f32) and 3e-2 (bf16) of its plain version,
+    SGD bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._leaves import plan_launches
+    from repro_torch.models import CausalLM
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(), dtype="bfloat16",
+                              d_model=64, d_ff=64)
+    w0 = CausalLM(cfg).init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tree = {k: torch.randn((8,) + tuple(w.shape), generator=gen, device=cuda).to(w.dtype)
+            for k, w in w0.items()}
+    assert {w.dtype for w in tree.values()} == {torch.float32, torch.bfloat16}
+    groups = len(plan_launches([(w.dtype, 0, ()) for w in tree.values()]))
+    assert groups == 4
+    vt, p, bt = _uniform_factors(cuda, 8, 4)
+    grads = {k: torch.randn(w.shape, generator=gen, device=cuda).to(w.dtype)
+             for k, w in tree.items()}
+    n = fused_transition.launches, sgd_update.launches
+    out = fused_transition_tree(tree, vt, p, bt, alpha=2)
+    new = sgd_update_tree(tree, grads, 0.1)
+    torch.cuda.synchronize()
+    assert (fused_transition.launches - n[0], sgd_update.launches - n[1]) == (groups, groups)
+    for k, w in tree.items():
+        ref = fused_transition_ref(w.reshape(8, -1), vt, p, bt, 2).reshape(w.shape)
+        tol = 1e-5 if w.dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(out[k].float(), ref.float(), atol=tol, rtol=0)
+        assert torch.equal(new[k], sgd_update_ref(w, grads[k], 0.1)), k
+
+
 # -- captured steps (core/cuda_graph.py) --------------------------------------
 
 _HOST_COUNTED = {"fused_transition": fused_transition, "sgd_update": sgd_update,

@@ -1,7 +1,8 @@
 """Port parity: architecture configs, the causal LM and the LM corpora.
 
-``ArchConfig`` fields and derived sizes against the reference's for the four
-dense configs; ``CausalLM`` loss and gradients against JAX's from the same
+``ArchConfig`` fields and derived sizes against the reference's for all ten
+configs (the model families' ``CausalLM`` is held in
+``test_torch_families.py``); ``CausalLM`` loss and gradients against JAX's from the same
 (carried) weights and tokens for a granite-like GQA config, a gemma2-like
 config (both softcaps, a local window shorter than the sequence, post
 norms, embed scale, tied embeddings) and a qwen-like config with QKV
@@ -28,10 +29,8 @@ from repro_torch.convert import (
     flatten_params, params_from_numpy, params_to_numpy, unflatten_params,
 )
 
-DENSE = ("granite-8b", "qwen2.5-3b", "command-r-35b", "gemma2-2b")
 
-
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
 def test_arch_config_matches_reference(name):
     ref, got = jconfigs.get_config(name), tconfigs.get_config(name)
     for cfg_ref, cfg in ((ref, got), (ref.reduced(), got.reduced())):
@@ -55,22 +54,10 @@ def test_arch_config_matches_reference(name):
     assert got.attn_impl == "cuda"
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "grok-1-314b", "mamba2-780m",
-                                  "jamba-1.5-large-398b", "pixtral-12b", "musicgen-large"])
-def test_other_families_raise(name):
-    jconfigs.get_config(name)  # registered in the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfigs.get_config(name)
-
-
 def test_remat_and_unported_layers_raise():
+    # every layer kind is ported; activation checkpointing is not
     with pytest.raises(NotImplementedError, match="remat"):
         tmodels.CausalLM(tconfigs.get_config("granite-8b"))
-    cfg = tconfigs.get_config("granite-8b").reduced()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tmodels.CausalLM(dataclasses.replace(cfg, family="moe", num_experts=4))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        tmodels.CausalLM(dataclasses.replace(cfg, attn_layer_period=2, num_layers=4))
 
 
 # tiny variants: S = 16, two attention chunks of 8 on the plain path
@@ -136,8 +123,9 @@ def test_causal_lm_loss_and_grads_match_jax(variant, impl):
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], atol=1e-5, err_msg=k)
     # the forward's logits too (softcapped f32, padded vocabulary)
-    logits = model.forward(params, {"tokens": torch.from_numpy(batch["tokens"])})
+    logits, aux = model.forward(params, {"tokens": torch.from_numpy(batch["tokens"])})
     np.testing.assert_allclose(logits.numpy(), jlogits, atol=1e-5)
+    assert aux.item() == 0.0  # no MoE layer
 
 
 def test_vmapped_clients_match_per_client_loss():
