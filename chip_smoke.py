@@ -21,12 +21,15 @@ Phases, one result line each; any failure exits non-zero without the final
             ``--old-gossip``; skipped alike).  ptxas's report of the leaf-table kernels
             (``fused_transition_kernel``, ``sgd_update_kernel``,
             ``normalized_update_kernel``, ``cluster_agg_kernel``,
-            ``gossip_mix_kernel``) and of the split-TF32 forward
-            (``flash_fwd_split_tf32_kernel``): the phase fails if any
-            instantiation spills registers.  ``cuobjdump -sass``
+            ``gossip_mix_kernel``), of the split-TF32 forward
+            (``flash_fwd_split_tf32_kernel``) and of the wide bf16
+            backward (``flash_bwd_dkdv_wide_sm90_kernel`` and the 32-key
+            instantiations of ``flash_bwd_dq_sm90_kernel``): the phase
+            fails if any instantiation spills registers.  ``cuobjdump -sass``
             of the flash library: the counts of ``HGMMA`` (wgmma) and
             ``UTMALDG`` (TMA load) instructions per kernel; the phase fails if
-            the bf16 tensor-core forward, dK/dV or dQ kernel has none.
+            the bf16 tensor-core forward or any of its four backward dK/dV
+            and dQ kernels (hd <= 128 and wide) has none.
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the leaf shapes of MnistCNN and CifarCNN stacked over
             C=20 clients in D=4 clusters, f32 and bf16.  Transition and SGD:
@@ -55,26 +58,34 @@ Phases, one result line each; any failure exits non-zero without the final
             ``torch._foreach_add_`` for SGD, and ``torch._foreach_sub``
             plus ``torch._foreach_mul_``, two calls, for normalized_update).  Flash attention forward and backward
             against their plain versions at federated-lm-ring's (16, 64, 4,
-            4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's (1, 8192,
-            8, 4, 256) with window 4096 and cap 50, a GQA case with hd 96
+            4, 64), granite-8b's (8, 2048, 32, 8, 128), gemma2-2b's local
+            layer (1, 8192, 8, 4, 256) with window 4096 and cap 50 and its
+            global layer at the gemma2-width lane's (4, 2048, 8, 4, 256)
+            with cap 50, a GQA case with hd 96
             and a ragged S = 80, S = 16 (below one tile), mixtral-8x7b's
-            (4, 2048, 32, 8, 128) with window 4096 and pixtral-12b's hd 160,
-            (2, 2048, 32, 8, 160), f32 and bf16
+            (4, 2048, 32, 8, 128) with window 4096, pixtral-12b's hd 160,
+            (2, 2048, 32, 8, 160), and two wide heads under a cap of 2,
+            which bites on these unit-variance scores (hd 136 and a ragged
+            hd 200 with a window), f32 and bf16
             (f32 forwards on the split-TF32 route, f32 backwards on the
-            CUDA cores; bf16 on the tensor-core route except the backwards
-            wider than hd 128, gemma2-2b's and pixtral-12b's, which stay on
-            the CUDA cores; 2e-5 f32 and
+            CUDA cores; bf16 on the tensor-core route, the backwards wider
+            than hd 128 on its wide kernels; 2e-5 f32 and
             3e-2 bf16 forward, as the reference's kernel tests; lse 1e-4;
             gradients 1e-4 f32 and 3e-2 bf16 relative to the largest
             reference entry),
-            then timed at both LM phases' shapes, mixtral-8x7b's and
-            pixtral-12b's (bf16), and the f32 forward also at
-            granite-8b's heads, (2, 2048, 32, 8, 128), against
-            ``scaled_dot_product_attention`` (the kernel the profiler saw it
-            launch is named), with the achieved TFLOP/s and the share of the
-            bound; and the split-TF32 forward against the forward it
-            replaced, built from its old source, in one process (graph
-            replays, old new new old) at those two f32 shapes; and the
+            then timed at both LM phases' shapes, mixtral-8x7b's,
+            pixtral-12b's and gemma2-2b's global layer (bf16), and the f32
+            forward also at granite-8b's heads, (2, 2048, 32, 8, 128),
+            against ``scaled_dot_product_attention`` (the kernel the
+            profiler saw it launch is named; none under gemma2's cap, which
+            no library call computes), with the achieved TFLOP/s and the
+            share of the bound; the split-TF32 forward against the forward
+            it replaced, built from its old source, in one process (graph
+            replays, old new new old) at those two f32 shapes; the wide
+            bf16 backward at pixtral's and gemma2's shapes against the
+            CUDA-core kernel that took those widths before, launched
+            directly on the same inputs (held within 3e-2, then graph
+            replays, old new new old), and its device time by kernel; and the
             device-P gossip_mix tree against the by-value one at the MNIST
             and CIFAR async shapes (graph replays, in place, by-value,
             device, device, by-value).
@@ -183,7 +194,20 @@ Phases, one result line each; any failure exits non-zero without the final
             then the transition (the inter event: D=4, alpha=2) and SGD timed
             on the run's own 12-leaf bf16 tree in place, against the bytes
             bound and the library calls.
-10. families the model families at ``reduced()`` widths (f32), every LM
+10. gemma2-width eager: gemma2-2b at its published widths (d_model
+            2304, d_ff 9216, 8/4 heads of 256, local window 4096 on even
+            layers, attention cap 50, final cap 30, post-norms, embedding
+            scale, vocab 256000 tied, bf16), cut to 2 layers (local, then
+            global; the window passes S = 2048, so both attend causally in
+            full), C = 4 in D = 2, S = 2048, b = 1, no evaluate; on the
+            round's graph its private pool took 63 GiB and the run ran out
+            of memory, so eager: launches held exactly, every flash launch,
+            forward and backward, on the tensor cores (the backward on the
+            wide kernels), rate, peak memory, a superstep's device time by
+            part with the flash backward's ms, one client's loss and
+            gradients flash vs plain (1e-2 and 5e-2), and the bf16 trees
+            against their plain versions.
+11. families the model families at ``reduced()`` widths (f32), every LM
             counter set to 0 just before the phase and read just after:
             ``federated-lm-ring`` with ``model=CausalLM(...)`` for
             mixtral-8x7b, grok-1-314b, mamba2-780m, jamba-1.5-large-398b
@@ -200,7 +224,7 @@ Phases, one result line each; any failure exits non-zero without the final
             plain, within 1e-4; musicgen-large's reduced model on (2, 4,
             64) codebook tokens, loss and gradients flash against plain
             within 1e-5.
-11. moe-width mixtral-8x7b at its published widths (d_model 4096, d_ff
+12. moe-width mixtral-8x7b at its published widths (d_model 4096, d_ff
             14336, 8 experts top-2, capacity factor 1.25, 32/8 heads of
             128, window 4096, vocab 32000, bf16), cut to 1 layer, C = 4 in
             D = 2, S = 2048, b = 1, no evaluate, on the round's CUDA graph
@@ -221,7 +245,7 @@ Phases, one result line each; any failure exits non-zero without the final
             gradients reported: a token moved across a router tie sends its
             gradients to other experts), and the mixed trees against their
             plain versions, then timed.
-12. ssm-width eager: mamba2-780m at its published widths (d_model 1536,
+13. ssm-width eager: mamba2-780m at its published widths (d_model 1536,
             48 SSD heads of 64, state 128, conv 4, chunk 128, vocab 50280,
             tied, bf16), cut to 4 layers (what 80 GB holds at C = 8),
             C = 8 in D = 4, S = 2048, b = 1: no flash launch, the mixed SGD
@@ -229,7 +253,7 @@ Phases, one result line each; any failure exits non-zero without the final
             split by kernel name, the SSD core and its inter-chunk loop
             timed alone with CUDA events (``ssd_ms``), and the mixed trees
             against their plain versions.
-13. offload host-offloaded client state (``repro_torch.state``), every
+14. offload host-offloaded client state (``repro_torch.state``), every
             kernel counter zeroed just before the phase and read just after
             (each of the five fleet kernels must have launched):
             ``million-client-ring`` as registered (10^6 procedural clients,
@@ -257,7 +281,7 @@ Phases, one result line each; any failure exits non-zero without the final
             participants stored, and equal to cluster mode at 0.0.
             ``dropout-participation-async`` with a store against resident
             state: the same events, ``y`` at 0.0.
-14. examples the port's examples (``repro_torch.examples``) through their
+15. examples the port's examples (``repro_torch.examples``) through their
             ``main`` on the card, cut in run length: ``quickstart`` 20
             iterations, ``async_heterogeneous`` 12 events (its async runs on
             the graph), ``train_federated_lm`` 16 iterations at d_model 256
@@ -266,9 +290,11 @@ Phases, one result line each; any failure exits non-zero without the final
 The line before the last is the kernels' JSON record (the flash,
 transition and SGD entries also carry, under ``width``, their granite-8b
 bf16 numbers and the ``lm-width`` launches, the flash entries under
-``mixtral_width`` and ``hd160`` those shapes', the LM kernels
-``families_host_launches`` and ``moe_width_launches``, the transition and
-SGD ``moe_width``/``ssm_width`` (their mixed trees) and
+``mixtral_width``, ``hd160`` and ``gemma2_global`` those shapes' (the
+wide backward's with its A/B under ``ab``), the LM kernels
+``families_host_launches``, ``moe_width_launches`` and
+``gemma2_width_launches``, the transition and SGD
+``moe_width``/``ssm_width``/``gemma2_width`` (their trees) and
 ``ssm_width_launches``, ``fleet_host_launches`` and
 ``offload_host_launches`` the fleet and offload phases' host counts, the
 transition's ``offload_maxd8`` its D = 8 numbers, and gossip_mix's
@@ -330,17 +356,24 @@ KERNELS = {
     },
 }
 # (B, S, Hq, Hkv, hd, window, cap): federated-lm-ring's registered shape (C*B
-# = 8*2 folded), granite-8b's (C = 8, batch 1), gemma2-2b's local layer, a
-# GQA case with hd 96 and a ragged S, S below one tile, mixtral-8x7b's at the
-# moe-width lane (C = 4, its window 4096 past S) and pixtral-12b's hd 160
+# = 8*2 folded), granite-8b's (C = 8, batch 1), gemma2-2b's local layer at S
+# = 8192 (where its window bites) and its global layer at the gemma2-width
+# lane's (C = 4 folded, S = 2048), a GQA case with hd 96 and a ragged S, S
+# below one tile, mixtral-8x7b's at the moe-width lane (C = 4, its window
+# 4096 past S), pixtral-12b's hd 160, and the wide backward's two tiles under a
+# cap of 2: the inputs' scores have unit variance, so under cap 50 the cap's
+# derivative stays above 0.99 and only a cap this small holds the kernel to it
 FLASH_SHAPES = {
     "federated-lm-ring": (16, 64, 4, 4, 64, None, None),
     "granite-8b": (8, 2048, 32, 8, 128, None, None),
     "gemma2-2b": (1, 8192, 8, 4, 256, 4096, 50.0),
+    "gemma2-2b-global": (4, 2048, 8, 4, 256, None, 50.0),
     "gqa-hd96-ragged": (2, 80, 8, 2, 96, None, None),
     "short-s16": (2, 16, 8, 2, 128, None, None),
     "mixtral-8x7b": (4, 2048, 32, 8, 128, 4096, None),
     "pixtral-12b": (2, 2048, 32, 8, 160, None, None),
+    "cap2-hd136": (2, 80, 8, 2, 136, None, 2.0),
+    "cap2-hd200-ragged": (2, 200, 8, 2, 200, 64, 2.0),
 }
 # the f32 forward at granite-8b's head layout (B = 2), timed beside the lm shape
 GRANITE_F32 = (2, 2048, 32, 8, 128, None, None)
@@ -349,10 +382,12 @@ OLD_FLASH = ("db70968", "src/repro_torch/kernels/flash_attention/csrc/flash_atte
 # gossip_mix as it took P by value in its launch parameters: its source at this commit
 OLD_GOSSIP = ("28b3742", "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix.cu")
 # the bf16 tensor-core kernels of csrc/flash_attention_sm90.cu, which the
-# build phase requires to hold wgmma and TMA-load instructions
+# build phase requires to hold wgmma and TMA-load instructions: every
+# instantiation of a name, and each named instantiation (the wide dQ tiles)
 FLASH_SM90 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu"
+WIDE_DQ = ("flash_bwd_dq_sm90_kernel<160, 4, 32>", "flash_bwd_dq_sm90_kernel<256, 3, 32>")
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
-                "flash_bwd_dq_sm90_kernel")
+                "flash_bwd_dq_sm90_kernel", "flash_bwd_dkdv_wide_sm90_kernel") + WIDE_DQ
 LM_STEPS, LM_WIDTH_STEPS = 4, 2
 # the families phase: federated-lm-ring on each family's reduced() model (f32),
 # supersteps a run (the graph's warm-up, capture and a replay)
@@ -377,6 +412,9 @@ MOE_WIDTH = dict(num_layers=1, num_clients=4, num_clusters=2, seq_len=2048, batc
 # activations at S = 2048 and the tied head 1.5 GB (a CPU trace of live
 # tensors at these widths, C = 1), so C = 8 holds 4 layers in about 57 GB
 SSM_WIDTH = dict(num_layers=4, num_clients=8, num_clusters=4, seq_len=2048, batch_size=1)
+# gemma2-2b's depth cut to one local (even) and one global layer; its window
+# 4096 passes S = 2048, so both layers attend causally in full
+GEMMA2_WIDTH = dict(num_layers=2, num_clients=4, num_clusters=2, seq_len=2048, batch_size=1)
 WIDTH_STEPS = 3  # a graph's warm-up, capture and a replay
 # a width lane's device time by part, from kernel names (first match wins)
 WIDTH_PARTS = (("flash", ("flash_",)), ("sgd_update", ("sgd_update_kernel",)),
@@ -422,7 +460,19 @@ LEAF_TABLE_KERNELS = {"fused_transition": ("fused_transition_kernel",),
                       "cluster_agg": ("cluster_agg_kernel",),
                       "gossip_mix": ("gossip_mix_kernel",)}
 # the kernels the build phase fails if ptxas spills registers in, by library
-SPILL_CHECKED = {**LEAF_TABLE_KERNELS, "flash_attention": ("flash_fwd_split_tf32_kernel",)}
+# (the wide backward's hold an HD/2 accumulator of up to 128 registers a thread)
+SPILL_CHECKED = {**LEAF_TABLE_KERNELS,
+                 "flash_attention": ("flash_fwd_split_tf32_kernel",
+                                     "flash_bwd_dkdv_wide_sm90_kernel") + WIDE_DQ}
+
+
+def mangled(kname: str) -> str:
+    """The part of a kernel's mangled symbol that names it: ``name`` as it
+    is, ``name<a, b>`` (int template arguments) as ``nameILiaELibEE``."""
+    name, _, args = kname.partition("<")
+    if not args:
+        return name
+    return name + "I" + "".join(f"Li{a.strip()}E" for a in args.rstrip(">").split(",")) + "E"
 
 
 def fail(msg: str) -> None:
@@ -728,7 +778,7 @@ class Smoke:
                 raise AssertionError(f"no ptxas report for kernels/{lib}")
             report = self.ptxas_report(_build.build_logs[lib])
             for kname in knames:
-                rep = {sym: r for sym, r in report.items() if kname in sym}
+                rep = {sym: r for sym, r in report.items() if mangled(kname) in sym}
                 if not rep or any(r["spill_stores"] is None for r in rep.values()):
                     raise AssertionError(f"{kname}: no ptxas spill report in the build log")
                 for sym, r in rep.items():
@@ -761,7 +811,7 @@ class Smoke:
         for sym, c in counts.items():
             print(f"  sass {sym}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}", flush=True)
         for kname in SM90_KERNELS:
-            found = {sym: c for sym, c in counts.items() if kname in sym}
+            found = {sym: c for sym, c in counts.items() if mangled(kname) in sym}
             if not found or not all(c["HGMMA"] and c["UTMALDG"] for c in found.values()):
                 raise AssertionError(f"{kname}: no HGMMA/UTMALDG in the built library ({found})")
         return counts
@@ -827,7 +877,8 @@ class Smoke:
                 timings["mnist"]
             self.record[kname] = dict(t[kname], max_abs_err=main_err[kname])
             for sname, extra in (("granite-8b", "width"), ("mixtral-8x7b", "mixtral_width"),
-                                 ("pixtral-12b", "hd160")):
+                                 ("pixtral-12b", "hd160"),
+                                 ("gemma2-2b-global", "gemma2_global")):
                 if kname in flash[sname]:
                     w = flash[sname][kname]
                     self.record[kname][extra] = {
@@ -837,7 +888,7 @@ class Smoke:
                         "max_abs_err": main_err[f"{kname}@{sname}"],
                         **{f: w[f] for f in ("ms", "graph_ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "tflops",
-                                             "bound_share")}}
+                                             "bound_share", "ab", "kernels_ms") if f in w}}
         g = flash["granite-f32"]["flash_attention"]  # the split-TF32 forward at width
         self.record["flash_attention"]["f32_width"] = {
             "max_abs_err": main_err["flash_attention@granite-f32"],
@@ -1304,14 +1355,18 @@ class Smoke:
         return flops, 2.5 * flops, 2 * qo + 2 * kv + lse, 4 * qo + 4 * kv + lse
 
     def time_flash(self) -> dict:
-        """Forward and backward times at the lm phase's shape (f32) and the
-        lm-width phase's (granite-8b, bf16), and the f32 forward alone at
-        granite-8b's heads (``GRANITE_F32``): the kernel, the plain version
-        and ``scaled_dot_product_attention`` (causal, GQA; the kernels the
-        profiler saw it launch are named), beside the bound.  Each also
-        replayed from a CUDA graph, except the library backward: that is
-        ``autograd.grad`` of one retained autograd graph.  The f32 forwards
-        also run against the forward they replaced (``flash_ab``)."""
+        """Forward and backward times at the lm phase's shape (f32), the
+        lm-width phase's (granite-8b, bf16), moe-width's (mixtral), pixtral's
+        hd 160 and gemma2-width's global layer (hd 256, cap 50), and the f32
+        forward alone at granite-8b's heads (``GRANITE_F32``): the kernel, the
+        plain version and ``scaled_dot_product_attention`` (causal, GQA; the
+        kernels the profiler saw it launch are named; none under a cap, which
+        no library call computes), beside the bound.  Each also replayed from
+        a CUDA graph, except the library backward: that is ``autograd.grad`` of
+        one retained autograd graph.  The f32 forwards also run against the
+        forward they replaced (``flash_ab``), the wide bf16 backwards against
+        the CUDA-core kernel that took them before (``flash_bwd_ab``), and the
+        wide backward's device time is split by kernel."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import (
@@ -1326,10 +1381,11 @@ class Smoke:
                 ("granite-8b", FLASH_SHAPES["granite-8b"], torch.bfloat16, True),
                 ("granite-f32", GRANITE_F32, torch.float32, False),
                 ("mixtral-8x7b", FLASH_SHAPES["mixtral-8x7b"], torch.bfloat16, True),
-                ("pixtral-12b", FLASH_SHAPES["pixtral-12b"], torch.bfloat16, True)):
+                ("pixtral-12b", FLASH_SHAPES["pixtral-12b"], torch.bfloat16, True),
+                ("gemma2-2b-global", FLASH_SHAPES["gemma2-2b-global"], torch.bfloat16, True)):
             window, cap = shape[5:]
-            if min(window or shape[1], shape[1]) < shape[1] or cap is not None:
-                raise AssertionError(f"{sname}: SDPA's causal mask is not this shape's")
+            # SDPA's causal mask is the shape's where no window bites and no cap
+            library = min(window or shape[1], shape[1]) == shape[1] and cap is None
             small = shape[1] <= 256
             q, k, v, dout = self.flash_inputs(shape, dtype, seed=1)
             o, lse = flash_attention_fwd(q, k, v, window, cap)
@@ -1339,18 +1395,21 @@ class Smoke:
             calls = {"flash_attention": {
                 "ms": lambda: flash_attention_fwd(q, k, v, window, cap),
                 "plain_ms": lambda: flash_attention_fwd_ref(q, k, v, window, cap),
-                "library_ms": sdpa,
+                "library_ms": sdpa if library else None,
             }}
+            leaves = lib_out = None
             if backward:
-                leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
-                lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                         enable_gqa=True)
+                if library:
+                    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+                    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                             enable_gqa=True)
                 calls["flash_attention_backward"] = {
                     "ms": lambda: flash_attention_bwd(q, k, v, o, lse, dout, window, cap),
                     "plain_ms": lambda: flash_attention_bwd_ref(q, k, v, o, lse, dout,
                                                                 window, cap),
-                    "library_ms": lambda: torch.autograd.grad(lib_out, leaves, gt,
-                                                              retain_graph=True),
+                    "library_ms": (lambda: torch.autograd.grad(lib_out, leaves, gt,
+                                                               retain_graph=True))
+                    if library else None,
                 }
             flops_f, flops_b, bytes_f, bytes_b = self.flash_work(shape, q.element_size())
             way = route(dtype, shape[4])
@@ -1362,10 +1421,12 @@ class Smoke:
             res = {}
             for kname, fns in calls.items():
                 reps = 20 if small else 3
-                t = {key: self.cuda_ms(fn, reps=reps, warmup=1 if not small else 3)
+                t = {key: None if fn is None else
+                     self.cuda_ms(fn, reps=reps, warmup=1 if not small else 3)
                      for key, fn in fns.items()}
                 for key, fn in fns.items():
-                    graphable = not (kname.endswith("backward") and key == "library_ms")
+                    graphable = fn is not None and not (kname.endswith("backward") and
+                                                        key == "library_ms")
                     t[f"graph_{key}"] = self.graph_ms(fn, reps=reps) if graphable else None
                 bnd, by = bounds[kname]
                 flops = flops_f if kname == "flash_attention" else flops_b
@@ -1374,17 +1435,21 @@ class Smoke:
                                   route=route(dtype, shape[4], kname.endswith("backward")),
                                   tflops=flops / t["ms"] / 1e9, bound_share=bnd / t["ms"],
                                   graph_bound_share=bnd / t["graph_ms"])
-            res["flash_attention"]["library_kernels"] = self.device_kernels(sdpa)
+            res["flash_attention"]["library_kernels"] = self.device_kernels(sdpa) \
+                if library else None
             if dtype == torch.float32:
                 res["flash_attention"]["ab"] = self.flash_ab(q, k, v, shape, flops_f, reps)
+            if backward and dtype == torch.bfloat16 and shape[4] > 128:
+                args = (q, k, v, o, lse, dout, window, cap)
+                res["flash_attention_backward"]["ab"] = self.flash_bwd_ab(args, flops_b, reps)
+                res["flash_attention_backward"]["kernels_ms"] = self.kernel_ms(
+                    calls["flash_attention_backward"]["ms"])
             for kname, r in res.items():
                 print(f"  time flash {sname} {str(dtype)[6:]} {kname}: " + ", ".join(
                     f"{key}={val:.6g}" if isinstance(val, float) else f"{key}={val}"
                     for key, val in r.items()), flush=True)
             out[sname] = res
-            del q, k, v, dout, o, lse, qt, kt, vt, gt, calls, sdpa
-            if backward:
-                del leaves, lib_out
+            del q, k, v, dout, o, lse, qt, kt, vt, gt, calls, sdpa, leaves, lib_out
             torch.cuda.empty_cache()
         return out
 
@@ -1432,6 +1497,60 @@ class Smoke:
         return {"graph_ms": ms, "max_abs_diff": diff, "lse_max_abs_diff": ldiff,
                 "tflops": {key: flops / (sum(v) / len(v)) / 1e9 for key, v in ms.items()},
                 "old_source": self.detail.get("old_flash")}
+
+    def flash_bwd_ab(self, args, flops, reps) -> dict:
+        """The bf16 backward past hd 128, on the tensor cores, against the
+        CUDA-core kernel that took these widths before (``flash_attention.cu``,
+        launched directly through ``ops._bwd_launch``) on the same inputs:
+        held to each other within 3e-2 of the CUDA-core gradients' largest
+        entry, then graph replays in the order old new new old."""
+        from repro_torch.kernels.flash_attention.ops import _bwd_launch
+
+        old = lambda: _bwd_launch("cuda_core", *args)
+        new = lambda: _bwd_launch("tensor_core", *args)
+        diff = 0.0
+        for a, b in zip(new(), old()):
+            diff = max(diff, (a.float() - b.float()).abs().max().item()
+                       / max(1.0, b.float().abs().max().item()))
+        if not diff <= 3e-2:
+            raise AssertionError(f"wide backward: tensor-core and CUDA-core kernels differ by "
+                                 f"{diff} of the largest entry")
+        ms = {"old": [], "new": []}
+        for key in ("old", "new", "new", "old"):
+            ms[key].append(self.graph_ms(old if key == "old" else new, reps=reps))
+        mean = {key: sum(v) / len(v) for key, v in ms.items()}
+        return {"graph_ms": ms, "max_rel_diff": diff, "speedup": mean["old"] / mean["new"],
+                "tflops": {key: flops / t / 1e9 for key, t in mean.items()},
+                "old_source": KERNELS["flash_attention_backward"]["source"]}
+
+    def kernel_ms(self, fn, calls=3) -> dict:
+        """Device milliseconds a call of ``fn`` by kernel name (the template
+        arguments dropped): the mean over the records of ``calls`` warm calls
+        in one profiler session, from its raw records, the session idling
+        ``kernels.MARGIN_S`` at each end as ``device_kernel_names``'s does.
+        A mean over several calls, since sessions lost the record of the
+        backward's short first kernel in three of four calls."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.kernels import MARGIN_S
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(MARGIN_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(MARGIN_S)
+        spans: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                found = re.search(r"\w+_kernel\w*", e.name())
+                name = found.group(0) if found else e.name()[:80]
+                spans.setdefault(name, []).append((e.end_ns() - e.start_ns()) / 1e6)
+        return {name: {"ms": sum(t) / len(t), "records": len(t)} for name, t in spans.items()}
 
     def time_kernels(self, mcls, factors) -> dict:
         """Times of the two leaf-table kernels over every leaf of ``mcls``
@@ -3003,17 +3122,21 @@ class Smoke:
                 busy_us += b - max(a, end)
                 end = b
         parts: dict = {}
+        flash_bwd_ms = 0.0
         for name, a, b in spans:
             key = next((part for part, marks in WIDTH_PARTS
                         if any(m in name for m in marks)), "other")
             parts[key] = parts.get(key, 0.0) + (b - a) / 1e3
+            flash_bwd_ms += (b - a) / 1e3 if "flash_bwd_" in name else 0.0
         ran = count_kernels(name for name, _, _ in spans)
         want = self.by_wrapper(self.lm_launches(run.runtime.scheduler, run.runtime.model.cfg, 1,
                                                 False), "tensor_core", "tensor_core")
         if ran != want:
             raise AssertionError(f"width superstep: kernel runs {ran}, expected {want}")
-        return {"kernel_runs": ran, "wall_ms": wall_ms, "busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
-                "kernels": len(spans), "parts_ms": {k: round(v, 4) for k, v in sorted(parts.items())}}
+        return {"kernel_runs": ran, "wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
+                "busy_share": busy_us / 1e3 / wall_ms, "kernels": len(spans),
+                "parts_ms": {k: round(v, 4) for k, v in sorted(parts.items())},
+                "flash_backward_ms": round(flash_bwd_ms, 4)}
 
     def moe_width(self):
         """mixtral-8x7b at its published widths (``MOE_WIDTH``), cut in depth,
@@ -3256,6 +3379,70 @@ class Smoke:
                 k: v for k, v in out.items() if not k.startswith(
                     "sgd" if kname == "fused_transition" else "fused")}
         return out
+
+    def gemma2_width(self):
+        """gemma2-2b at its published widths (``GEMMA2_WIDTH``), cut in depth,
+        eager (on the round's graph the private pool took 63 GiB and the
+        run ran out of memory): host launches held exactly, every flash
+        launch on the tensor cores (the backward on the wide hd-256 kernels),
+        rates, peak memory, one superstep's kernel runs held exactly and its
+        device time by part (the flash backward's apart), one client's loss
+        and gradients flash vs plain, and the trees against their plain
+        versions."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import flash_attention_bwd, flash_attention_fwd
+        from repro_torch.models import CausalLM
+
+        w = GEMMA2_WIDTH
+        pub = get_config("gemma2-2b")
+        cfg = dataclasses.replace(pub, num_layers=w["num_layers"], remat=False)
+        run, dt, losses, launches, peak, _ = self.width_lane(
+            "gemma2-width", CausalLM(cfg), LM_WIDTH_STEPS, False, num_clients=w["num_clients"],
+            num_clusters=w["num_clusters"], seq_len=w["seq_len"], batch_size=w["batch_size"],
+            vocab_size=pub.vocab_size, num_samples=16)
+        for kname in launches:
+            self.record[kname]["gemma2_width_launches"] = launches[kname]
+        routes = self.check_routes({"flash_attention": flash_attention_fwd,
+                                    "flash_attention_backward": flash_attention_bwd},
+                                   {"flash_attention": "tensor_core",
+                                    "flash_attention_backward": "tensor_core"}, "gemma2-width")
+        sched = run.runtime.scheduler
+        c, b, s = sched.fl.num_clients, run.batch_size, w["seq_len"]
+        iters = LM_WIDTH_STEPS * sched.iterations_per_step
+        wiph = sched.iterations_per_step * self.warm_rate(run, 1)
+        split = self.width_split(run)
+        windows = [cfg.window_for_layer(i) for i in range(cfg.num_layers)]
+        n_params = sum(w_[0].numel() for w_ in sched.params.values())
+        print(f"gemma2-width federated-lm-ring at gemma2-2b's published widths, eager "
+              f"(graph=False; peak {peak / 2**30:.2f} GiB): d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads of {cfg.head_dim}, windows by layer {windows} (4096 "
+              f"passes S = {s}: both layers attend causally in full), attention cap "
+              f"{cfg.attn_logit_softcap}, final cap {cfg.final_logit_softcap}, post-norms "
+              f"{cfg.use_post_norm}, vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}, "
+              f"{cfg.dtype}; cuts: depth {pub.num_layers} -> {cfg.num_layers}, C={c} in "
+              f"D={sched.fl.num_clusters}, S={s}, b={b}, no evaluate; {n_params} params per "
+              f"client; {iters} iterations in {dt:.3f}s = {iters / dt:.4f} it/s, "
+              f"{iters * c * b * s / dt:.1f} tokens/s cold; warm {wiph:.4f} it/s, "
+              f"{wiph * c * b * s:.1f} tokens/s; launches {json.dumps(launches)}, flash "
+              f"routes {json.dumps(routes)}; device split of a warm superstep "
+              f"{json.dumps(split)}; losses {[round(x, 4) for x in losses.tolist()]}",
+              flush=True)
+        held = self.hold_client_grads(run, "gemma2-width")
+        trees = self.hold_mixed_trees(run, "gemma2-width")
+        self.detail["gemma2_width"] = {
+            "launches": launches, "params_per_client": n_params, "peak_bytes": peak,
+            "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
+            "tokens_per_s_cold": iters * c * b * s / dt, "tokens_per_s_warm": wiph * c * b * s,
+            "flash_routes": routes, "split": split, "losses": losses.tolist(),
+            "windows": windows, "cuda_vs_plain": held, "trees": trees, "graph": False,
+            "cuts": {"num_layers": [pub.num_layers, cfg.num_layers], "remat": [pub.remat, False],
+                     "clients": c, "clusters": sched.fl.num_clusters, "seq_len": s,
+                     "batch_size": b, "evaluate": False}}
+        del run, sched
+        torch.cuda.empty_cache()
 
     def ssm_width(self):
         """mamba2-780m at its published widths (``SSM_WIDTH``), cut in depth,
@@ -3827,6 +4014,7 @@ class Smoke:
             self.phase("fleet", self.fleet)
             self.phase("lm", self.lm_path)
             self.phase("lm-width", self.lm_width)
+            self.phase("gemma2-width", self.gemma2_width)
             self.phase("families", self.families)
             self.phase("moe-width", self.moe_width)
             self.phase("ssm-width", self.ssm_width)
@@ -3847,7 +4035,8 @@ class Smoke:
             for extra in ("width", "f32_width", "host_launches", "fleet_host_launches",
                           "offload_host_launches", "offload_maxd8", "by_value_ab",
                           "families_host_launches", "moe_width_launches", "moe_width",
-                          "ssm_width_launches", "ssm_width", "mixtral_width", "hd160"):
+                          "ssm_width_launches", "ssm_width", "mixtral_width", "hd160",
+                          "gemma2_global", "gemma2_width_launches", "gemma2_width"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

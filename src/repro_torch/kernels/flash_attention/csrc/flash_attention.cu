@@ -2,10 +2,12 @@
 //
 // No TPU counterpart (the reference differentiates its plain attention
 // through XLA); FlashAttention-2 style, no atomics.  These kernels serve the
-// f32 backward, the hd-256 backward and hd % 8 != 0.  bf16 with hd % 8 == 0
-// and hd <= 128 runs on the tensor cores (flash_attention_sm90.cu); every
-// forward runs on the tensor cores too (flash_attention_sm90.cu for bf16
-// with hd % 8 == 0, flash_attention_split_tf32.cu for the rest).
+// f32 backward and the bf16 backward with hd % 8 != 0, at every hd up to
+// 256.  bf16 with hd % 8 == 0 runs on the tensor cores at every hd up to 256
+// (flash_attention_sm90.cu; before its wide kernels, this file's hd-256
+// tile took bf16 past hd 128 too); every forward runs on the tensor cores
+// (flash_attention_sm90.cu for bf16 with hd % 8 == 0,
+// flash_attention_split_tf32.cu for the rest).
 //
 // Layouts as the reference's wrapper takes them: q (B, S, Hq, hd), k and v
 // (B, S, Hkv, hd), row-major, f32 or bf16; the KV head of query head h is

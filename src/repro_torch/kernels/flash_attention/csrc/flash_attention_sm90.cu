@@ -5,11 +5,11 @@
 // repro/kernels/flash_attention/kernel.py::flash_attention_kernel (via
 // flash_attention_pallas) for bf16 inputs with hd % 8 == 0 and hd <= 256.
 // Backward: no TPU counterpart (the reference differentiates its plain
-// attention through XLA); here for bf16 with hd % 8 == 0 and hd <= 128.
+// attention through XLA); here for bf16 with hd % 8 == 0 and hd <= 256.
 // Every other forward (f32, hd % 8 != 0) runs in split TF32
-// (flash_attention_split_tf32.cu), every other backward (f32, hd 256, hd % 8
-// != 0) on the CUDA cores (flash_attention.cu); ops.py picks by dtype and
-// hd, never by a failure.  The function is the one of ref.py: scores
+// (flash_attention_split_tf32.cu), every other backward (f32, hd % 8 != 0)
+// on the CUDA cores (flash_attention.cu); ops.py picks by dtype and hd,
+// never by a failure.  The function is the one of ref.py: scores
 // (q . k) * hd^-0.5, then cap * tanh(s / cap) under a cap; key kp live for
 // query qp when kp <= qp (and qp - kp < window); masked probabilities
 // exactly 0, l clamped at 1e-30; lse = m + log l, f32 (B, Hq, S); any S.
@@ -21,7 +21,9 @@
 // designed executes 7 products per pair (S and dP twice: once in dK/dV, once
 // in dQ) against the 5 the bound counts, so it can reach at most about 71%
 // of its bound; that buys a backward without atomics, bitwise
-// deterministic from run to run.
+// deterministic from run to run.  A head width between two tiles runs on the
+// wider one, its columns past hd zero (forward tiles 64, 128 and 256 wide;
+// backward also 160).
 //
 // Design.  Every product runs on the tensor cores with wgmma (bf16 in, f32
 // accumulate).  A block has two consumer warpgroups of 64 rows each and a
@@ -54,6 +56,19 @@
 // * dQ: block = (b * Hq + h, 128 query rows), Q and dO once, K and V stream
 //   in 64-key tiles; S and dP are SS again, dS in bf16 registers feeds dQ +=
 //   dS K (RS, K as MN-major B).
+// * Wide heads (hd 136-160 on a tile of 160 columns, 168-256 on 256).  A thread
+//   has room for one HD/2 accumulator: 128 registers at hd 256, where dK and
+//   dV together would take all 256 before S, dP and their bf16 copies.  So
+//   the dK/dV block is (b * Hkv + kvh, 64 key rows), owned by both consumer
+//   warpgroups: warpgroup 0 computes S^T = K Q^T, P^T and pg (p times the
+//   cap's derivative) and sums dV += P^T dO; warpgroup 1 computes dP^T = V
+//   dO^T, takes pg through a double-buffered f32 buffer in shared memory
+//   (thread t of one warpgroup holds the same fragment entries as thread t
+//   of the other, so each writes and reads its own float4s, without a bank
+//   conflict), forms dS^T in f32 and sums dK += dS^T Q.  Each warpgroup
+//   issues two products a tile; named barriers (bar.sync/bar.arrive, 256
+//   threads) hand the buffer over.  dQ is the kernel of hd <= 128
+//   with 32-key tiles, so that its accumulator, S and dP fit together.
 // * A first launch writes delta = rowsum(dO * O) and lse * log2(e) in
 //   rows padded to 64, so the dK/dV producer copies a tile's with one bulk
 //   copy each.
@@ -63,7 +78,9 @@
 // reached through cudaGetDriverEntryPoint, so the library links no
 // libcuda) and passed by value as __grid_constant__ parameters, so a CUDA
 // graph captures them.  Left for later: pingpong between the two consumer
-// warpgroups, persistent blocks, fp8.
+// warpgroups, persistent blocks, fp8; in the wide dK/dV kernel, warpgroup 1
+// waits each tile for warpgroup 0's pg, so their products overlap only as
+// far as the ring lets warpgroup 0 run ahead (one tile at hd 256).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -155,10 +172,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// a ROWS x HD bf16 tile: HD / 64 panels of ROWS rows of 128 bytes
+// a ROWS x HD bf16 tile: HD / 64 panels (rounded up) of ROWS rows of 128
+// bytes; a panel's columns past HD are TMA's zero fill, read by no product
 template <int ROWS, int HD>
 struct Tile {
-  static constexpr int kBytes = ROWS * HD * 2;
+  static constexpr int kPanels = (HD + 63) / 64;
+  static constexpr int kBytes = ROWS * kPanels * 128;
   static constexpr int kPanel = ROWS * 128;
 };
 
@@ -166,7 +185,7 @@ template <int ROWS, int HD>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
                                          int head, int row, int batch) {
 #pragma unroll
-  for (int p = 0; p < HD / 64; ++p)
+  for (int p = 0; p < Tile<ROWS, HD>::kPanels; ++p)
     tma_load(dst + p * Tile<ROWS, HD>::kPanel, map, bar, 64 * p, head, row, batch);
 }
 
@@ -215,6 +234,20 @@ __device__ __forceinline__ void regs_up() {
 template <int R>
 __device__ __forceinline__ void regs_down() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// D (64 x 32, f32) += A (64 x 16, smem) B (16 x 32, smem), both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 // D (64 x 64, f32) += A (64 x 16, smem) B (16 x 64, smem), both K-major
@@ -302,6 +335,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
       "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// D (64 x 160, f32) += A (64 x 16, bf16 registers) B (16 x 160, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+      "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
@@ -717,17 +779,18 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dQ: block = (b * Hq + h, 128 query rows), 64-key tiles in an
-// ST-stage ring
+// Backward, dQ: block = (b * Hq + h, 128 query rows), BK-key tiles in an
+// ST-stage ring: 64 keys up to hd 128, 32 at wide heads, so that the HD/2
+// accumulator, S and dP fit a thread's registers together
 // ---------------------------------------------------------------------------
-template <int HD, int ST>
+template <int HD, int ST, int K>
 struct DqCfg {
-  static constexpr int BQ = 128, BK = 64;
+  static constexpr int BQ = 128, BK = K;
   static constexpr int kQ = Tile<BQ, HD>::kBytes, kKV = Tile<BK, HD>::kBytes;
   static constexpr int smem = kAlign + 2 * kQ + 2 * ST * kKV + 8 * (1 + 2 * ST);
 };
 
-template <int HD, int ST>
+template <int HD, int ST, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mk,
@@ -735,8 +798,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mdo,
                          const float* __restrict__ lse_p, const float* __restrict__ delta_p,
                          int sp, bf16* __restrict__ dq, const Shape sh) {
-  using C = DqCfg<HD, ST>;
-  constexpr int BK = C::BK;
+  using C = DqCfg<HD, ST, BK>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = aligned_smem(smem_raw);
   uint8_t* Gs = Qs + C::kQ;         // dO
@@ -826,6 +888,159 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ---------------------------------------------------------------------------
+// Backward, wide heads (HD 160 or 256), where a consumer thread holds one
+// HD/2 accumulator and no more.  dK/dV: block = (b * Hkv + kvh, 64 key
+// rows), owned by both consumer warpgroups: warpgroup 0 forms P^T and pg and
+// sums dV, warpgroup 1 forms dS^T from the pg that warpgroup 0 hands it
+// through shared memory and sums dK.  Named barriers 1 + buf (pg buffer buf
+// written) and 3 + buf (read), 256 threads each: warpgroup 0 arrives on the
+// first and syncs on the second, warpgroup 1 the other way round.
+// ---------------------------------------------------------------------------
+constexpr int kPgFull = 1, kPgFree = 3;
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+
+template <int HD, int ST>
+struct DkDvWideCfg {
+  static constexpr int BK = 64, BQ = 64;
+  static constexpr int kKV = Tile<BK, HD>::kBytes, kQ = Tile<BQ, HD>::kBytes;
+  static constexpr int kRows = BQ * 4;      // one tile's lse (or delta) bytes
+  static constexpr int kPg = BK * BQ * 4;   // one buffer of pg, f32
+  static constexpr int smem =
+      kAlign + 2 * kKV + ST * 2 * kQ + 2 * kPg + ST * 2 * kRows + 8 * (1 + 2 * ST);
+};
+
+template <int HD, int ST>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                const __grid_constant__ CUtensorMap mdo,
+                                const float* __restrict__ lse_p,
+                                const float* __restrict__ delta_p, int sp,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv, const Shape sh) {
+  using C = DkDvWideCfg<HD, ST>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = aligned_smem(smem_raw);
+  uint8_t* Vs = Ks + C::kKV;
+  uint8_t* Qs = Vs + C::kKV;        // stage s at Qs + s * kQ
+  uint8_t* Gs = Qs + ST * C::kQ;    // dO, likewise
+  float4* Pg = reinterpret_cast<float4*>(Gs + ST * C::kQ);  // buffer buf at + buf * kPg / 16
+  float* Ls = reinterpret_cast<float*>(Gs + ST * C::kQ + 2 * C::kPg);  // lse log2(e)
+  float* Es = Ls + ST * BQ;                                             // delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Es + ST * BQ);
+  uint64_t *full = kv_full + 1, *empty = full + ST;
+  init_barriers(kv_full, 1 + ST, ST);
+
+  const int b = blockIdx.x / sh.Hkv, kvh = blockIdx.x % sh.Hkv, G = sh.Hq / sh.Hkv;
+  const int k0 = blockIdx.y * C::BK;  // the first key tiles see the most queries
+  const int k_last = min(k0 + C::BK, sh.S) - 1;
+  const int q_end = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
+  const int n_q = (q_end - k0 + BQ - 1) / BQ;  // live query tiles of one head
+  const int n = G * n_q;
+
+  if (threadIdx.x >= kConsumers) {  // producer: one thread issues every load
+    regs_down<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(kv_full, 2 * C::kKV);
+      tma_tile<C::BK, HD>(Ks, &mk, kv_full, kvh, k0, b);
+      tma_tile<C::BK, HD>(Vs, &mv, kv_full, kvh, k0, b);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % ST, h = kvh * G + j / n_q, q0 = k0 + (j % n_q) * BQ;
+        const int64_t rows = ((int64_t)b * sh.Hq + h) * sp;
+        mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::kQ + 2 * C::kRows);
+        tma_tile<BQ, HD>(Qs + s * C::kQ, &mq, &full[s], h, q0, b);
+        tma_tile<BQ, HD>(Gs + s * C::kQ, &mdo, &full[s], h, q0, b);
+        bulk_load(Ls + s * BQ, lse_p + rows + q0, C::kRows, &full[s]);
+        bulk_load(Es + s * BQ, delta_p + rows + q0, C::kRows, &full[s]);
+      }
+    }
+  } else {
+    regs_up<kConsumerRegs>();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = threadIdx.x % 32;
+    const int ka = k0 + 16 * (t / 32) + lane / 4;  // this thread's keys: ka, ka + 8
+    // S^T = K Q^T and dV += P^T dO in warpgroup 0; dP^T = V dO^T and dK +=
+    // dS^T Q in warpgroup 1
+    const uint8_t* A = wg == 0 ? Ks : Vs;
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int j = 0; j < n; ++j) {
+      const int s = j % ST, q0 = k0 + (j % n_q) * BQ, buf = j & 1;
+      const uint8_t* Qt = Qs + s * C::kQ;
+      const uint8_t* Gt = Gs + s * C::kQ;
+      float4* pg = Pg + buf * (C::kPg / 16) + t;  // this thread's values, 128 float4 apart
+      float x[BQ / 2];
+      mbar_wait(&full[s], (j / ST) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(x, kmajor<C::BK>(A, 0, kk), kmajor<BQ>(wg == 0 ? Qt : Gt, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait();
+      pin(x);
+
+      if (wg == 0) {
+        // rows are keys, columns queries: dead pairs where a query precedes a key
+        const bool masked = q0 < k0 + 63 || q0 + BQ > sh.S || k0 + 63 >= sh.S ||
+                            (sh.window > 0 && q0 + BQ - 1 - k0 >= sh.window);
+        if (j >= 2) bar_sync(kPgFree + buf);  // warpgroup 1 has read tile j - 2's pg
+#pragma unroll
+        for (int v = 0; v < BQ / 8; ++v) {
+          float g4[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * v + e, c = frag_col(i, lane);
+            float p = 0.f, g = 0.f;
+            if (!masked || live(q0 + c, ka + frag_row(i), sh))
+              prob(x[i], Ls[s * BQ + c], sh, p, g);
+            x[i] = p;
+            g4[e] = g;
+          }
+          pg[v * 128] = make_float4(g4[0], g4[1], g4[2], g4[3]);
+        }
+        bar_arrive(kPgFull + buf);
+      } else {
+        bar_sync(kPgFull + buf);
+#pragma unroll
+        for (int v = 0; v < BQ / 8; ++v) {
+          const float4 g = pg[v * 128];
+          const float g4[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * v + e;
+            x[i] = g4[e] * (x[i] - Es[s * BQ + frag_col(i, lane)]);
+          }
+        }
+        if (j + 2 < n) bar_arrive(kPgFree + buf);  // only where tile j + 2 waits for it
+      }
+      uint32_t a[BQ / 16][4];
+      to_bf16(x, a);
+      pin(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(acc, a[kk], mnmajor<BQ>(wg == 0 ? Gt : Qt, kk), 1);
+      wg_commit();
+      wg_wait();
+      pin(acc);
+      mbar_arrive(&empty[s]);
+    }
+    const float f = wg == 0 ? 1.f : sh.scale, fs[2] = {f, f};
+    store_rows<HD>(wg == 0 ? dv : dk, acc, fs, b, ka, kvh, sh.Hkv, lane, sh);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host: tensor maps and launchers
 // ---------------------------------------------------------------------------
 using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
@@ -898,13 +1113,11 @@ int fwd(const void* q, const void* k, const void* v, void* out, float* lse, cons
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
-        const float* lse, float* rows, void* dq, void* dk, void* dv, const Shape& sh,
-        cudaStream_t st) {
-  constexpr int ST = 3;  // stages of the dK/dV and dQ rings
-  using KV = DkDvCfg<HD, ST>;
-  using QD = DqCfg<HD, ST>;
+// the rows, dK/dV and dQ launches with tile traits KV and QD
+template <typename KV, typename QD, typename KvKern, typename QKern>
+int bwd(KvKern kv_kern, QKern q_kern, const void* q, const void* k, const void* v,
+        const void* out, const void* dout, const float* lse, float* rows, void* dq, void* dk,
+        void* dv, const Shape& sh, cudaStream_t st) {
   CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
   int rc;
   if ((rc = make_map(&kq, q, sh, sh.Hq, KV::BQ)) || (rc = make_map(&kk, k, sh, sh.Hkv, KV::BK)) ||
@@ -922,7 +1135,6 @@ int bwd(const void* q, const void* k, const void* v, const void* out, const void
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, delta_p, lse_p, sp, sh);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
 
-  auto kv_kern = flash_bwd_dkdv_sm90_kernel<HD, ST>;
   if (cudaError_t e = prepare<KV>(kv_kern)) return (int)e;
   const dim3 kv_grid(sh.B * sh.Hkv, (sh.S + KV::BK - 1) / KV::BK);
   kv_kern<<<kv_grid, kThreads, KV::smem, st>>>(kq, kk, kv, kdo, lse_p, delta_p, sp,
@@ -930,7 +1142,6 @@ int bwd(const void* q, const void* k, const void* v, const void* out, const void
                                                sh);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
 
-  auto q_kern = flash_bwd_dq_sm90_kernel<HD, ST>;
   if (cudaError_t e = prepare<QD>(q_kern)) return (int)e;
   const dim3 q_grid(sh.B * sh.Hq, (sh.S + QD::BQ - 1) / QD::BQ);
   q_kern<<<q_grid, kThreads, QD::smem, st>>>(qq, qk, qv, qdo, lse_p, delta_p, sp,
@@ -966,7 +1177,7 @@ extern "C" int flash_attention_fwd_sm90_launch(const void* q, const void* k, con
   return fwd<256, 64, 2>(q, k, v, out, lse, sh, st);
 }
 
-// As flash_attention_bwd_launch, for bf16 with hd % 8 == 0 and hd <= 128,
+// As flash_attention_bwd_launch, for bf16 with hd % 8 == 0 and hd <= 256,
 // except that `rows` is f32 scratch of 2 * B * Hq * flash_attention_sm90_rows(S)
 // (delta and lse * log2(e), padded).  Three launches: rows, dK/dV, dQ.
 extern "C" int flash_attention_bwd_sm90_launch(const void* q, const void* k, const void* v,
@@ -976,11 +1187,26 @@ extern "C" int flash_attention_bwd_sm90_launch(const void* q, const void* k, con
                                                int hd, int window, float cap, float scale,
                                                int dtype, void* stream) {
   Shape sh;
-  if (!make_shape(&sh, B, S, Hq, Hkv, hd, window, cap, scale, dtype, 128))
+  if (!make_shape(&sh, B, S, Hq, Hkv, hd, window, cap, scale, dtype, 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 64) return bwd<64>(q, k, v, out, dout, lse, rows, dq, dk, dv, sh, st);
-  return bwd<128>(q, k, v, out, dout, lse, rows, dq, dk, dv, sh, st);
+  // ring stages: as many as shared memory holds (dK/dV 231,992 bytes on the
+  // hd-160 tile (three panels) and 231,464 on hd 256; dQ 197,704 and 230,456)
+  if (hd <= 64)
+    return bwd<DkDvCfg<64, 3>, DqCfg<64, 3, 64>>(flash_bwd_dkdv_sm90_kernel<64, 3>,
+                                                 flash_bwd_dq_sm90_kernel<64, 3, 64>, q, k, v,
+                                                 out, dout, lse, rows, dq, dk, dv, sh, st);
+  if (hd <= 128)
+    return bwd<DkDvCfg<128, 3>, DqCfg<128, 3, 64>>(flash_bwd_dkdv_sm90_kernel<128, 3>,
+                                                   flash_bwd_dq_sm90_kernel<128, 3, 64>, q, k,
+                                                   v, out, dout, lse, rows, dq, dk, dv, sh, st);
+  if (hd <= 160)
+    return bwd<DkDvWideCfg<160, 3>, DqCfg<160, 4, 32>>(
+        flash_bwd_dkdv_wide_sm90_kernel<160, 3>, flash_bwd_dq_sm90_kernel<160, 4, 32>, q, k,
+        v, out, dout, lse, rows, dq, dk, dv, sh, st);
+  return bwd<DkDvWideCfg<256, 2>, DqCfg<256, 3, 32>>(
+      flash_bwd_dkdv_wide_sm90_kernel<256, 2>, flash_bwd_dq_sm90_kernel<256, 3, 32>, q, k, v,
+      out, dout, lse, rows, dq, dk, dv, sh, st);
 }
 
 // the padded row count of the backward's scratch

@@ -18,15 +18,17 @@ differentiable, vmappable op the model calls.
 
 Three routes, chosen by ``route(dtype, hd, backward)`` alone, never by a
 failure: ``"tensor_core"`` (``csrc/flash_attention_sm90.cu``: wgmma and
-TMA, bf16 with ``hd % 8 == 0``, hd <= 256 forward and <= 128 backward),
+TMA, bf16 with ``hd % 8 == 0`` and hd <= 256, forward and backward; the
+backward's kernels up to hd 128 hold dK and dV in each thread, its wide
+ones (tiles of 160 and 256 columns) split them over two warpgroups),
 ``"split_tf32"`` (``csrc/flash_attention_split_tf32.cu``: every other
 forward, f32 and bf16 with ``hd % 8 != 0``, on the tensor cores in split
 TF32, an f32-accurate emulation) and ``"cuda_core"``
-(``csrc/flash_attention.cu``: every other backward, f32 math on the CUDA
-cores).  Bound by operations at the path's shapes: ``4 * hd`` flops per
-live (query, key) pair forward (``S (S + 1) / 2`` pairs per head causally,
-fewer under a window), about 2.5x that backward, against q, k, v, out (dO,
-dq, dk, dv) and lse of traffic.
+(``csrc/flash_attention.cu``: every other backward, f32 and bf16 with
+``hd % 8 != 0``, f32 math on the CUDA cores).  Bound by operations at the
+path's shapes: ``4 * hd`` flops per live (query, key) pair forward (``S (S
++ 1) / 2`` pairs per head causally, fewer under a window), about 2.5x that
+backward, against q, k, v, out (dO, dq, dk, dv) and lse of traffic.
 
 Layouts are the reference's: q ``(B, S, Hq, hd)``, k and v ``(B, S, Hkv,
 hd)``; lse ``(B, Hq, S)`` f32.  Dispatch is by the tensor's device: CPU
@@ -56,11 +58,10 @@ ROUTES = ("tensor_core", "split_tf32", "cuda_core")
 def route(dtype: torch.dtype, hd: int, backward: bool = False) -> str:
     """The kernel a CUDA call of this dtype and head width launches:
     ``"tensor_core"`` for bf16 with ``hd % 8 == 0`` (TMA's 16-byte strides)
-    up to 256 forward and 128 backward (the hd-256 backward's dK and dV
-    would need 256 accumulator registers a thread); else ``"split_tf32"``
-    forward and ``"cuda_core"`` backward."""
-    widest = 128 if backward else MAX_HEAD_DIM
-    if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= widest:
+    up to 256, forward and backward (past hd 128 the backward's dK and dV
+    sit in the two consumer warpgroups, one each, as a thread has no room
+    for both); else ``"split_tf32"`` forward and ``"cuda_core"`` backward."""
+    if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= MAX_HEAD_DIM:
         return "tensor_core"
     return "cuda_core" if backward else "split_tf32"
 
@@ -157,9 +158,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, window, logit_cap)
+    way = route(q.dtype, hd, backward=True)
+    grads = _bwd_launch(way, q, k, v, out, lse, dout, window, logit_cap)
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[way] += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = dict.fromkeys(ROUTES, 0)
+
+
+def _bwd_launch(way, q, k, v, out, lse, dout, window, logit_cap):
+    """The backward's launches on route ``way``, uncounted, for CUDA tensors
+    that ``flash_attention_bwd`` checked; a comparison of two routes on the
+    same inputs may also name a route that ``route()`` would not pick."""
+    b, s, hq, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib, _, fns = _bind()
-    way = route(q.dtype, hd, backward=True)
     # f32 scratch: delta (B, Hq, S); on the tensor cores delta and lse log2(e)
     # in rows padded to the dK/dV kernel's query tile
     rows = s if way == "cuda_core" else 2 * lib.flash_attention_sm90_rows(s)
@@ -169,13 +185,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   b, s, hq, k.shape[2], hd, window or 0, float(logit_cap or 0.0), _scale(hd),
                   _DTYPES[q.dtype], stream_of(q.device))
     check(lib, rc, f"flash_attention backward ({way})")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.routes[way] += 1
     return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
-flash_attention_bwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

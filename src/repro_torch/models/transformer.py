@@ -171,7 +171,9 @@ class CausalLM:
             x = F.embedding(tokens, params["embed"])  # (B, S, d)
         x = x.to(cfg.act_dtype)
         if cfg.embed_scale:
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+            # the scale rounded to the activations' dtype, as the reference's,
+            # as a Python number: a CUDA graph's capture may copy nothing in
+            x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
         if frontend_embeds is not None:
             f = frontend_embeds.shape[1]
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, f:]], dim=1)

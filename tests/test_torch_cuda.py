@@ -531,9 +531,9 @@ def test_flash_split_tf32_forward_matches_plain(cuda, dtype, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_bf16_takes_tensor_cores_and_is_deterministic(cuda, case):
-    """bf16 at hd <= 128 runs the wgmma/TMA kernels, forward and backward
-    (hd 256's backward stays on the CUDA cores), and the backward, which
-    sums without atomics, is bitwise the same from call to call."""
+    """bf16 with hd % 8 == 0 runs the wgmma/TMA kernels, forward and
+    backward (hd 256's backward on the wide kernels), and the backward,
+    which sums without atomics, is bitwise the same from call to call."""
     b, s, hq, hkv, hd, window, cap = case
     q, k, v, dout = _qkvg(cuda, torch.bfloat16, b, s, hq, hkv, hd)
     n = flash_attention_fwd.routes["tensor_core"], flash_attention_bwd.routes["tensor_core"]
@@ -542,7 +542,7 @@ def test_flash_attention_bf16_takes_tensor_cores_and_is_deterministic(cuda, case
     second = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
     torch.cuda.synchronize()
     assert flash_attention_fwd.routes["tensor_core"] - n[0] == 1
-    assert flash_attention_bwd.routes["tensor_core"] - n[1] == (2 if hd <= 128 else 0)
+    assert flash_attention_bwd.routes["tensor_core"] - n[1] == 2
     for a, c in zip(first, second):
         assert torch.equal(a, c)
 
@@ -638,12 +638,25 @@ def test_moe_superstep_graph_replays_equal_eager(cuda):
     graph (no host sync in the MoE dispatch) and its replays equal the eager
     loop bitwise, under deterministic algorithms (the index backwards'
     atomics otherwise sum in any order)."""
+    _assert_superstep_graph_replays_equal_eager(cuda, "mixtral-8x7b")
+
+
+@pytest.mark.cuda
+def test_gemma2_superstep_graph_replays_equal_eager(cuda):
+    """Reduced gemma2's superstep (embedding scale, both softcaps, post-norms,
+    local and global layers) captures into one CUDA graph (its embedding
+    scale copies nothing from the host) and replays equal to the eager loop
+    bitwise, under deterministic algorithms."""
+    _assert_superstep_graph_replays_equal_eager(cuda, "gemma2-2b")
+
+
+def _assert_superstep_graph_replays_equal_eager(cuda, name):
     import os
 
     from repro_torch.configs import get_config
     from repro_torch.models import CausalLM
 
-    cfg = get_config("mixtral-8x7b").reduced()
+    cfg = get_config(name).reduced()
     before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -673,25 +686,95 @@ def test_moe_superstep_graph_replays_equal_eager(cuda):
 @pytest.mark.cuda
 def test_flash_attention_hd160_bf16_matches_plain(cuda):
     """pixtral-12b's head width, 160, in bf16: the forward on the tensor
-    cores (``fwd<256, 64, 2>``), the backward on the CUDA cores, each
-    against the plain version (3e-2 forward, lse 1e-4, gradients 3e-2 of the
-    largest reference entry)."""
+    cores (``fwd<256, 64, 2>``), the backward too (the wide kernels' hd-160
+    tile), each against the plain version (3e-2 forward, lse 1e-4,
+    gradients 3e-2 of the largest reference entry)."""
     b, s, hq, hkv, hd = 2, 320, 8, 2, 160
     q, k, v, dout = _qkvg(cuda, torch.bfloat16, b, s, hq, hkv, hd)
     assert (route(torch.bfloat16, hd), route(torch.bfloat16, hd, backward=True)) == (
-        "tensor_core", "cuda_core")
-    n = flash_attention_fwd.routes["tensor_core"], flash_attention_bwd.routes["cuda_core"]
+        "tensor_core", "tensor_core")
+    n = flash_attention_fwd.routes["tensor_core"], flash_attention_bwd.routes["tensor_core"]
     out, lse = flash_attention_fwd(q, k, v)
     ref_out, ref_lse = flash_attention_fwd_ref(q, k, v)
     grads = flash_attention_bwd(q, k, v, out, lse, dout)
     refs = flash_attention_bwd_ref(q, k, v, out, lse, dout)
     torch.cuda.synchronize()
     assert (flash_attention_fwd.routes["tensor_core"] - n[0],
-            flash_attention_bwd.routes["cuda_core"] - n[1]) == (1, 1)
+            flash_attention_bwd.routes["tensor_core"] - n[1]) == (1, 1)
     torch.testing.assert_close(out.float(), ref_out.float(), atol=3e-2, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
     for got, ref in zip(grads, refs):
         _close(got, ref, 3e-2)
+
+
+# the wide backward's cases (B, S, Hq, Hkv): G = 1 and 4, a ragged S of 80
+# and one of 16 (below every tile); each hd at both tile widths' edges (136
+# and pixtral's 160 on the hd-160 tile, 168 and 256 on the hd-256 one) and
+# two partly filled 256 tiles (192, 200).  Masks: none, gemma2's cap 50 with a
+# window, and a cap of 2, under which the unit-variance scores of these inputs
+# make the cap's derivative 1 - tanh^2(s / cap) small where p is large (under
+# cap 50 it stays above 0.99, so p in place of p times it would pass)
+WIDE_HDS = (136, 160, 168, 192, 200, 256)
+WIDE_CASES = [(2, 80, 4, 4), (2, 80, 8, 2), (1, 16, 4, 1)]
+WIDE_MASKS = [(None, None), (24, 50.0), (None, 2.0)]
+
+
+def _wide_grads(device, hd, case, window, cap):
+    b, s, hq, hkv = case
+    q, k, v, dout = _qkvg(device, torch.bfloat16, b, s, hq, hkv, hd)
+    out, lse = flash_attention_fwd(q, k, v, window, cap)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_HDS)
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("window,cap", WIDE_MASKS)
+def test_flash_wide_bf16_backward_matches_plain(cuda, hd, case, window, cap):
+    """The bf16 backward past hd 128 on the tensor cores (one count on the
+    route, none on the CUDA cores) against ``flash_attention_bwd_ref``: 3e-2
+    of the largest reference entry."""
+    args = _wide_grads(cuda, hd, case, window, cap)
+    n = dict(flash_attention_bwd.routes)
+    grads = flash_attention_bwd(*args, window, cap)
+    refs = flash_attention_bwd_ref(*args, window, cap)
+    torch.cuda.synchronize()
+    assert {r: c - n[r] for r, c in flash_attention_bwd.routes.items()} == {
+        "tensor_core": 1, "split_tf32": 0, "cuda_core": 0}
+    for got, ref in zip(grads, refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        _close(got, ref, 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_HDS)
+@pytest.mark.parametrize("window,cap", WIDE_MASKS)
+def test_flash_wide_bf16_backward_is_bitwise_deterministic(cuda, hd, window, cap):
+    """Two calls of the wide backward on the same inputs are bitwise equal
+    (no atomics: dK and dV sum over the G heads in registers)."""
+    args = _wide_grads(cuda, hd, (2, 80, 8, 2), window, cap)
+    first = flash_attention_bwd(*args, window, cap)
+    second = flash_attention_bwd(*args, window, cap)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_HDS)
+@pytest.mark.parametrize("window,cap", WIDE_MASKS)
+def test_flash_wide_bf16_backward_matches_cuda_core_kernel(cuda, hd, window, cap):
+    """The wide tensor-core backward against the CUDA-core kernel that took
+    these widths before it, called directly on the same inputs: 3e-2 of the
+    largest entry of the CUDA-core gradient."""
+    from repro_torch.kernels.flash_attention.ops import _bwd_launch
+
+    args = _wide_grads(cuda, hd, (1, 300, 8, 2), window, cap)
+    grads = flash_attention_bwd(*args, window, cap)
+    olds = _bwd_launch("cuda_core", *args, window, cap)
+    torch.cuda.synchronize()
+    for got, old in zip(grads, olds):
+        _close(got, old, 3e-2)
 
 
 @pytest.mark.cuda

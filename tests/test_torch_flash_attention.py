@@ -173,7 +173,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     (torch.bfloat16, 64, True, "tensor_core"),
     (torch.bfloat16, 96, True, "tensor_core"),
     (torch.bfloat16, 128, True, "tensor_core"),
-    (torch.bfloat16, 256, True, "cuda_core"),    # dK and dV would need 256 registers a thread
+    (torch.bfloat16, 256, True, "tensor_core"),  # dK and dV in one warpgroup each
+    (torch.bfloat16, 160, True, "tensor_core"),  # on the hd-160 tile
+    (torch.bfloat16, 136, True, "tensor_core"),
+    (torch.bfloat16, 132, True, "cuda_core"),    # hd % 8 != 0
     (torch.bfloat16, 100, False, "split_tf32"),  # hd % 8 != 0: no 16-byte TMA strides
     (torch.bfloat16, 100, True, "cuda_core"),
     (torch.float32, 128, False, "split_tf32"),   # f32 stays f32-accurate: split TF32

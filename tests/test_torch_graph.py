@@ -87,12 +87,14 @@ def test_count_kernels_maps_device_kernels_to_wrappers():
         "void flash_bwd_dkdv_kernel<float, 64>(float const*)",
         "void flash_bwd_dq_kernel<float, 64>(float const*)",
         "flash_bwd_dq_sm90_kernel(CUtensorMap)",
+        "void flash_bwd_dkdv_wide_sm90_kernel<256, 2>(CUtensorMap)",  # hd > 128: dK/dV,
+        "void flash_bwd_dq_sm90_kernel<256, 3, 32>(CUtensorMap)",     # then dQ once
         "void at::native::elementwise_kernel<128, 2>(int)", "Memcpy HtoD (Pinned -> Device)",
     ]
     assert tkernels.count_kernels(names) == {
         "sgd_update": 3, "fused_transition": 1, "flash_attention_fwd": 1,
-        "flash_attention_fwd.split_tf32": 1, "flash_attention_bwd": 2,
-        "flash_attention_bwd.cuda_core": 1, "flash_attention_bwd.tensor_core": 1}
+        "flash_attention_fwd.split_tf32": 1, "flash_attention_bwd": 3,
+        "flash_attention_bwd.cuda_core": 1, "flash_attention_bwd.tensor_core": 2}
     assert tkernels.count_kernels([]) == {}
 
 

@@ -128,6 +128,24 @@ def test_causal_lm_loss_and_grads_match_jax(variant, impl):
     assert aux.item() == 0.0  # no MoE layer
 
 
+def test_embed_scale_matches_jax_in_bf16():
+    """gemma2's embedding scale, sqrt(d_model) rounded to the activations'
+    dtype, bitwise the reference's in bf16 at a d_model whose root bf16
+    does not hold (the port applies it as a Python number: a CUDA graph's
+    capture refuses the copy of a host tensor)."""
+    cfg_j, cfg_t = (dataclasses.replace(_tiny(pkg, "gemma2-local-global"), d_model=72,
+                                        dtype="bfloat16") for pkg in (jconfigs, tconfigs))
+    assert cfg_t.embed_scale and float(torch.tensor(72 ** 0.5, dtype=torch.bfloat16)) != 72 ** 0.5
+    embed = np.random.default_rng(5).normal(size=(cfg_t.padded_vocab, 72)).astype(np.float32)
+    tokens = _tokens()["tokens"]
+    want = jmodels.CausalLM(cfg_j).embed_tokens(
+        {"embed": jnp.asarray(embed, jnp.bfloat16)}, jnp.asarray(tokens))
+    got = tmodels.CausalLM(cfg_t).embed_tokens(
+        {"embed": torch.from_numpy(embed).to(torch.bfloat16)}, torch.from_numpy(tokens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
 def test_vmapped_clients_match_per_client_loss():
     """The round engine's ``vmap(grad_and_value)`` over stacked clients."""
     model = tmodels.CausalLM(_tiny(tconfigs, "gemma2-local-global"))
