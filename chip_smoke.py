@@ -247,12 +247,16 @@ Phases, one result line each; any failure exits non-zero without the final
             plain versions, then timed.
 13. ssm-width eager: mamba2-780m at its published widths (d_model 1536,
             48 SSD heads of 64, state 128, conv 4, chunk 128, vocab 50280,
-            tied, bf16), cut to 4 layers (what 80 GB holds at C = 8),
-            C = 8 in D = 4, S = 2048, b = 1: no flash launch, the mixed SGD
-            and transition launches held, finite losses, the same rates and
-            split by kernel name, the SSD core and its inter-chunk loop
-            timed alone with CUDA events (``ssd_ms``), and the mixed trees
-            against their plain versions.
+            tied, bf16), C = 8 in D = 4, S = 2048, b = 1, 2 supersteps a
+            run: an A/B at 4 layers in one process, remat off (the split by
+            kernel name, the SSD core and its inter-chunk loop timed alone
+            with CUDA events (``ssd_ms``), the mixed trees against their
+            plain versions) against remat on (peak memory, it/s), one
+            client's gradients remat on against off (bitwise, or within 1e-6
+            relative in f32 leaves and a bf16 ulp in bf16 ones); then remat
+            on at the deepest of 48, 24 and 12 layers that fits (at least
+            12).  No flash launch, the mixed SGD and transition launches
+            held, finite losses.
 14. offload host-offloaded client state (``repro_torch.state``), every
             kernel counter zeroed just before the phase and read just after
             (each of the five fleet kernels must have launched):
@@ -286,12 +290,42 @@ Phases, one result line each; any failure exits non-zero without the final
             iterations, ``async_heterogeneous`` 12 events (its async runs on
             the graph), ``train_federated_lm`` 16 iterations at d_model 256
             and 2 layers; finite losses.
+16. serve    the serving slice at reduced sizes (f32):
+            ``serve_scenario("federated-lm-serving")`` and
+            ``serve_scenario("lm-serving-continuous", continuous=True)`` on
+            the card (the LM kernels' counters zeroed before each; the flash
+            forward, SGD and transition must launch) held token for token,
+            with ``ServeStats``' counts, against the same calls on the CPU;
+            a mid-stream publish (in-flight requests keep their tokens, later
+            ones match a fresh server on the published weights), the chunk
+            graph captured once across buckets, admissions and the swap, its
+            replay equal to the eager chunk at 0.0 under deterministic
+            algorithms; ``generate`` on seven reduced families, audio
+            included (prefill logits within 1e-3 of the CPU's, tokens in the
+            vocabulary, agreement reported).
+17. serve-width granite-8b at its published widths and all 36 layers,
+            bf16, two random replicas made on the card:
+            ``ContinuousFederatedServer`` (8 slots, buckets 512/1024/2048,
+            gen_cap 256, chunks of 8 steps on one CUDA graph) on a
+            32-request ``synthetic_trace`` at vocab 49,152, then
+            ``FederatedServer`` on the same trace: tokens/s, TTFT p50/p95,
+            ms a decode step (CUDA events around every chunk, and a full
+            pool alone), decode attention's share, the busy share, peak
+            memory serving and at set-up; held: chunk graph = eager at 0.0,
+            a 2048-token prefill flash against plain within 5e-2 in relative
+            norm with its 36 flash forwards counted in an eager session,
+            every token in the vocabulary; the flash forward at (1, 2048,
+            32, 8, 128) timed against its plain version, SDPA and the bound.
+
+``--phases NAME ...`` runs only those phases (after device and build) and
+prints no kernels or result line: a development run.
 
 The line before the last is the kernels' JSON record (the flash,
 transition and SGD entries also carry, under ``width``, their granite-8b
 bf16 numbers and the ``lm-width`` launches, the flash entries under
 ``mixtral_width``, ``hd160`` and ``gemma2_global`` those shapes' (the
-wide backward's with its A/B under ``ab``), the LM kernels
+wide backward's with its A/B under ``ab``, and under ``serve_width`` the
+prefill's flash forwards and the forward at (1, 2048, 32, 8, 128)), the LM kernels
 ``families_host_launches``, ``moe_width_launches`` and
 ``gemma2_width_launches``, the transition and SGD
 ``moe_width``/``ssm_width``/``gemma2_width`` (their trees) and
@@ -305,6 +339,7 @@ graphed run, ``host_launches`` the wrappers' counts there; the last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import re
@@ -412,6 +447,20 @@ MOE_WIDTH = dict(num_layers=1, num_clients=4, num_clusters=2, seq_len=2048, batc
 # activations at S = 2048 and the tied head 1.5 GB (a CPU trace of live
 # tensors at these widths, C = 1), so C = 8 holds 4 layers in about 57 GB
 SSM_WIDTH = dict(num_layers=4, num_clients=8, num_clusters=4, seq_len=2048, batch_size=1)
+# with remat on, the depths ssm-width tries, deepest first (what 80 GB holds:
+# models/live_bytes.py puts one client's remat gradient at 58.6 MB a layer
+# and 1.68 GB besides at S = 2048; see PERF.md), and the supersteps a run
+SSM_DEPTHS, SSM_STEPS = (48, 24, 12), 2
+# the serve phase: the serving scenarios' training supersteps, requests and
+# generation cap; the reduced families generate is run on
+SERVE_STEPS, SERVE_REQUESTS, SERVE_GEN = 2, 12, 12
+SERVE_STATS = ("requests", "batches", "tokens_generated", "decode_steps", "occupancy_sum")
+SERVE_FAMILIES = ("granite-8b", "mixtral-8x7b", "gemma2-2b", "mamba2-780m",
+                  "jamba-1.5-large-398b", "pixtral-12b", "musicgen-large")
+# the serve-width phase: granite-8b at all 36 layers, D = 2 random replicas
+SERVE_WIDTH = dict(replicas=2, max_batch=8, buckets=(512, 1024, 2048), gen_cap=256,
+                   chunk_steps=8, requests=32, prompt_lens=(512, 1024, 2048))
+SERVE_FULL_CHUNKS = 4  # chunk replays timed with every slot active
 # gemma2-2b's depth cut to one local (even) and one global layer; its window
 # 4096 passes S = 2048, so both layers attend causally in full
 GEMMA2_WIDTH = dict(num_layers=2, num_clients=4, num_clusters=2, seq_len=2048, batch_size=1)
@@ -490,6 +539,9 @@ def main() -> None:
     ap.add_argument("--old-gossip", type=Path, default=None,
                     help="CUDA source of gossip_mix with P by value in its parameters "
                          f"(default: {OLD_GOSSIP[1]} at commit {OLD_GOSSIP[0]}, from git)")
+    ap.add_argument("--phases", nargs="+", default=None, metavar="PHASE",
+                    help="run only these phases after device and build (a partial run: it "
+                         "prints no kernels line and no result line)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -498,16 +550,19 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    Smoke(torch, args.old_flash, args.old_gossip).run()
+    Smoke(torch, args.old_flash, args.old_gossip, args.phases).run()
 
 
 class Smoke:
-    def __init__(self, torch, old_flash=None, old_gossip=None):
+    def __init__(self, torch, old_flash=None, old_gossip=None, only=None):
         self.torch = torch
+        self.only = None if only is None else set(only) | {"device", "build"}
         self.dev = torch.device("cuda")
         self.failed: list[str] = []
         self.detail: dict = {}
-        self.record: dict = {}
+        # each kernel's record; the kernels phase fills the timed fields, and
+        # later phases add theirs (a partial run starts from empty records)
+        self.record: dict = collections.defaultdict(dict)
         self.old_flash_src = old_flash
         self.old_flash = None  # the old forward's launcher, once built
         self.old_gossip_src = old_gossip
@@ -518,6 +573,8 @@ class Smoke:
     def phase(self, name, fn):
         import gc
 
+        if self.only is not None and name not in self.only:
+            return
         t0 = time.perf_counter()
         try:
             fn()
@@ -527,6 +584,7 @@ class Smoke:
             print(f"[{name}] FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
         else:
             print(f"[{name}] ok in {time.perf_counter() - t0:.1f}s", flush=True)
+        self.detail.setdefault("phase_seconds", {})[name] = time.perf_counter() - t0
         # what a phase left (its runs, their graphs, pools and staged batches,
         # also when it failed) is freed before the next phase captures
         gc.collect()
@@ -2754,7 +2812,7 @@ class Smoke:
 
             def attn(hh, *ws, c=c):
                 return transformer._attention(dict(zip(names, ws)), hh, c,
-                                              window=cfg.window_for_layer(0), positions=pos)
+                                              window=cfg.window_for_layer(0), positions=pos)[0]
 
             out, vjp = torch.func.vjp(attn, h, *(p[k] for k in names))
             got[impl] = (out, vjp(gout))
@@ -3323,7 +3381,7 @@ class Smoke:
             for impl in ("cuda", "plain"):
                 c = dataclasses.replace(cfg, attn_impl=impl)
                 y = x + transformer._attention(p, rms_norm(x, p["ln_mix"], cfg.norm_eps), c,
-                                               window=cfg.window_for_layer(0), positions=pos)
+                                               window=cfg.window_for_layer(0), positions=pos)[0]
                 h = rms_norm(y, p["ln_ffn"], cfg.norm_eps)
                 ids[impl] = torch.stack([router_topk(seq, p["ffn.w_router"],
                                                      cfg.num_experts_per_tok)[0] for seq in h])
@@ -3445,60 +3503,649 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def ssm_width(self):
-        """mamba2-780m at its published widths (``SSM_WIDTH``), cut in depth,
-        eager: no attention (no flash launch), the mixed f32/bf16 SGD and
-        transition launches held exactly, finite losses, rates, peak memory,
-        the device time of a superstep by part, and the mixed trees against
-        their plain versions."""
+        """mamba2-780m at its published widths (``SSM_WIDTH``), eager, C = 8
+        in D = 4, S = 2048: first an A/B at 4 layers in one process, remat
+        off (the lane as it ran without remat: rates, the split by kernel name, the
+        SSD core timed alone, the mixed trees against their plain versions)
+        against remat on (peak memory and it/s), with one client's gradients
+        remat on against off on the same state and batch; then remat on at
+        the deepest of ``SSM_DEPTHS`` that fits (a depth that runs out of
+        memory is recorded and the next tried; at least 12 layers must
+        run).  No flash launch; the mixed SGD and transition launches held
+        exactly, finite losses."""
         import dataclasses
+        import gc
 
         torch = self.torch
         from repro_torch.configs import get_config
+
+        pub = get_config("mamba2-780m")
+        ab_layers = SSM_WIDTH["num_layers"]
+        out = {"ab": {}}
+        for remat in (False, True):
+            cfg = dataclasses.replace(pub, num_layers=ab_layers, remat=remat)
+            res, run = self.ssm_run(cfg, pub, full=not remat)
+            out["ab"]["remat_on" if remat else "remat_off"] = res
+            if not remat:
+                p0 = {k: w[0].clone() for k, w in run.runtime.scheduler.params.items()}
+                batch = {k: torch.as_tensor(v[0], device=self.dev)
+                         for k, v in run.batch_source()(0).items()}
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["ab"]["grads"] = self.remat_grads(pub, ab_layers, p0, batch)
+        del p0, batch
+        off, on = out["ab"]["remat_off"], out["ab"]["remat_on"]
+        print(f"ssm-width A/B at {ab_layers} layers, one process: remat off peak "
+              f"{off['peak_bytes'] / 2**30:.2f} GiB, warm {off['it_per_s_warm']:.4f} it/s; remat "
+              f"on peak {on['peak_bytes'] / 2**30:.2f} GiB, warm {on['it_per_s_warm']:.4f} it/s "
+              f"({on['it_per_s_warm'] / off['it_per_s_warm']:.3f}x); gradients "
+              f"{json.dumps(out['ab']['grads'])}", flush=True)
+        out["deep"], out["refused_depths"] = None, []
+        for depth in SSM_DEPTHS:
+            cfg = dataclasses.replace(pub, num_layers=depth, remat=True)
+            try:
+                res, run = self.ssm_run(cfg, pub, full=False)
+            except torch.cuda.OutOfMemoryError as err:
+                out["refused_depths"].append({"num_layers": depth, "error": str(err)[:200]})
+                print(f"ssm-width remat on at {depth} layers ran out of memory; next depth",
+                      flush=True)
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            out["deep"] = res
+            del run
+            break
+        gc.collect()
+        torch.cuda.empty_cache()
+        if out["deep"] is None or out["deep"]["cuts"]["num_layers"][1] < 12:
+            raise AssertionError(f"ssm-width: remat on reached no depth of 12 layers or more "
+                                 f"({out['refused_depths']})")
+        for kname in ("sgd_update", "fused_transition"):
+            self.record[kname]["ssm_width_launches"] = off["launches"][kname]
+        self.detail["ssm_width"] = out
+
+    def ssm_run(self, cfg, pub, full):
+        """One ``ssm-width`` run of ``SSM_STEPS`` supersteps (the first cold,
+        the rest timed warm): its record and the run; ``full`` adds the split
+        by kernel name, the SSD core's times and the mixed trees."""
+        w = SSM_WIDTH
         from repro_torch.models import CausalLM
 
-        w = SSM_WIDTH
-        pub = get_config("mamba2-780m")
-        cfg = dataclasses.replace(pub, num_layers=w["num_layers"], remat=False)
         run, dt, losses, launches, peak, _ = self.width_lane(
-            "ssm-width", CausalLM(cfg), WIDTH_STEPS, False, num_clients=w["num_clients"],
+            "ssm-width", CausalLM(cfg), 1, False, num_clients=w["num_clients"],
             num_clusters=w["num_clusters"], seq_len=w["seq_len"], batch_size=w["batch_size"],
             vocab_size=pub.vocab_size, num_samples=16)
         if launches["flash_attention"] or launches["fused_transition"] == 0:
             raise AssertionError(f"ssm-width launches {launches}")
-        for kname in ("sgd_update", "fused_transition"):
-            self.record[kname]["ssm_width_launches"] = launches[kname]
         sched = run.runtime.scheduler
         c, b, s = sched.fl.num_clients, run.batch_size, w["seq_len"]
-        iters = WIDTH_STEPS * sched.iterations_per_step
-        wiph = sched.iterations_per_step * self.warm_rate(run, 1)
-        split = self.width_split(run)
-        per_layer = self.ssd_ms(run, cfg)
-        split.update({k: v * cfg.num_layers * sched.iterations_per_step
-                      for k, v in per_layer.items()})
+        wiph = sched.iterations_per_step * self.warm_rate(run, SSM_STEPS - 1)
+        peak = max(peak, self.torch.cuda.max_memory_allocated())
         n_params = sum(w_[0].numel() for w_ in sched.params.values())
-        print(f"ssm-width federated-lm-ring at mamba2-780m's published widths, eager "
-              f"(graph=False; peak {peak / 2**30:.2f} GiB): d_model {cfg.d_model}, d_inner "
-              f"{cfg.d_inner}, {cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
-              f"{cfg.ssm_state}, conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}, vocab "
-              f"{cfg.vocab_size} (padded {cfg.padded_vocab}), tied embeddings, {cfg.dtype}; "
-              f"cuts: depth {pub.num_layers} -> {cfg.num_layers}, remat off, C={c} in "
+        res = {"launches": launches, "params_per_client": n_params, "peak_bytes": peak,
+               "it_per_s_cold": sched.iterations_per_step / dt, "it_per_s_warm": wiph,
+               "tokens_per_s_warm": wiph * c * b * s, "losses": losses.tolist(),
+               "graph": False,
+               "cuts": {"num_layers": [pub.num_layers, cfg.num_layers], "remat": [True, cfg.remat],
+                        "clients": c, "clusters": sched.fl.num_clusters, "seq_len": s,
+                        "batch_size": b, "evaluate": False}}
+        if full:
+            split = self.width_split(run)
+            per_layer = self.ssd_ms(run, cfg)
+            split.update({k: v * cfg.num_layers * sched.iterations_per_step
+                          for k, v in per_layer.items()})
+            res["split"] = split
+            res["trees"] = self.hold_mixed_trees(run, "ssm-width")
+        print(f"ssm-width federated-lm-ring at mamba2-780m's published widths, eager, remat "
+              f"{'on' if cfg.remat else 'off'} (peak {peak / 2**30:.2f} GiB): d_model "
+              f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+              f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, chunk "
+              f"{cfg.ssm_chunk}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), tied, "
+              f"{cfg.dtype}; cuts: depth {pub.num_layers} -> {cfg.num_layers}, C={c} in "
               f"D={sched.fl.num_clusters}, S={s}, b={b}, no evaluate; {n_params} params per "
-              f"client; {iters} iterations in {dt:.3f}s = {iters / dt:.4f} it/s, "
-              f"{iters * c * b * s / dt:.1f} tokens/s cold; warm {wiph:.4f} it/s, "
-              f"{wiph * c * b * s:.1f} tokens/s; launches {json.dumps(launches)}; device split "
-              f"of a warm superstep {json.dumps(split)}; losses "
-              f"{[round(x, 4) for x in losses.tolist()]}", flush=True)
-        trees = self.hold_mixed_trees(run, "ssm-width")
-        self.detail["ssm_width"] = {
-            "launches": launches, "params_per_client": n_params, "peak_bytes": peak,
-            "it_per_s_cold": iters / dt, "it_per_s_warm": wiph,
-            "tokens_per_s_cold": iters * c * b * s / dt, "tokens_per_s_warm": wiph * c * b * s,
-            "split": split, "losses": losses.tolist(), "trees": trees, "graph": False,
-            "cuts": {"num_layers": [pub.num_layers, cfg.num_layers], "remat": [True, False],
-                     "clients": c, "clusters": sched.fl.num_clusters, "seq_len": s,
-                     "batch_size": b, "evaluate": False}}
-        del run, sched
+              f"client; cold {res['it_per_s_cold']:.4f} it/s, warm {wiph:.4f} it/s, "
+              f"{wiph * c * b * s:.1f} tokens/s; launches {json.dumps(launches)}"
+              + (f"; device split of a warm superstep {json.dumps(res['split'])}" if full
+                 else "") + f"; losses {[round(x, 4) for x in losses.tolist()]}", flush=True)
+        return res, run
+
+    def remat_grads(self, pub, layers, p0, batch) -> dict:
+        """One client's loss and gradients with remat on against off, at the
+        same state and batch, eager: in f32 (the state cast up; TF32 off)
+        held bitwise or within 1e-6 in relative norm a leaf, and in the run's
+        bf16 reported (the recomputing backward takes the same formulas as
+        the whole model's, so bitwise is expected in both)."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.models import CausalLM
+
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(pub, num_layers=layers, dtype=dtype)
+            p = {k: (v.float() if dtype == "float32" else v) for k, v in p0.items()}
+            got = {}
+            for remat in (False, True):
+                model = CausalLM(dataclasses.replace(cfg, remat=remat))
+                g, l = torch.func.grad_and_value(model.loss)(p, batch)
+                got[remat] = (l.item(), g)
+            ref = got[False][1]
+            bitwise = got[True][0] == got[False][0] and all(
+                torch.equal(g, ref[k]) for k, g in got[True][1].items())
+            norm = {k: ((g.float() - ref[k].float()).norm()
+                        / ref[k].float().norm().clamp_min(1e-30)).item()
+                    for k, g in got[True][1].items()}
+            peak = {k: ((g.float() - ref[k].float()).abs().max()
+                        / ref[k].float().abs().max().clamp_min(1e-30)).item()
+                    for k, g in got[True][1].items()}
+            out[dtype] = {"bitwise": bitwise, "loss_diff": abs(got[True][0] - got[False][0]),
+                          "max_rel_norm": max(norm.values()), "max_rel_peak": max(peak.values()),
+                          "furthest": sorted(norm.items(), key=lambda r: -r[1])[:3]}
+            del got, p
+            torch.cuda.empty_cache()
+        f32 = out["float32"]
+        if not (f32["bitwise"] or f32["max_rel_norm"] <= 1e-6):
+            raise AssertionError(f"ssm-width remat on vs off in f32: {f32}")
+        return out
+
+    # -- serving ---------------------------------------------------------------
+    def serve(self):
+        """The serving slice at reduced sizes (f32): both serving scenarios
+        through ``launch.serve.serve_scenario`` on the card (training on the
+        round's graph, then the federated servers) held token for token,
+        with ``ServeStats``' counts, against the same calls on the CPU; the
+        LM kernels' counters zeroed before each card call and each kernel of
+        the path (flash forward, SGD, transition) required to launch; then
+        a mid-stream hot swap, the chunk graph's one capture and its replay
+        against the eager chunk, and ``generate`` on the reduced families."""
+        torch = self.torch
+        from repro_torch.launch.serve import serve_scenario
+
+        out = {}
+        for name, continuous in (("federated-lm-serving", False),
+                                 ("lm-serving-continuous", True)):
+            kw = dict(train_steps=SERVE_STEPS, requests=SERVE_REQUESTS, gen=SERVE_GEN,
+                      continuous=continuous)
+            counters = self.lm_counters()
+            t0 = time.perf_counter()
+            srv, done, _ = serve_scenario(name, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            if not all(launches[k] for k in ("flash_attention", "sgd_update",
+                                             "fused_transition")):
+                raise AssertionError(f"serve {name}: launches {launches}")
+            cpu, cpu_done, _ = serve_scenario(name, device="cpu", **kw)
+            toks = {r.uid: r.output.tolist() for r in done}
+            ref = {r.uid: r.output.tolist() for r in cpu_done}
+            stats = {f: getattr(srv.stats, f) for f in SERVE_STATS}
+            ref_stats = {f: getattr(cpu.stats, f) for f in SERVE_STATS}
+            if toks != ref or stats != ref_stats:
+                raise AssertionError(f"serve {name}: cuda and cpu differ: tokens equal "
+                                     f"{toks == ref}, stats {stats} vs {ref_stats}")
+            counts = srv.compile_counts() if continuous else None
+            if continuous and (counts["decode"] != 1 or srv._chunk_p.graphed is None
+                               or srv._chunk_p.graphed.replays < 1):
+                raise AssertionError(f"serve {name}: decode programs {counts}")
+            out[name] = {"seconds": dt, "launches": launches, "stats": stats,
+                         "tokens": sum(len(t) for t in toks.values()),
+                         "compile_counts": counts}
+            print(f"serve {name} ({'continuous' if continuous else 'static'}) on cuda: "
+                  f"{SERVE_STEPS} supersteps then {SERVE_REQUESTS} requests in {dt:.2f}s "
+                  f"(training included); token for token the CPU's, counts {json.dumps(stats)}; "
+                  f"launches {json.dumps(launches)}; programs {counts}", flush=True)
+            del srv, cpu
+        out["hot_swap"] = self.serve_hot_swap()
+        out["families"] = self.serve_families()
+        self.detail["serve"] = out
+
+    def serve_hot_swap(self) -> dict:
+        """``lm-serving-continuous`` trained on the card, its clusters' models
+        published mid-stream after one more superstep: the in-flight requests'
+        tokens are a no-swap server's, the later ones a fresh server's on the
+        published weights; the chunk graph, captured once across mixed
+        buckets, admissions and the swap, replays equal to the eager chunk at
+        0.0 (under deterministic algorithms, from a snapshot of the pool)."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.scenarios import build_scenario
+        from repro_torch.serving import ContinuousFederatedServer, synthetic_trace
+
+        with self.deterministic() as refused:
+            run = build_scenario("lm-serving-continuous")
+            run.run(SERVE_STEPS)
+            old_stack = run.runtime.cluster_params()
+            run.run(1)
+            new_stack = run.runtime.cluster_params()
+            trace = synthetic_trace(run.dataset, num_requests=SERVE_REQUESTS, prompt_lens=(8, 16),
+                                    max_new_tokens=(1, SERVE_GEN), seed=1)
+            first = [dataclasses.replace(r, max_new_tokens=SERVE_GEN, eos_id=None)
+                     for r in trace[:4]]
+            later = trace[4:]
+            kw = dict(length_buckets=(16, 32, 64), gen_cap=SERVE_GEN, chunk_steps=4)
+            model = run.runtime.model
+
+            def serve(stack, reqs):
+                srv = ContinuousFederatedServer(model, stack, **kw)
+                reqs = [dataclasses.replace(r, output=None) for r in reqs]
+                for r in reqs:
+                    srv.submit(r)
+                srv.run()
+                return {r.uid: r.output.tolist() for r in reqs}
+
+            srv = ContinuousFederatedServer(model, old_stack, **kw)
+            inflight = [dataclasses.replace(r, output=None) for r in first]
+            fresh = [dataclasses.replace(r, output=None) for r in later]
+            for r in inflight:
+                srv.submit(r)
+            srv.step()
+            srv.step()  # the chunk's warm-up, then its capture and first replay
+            srv.publish(new_stack)
+            for r in fresh:
+                srv.submit(r)
+            srv.run()
+            got_old = {r.uid: r.output.tolist() for r in inflight}
+            got_new = {r.uid: r.output.tolist() for r in fresh}
+            if got_old != serve(old_stack, first) or got_new != serve(new_stack, later):
+                raise AssertionError("serve hot swap: tokens differ from the no-swap and "
+                                     "fresh servers'")
+            chunk = srv._chunk_p
+            if (srv.swaps != 1 or chunk.graphed.captured != 1 or srv.compile_counts()["decode"]
+                    != 1):
+                raise AssertionError(f"serve hot swap: swaps {srv.swaps}, captures "
+                                     f"{chunk.graphed.captured}")
+            # replay against the eager chunk from one snapshot of a live pool
+            for r in [dataclasses.replace(r, output=None) for r in trace[:8]]:
+                srv.submit(r)
+            srv._admit_available()
+            diff = self.chunk_graph_vs_eager(srv)
+            replays = chunk.graphed.replays
+        print(f"serve hot swap (lm-serving-continuous on cuda): {len(first)} in-flight "
+              f"requests kept their tokens, {len(later)} later ones match a fresh server on "
+              f"the published weights; one chunk graph ({replays} replays) across buckets, "
+              f"admissions and the swap; replay vs eager chunk max abs diff {diff} (held to "
+              f"0.0); ops without a deterministic implementation: {refused}", flush=True)
+        return {"inflight": len(first), "later": len(later), "captures": 1,
+                "replays": replays, "graph_vs_eager": diff, "nondeterministic_ops": refused}
+
+    def chunk_graph_vs_eager(self, srv) -> float:
+        """One decode chunk replayed from the server's graph and one run
+        eagerly, from the same snapshot of the pool: their largest
+        difference over every state tensor, held to 0.0; the pool is left
+        as the replay left it."""
+        torch = self.torch
+        state, weights = srv._state, srv._weights()
+
+        def leaves():
+            return [v for k, v in state.items() if k != "cache"] + list(
+                state["cache"].values())
+
+        snap = [t.clone() for t in leaves()]
+        srv._chunk_p(weights, state)
+        replayed = [t.clone() for t in leaves()]
+        for t, s in zip(leaves(), snap):
+            t.copy_(s)
+        srv._chunk_p.eager(weights, state)
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(leaves(), replayed))
+        for t, r in zip(leaves(), replayed):
+            t.copy_(r)
+        del snap, replayed
+        torch.cuda.synchronize()
+        if diff != 0.0:
+            raise AssertionError(f"chunk graph vs eager: {diff}")
+        return diff
+
+    def serve_families(self) -> dict:
+        """``generate`` on every family's reduced model (f32), card against
+        CPU from the same weights and prompts: the prefill's last logits
+        within 1e-3 in relative norm, every token in the vocabulary, the
+        tokens' agreement reported (a token decided by a near tie may flip
+        between the two roundings and change the rest of its sequence)."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import generate
+        from repro_torch.models import CausalLM
+
+        out = {}
+        for name in SERVE_FAMILIES:
+            cfg = get_config(name).reduced()
+            model = CausalLM(cfg)
+            params = model.init(torch.Generator().manual_seed(0))
+            gen = torch.Generator().manual_seed(1)
+            shape = ((2, cfg.num_codebooks, 32) if cfg.modality == "audio" else (2, 32))
+            prompts = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+            dev = {k: v.to(self.dev) for k, v in params.items()}
+            with torch.no_grad():
+                lc, _ = model.prefill(dev, {"tokens": prompts.to(self.dev)})
+                lp, _ = model.prefill(params, {"tokens": prompts})
+            rel = ((lc.cpu() - lp).norm() / lp.norm()).item()
+            toks = generate(model, dev, prompts.to(self.dev), 8).cpu()
+            ref = generate(model, params, prompts, 8)
+            if not (rel <= 1e-3 and int(toks.max()) < cfg.vocab_size and int(toks.min()) >= 0):
+                raise AssertionError(f"serve families {name}: prefill rel {rel}, tokens "
+                                     f"{toks.min().item()}..{toks.max().item()}")
+            out[name] = {"prefill_rel": rel, "tokens": toks.numel(),
+                         "agree": (toks == ref).float().mean().item(),
+                         "shape": list(toks.shape)}
+        print(f"serve families (reduced, f32, generate 8 tokens, cuda vs cpu): "
+              f"{json.dumps(out)}", flush=True)
+        return out
+
+    def random_stack(self, cfg, replicas: int, seed: int = 0) -> dict:
+        """``replicas`` random models of ``cfg`` stacked ``(D, ...)``, made on
+        the card from a seed: norms 1, the embedding and head N(0, 0.02) and
+        N(0, 1/d_in), every other matrix N(0, 1/d_in), as ``CausalLM.init``
+        scales them; the leaves' names and shapes from a one-block model."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.models import CausalLM
+
+        small = dataclasses.replace(cfg, num_layers=cfg.scan_period, vocab_size=256)
+        shapes = {k: tuple(v.shape) for k, v in
+                  CausalLM(small).init(torch.Generator().manual_seed(0)).items()}
+        v, d = cfg.padded_vocab, cfg.d_model
+        shapes["embed"] = (v, d)
+        if "head" in shapes:
+            shapes["head"] = (d, v)
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        out = {}
+        for name, shape in shapes.items():
+            if name.startswith("blocks."):
+                shape = (cfg.num_scan_blocks,) + shape[1:]
+            full = (replicas,) + shape
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("ln_") or name == "ln_final":
+                out[name] = torch.ones(full, dtype=cfg.param_dtype, device=self.dev)
+                continue
+            scale = 0.02 if name == "embed" else shape[-2] ** -0.5
+            out[name] = torch.randn(full, generator=gen, device=self.dev,
+                                    dtype=cfg.param_dtype).mul_(scale)
+        return out
+
+    def serve_width(self):
+        """granite-8b at its published widths and depth (36 layers, bf16),
+        two random replicas made on the card: ``ContinuousFederatedServer``
+        (``SERVE_WIDTH``) on a 32-request ``synthetic_trace`` of prompts of
+        512, 1024 and 2048 tokens and heavy-tailed budgets on [1, 256], then
+        ``FederatedServer`` on the same trace.  Tokens/s, TTFT p50/p95, ms a
+        decode step (CUDA events around every chunk, and a full pool timed
+        alone), the device's busy share (CUDA-event spans of prefills and
+        chunks over the wall), peak memory, and the flash forward's device
+        launches in an eager prefill session; held: graph chunk = eager chunk
+        at 0.0, one request's prefill logits flash against plain attention
+        within 5e-2 in relative norm, every token in the vocabulary.  No
+        publish: a staged copy would double the 33 GB of replicas."""
+        import dataclasses
+        import gc
+
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data import FederatedLM
+        from repro_torch.kernels import check_eager_session, device_launches
+        from repro_torch.models import CausalLM
+        from repro_torch.serving import ContinuousFederatedServer, FederatedServer, synthetic_trace
+
+        w = SERVE_WIDTH
+        cfg = get_config("granite-8b")
+        model = CausalLM(cfg)
+        ds = FederatedLM.generate_clustered(2 * w["replicas"], 2, max(w["prompt_lens"]),
+                                            cfg.vocab_size, w["replicas"], seed=0)
+        trace = synthetic_trace(ds, num_requests=w["requests"], prompt_lens=w["prompt_lens"],
+                                max_new_tokens=(1, w["gen_cap"]), seed=0)
+        gc.collect()
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        with self.deterministic() as refused:
+            t0 = time.perf_counter()
+            stack = self.random_stack(cfg, w["replicas"])
+            n_params = sum(v[0].numel() for v in stack.values())
+            srv = ContinuousFederatedServer(
+                model, stack, max_batch=w["max_batch"], length_buckets=w["buckets"],
+                gen_cap=w["gen_cap"], chunk_steps=w["chunk_steps"])
+            del stack
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            # set-up holds the caller's stack and the server's copy at once
+            setup_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            spans = self.time_programs(srv, ("_prefill_p", "_chunk_p"))
+            reqs = [dataclasses.replace(r) for r in trace]
+            for r in reqs:
+                srv.submit(r)
+            t0 = time.perf_counter()
+            done = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+            st = srv.stats
+            toks = [r.output for r in done]
+            if not all(int(t.max()) < cfg.vocab_size and int(t.min()) >= 0 for t in toks):
+                raise AssertionError("serve-width: a token outside the vocabulary")
+            peak = torch.cuda.max_memory_allocated()  # serving alone, before the holds
+            counts = srv.compile_counts()
+            if counts["decode"] != 1 or srv._chunk_p.graphed.captured != 1:
+                raise AssertionError(f"serve-width: decode programs {counts}")
+            chunks = len(spans["_chunk_p"])
+            out["continuous"] = {
+                "requests": st.requests, "tokens": st.tokens_generated, "wall_s": wall,
+                "tokens_per_s": st.tokens_per_s, "ttft_p50_s": st.ttft_p50,
+                "ttft_p95_s": st.ttft_p95, "latency_p50_s": st.latency_p50,
+                "latency_p95_s": st.latency_p95, "decode_steps": st.decode_steps,
+                "chunks": chunks, "mean_occupancy": st.mean_occupancy,
+                "prefill_ms": ms["_prefill_p"], "chunk_ms": ms["_chunk_p"],
+                "ms_per_decode_step": ms["_chunk_p"] / max(st.decode_steps, 1),
+                "ms_per_executed_step": ms["_chunk_p"] / max(chunks * w["chunk_steps"], 1),
+                # the chunks after the first two (the graph's eager warm-up and
+                # its capture), all replays
+                "replay_ms_per_step": sum(a.elapsed_time(b) for a, b in spans["_chunk_p"][2:])
+                / max((chunks - 2) * w["chunk_steps"], 1),
+                "busy_share": (ms["_prefill_p"] + ms["_chunk_p"]) / (wall * 1e3),
+                "compile_counts": counts, "setup_s": setup_s}
+            for name in ("_prefill_p", "_chunk_p"):
+                setattr(srv, name, getattr(srv, name).program)
+            out["full_pool"] = self.serve_full_pool(srv, trace)
+            out["graph_vs_eager"] = self.chunk_graph_vs_eager(srv)
+            params0 = {k: v[0] for k, v in srv.active_params.items()}
+            long = next(r for r in trace if r.prompt.shape[-1] == max(w["prompt_lens"]))
+            toks2k = torch.from_numpy(long.prompt[None].astype(np.int64)).to(self.dev)
+            out["prefill"] = self.serve_prefill_holds(cfg, params0, toks2k)
+            del params0
+            holds_peak = torch.cuda.max_memory_allocated()
+            # the static engine on the same trace, from the same replicas
+            stack = srv.active_params
+            del srv
+            gc.collect()
+            torch.cuda.empty_cache()
+            static = FederatedServer(model, stack, max_batch=w["max_batch"],
+                                     length_buckets=w["buckets"])
+            del stack
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reqs_s = [dataclasses.replace(r, output=None) for r in trace]
+            for r in reqs_s:
+                static.submit(r)
+            t0 = time.perf_counter()
+            static.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            st = static.stats
+            same = np.mean([np.array_equal(a.output, b.output) for a, b in
+                            zip(sorted(done, key=lambda r: r.uid), reqs_s)])
+            out["static"] = {"requests": st.requests, "tokens": st.tokens_generated,
+                             "wall_s": wall_s, "tokens_per_s": st.tokens_per_s,
+                             "ttft_p50_s": st.ttft_p50, "ttft_p95_s": st.ttft_p95,
+                             "decode_steps": st.decode_steps, "batches": st.batches,
+                             "mean_occupancy": st.mean_occupancy,
+                             "requests_equal_to_continuous": float(same)}
+            out["static"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del static
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update({"params_per_replica": n_params, "replicas": w["replicas"],
+                    "peak_bytes": peak, "setup_peak_bytes": setup_peak,
+                    "holds_peak_bytes": holds_peak,
+                    "nondeterministic_ops": refused,
+                    "config": {"num_layers": cfg.num_layers, "d_model": cfg.d_model,
+                               "d_ff": cfg.d_ff, "heads": [cfg.num_heads, cfg.num_kv_heads,
+                                                           cfg.head_dim],
+                               "vocab": cfg.vocab_size, "dtype": cfg.dtype},
+                    **{k: w[k] for k in ("max_batch", "buckets", "gen_cap", "chunk_steps")}})
+        c, s_ = out["continuous"], out["static"]
+        print(f"serve-width granite-8b at its published widths and depth ({cfg.num_layers} "
+              f"layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+              f"{cfg.dtype}), {w['replicas']} random replicas of {n_params} params; "
+              f"continuous: {c['requests']} requests, {c['tokens']} tokens in {c['wall_s']:.3f}s "
+              f"= {c['tokens_per_s']:.1f} tokens/s, TTFT p50 {c['ttft_p50_s']:.4f}s p95 "
+              f"{c['ttft_p95_s']:.4f}s, {c['decode_steps']} decode steps in {c['chunks']} "
+              f"chunks, {c['ms_per_decode_step']:.3f} ms a decode step "
+              f"({c['ms_per_executed_step']:.3f} an executed one, "
+              f"{c['replay_ms_per_step']:.3f} on replays alone), full pool "
+              f"{out['full_pool']['ms_per_step']:.3f} ms a step (decode attention "
+              f"{out['full_pool']['decode_attention_share']:.3f} of it), busy share "
+              f"{c['busy_share']:.3f}, mean occupancy {c['mean_occupancy']:.3f}, programs "
+              f"{c['compile_counts']}; static: {s_['tokens']} tokens in {s_['wall_s']:.3f}s = "
+              f"{s_['tokens_per_s']:.1f} tokens/s, TTFT p50 {s_['ttft_p50_s']:.4f}s p95 "
+              f"{s_['ttft_p95_s']:.4f}s, {s_['batches']} batches, {s_['decode_steps']} decode "
+              f"steps (peak {s_['peak_bytes'] / 2**30:.2f} GiB); peak serving {peak / 2**30:.2f} "
+              f"GiB, at set-up {setup_peak / 2**30:.2f} GiB, with the holds "
+              f"{holds_peak / 2**30:.2f} GiB; chunk graph vs eager "
+              f"{out['graph_vs_eager']}; prefill {json.dumps(out['prefill'])}", flush=True)
+        self.record["flash_attention"]["serve_width"] = {
+            "device_launches": out["prefill"]["flash_device_launches"],
+            "prefill_ms": out["prefill"]["prefill_ms"], "shape": out["prefill"]["flash_shape"],
+            "ms": out["prefill"]["flash_ms"], "plain_ms": out["prefill"]["flash_plain_ms"],
+            "library_ms": out["prefill"]["flash_library_ms"],
+            "bound_ms": out["prefill"]["flash_bound_ms"],
+            "bound_by": out["prefill"]["flash_bound_by"]}
+        self.detail["serve_width"] = out
+
+    def time_programs(self, srv, names) -> dict:
+        """Wrap the server's slot programs ``names`` so each call is spanned
+        by two CUDA events on the current stream (no synchronize); returns
+        ``{name: [(start, end), ...]}``.  The wrapper keeps the program as
+        ``.program`` and forwards every attribute to it."""
+        torch = self.torch
+        spans = {n: [] for n in names}
+
+        class Timed:
+            def __init__(self, program, log):
+                self.program, self._log = program, log
+
+            def __call__(self, *args):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                res = self.program(*args)
+                b.record()
+                self._log.append((a, b))
+                return res
+
+            def __getattr__(self, name):
+                return getattr(self.program, name)
+
+        for n in names:
+            setattr(srv, n, Timed(getattr(srv, n), spans[n]))
+        return spans
+
+    def serve_full_pool(self, srv, trace) -> dict:
+        """Every slot admitted at the longest bucket with the whole budget,
+        then ``SERVE_FULL_CHUNKS`` chunk replays timed with CUDA events: ms
+        a decode step with the pool full."""
+        import dataclasses
+
+        torch = self.torch
+        w = SERVE_WIDTH
+        longest = [r for r in trace if r.prompt.shape[-1] == max(w["prompt_lens"])]
+        for i in range(w["max_batch"]):
+            srv.submit(dataclasses.replace(longest[i % len(longest)], uid=10_000 + i,
+                                           max_new_tokens=w["gen_cap"], eos_id=None,
+                                           output=None))
+        srv._admit_available()
+        weights, state = srv._weights(), srv._state
+        srv._chunk_p(weights, state)  # a replay before the timed ones
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(SERVE_FULL_CHUNKS):
+            srv._chunk_p(weights, state)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / SERVE_FULL_CHUNKS
+        active = int((~state["done"]).sum())
+        if active != w["max_batch"]:
+            raise AssertionError(f"serve-width full pool: {active} slots active")
+        # decode attention (plain PyTorch, f32 scores) alone at this pool's
+        # shape, once a layer a step, against the step
+        from repro_torch.models.layers import decode_attention
+
+        cfg = srv.model.cfg
+        k_c, v_c, pos_c = (state["cache"][f"pos0.{n}"][0] for n in ("k", "v", "pos"))
+        q = torch.randn((w["max_batch"], cfg.num_heads, cfg.head_dim), device=self.dev,
+                        dtype=cfg.act_dtype)
+        attn_ms = self.cuda_ms(lambda: decode_attention(q, k_c, v_c, pos_c, state["pos"]),
+                               reps=20) * cfg.num_layers
+        return {"chunk_ms": ms, "ms_per_step": ms / w["chunk_steps"],
+                "slots": w["max_batch"], "cache_len": srv.cache_len,
+                "decode_attention_ms_per_step": attn_ms,
+                "decode_attention_share": attn_ms / (ms / w["chunk_steps"])}
+
+    def serve_prefill_holds(self, cfg, params, toks) -> dict:
+        """One 2048-token request's prefill on cluster 0's replica: its flash
+        forward launches counted on the device in an eager profiler session
+        (held to one a layer and to the wrappers' host count), the prefill
+        timed with CUDA events, its last logits with ``attn_impl="cuda"``
+        against ``"plain"`` within 5e-2 in relative norm; then the flash
+        forward alone at the prefill's shape against its plain version,
+        SDPA, and the bound."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.kernels import (
+            check_eager_session, device_launches, flash_attention_fwd, flash_attention_fwd_ref,
+        )
+        from repro_torch.models import CausalLM
+
+        model = CausalLM(cfg)
+        batch = {"tokens": toks}
+        with torch.no_grad():
+            model.prefill(params, batch)  # warm
+            before = flash_attention_fwd.launches
+            (logits, _), ran = device_launches(lambda: model.prefill(params, batch))
+            host = {"flash_attention_fwd": flash_attention_fwd.launches - before}
+            check_eager_session({"flash_attention_fwd": ran.get("flash_attention_fwd", 0)},
+                                host)
+            if ran.get("flash_attention_fwd.tensor_core", 0) != cfg.num_layers:
+                raise AssertionError(f"serve-width prefill: flash runs {ran}")
+            prefill_ms = self.cuda_ms(lambda: model.prefill(params, batch), reps=3, warmup=1)
+            plain = CausalLM(dataclasses.replace(cfg, attn_impl="plain"))
+            lp, _ = plain.prefill(params, batch)
+        rel = ((logits.float() - lp.float()).norm() / lp.float().norm()).item()
+        if not rel <= 5e-2:
+            raise AssertionError(f"serve-width prefill logits flash vs plain: {rel}")
+        s = toks.shape[-1]
+        shape = (1, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v, _ = self.flash_inputs(shape, torch.bfloat16)
+        flops, _, byts, _ = self.flash_work(shape + (None,), 2)
+        bound, by = self.bound(byts, flops, peak=BF16_FLOPS_PER_S)
+        fwd_ms = self.cuda_ms(lambda: flash_attention_fwd(q, k, v), reps=10)
+        plain_ms = self.cuda_ms(lambda: flash_attention_fwd_ref(q, k, v), reps=3, warmup=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = self.cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+        return {"prefill_ms": prefill_ms, "prompt_len": s, "logits_rel_plain": rel,
+                "flash_device_launches": ran.get("flash_attention_fwd.tensor_core", 0),
+                "flash_host_launches": host["flash_attention_fwd"],
+                "flash_shape": list(shape), "flash_ms": fwd_ms, "flash_plain_ms": plain_ms,
+                "flash_library_ms": lib_ms, "flash_bound_ms": bound, "flash_bound_by": by,
+                "prefill_tflop_counted": 2 * cfg.param_count() * s / 1e12}
 
     # -- the offload phase ---------------------------------------------------
     def offload(self):
@@ -4020,6 +4667,8 @@ class Smoke:
             self.phase("ssm-width", self.ssm_width)
             self.phase("offload", self.offload)
             self.phase("examples", self.examples)
+            self.phase("serve", self.serve)
+            self.phase("serve-width", self.serve_width)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
         out = HERE / "chiprun_out"
@@ -4028,6 +4677,9 @@ class Smoke:
             {"failed": self.failed, **self.detail}, indent=1, default=str))
         if self.failed:
             fail(f"phases failed: {self.failed}")
+        if self.only is not None:
+            print(f"partial run of the phases {sorted(self.only)}: ok; no result line")
+            return
         keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels = [dict(name=k, route="cuda", **KERNELS[k], **{f: self.record[k][f] for f in keys})
                    for k in KERNELS]
@@ -4036,7 +4688,8 @@ class Smoke:
                           "offload_host_launches", "offload_maxd8", "by_value_ab",
                           "families_host_launches", "moe_width_launches", "moe_width",
                           "ssm_width_launches", "ssm_width", "mixtral_width", "hd160",
-                          "gemma2_global", "gemma2_width_launches", "gemma2_width"):
+                          "gemma2_global", "gemma2_width_launches", "gemma2_width",
+                          "serve_width"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

@@ -8,9 +8,8 @@ clusters, SD-FEEL iterations of next-token training on synthetic Markov
 corpora (one distinct corpus per client: non-IID), through the named
 ``federated-lm-ring`` scenario.  On a CUDA device each superstep replays from
 one CUDA graph, with the flash attention, SGD and transition kernels.
-Activation checkpointing (the reference's ``remat`` under bf16) is not
-ported yet (ROADMAP.md queue 1, 'remat'); it changes memory only, so the run
-keeps it off.  ``--mesh auto`` raises: the collective transition is queued
+As in the reference, bf16 runs with activation checkpointing (``remat``,
+recomputing each block in the backward) and f32 without.  ``--mesh auto`` raises: the collective transition is queued
 under 'Multi-device and launch'.
 """
 from __future__ import annotations
@@ -49,7 +48,8 @@ def main(argv=None) -> dict:
         get_config("granite-8b"),
         num_layers=args.layers, d_model=args.d_model, d_ff=4 * args.d_model,
         num_heads=args.heads, num_kv_heads=args.kv_heads, head_dim=args.head_dim,
-        vocab_size=args.vocab, dtype=args.precision, remat=False, attn_chunk=128,
+        vocab_size=args.vocab, dtype=args.precision, remat=args.precision == "bfloat16",
+        attn_chunk=128,
     )
     model = CausalLM(cfg)
     print(f"LM config: {cfg.num_layers}L d={cfg.d_model} vocab={cfg.vocab_size} "

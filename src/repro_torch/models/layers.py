@@ -10,7 +10,10 @@ has two executions, chosen by ``ArchConfig.attn_impl``:
   softmax in PyTorch, differentiated by autograd.
 
 Both take the reference's layout: q ``(B, S, Hq, hd)``, k/v ``(B, S, Hkv,
-hd)``.  The decode-time attention comes with the serving slice.
+hd)``.  Decode attends one new token a row against a KV cache
+(``decode_attention``): plain PyTorch with f32 scores, as the reference has
+no Pallas kernel there, with the (accumulator, sum, max) stats exposed
+(``decode_attention_stats``) as the reference's for an LSE merge.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ __all__ = [
     "rope",
     "blocked_causal_attention",
     "causal_attention",
+    "decode_attention",
+    "decode_attention_stats",
+    "finalize_decode_stats",
     "gated_mlp",
     "dense",
     "init_dense",
@@ -48,13 +54,15 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
-    """Rotary embeddings. x: (B, S, H, hd); positions: (S,)."""
+    """Rotary embeddings. x: (B, S, H, hd); positions: (S,) or (B, S)."""
     hd = x.shape[-1]
     half = hd // 2
     freqs = torch.arange(half, dtype=torch.float32, device=x.device) / half
     inv = theta ** (-freqs)  # (half,)
-    angles = positions.float()[:, None] * inv[None, :]     # (S, half)
-    angles = angles[None, :, None, :]                     # (1, S, 1, half)
+    angles = positions.float()[..., None] * inv            # (S, half) or (B, S, half)
+    angles = angles[..., None, :]                          # (S, 1, half) or (B, S, 1, half)
+    if positions.dim() == 1:
+        angles = angles[None]                              # (1, S, 1, half)
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -126,6 +134,55 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return blocked_causal_attention(q, k, v, window=window, logit_cap=logit_cap,
                                         chunk=chunk)
     raise ValueError(f"attention impl must be 'cuda' or 'plain', got {impl!r}")
+
+
+def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           slot_pos: torch.Tensor, q_pos: torch.Tensor, *,
+                           window: Optional[int] = None, logit_cap: Optional[float] = None):
+    """Partial attention stats for one query token a row.
+
+    q: (B, Hq, hd); k_cache/v_cache: (B, Sc, Hkv, hd); slot_pos: the
+    absolute position in each cache slot (-1 = empty), (Sc,) shared or (B,
+    Sc) a row; q_pos: the query's position, a scalar or (B,).  Returns
+    (acc, l, m): (B, Hq, hd), (B, Hq), (B, Hq), f32."""
+    b, hq, hd = q.shape
+    hkv = k_cache.shape[2]
+    g = hq // hkv
+    scale = hd ** -0.5
+    qg = q.reshape(b, hkv, g, hd).float()
+    # the cache is cast to f32 and laid out for the products in one pass each
+    # ((B, Hkv, hd, Sc) and (B, Hkv, Sc, hd)), not cast and then permuted
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    kt = k_cache.permute(0, 2, 3, 1).to(**f32)
+    scores = torch.matmul(qg, kt) * scale                 # (B, Hkv, G, Sc)
+    scores = softcap(scores, logit_cap)
+    slot_pos = slot_pos.reshape(-1, slot_pos.shape[-1])    # (1 or B, Sc)
+    q_pos = q_pos.reshape(-1, 1)                           # (1 or B, 1)
+    valid = (slot_pos >= 0) & (slot_pos <= q_pos)
+    if window is not None:
+        valid &= (q_pos - slot_pos) < window
+    valid = valid[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    p = torch.where(valid, p, 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.matmul(p, v_cache.permute(0, 2, 1, 3).to(**f32))   # (B, Hkv, G, hd)
+    return acc.reshape(b, hq, hd), l.reshape(b, hq), m.reshape(b, hq)
+
+
+def finalize_decode_stats(acc: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                          dtype) -> torch.Tensor:
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(dtype)
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, q_pos, *, window=None,
+                     logit_cap=None) -> torch.Tensor:
+    """One query token a row against its cache: (B, Hq, hd) in q's dtype."""
+    acc, l, m = decode_attention_stats(q, k_cache, v_cache, slot_pos, q_pos,
+                                       window=window, logit_cap=logit_cap)
+    return finalize_decode_stats(acc, l, m, q.dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -9,8 +9,11 @@ have separate projections, and each of x, B and C its own depthwise causal
 conv, which is conv-then-split computed per stream.
 
 The reference computes the mixer in plain ``jnp`` with no Pallas kernel;
-here the SSD products are ``torch.einsum``.  The one-token decode step and
-its cache come with the serving slice.
+here the SSD products are ``torch.einsum``.  Decode keeps an O(1)-size
+state a layer (``init_mamba_cache``, ``mamba_decode_step``): the SSM state
+and a (conv_width - 1)-deep tail of each conv's inputs,
+
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * (B_t (x) x_t),   y_t = C_t . h_t + D x_t.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import torch.nn.functional as F
 from .config import ArchConfig
 from .layers import rms_norm
 
-__all__ = ["init_mamba_params", "mamba_forward", "ssd_chunked"]
+__all__ = ["init_mamba_params", "mamba_forward", "ssd_chunked", "init_mamba_cache",
+           "mamba_decode_step"]
 
 NEG_INF = -1e30
 
@@ -168,3 +172,41 @@ def mamba_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, h0=None, conv_
     out = rms_norm(gated.to(x.dtype), params["norm_scale"], cfg.norm_eps)
     out = torch.einsum("bsd,do->bso", out, params["out_proj"].to(x.dtype))
     return out, (h_final, {"x": tail_x, "b": tail_b, "c": tail_c})
+
+
+def init_mamba_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> dict:
+    """An empty decode cache: ``ssm`` (B, H, N, P) f32 and the conv tails
+    ``conv_x`` (B, W-1, d_inner), ``conv_b``/``conv_c`` (B, W-1, N) in ``dtype``."""
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    w = cfg.ssm_conv - 1
+    return {
+        "ssm": torch.zeros((batch, h, n, p), dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, w, di), dtype=dtype, device=device),
+        "conv_b": torch.zeros((batch, w, n), dtype=dtype, device=device),
+        "conv_c": torch.zeros((batch, w, n), dtype=dtype, device=device),
+    }
+
+
+def mamba_decode_step(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict):
+    """One-token decode. x: (B, 1, d) -> (y (B, 1, d), new cache); ``cache``
+    is read, not written."""
+    bsz = x.shape[0]
+    di, h, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xr, b_raw, c_raw, dt_raw = _project(params, x)
+    xr, tail_x = _causal_conv(xr, params["conv_x"], params["bias_x"], cache["conv_x"])
+    b_mat, tail_b = _causal_conv(b_raw, params["conv_b"], params["bias_b"], cache["conv_b"])
+    c_mat, tail_c = _causal_conv(c_raw, params["conv_c"], params["bias_c"], cache["conv_c"])
+    xi = xr[:, 0].reshape(bsz, h, p).float()
+    b_vec = b_mat[:, 0].float()
+    c_vec = c_mat[:, 0].float()
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])          # (B,H)
+    a = -torch.exp(params["A_log"])
+    decay = torch.exp(dt * a[None, :])                                 # (B,H)
+    h_new = decay[:, :, None, None] * cache["ssm"] + torch.einsum(
+        "bn,bhp->bhnp", b_vec, xi * dt[..., None])
+    y = torch.einsum("bn,bhnp->bhp", c_vec, h_new) + params["D"][None, :, None] * xi
+    y = y.reshape(bsz, 1, di)
+    gated = y * F.silu(z.float())
+    out = rms_norm(gated.to(x.dtype), params["norm_scale"], cfg.norm_eps)
+    out = torch.einsum("bsd,do->bso", out, params["out_proj"].to(x.dtype))
+    return out, {"ssm": h_new, "conv_x": tail_x, "conv_b": tail_b, "conv_c": tail_c}

@@ -18,9 +18,17 @@ Attention runs through ``models.layers.causal_attention`` with
 through ``models.mamba.mamba_forward``.  Modalities as in the reference:
 ``frontend_embeds`` replace the first ``F`` token embeddings (VLM, whose
 loss masks those positions), and audio sums ``(B, K, S)`` codebook tokens'
-embeddings and emits ``K`` heads of logits.  ``remat`` raises
-``NotImplementedError``; ``prefill``, ``init_cache`` and ``decode_step``
-come with the serving slice.
+embeddings and emits ``K`` heads of logits.
+
+``cfg.remat`` (policy ``"full"``) runs each block through ``_Remat``, an
+``autograd.Function`` that keeps only the block's input and recomputes the
+block in its backward (the reference's ``jax.checkpoint``); policy
+``"dots"`` raises ``NotImplementedError``.  Serving: ``init_cache``,
+``prefill`` (the caches of a full-sequence pass, through the flash forward
+with ``attn_impl="cuda"``), ``decode_hidden`` and ``decode_step`` (one token a
+row against ring-buffer KV caches and mamba states, plain PyTorch); the
+decode also takes the clusters' models of a ``(D, ...)`` stack with a
+cluster index a row.
 """
 from __future__ import annotations
 
@@ -30,18 +38,25 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import causal_attention, dense, gated_mlp, init_dense, rms_norm, rope, softcap
-from .mamba import init_mamba_params, mamba_forward
+from .layers import (
+    causal_attention, decode_attention, dense, gated_mlp, init_dense, rms_norm, rope, softcap,
+)
+from .mamba import init_mamba_cache, init_mamba_params, mamba_decode_step, mamba_forward
 from .moe import init_moe_params, moe_mlp
 
 __all__ = ["CausalLM"]
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.remat:
+def _check_ported(cfg: ArchConfig, decode_impl=None) -> None:
+    if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
-            f"{cfg.name}: remat=True (ROADMAP.md queue 1, 'remat': activation "
-            f"checkpointing under torch.func) is not ported yet")
+            f"{cfg.name}: remat_policy={cfg.remat_policy!r} (save the matmul outputs, set by "
+            f"the multi-device dry run) is not ported yet (ROADMAP.md queue 1, 'Multi-device "
+            f"and launch'); remat_policy='full' is")
+    if decode_impl is not None:
+        raise NotImplementedError(
+            "decode_impl (the sequence-sharded decode of sharding/decode.py) is not ported "
+            "yet (ROADMAP.md queue 1, 'Multi-device and launch'); pass None")
 
 
 def _audio(cfg: ArchConfig) -> bool:
@@ -86,31 +101,39 @@ def _sub(p: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
 
-def _attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, window: Optional[int],
-               positions: torch.Tensor) -> torch.Tensor:
+def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """q (B, S, Hq, hd), k and v (B, S, Hkv, hd), rotated at ``positions``
+    ((S,) shared or (B, S) a row)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(x, p["attn.wq"], p.get("attn.bq")).reshape(b, s, hq, hd)
     k = dense(x, p["attn.wk"], p.get("attn.bk")).reshape(b, s, hkv, hd)
     v = dense(x, p["attn.wv"], p.get("attn.bv")).reshape(b, s, hkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, window: Optional[int],
+               positions: torch.Tensor, return_cache: bool = False):
+    """Full-sequence attention: (out, the layer's cache or None).  The cache
+    holds the last ``min(window, S)`` positions' k, v (param dtype) and their
+    positions (int32), as the reference's prefill."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
     out = causal_attention(q, k, v, window=window, logit_cap=cfg.attn_logit_softcap,
                            impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    return dense(out.reshape(b, s, hq * hd), p["attn.wo"])
+    cache = None
+    if return_cache:
+        sc = min(window, s) if window is not None else s
+        cache = {"k": k[:, s - sc:].to(cfg.param_dtype), "v": v[:, s - sc:].to(cfg.param_dtype),
+                 "pos": positions[s - sc:].to(torch.int32)}
+    return dense(out.reshape(b, s, cfg.num_heads * cfg.head_dim), p["attn.wo"]), cache
 
 
-def _apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, idx_in_period: int, *,
-                 long_context: bool, positions: torch.Tensor):
-    """One layer (mixer + optional FFN), pre-norm, optional post-norms.
-    Returns (x, router aux loss, or None for a layer without MoE)."""
+def _finish_layer(p: dict, x: torch.Tensor, mix: torch.Tensor, cfg: ArchConfig,
+                  idx_in_period: int):
+    """The mixer's post-norm and residual, then the FFN (dense or MoE) with
+    its norms and residual: (x, router aux loss or None)."""
     aux = None
-    h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
-    if cfg.layer_kind(idx_in_period) == "attn":
-        mix = _attention(p, h, cfg, window=cfg.window_for_layer(idx_in_period, long_context),
-                         positions=positions)
-    else:
-        mix, _ = mamba_forward(_sub(p, "mamba."), h, cfg)
     if cfg.use_post_norm:
         mix = rms_norm(mix, p["ln_mix_post"], cfg.norm_eps)
     x = x + mix
@@ -127,13 +150,124 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, idx_in_period: int, 
     return x, aux
 
 
+def _apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, idx_in_period: int, *,
+                 long_context: bool, positions: torch.Tensor, return_cache: bool = False):
+    """One layer (mixer + optional FFN), pre-norm, optional post-norms, over a
+    full sequence.  Returns (x, router aux loss or None for a layer without
+    MoE, the layer's cache when ``return_cache`` else None)."""
+    h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
+    if cfg.layer_kind(idx_in_period) == "attn":
+        mix, cache = _attention(p, h, cfg, positions=positions, return_cache=return_cache,
+                                window=cfg.window_for_layer(idx_in_period, long_context))
+    else:
+        mix, (h_final, tails) = mamba_forward(_sub(p, "mamba."), h, cfg)
+        cache = ({"ssm": h_final, "conv_x": tails["x"], "conv_b": tails["b"],
+                  "conv_c": tails["c"]} if return_cache else None)
+    x, aux = _finish_layer(p, x, mix, cfg, idx_in_period)
+    return x, aux, cache
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing
+# ---------------------------------------------------------------------------
+
+class _Remat(torch.autograd.Function):
+    """A block run without keeping its activations: the forward saves only
+    the block's input and leaves; the backward recomputes the block under
+    ``torch.func.vjp`` and pulls the cotangents through it.
+
+    ``torch.utils.checkpoint`` relies on saved-tensor hooks, which
+    ``torch.func.grad`` refuses; this Function has a ``setup_context`` and a
+    generated vmap rule, so it runs under ``vmap(grad_and_value)`` over the
+    clients and inside a captured round.  ``fn(x, positions, leaves) -> (x,
+    aux)``, the aux an f32 scalar (zeros for a block without MoE); every
+    tensor ``fn`` reads comes in as an input (a tensor it closed over would
+    belong to a transform level the generated vmap rule has left)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, x, positions, *leaves):
+        return fn(x, positions, leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, x, positions, *leaves = inputs
+        ctx.fn = fn
+        ctx.save_for_backward(x, positions, *leaves)
+
+    @staticmethod
+    def backward(ctx, dx, daux):
+        x, positions, *leaves = ctx.saved_tensors
+        fn = ctx.fn
+        # torch.func.grad differentiates with create_graph=True, which would
+        # record the recomputation for a second derivative and keep every
+        # recomputed block alive; detached operands keep it to this call
+        # (vjp's own level still differentiates them, with the formulas the
+        # block's backward takes without remat), and the flash op has no
+        # second derivative anyway
+        inputs = [t.detach() for t in (x, *leaves)]
+        _, pull = torch.func.vjp(lambda x_, *ls: fn(x_, positions, ls), *inputs)
+        dx, *dleaves = pull((dx.detach(), daux.detach()))
+        return (None, dx, None, *dleaves)
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token a row against the caches
+# ---------------------------------------------------------------------------
+
+def _where(mask: Optional[torch.Tensor], a, b):
+    """``a`` where ``mask`` (a (B,) row mask, or a scalar) else ``b``, leaf by
+    leaf over tensors, tuples and dicts."""
+    if isinstance(a, dict):
+        return {k: _where(mask, v, b[k]) for k, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_where(mask, x, y) for x, y in zip(a, b))
+    if mask.dim():
+        mask = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
+    return torch.where(mask, a, b)
+
+
+def _route(fn, plist: list, sel: Optional[list]):
+    """``fn(p)`` for one model's leaves ``p``; over the clusters' models
+    ``plist``, every row takes its own cluster's result (``sel[d]`` the rows
+    of cluster ``d``): one pass over all rows a cluster, each reading that
+    cluster's weights as they lie in the stack, no gathered copy."""
+    out = fn(plist[0])
+    for d in range(1, len(plist)):
+        out = _where(sel[d], fn(plist[d]), out)
+    return out
+
+
+def _clusters(params, cluster: Optional[torch.Tensor]):
+    """(the models' leaves as a list, each cluster's row mask or None):
+    ``params`` one model's leaves, or a list of the clusters' with
+    ``cluster`` (B,) naming each row's."""
+    plist = list(params) if isinstance(params, (list, tuple)) else [params]
+    return plist, (None if len(plist) == 1 else [cluster == d for d in range(len(plist))])
+
+
+def _write(buf: torch.Tensor, index: tuple, new: torch.Tensor,
+           gate: Optional[torch.Tensor]) -> None:
+    """``buf[index] = new`` in place, where ``gate`` (a scalar bool tensor)
+    allows, else the old values are written back."""
+    new = new.to(buf.dtype)
+    if gate is not None:
+        new = torch.where(gate, new, buf[index])
+    buf[index] = new
+
+
+_MAMBA_CACHE = ("ssm", "conv_x", "conv_b", "conv_c")
+
+
 class CausalLM:
     """Functional causal LM over flat parameter dicts."""
 
-    def __init__(self, cfg: ArchConfig, long_context: bool = False):
-        _check_ported(cfg)
+    def __init__(self, cfg: ArchConfig, long_context: bool = False, decode_impl=None):
+        _check_ported(cfg, decode_impl)
         self.cfg = cfg
         self.long_context = long_context
+        self.decode_impl = decode_impl
 
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
@@ -191,8 +325,11 @@ class CausalLM:
         return softcap(out.float(), cfg.final_logit_softcap)
 
     # -- stack ------------------------------------------------------------------
-    def _run_stack(self, params: dict, x: torch.Tensor, positions: torch.Tensor):
-        """(x, the MoE layers' aux losses summed, an f32 scalar)."""
+    def _run_stack(self, params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                   return_cache: bool = False):
+        """(x, the MoE layers' aux losses summed (an f32 scalar), the caches
+        as ``{"posI.<leaf>": (nblocks, ...)}`` when ``return_cache`` else
+        None).  With ``cfg.remat`` each block runs through ``_Remat``."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # each stacked leaf split once along the block axis: its gradient is
@@ -202,15 +339,37 @@ class CausalLM:
         nb = cfg.num_scan_blocks
         blocks = {k: (w.unbind(0) if nb > 1 else (w.squeeze(0),))
                   for k, w in params.items() if k.startswith("blocks.")}
-        for i in range(nb):
+        names = sorted(blocks)
+        remat = cfg.remat and not return_cache
+
+        def block_fn(x, positions, leaves):
+            p_all = dict(zip(names, leaves))
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
+            caches = {}
             for pos in range(cfg.scan_period):
-                prefix = f"blocks.pos{pos}."
-                p = {k[len(prefix):]: w[i] for k, w in blocks.items() if k.startswith(prefix)}
-                x, a = _apply_layer(p, x, cfg, pos, long_context=self.long_context,
-                                    positions=positions)
+                p = _sub(p_all, f"blocks.pos{pos}.")
+                x, a, c = _apply_layer(p, x, cfg, pos, long_context=self.long_context,
+                                       positions=positions, return_cache=return_cache)
                 if a is not None:
-                    aux = aux + a
-        return x, aux
+                    total = total + a
+                for n, t in (c or {}).items():
+                    caches[f"pos{pos}.{n}"] = t
+            return x, total, caches
+
+        per_block = []
+        for i in range(nb):
+            leaves = tuple(blocks[k][i] for k in names)
+            if remat:
+                x, a = _Remat.apply(lambda *args: block_fn(*args)[:2], x, positions, *leaves)
+                c = None
+            else:
+                x, a, c = block_fn(x, positions, leaves)
+            aux = aux + a
+            per_block.append(c)
+        caches = None
+        if return_cache:
+            caches = {n: torch.stack([c[n] for c in per_block]) for n in per_block[0]}
+        return x, aux, caches
 
     # -- public API -------------------------------------------------------------
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -219,7 +378,7 @@ class CausalLM:
         tokens = batch["tokens"]
         x = self.embed_tokens(params, tokens, batch.get("frontend_embeds"))
         positions = torch.arange(tokens.shape[-1], device=x.device)
-        x, aux = self._run_stack(params, x, positions)
+        x, aux, _ = self._run_stack(params, x, positions)
         x = rms_norm(x, params["ln_final"], self.cfg.norm_eps)
         return self.logits(params, x), aux
 
@@ -246,3 +405,121 @@ class CausalLM:
         if cfg.num_experts:
             out = out + cfg.router_aux_coef * aux
         return out
+
+    # -- caches -------------------------------------------------------------------
+    def init_cache(self, batch_size: int, cache_len: int, device=None) -> dict:
+        """Empty caches ``{"posI.<leaf>": (nblocks, ...)}``: an attention
+        layer's ``k``/``v`` (nblocks, B, Sc, Hkv, hd) in the param dtype and
+        ``pos`` (nblocks, Sc) int32 (-1 = empty), Sc = ``cache_len`` or the
+        layer's window if smaller (a ring buffer); a mamba layer's
+        ``init_mamba_cache`` leaves."""
+        cfg = self.cfg
+        nb, dt = cfg.num_scan_blocks, cfg.param_dtype
+        out = {}
+        for i in range(cfg.scan_period):
+            if cfg.layer_kind(i) == "mamba":
+                layer = init_mamba_cache(cfg, batch_size, dt, device)
+            else:
+                window = cfg.window_for_layer(i, self.long_context)
+                sc = min(window, cache_len) if window is not None else cache_len
+                kv = (batch_size, sc, cfg.num_kv_heads, cfg.head_dim)
+                layer = {"k": torch.zeros(kv, dtype=dt, device=device),
+                         "v": torch.zeros(kv, dtype=dt, device=device),
+                         "pos": torch.full((sc,), -1, dtype=torch.int32, device=device)}
+            for n, t in layer.items():
+                out[f"pos{i}.{n}"] = t[None].repeat((nb,) + (1,) * t.dim())
+        return out
+
+    def prefill(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Full-sequence prefill: (the last position's logits (B, 1, V...),
+        the caches of ``init_cache``'s layout, attention ones ``min(window,
+        S)`` long)."""
+        tokens = batch["tokens"]
+        x = self.embed_tokens(params, tokens, batch.get("frontend_embeds"))
+        positions = torch.arange(tokens.shape[-1], device=x.device)
+        x, _, caches = self._run_stack(params, x, positions, return_cache=True)
+        x = rms_norm(x, params["ln_final"], self.cfg.norm_eps)
+        return self.logits(params, x[:, -1:, :]), caches
+
+    def decode_hidden(self, params, token: torch.Tensor, cache: dict, pos, *,
+                      cluster: Optional[torch.Tensor] = None,
+                      gate: Optional[torch.Tensor] = None, inplace: bool = False):
+        """``decode_step`` up to and including the final norm: (x (B, 1, d),
+        cache).
+
+        ``params`` is one model's leaves, or a list of the clusters' (views
+        into a ``(D, ...)`` stack) with ``cluster`` (B,) naming each row's:
+        every op that reads weights then runs once a cluster over all rows
+        and each row keeps its own cluster's result.  ``pos`` is the token's
+        position, an int, a scalar tensor or one a row (B,); the cache's
+        ``pos`` leaves are (nblocks, Sc) shared or (nblocks, B, Sc) a row.
+        The cache is cloned first unless ``inplace``; ``gate`` (a scalar bool
+        tensor) writes the old values back where it is False."""
+        cfg = self.cfg
+        plist, sel = _clusters(params, cluster)
+        tok = token[..., None]  # (B, 1), or (B, K, 1) for audio
+        x = _route(lambda p: self.embed_tokens(p, tok), plist, sel)
+        b, dev = x.shape[0], x.device
+        q_pos = torch.as_tensor(pos, device=dev).to(torch.int32)
+        q_pos = q_pos.expand(b) if q_pos.dim() == 0 else q_pos
+        if not inplace:
+            cache = {k: v.clone() for k, v in cache.items()}
+        for i in range(cfg.num_scan_blocks):
+            for li in range(cfg.scan_period):
+                prefix = f"blocks.pos{li}."
+                layer = [{k[len(prefix):]: w[i] for k, w in p.items() if k.startswith(prefix)}
+                         for p in plist]
+                x = self._decode_layer(layer, sel, x, li, cache, i, q_pos, gate)
+        x = _route(lambda p: rms_norm(x, p["ln_final"], cfg.norm_eps), plist, sel)
+        return x, cache
+
+    def _decode_layer(self, plist: list, sel, x: torch.Tensor, li: int, cache: dict,
+                      block: int, q_pos: torch.Tensor, gate) -> torch.Tensor:
+        """Layer ``li`` of block ``block`` for one token a row; its cache is
+        written in place."""
+        cfg = self.cfg
+        b = x.shape[0]
+        pre = f"pos{li}."
+        if cfg.layer_kind(li) == "attn":
+            q, k, v = _route(lambda p: _qkv(p, rms_norm(x, p["ln_mix"], cfg.norm_eps), cfg,
+                                            q_pos[:, None]), plist, sel)
+            k_c, v_c, pos_c = (cache[pre + n][block] for n in ("k", "v", "pos"))
+            # the ring buffer: position q lands in slot q % Sc
+            slot = (q_pos % k_c.shape[1]).long()
+            rows = torch.arange(b, device=x.device)
+            _write(k_c, (rows, slot), k[:, 0], gate)
+            _write(v_c, (rows, slot), v[:, 0], gate)
+            if pos_c.dim() == 1:  # one position row shared by the batch
+                _write(pos_c, (slot[:1],), q_pos[:1], gate)
+            else:
+                _write(pos_c, (rows, slot), q_pos, gate)
+            window = cfg.window_for_layer(li, self.long_context)
+            o = decode_attention(q[:, 0], k_c, v_c, pos_c, q_pos, window=window,
+                                 logit_cap=cfg.attn_logit_softcap)
+            o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim)
+
+            def mixed(p):
+                return dense(o, p["attn.wo"])
+        else:
+            layer_cache = {n: cache[pre + n][block] for n in _MAMBA_CACHE}
+            mix, new = _route(lambda p: mamba_decode_step(
+                _sub(p, "mamba."), rms_norm(x, p["ln_mix"], cfg.norm_eps), cfg, layer_cache),
+                plist, sel)
+            for n, t in new.items():
+                buf = layer_cache[n]
+                buf.copy_(t if gate is None else torch.where(gate, t.to(buf.dtype), buf))
+
+            def mixed(p):
+                return mix
+        return _route(lambda p: _finish_layer(p, x, mixed(p), cfg, li)[0], plist, sel)
+
+    def decode_step(self, params, token: torch.Tensor, cache: dict, pos, *,
+                    cluster: Optional[torch.Tensor] = None,
+                    gate: Optional[torch.Tensor] = None, inplace: bool = False):
+        """token: (B,), or (B, K) for audio; pos: the token's position.
+        Returns (logits (B, 1, V) or (B, 1, K, V), cache); keywords as
+        ``decode_hidden``'s."""
+        x, cache = self.decode_hidden(params, token, cache, pos, cluster=cluster, gate=gate,
+                                      inplace=inplace)
+        plist, sel = _clusters(params, cluster)
+        return _route(lambda p: self.logits(p, x), plist, sel), cache

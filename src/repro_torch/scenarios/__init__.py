@@ -6,8 +6,9 @@ reference's parameters: the synchronous ``mnist-iid-ring``,
 ``sampled-k-ring`` (uniform-k participation); the round-engine
 ``round-compiled-ring``, ``round-superstep-ring``, ``chaos-ring`` (fault
 injection), ``million-client-ring`` (10^6 procedural clients behind a
-host-offload store of 32 slots) and the federated-LM
-``federated-lm-ring``; and the asynchronous
+host-offload store of 32 slots), the federated-LM
+``federated-lm-ring`` and the serving ``federated-lm-serving`` and
+``lm-serving-continuous`` (``launch.serve.serve_scenario``); and the asynchronous
 ``straggler-bimodal-async``, ``straggler-bimodal-vanilla``,
 ``dropout-heavy``, ``exponential-hetero-async`` and
 ``dropout-participation-async`` (availability participation)::
@@ -364,6 +365,34 @@ register_scenario(Scenario(
     rounds_per_step=2, learning_rate=0.1,
     arch="granite-8b", batch_size=2, num_samples=1024,
     seq_len=64, vocab_size=512,
+))
+
+
+register_scenario(Scenario(
+    name="federated-lm-serving",
+    description="Training-to-serving loop: clustered corpora whose per-cluster "
+                "successor tables CONFLICT on a shared vocabulary, round "
+                "supersteps, and per-cluster personalized inference with "
+                "live weight hot-swap (repro_torch.serving.FederatedServer).",
+    scheduler="round", dataset="lm-clustered",
+    num_clients=8, num_clusters=4, tau1=8, tau2=2, alpha=1,
+    rounds_per_step=1, learning_rate=0.3,
+    arch="granite-8b", batch_size=8, num_samples=256,
+    seq_len=32, vocab_size=32,
+))
+
+register_scenario(Scenario(
+    name="lm-serving-continuous",
+    description="Continuous-batching serving lane: the clustered conflicting "
+                "corpora of federated-lm-serving, served through the slot-pool "
+                "engine (mid-decode admission, decode chunks on a CUDA graph, "
+                "heavy-tailed per-request budgets) via "
+                "repro_torch.serving.ContinuousFederatedServer.",
+    scheduler="round", dataset="lm-clustered",
+    num_clients=8, num_clusters=4, tau1=8, tau2=2, alpha=1,
+    rounds_per_step=1, learning_rate=0.3,
+    arch="granite-8b", batch_size=8, num_samples=256,
+    seq_len=32, vocab_size=32,
 ))
 
 

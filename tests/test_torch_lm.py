@@ -55,9 +55,12 @@ def test_arch_config_matches_reference(name):
 
 
 def test_remat_and_unported_layers_raise():
-    # every layer kind is ported; activation checkpointing is not
-    with pytest.raises(NotImplementedError, match="remat"):
-        tmodels.CausalLM(tconfigs.get_config("granite-8b"))
+    # every layer kind and full activation checkpointing are ported; the
+    # "dots" policy (save the matmul outputs) is not
+    cfg = tconfigs.get_config("granite-8b")
+    assert tmodels.CausalLM(cfg).cfg.remat
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        tmodels.CausalLM(dataclasses.replace(cfg, remat_policy="dots"))
 
 
 # tiny variants: S = 16, two attention chunks of 8 on the plain path

@@ -204,7 +204,7 @@ def test_unknown_keys_and_scenarios_raise():
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "tua1": 3},
                        device="cpu")
     with pytest.raises(KeyError, match="unknown scenario"):
-        tcore.make_run("federated-lm-serving", device="cpu")
+        tcore.make_run("no-such-scenario", device="cpu")
 
 
 def test_registered_scenarios_match_reference():
@@ -222,7 +222,8 @@ def test_registered_scenarios_match_reference():
         "round-compiled-ring", "round-superstep-ring", "federated-lm-ring",
         "straggler-bimodal-async", "straggler-bimodal-vanilla", "dropout-heavy",
         "exponential-hetero-async", "sampled-k-ring", "chaos-ring",
-        "dropout-participation-async", "million-client-ring",
+        "dropout-participation-async", "million-client-ring", "federated-lm-serving",
+        "lm-serving-continuous",
     }
 
 
@@ -242,9 +243,13 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"profiles.py", "timing.py"} <= {f.name for f in files if f.parent.name == "hetero"}
     assert {"cuda_graph.py", "pipeline.py", "baselines.py", "theory.py"} <= {
         f.name for f in files if f.parent.name == "core"}
-    assert {"participation", "faults", "state", "checkpoint", "examples"} <= {
-        f.parent.name for f in files if f.name == "__init__.py"}
-    assert {"quickstart.py", "async_heterogeneous.py", "train_federated_lm.py"} <= {
+    assert {"participation", "faults", "state", "checkpoint", "examples", "serving",
+            "launch"} <= {f.parent.name for f in files if f.name == "__init__.py"}
+    assert {"engine.py", "slots.py", "federated.py", "traffic.py"} <= {
+        f.name for f in files if f.parent.name == "serving"}
+    assert "serve.py" in {f.name for f in files if f.parent.name == "launch"}
+    assert {"quickstart.py", "async_heterogeneous.py", "train_federated_lm.py",
+            "serve_batched.py", "serve_decode.py", "serve_federated.py"} <= {
         f.name for f in files if f.parent.name == "examples"}
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
