@@ -310,12 +310,16 @@ Phases, one result line each; any failure exits non-zero without the final
             32-request ``synthetic_trace`` at vocab 49,152, then
             ``FederatedServer`` on the same trace: tokens/s, TTFT p50/p95,
             ms a decode step (CUDA events around every chunk, and a full
-            pool alone), decode attention's share, the busy share, peak
-            memory serving and at set-up; held: chunk graph = eager at 0.0,
-            a 2048-token prefill flash against plain within 5e-2 in relative
-            norm with its 36 flash forwards counted in an eager session,
-            every token in the vocabulary; the flash forward at (1, 2048,
-            32, 8, 128) timed against its plain version, SDPA and the bound.
+            pool alone), decode attention's share, the span share (the
+            event-spanned prefills and chunks over the wall), peak memory
+            serving and at set-up, all timed in the default (not
+            deterministic) mode; held: chunk graph = eager at 0.0 (the eager
+            chunk under deterministic algorithms), a 2048-token prefill
+            flash against plain within 5e-2 in relative norm with its 36
+            flash forwards counted in an eager session, every token in the
+            vocabulary; the flash forward at (1, S, 32, 8, 128) against its
+            plain version at each bucket S (bf16 tolerance 3e-2, lse 1e-4),
+            timed at 2048 against the plain version, SDPA and the bound.
 
 ``--phases NAME ...`` runs only those phases (after device and build) and
 prints no kernels or result line: a development run.
@@ -447,9 +451,10 @@ MOE_WIDTH = dict(num_layers=1, num_clients=4, num_clusters=2, seq_len=2048, batc
 # activations at S = 2048 and the tied head 1.5 GB (a CPU trace of live
 # tensors at these widths, C = 1), so C = 8 holds 4 layers in about 57 GB
 SSM_WIDTH = dict(num_layers=4, num_clients=8, num_clusters=4, seq_len=2048, batch_size=1)
-# with remat on, the depths ssm-width tries, deepest first (what 80 GB holds:
-# models/live_bytes.py puts one client's remat gradient at 58.6 MB a layer
-# and 1.68 GB besides at S = 2048; see PERF.md), and the supersteps a run
+# with remat on, the depths ssm-width tries, deepest first, and the
+# supersteps a run; 80 GB holds the deepest, as a CPU trace of live tensors
+# (tests/test_torch_remat.py's peak_grad_bytes) puts one client's remat
+# gradient at 58.6 MB a layer and 1.68 GB besides at S = 2048 (PERF.md)
 SSM_DEPTHS, SSM_STEPS = (48, 24, 12), 2
 # the serve phase: the serving scenarios' training supersteps, requests and
 # generation cap; the reduced families generate is run on
@@ -3871,14 +3876,18 @@ class Smoke:
         two random replicas made on the card: ``ContinuousFederatedServer``
         (``SERVE_WIDTH``) on a 32-request ``synthetic_trace`` of prompts of
         512, 1024 and 2048 tokens and heavy-tailed budgets on [1, 256], then
-        ``FederatedServer`` on the same trace.  Tokens/s, TTFT p50/p95, ms a
-        decode step (CUDA events around every chunk, and a full pool timed
-        alone), the device's busy share (CUDA-event spans of prefills and
-        chunks over the wall), peak memory, and the flash forward's device
+        ``FederatedServer`` on the same trace, all in the default mode (not
+        deterministic algorithms).  Tokens/s, TTFT p50/p95, ms a decode step
+        (CUDA events around every chunk, and a full pool timed alone), the
+        span share (CUDA-event spans of prefills and chunks over the wall; a
+        span counts the host's gaps inside an eager prefill, so it is no
+        device busy share), peak memory, and the flash forward's device
         launches in an eager prefill session; held: graph chunk = eager chunk
-        at 0.0, one request's prefill logits flash against plain attention
-        within 5e-2 in relative norm, every token in the vocabulary.  No
-        publish: a staged copy would double the 33 GB of replicas."""
+        at 0.0 (the eager chunk under deterministic algorithms), the flash
+        forward against its plain version at each bucket's prefill shape,
+        one request's prefill logits flash against plain attention within
+        5e-2 in relative norm, every token in the vocabulary.  No publish: a
+        staged copy would double the 33 GB of replicas."""
         import dataclasses
         import gc
 
@@ -3902,94 +3911,95 @@ class Smoke:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         out = {}
+        t0 = time.perf_counter()
+        stack = self.random_stack(cfg, w["replicas"])
+        n_params = sum(v[0].numel() for v in stack.values())
+        srv = ContinuousFederatedServer(
+            model, stack, max_batch=w["max_batch"], length_buckets=w["buckets"],
+            gen_cap=w["gen_cap"], chunk_steps=w["chunk_steps"])
+        del stack
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        # set-up holds the caller's stack and the server's copy at once
+        setup_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        spans = self.time_programs(srv, ("_prefill_p", "_chunk_p"))
+        reqs = [dataclasses.replace(r) for r in trace]
+        for r in reqs:
+            srv.submit(r)
+        t0 = time.perf_counter()
+        done = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+        st = srv.stats
+        toks = [r.output for r in done]
+        if not all(int(t.max()) < cfg.vocab_size and int(t.min()) >= 0 for t in toks):
+            raise AssertionError("serve-width: a token outside the vocabulary")
+        peak = torch.cuda.max_memory_allocated()  # serving alone, before the holds
+        counts = srv.compile_counts()
+        if counts["decode"] != 1 or srv._chunk_p.graphed.captured != 1:
+            raise AssertionError(f"serve-width: decode programs {counts}")
+        chunks = len(spans["_chunk_p"])
+        out["continuous"] = {
+            "requests": st.requests, "tokens": st.tokens_generated, "wall_s": wall,
+            "tokens_per_s": st.tokens_per_s, "ttft_p50_s": st.ttft_p50,
+            "ttft_p95_s": st.ttft_p95, "latency_p50_s": st.latency_p50,
+            "latency_p95_s": st.latency_p95, "decode_steps": st.decode_steps,
+            "chunks": chunks, "mean_occupancy": st.mean_occupancy,
+            "prefill_ms": ms["_prefill_p"], "chunk_ms": ms["_chunk_p"],
+            "ms_per_decode_step": ms["_chunk_p"] / max(st.decode_steps, 1),
+            "ms_per_executed_step": ms["_chunk_p"] / max(chunks * w["chunk_steps"], 1),
+            # the chunks after the first two (the graph's eager warm-up and
+            # its capture), all replays
+            "replay_ms_per_step": sum(a.elapsed_time(b) for a, b in spans["_chunk_p"][2:])
+            / max((chunks - 2) * w["chunk_steps"], 1),
+            "span_share": (ms["_prefill_p"] + ms["_chunk_p"]) / (wall * 1e3),
+            "compile_counts": counts, "setup_s": setup_s}
+        for name in ("_prefill_p", "_chunk_p"):
+            setattr(srv, name, getattr(srv, name).program)
+        out["full_pool"] = self.serve_full_pool(srv, trace)
         with self.deterministic() as refused:
-            t0 = time.perf_counter()
-            stack = self.random_stack(cfg, w["replicas"])
-            n_params = sum(v[0].numel() for v in stack.values())
-            srv = ContinuousFederatedServer(
-                model, stack, max_batch=w["max_batch"], length_buckets=w["buckets"],
-                gen_cap=w["gen_cap"], chunk_steps=w["chunk_steps"])
-            del stack
-            torch.cuda.synchronize()
-            setup_s = time.perf_counter() - t0
-            # set-up holds the caller's stack and the server's copy at once
-            setup_peak = torch.cuda.max_memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            spans = self.time_programs(srv, ("_prefill_p", "_chunk_p"))
-            reqs = [dataclasses.replace(r) for r in trace]
-            for r in reqs:
-                srv.submit(r)
-            t0 = time.perf_counter()
-            done = srv.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-            st = srv.stats
-            toks = [r.output for r in done]
-            if not all(int(t.max()) < cfg.vocab_size and int(t.min()) >= 0 for t in toks):
-                raise AssertionError("serve-width: a token outside the vocabulary")
-            peak = torch.cuda.max_memory_allocated()  # serving alone, before the holds
-            counts = srv.compile_counts()
-            if counts["decode"] != 1 or srv._chunk_p.graphed.captured != 1:
-                raise AssertionError(f"serve-width: decode programs {counts}")
-            chunks = len(spans["_chunk_p"])
-            out["continuous"] = {
-                "requests": st.requests, "tokens": st.tokens_generated, "wall_s": wall,
-                "tokens_per_s": st.tokens_per_s, "ttft_p50_s": st.ttft_p50,
-                "ttft_p95_s": st.ttft_p95, "latency_p50_s": st.latency_p50,
-                "latency_p95_s": st.latency_p95, "decode_steps": st.decode_steps,
-                "chunks": chunks, "mean_occupancy": st.mean_occupancy,
-                "prefill_ms": ms["_prefill_p"], "chunk_ms": ms["_chunk_p"],
-                "ms_per_decode_step": ms["_chunk_p"] / max(st.decode_steps, 1),
-                "ms_per_executed_step": ms["_chunk_p"] / max(chunks * w["chunk_steps"], 1),
-                # the chunks after the first two (the graph's eager warm-up and
-                # its capture), all replays
-                "replay_ms_per_step": sum(a.elapsed_time(b) for a, b in spans["_chunk_p"][2:])
-                / max((chunks - 2) * w["chunk_steps"], 1),
-                "busy_share": (ms["_prefill_p"] + ms["_chunk_p"]) / (wall * 1e3),
-                "compile_counts": counts, "setup_s": setup_s}
-            for name in ("_prefill_p", "_chunk_p"):
-                setattr(srv, name, getattr(srv, name).program)
-            out["full_pool"] = self.serve_full_pool(srv, trace)
             out["graph_vs_eager"] = self.chunk_graph_vs_eager(srv)
-            params0 = {k: v[0] for k, v in srv.active_params.items()}
-            long = next(r for r in trace if r.prompt.shape[-1] == max(w["prompt_lens"]))
-            toks2k = torch.from_numpy(long.prompt[None].astype(np.int64)).to(self.dev)
-            out["prefill"] = self.serve_prefill_holds(cfg, params0, toks2k)
-            del params0
-            holds_peak = torch.cuda.max_memory_allocated()
-            # the static engine on the same trace, from the same replicas
-            stack = srv.active_params
-            del srv
-            gc.collect()
-            torch.cuda.empty_cache()
-            static = FederatedServer(model, stack, max_batch=w["max_batch"],
-                                     length_buckets=w["buckets"])
-            del stack
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reqs_s = [dataclasses.replace(r, output=None) for r in trace]
-            for r in reqs_s:
-                static.submit(r)
-            t0 = time.perf_counter()
-            static.run()
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            st = static.stats
-            same = np.mean([np.array_equal(a.output, b.output) for a, b in
-                            zip(sorted(done, key=lambda r: r.uid), reqs_s)])
-            out["static"] = {"requests": st.requests, "tokens": st.tokens_generated,
-                             "wall_s": wall_s, "tokens_per_s": st.tokens_per_s,
-                             "ttft_p50_s": st.ttft_p50, "ttft_p95_s": st.ttft_p95,
-                             "decode_steps": st.decode_steps, "batches": st.batches,
-                             "mean_occupancy": st.mean_occupancy,
-                             "requests_equal_to_continuous": float(same)}
-            out["static"]["peak_bytes"] = torch.cuda.max_memory_allocated()
-            del static
+        params0 = {k: v[0] for k, v in srv.active_params.items()}
+        long = next(r for r in trace if r.prompt.shape[-1] == max(w["prompt_lens"]))
+        toks2k = torch.from_numpy(long.prompt[None].astype(np.int64)).to(self.dev)
+        out["prefill"] = self.serve_prefill_holds(cfg, params0, toks2k)
+        del params0
+        holds_peak = torch.cuda.max_memory_allocated()
+        # the static engine on the same trace, from the same replicas
+        stack = srv.active_params
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        static = FederatedServer(model, stack, max_batch=w["max_batch"],
+                                 length_buckets=w["buckets"])
+        del stack
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reqs_s = [dataclasses.replace(r, output=None) for r in trace]
+        for r in reqs_s:
+            static.submit(r)
+        t0 = time.perf_counter()
+        static.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        st = static.stats
+        same = np.mean([np.array_equal(a.output, b.output) for a, b in
+                        zip(sorted(done, key=lambda r: r.uid), reqs_s)])
+        out["static"] = {"requests": st.requests, "tokens": st.tokens_generated,
+                         "wall_s": wall_s, "tokens_per_s": st.tokens_per_s,
+                         "ttft_p50_s": st.ttft_p50, "ttft_p95_s": st.ttft_p95,
+                         "decode_steps": st.decode_steps, "batches": st.batches,
+                         "mean_occupancy": st.mean_occupancy,
+                         "requests_equal_to_continuous": float(same)}
+        out["static"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del static
         gc.collect()
         torch.cuda.empty_cache()
         out.update({"params_per_replica": n_params, "replicas": w["replicas"],
+                    "mode": "default (deterministic algorithms only for graph_vs_eager)",
                     "peak_bytes": peak, "setup_peak_bytes": setup_peak,
                     "holds_peak_bytes": holds_peak,
                     "nondeterministic_ops": refused,
@@ -4010,8 +4020,8 @@ class Smoke:
               f"({c['ms_per_executed_step']:.3f} an executed one, "
               f"{c['replay_ms_per_step']:.3f} on replays alone), full pool "
               f"{out['full_pool']['ms_per_step']:.3f} ms a step (decode attention "
-              f"{out['full_pool']['decode_attention_share']:.3f} of it), busy share "
-              f"{c['busy_share']:.3f}, mean occupancy {c['mean_occupancy']:.3f}, programs "
+              f"{out['full_pool']['decode_attention_share']:.3f} of it), span share "
+              f"{c['span_share']:.3f}, mean occupancy {c['mean_occupancy']:.3f}, programs "
               f"{c['compile_counts']}; static: {s_['tokens']} tokens in {s_['wall_s']:.3f}s = "
               f"{s_['tokens_per_s']:.1f} tokens/s, TTFT p50 {s_['ttft_p50_s']:.4f}s p95 "
               f"{s_['ttft_p95_s']:.4f}s, {s_['batches']} batches, {s_['decode_steps']} decode "
@@ -4025,7 +4035,9 @@ class Smoke:
             "ms": out["prefill"]["flash_ms"], "plain_ms": out["prefill"]["flash_plain_ms"],
             "library_ms": out["prefill"]["flash_library_ms"],
             "bound_ms": out["prefill"]["flash_bound_ms"],
-            "bound_by": out["prefill"]["flash_bound_by"]}
+            "bound_by": out["prefill"]["flash_bound_by"],
+            "max_abs_err": max(out["prefill"]["flash_max_abs_err"].values()),
+            "max_abs_err_by_len": out["prefill"]["flash_max_abs_err"]}
         self.detail["serve_width"] = out
 
     def time_programs(self, srv, names) -> dict:
@@ -4103,8 +4115,10 @@ class Smoke:
         (held to one a layer and to the wrappers' host count), the prefill
         timed with CUDA events, its last logits with ``attn_impl="cuda"``
         against ``"plain"`` within 5e-2 in relative norm; then the flash
-        forward alone at the prefill's shape against its plain version,
-        SDPA, and the bound."""
+        forward alone at each bucket's prefill shape (1, S, 32, 8, 128) held
+        against its plain version (``check_flash``'s bf16 tolerance), and at
+        the request's length timed against the plain version, SDPA and the
+        bound."""
         import dataclasses
 
         torch = self.torch
@@ -4130,6 +4144,19 @@ class Smoke:
         rel = ((logits.float() - lp.float()).norm() / lp.float().norm()).item()
         if not rel <= 5e-2:
             raise AssertionError(f"serve-width prefill logits flash vs plain: {rel}")
+        errs = {}
+        for blen in SERVE_WIDTH["buckets"]:
+            shape = (1, blen, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+            q, k, v, _ = self.flash_inputs(shape, torch.bfloat16)
+            out, lse = flash_attention_fwd(q, k, v)
+            ref, ref_lse = flash_attention_fwd_ref(q, k, v)
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            if not (err <= 3e-2 and lse_err <= 1e-4):
+                raise AssertionError(f"serve-width flash forward at {shape}: max abs err {err} "
+                                     f"(tol 3e-2), lse {lse_err} (tol 1e-4)")
+            errs[blen] = err
+            del out, lse, ref, ref_lse
         s = toks.shape[-1]
         shape = (1, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
         q, k, v, _ = self.flash_inputs(shape, torch.bfloat16)
@@ -4143,7 +4170,8 @@ class Smoke:
         return {"prefill_ms": prefill_ms, "prompt_len": s, "logits_rel_plain": rel,
                 "flash_device_launches": ran.get("flash_attention_fwd.tensor_core", 0),
                 "flash_host_launches": host["flash_attention_fwd"],
-                "flash_shape": list(shape), "flash_ms": fwd_ms, "flash_plain_ms": plain_ms,
+                "flash_shape": list(shape), "flash_max_abs_err": errs,
+                "flash_ms": fwd_ms, "flash_plain_ms": plain_ms,
                 "flash_library_ms": lib_ms, "flash_bound_ms": bound, "flash_bound_by": by,
                 "prefill_tflop_counted": 2 * cfg.param_count() * s / 1e12}
 

@@ -108,7 +108,7 @@ def generate(model, params: dict, prompts: torch.Tensor, gen_len: int,
     for i in range(gen_len):
         outs.append(tok)
         keys = next_keys(keys)
-        logits, cache = model.decode_step(params, tok, cache, s + i, inplace=True)
+        logits, cache = model.decode_step(params, tok, cache, s + i)
         tok = sample_tokens(logits[:, -1], cfg.vocab_size, temperature, keys)
     return torch.stack(outs, dim=1)
 

@@ -19,6 +19,8 @@ here the expert GEMMs are ``torch.einsum`` products.  The reference's
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -110,7 +112,7 @@ def moe_capacity(tokens: int, k: int, e: int, capacity_factor: float) -> int:
 
 
 def moe_mlp(x: torch.Tensor, params: dict, *, num_experts_per_tok: int,
-            capacity_factor: float):
+            capacity_factor: float, capacity: Optional[int] = None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).
 
     For ``S > 1`` each example routes, dispatches and combines on its own
@@ -118,19 +120,20 @@ def moe_mlp(x: torch.Tensor, params: dict, *, num_experts_per_tok: int,
     over examples; the expert GEMMs run once on the ``(B, E, cap, d)``
     slots, so each expert weight's gradient is one product summed over the
     examples, not one per example.  For ``S == 1`` (decode) the batch is one
-    flat token set."""
+    flat token set.  ``capacity``, the slots an expert takes, defaults to
+    ``moe_capacity``'s; at the token count no choice is dropped."""
     b, s, d = x.shape
     e = params["w_router"].shape[1]
     k = num_experts_per_tok
     vmap = torch.func.vmap
     if s > 1:
-        capacity = moe_capacity(s, k, e, capacity_factor)
+        capacity = capacity or moe_capacity(s, k, e, capacity_factor)
         src_tok, valid, slot_flat, w, aux = vmap(
             lambda xe: _route(xe, params["w_router"], k, capacity))(x)
         expert_out = _experts(vmap(_dispatch)(x, src_tok, valid), params)
         return vmap(_combine)(expert_out, slot_flat, w), aux.mean()
     t = b * s
-    capacity = moe_capacity(t, k, e, capacity_factor)
+    capacity = capacity or moe_capacity(t, k, e, capacity_factor)
     xt = x.reshape(t, d)
     src_tok, valid, slot_flat, w, aux = _route(xt, params["w_router"], k, capacity)
     out = _combine(_experts(_dispatch(xt, src_tok, valid), params), slot_flat, w)

@@ -26,9 +26,9 @@ block in its backward (the reference's ``jax.checkpoint``); policy
 ``"dots"`` raises ``NotImplementedError``.  Serving: ``init_cache``,
 ``prefill`` (the caches of a full-sequence pass, through the flash forward
 with ``attn_impl="cuda"``), ``decode_hidden`` and ``decode_step`` (one token a
-row against ring-buffer KV caches and mamba states, plain PyTorch); the
-decode also takes the clusters' models of a ``(D, ...)`` stack with a
-cluster index a row.
+row against ring-buffer KV caches and mamba states, written in place, plain
+PyTorch); the decode also takes the clusters' models of a ``(D, ...)``
+stack with a cluster index a row.
 """
 from __future__ import annotations
 
@@ -130,9 +130,10 @@ def _attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, window: Optional[in
 
 
 def _finish_layer(p: dict, x: torch.Tensor, mix: torch.Tensor, cfg: ArchConfig,
-                  idx_in_period: int):
-    """The mixer's post-norm and residual, then the FFN (dense or MoE) with
-    its norms and residual: (x, router aux loss or None)."""
+                  idx_in_period: int, capacity: Optional[int] = None):
+    """The mixer's post-norm and residual, then the FFN (dense or MoE, its
+    experts ``capacity`` slots each) with its norms and residual: (x, router
+    aux loss or None)."""
     aux = None
     if cfg.use_post_norm:
         mix = rms_norm(mix, p["ln_mix_post"], cfg.norm_eps)
@@ -141,7 +142,7 @@ def _finish_layer(p: dict, x: torch.Tensor, mix: torch.Tensor, cfg: ArchConfig,
         h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
         if cfg.is_moe_layer(idx_in_period):
             out, aux = moe_mlp(h, _sub(p, "ffn."), num_experts_per_tok=cfg.num_experts_per_tok,
-                               capacity_factor=cfg.moe_capacity_factor)
+                               capacity_factor=cfg.moe_capacity_factor, capacity=capacity)
         else:
             out = gated_mlp(h, _sub(p, "ffn."))
         if cfg.use_post_norm:
@@ -443,7 +444,7 @@ class CausalLM:
 
     def decode_hidden(self, params, token: torch.Tensor, cache: dict, pos, *,
                       cluster: Optional[torch.Tensor] = None,
-                      gate: Optional[torch.Tensor] = None, inplace: bool = False):
+                      gate: Optional[torch.Tensor] = None, per_row: bool = False):
         """``decode_step`` up to and including the final norm: (x (B, 1, d),
         cache).
 
@@ -453,8 +454,13 @@ class CausalLM:
         and each row keeps its own cluster's result.  ``pos`` is the token's
         position, an int, a scalar tensor or one a row (B,); the cache's
         ``pos`` leaves are (nblocks, Sc) shared or (nblocks, B, Sc) a row.
-        The cache is cloned first unless ``inplace``; ``gate`` (a scalar bool
-        tensor) writes the old values back where it is False."""
+        The cache is written in place (the returned dict is ``cache``);
+        ``gate`` (a scalar bool tensor) writes the old values back where it
+        is False.  ``per_row`` decodes each row as a batch of its own (the
+        slot pool's semantics): an MoE layer gives every expert room for
+        all B rows, so no row's expert choice is dropped or depends on the
+        other rows; without it the batch routes as one token set, as the
+        reference's ``decode_step``."""
         cfg = self.cfg
         plist, sel = _clusters(params, cluster)
         tok = token[..., None]  # (B, 1), or (B, K, 1) for audio
@@ -462,21 +468,21 @@ class CausalLM:
         b, dev = x.shape[0], x.device
         q_pos = torch.as_tensor(pos, device=dev).to(torch.int32)
         q_pos = q_pos.expand(b) if q_pos.dim() == 0 else q_pos
-        if not inplace:
-            cache = {k: v.clone() for k, v in cache.items()}
+        capacity = b if per_row else None
         for i in range(cfg.num_scan_blocks):
             for li in range(cfg.scan_period):
                 prefix = f"blocks.pos{li}."
                 layer = [{k[len(prefix):]: w[i] for k, w in p.items() if k.startswith(prefix)}
                          for p in plist]
-                x = self._decode_layer(layer, sel, x, li, cache, i, q_pos, gate)
+                x = self._decode_layer(layer, sel, x, li, cache, i, q_pos, gate, capacity)
         x = _route(lambda p: rms_norm(x, p["ln_final"], cfg.norm_eps), plist, sel)
         return x, cache
 
     def _decode_layer(self, plist: list, sel, x: torch.Tensor, li: int, cache: dict,
-                      block: int, q_pos: torch.Tensor, gate) -> torch.Tensor:
-        """Layer ``li`` of block ``block`` for one token a row; its cache is
-        written in place."""
+                      block: int, q_pos: torch.Tensor, gate,
+                      capacity: Optional[int]) -> torch.Tensor:
+        """Layer ``li`` of block ``block`` for one token a row (an MoE FFN's
+        experts ``capacity`` slots each); its cache is written in place."""
         cfg = self.cfg
         b = x.shape[0]
         pre = f"pos{li}."
@@ -511,15 +517,15 @@ class CausalLM:
 
             def mixed(p):
                 return mix
-        return _route(lambda p: _finish_layer(p, x, mixed(p), cfg, li)[0], plist, sel)
+        return _route(lambda p: _finish_layer(p, x, mixed(p), cfg, li, capacity)[0], plist, sel)
 
     def decode_step(self, params, token: torch.Tensor, cache: dict, pos, *,
                     cluster: Optional[torch.Tensor] = None,
-                    gate: Optional[torch.Tensor] = None, inplace: bool = False):
+                    gate: Optional[torch.Tensor] = None, per_row: bool = False):
         """token: (B,), or (B, K) for audio; pos: the token's position.
-        Returns (logits (B, 1, V) or (B, 1, K, V), cache); keywords as
-        ``decode_hidden``'s."""
+        Returns (logits (B, 1, V) or (B, 1, K, V), cache written in place);
+        keywords as ``decode_hidden``'s."""
         x, cache = self.decode_hidden(params, token, cache, pos, cluster=cluster, gate=gate,
-                                      inplace=inplace)
+                                      per_row=per_row)
         plist, sel = _clusters(params, cluster)
         return _route(lambda p: self.logits(p, x), plist, sel), cache

@@ -172,8 +172,7 @@ class BatchServer:
 
     def _decode_body(self, batch: dict) -> torch.Tensor:
         params, cache = self._decode_state
-        logits, _ = self.model.decode_step(params, batch["tok"], cache, batch["pos"],
-                                           inplace=True)
+        logits, _ = self.model.decode_step(params, batch["tok"], cache, batch["pos"])
         return logits[:, -1]
 
     def _decode(self, params: dict, tok: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:

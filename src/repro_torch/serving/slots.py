@@ -190,8 +190,9 @@ def build_slot_programs(model, *, temperature: float, gen_cap: int, chunk_steps:
         st["out"][rows, idx] = torch.where(active, tok, st["out"][rows, idx])
         emitted = st["emitted"] + active.to(torch.int32)
         done_now = done | (active & ((tok == st["eos"]) | (emitted >= st["budget"])))
+        # each slot decodes as a batch of one, as the reference's per-slot vmap
         logits, _ = model.decode_step(plist, tok, st["cache"], pos, cluster=st.get("cluster"),
-                                      gate=go, inplace=True)
+                                      gate=go, per_row=True)
         keys = next_keys(st["key"])
         new_tok = sample_tokens(logits[:, -1], vocab, temperature, keys)
         still = ~done_now

@@ -18,11 +18,23 @@ TF32 off (the CPU has none):
   body (``sched._graph = sched._build_graph()``) with remat on, bit for bit
   the eager superstep with remat off and within 1e-4 of the reference's
   remat superstep;
+* the memory remat saves: a trace of live tensors (``LiveBytes``) over one
+  client's ``grad_and_value`` at two depths gives the bytes a block adds,
+  which remat cuts to a small share of remat off's;
 * ``remat_policy="dots"`` and a ``decode_impl`` raise, naming the queue item;
   every published config (remat on by default) now builds.
+
+``peak_grad_bytes`` also takes a published config at full width, for the
+card's depth plan (bf16, S = 2048)::
+
+    PYTHONPATH=src python -c "import dataclasses as d, sys; sys.path.insert(0, 'tests');
+    from test_torch_remat import peak_grad_bytes; from repro_torch.configs import get_config;
+    c = get_config('mamba2-780m'); print([peak_grad_bytes(d.replace(c, num_layers=n,
+    remat=r), 2048) for r in (False, True) for n in (1, 2)])"
 """
 import dataclasses
 import functools
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +51,7 @@ import repro_torch.scenarios as tscenarios
 from repro_torch.convert import (
     flatten_params, params_from_numpy, params_to_numpy, unflatten_params,
 )
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,3 +201,62 @@ def test_published_configs_build_with_remat(name):
     assert cfg.remat and cfg.remat_policy == "full"
     assert tmodels.CausalLM(cfg).cfg is cfg
     assert not cfg.reduced().remat
+
+
+# -- the memory remat saves ---------------------------------------------------
+
+class LiveBytes(TorchDispatchMode):
+    """Live and peak bytes of the storages the traced ops create, each
+    counted from its creation until Python frees it."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+        self._seen: set = set()
+
+    def _release(self, key: int, n: int) -> None:
+        self._seen.discard(key)
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if not isinstance(t, torch.Tensor):
+                continue
+            storage = t.untyped_storage()
+            key, n = storage.data_ptr(), storage.nbytes()
+            if key in self._seen or n == 0:
+                continue
+            self._seen.add(key)
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(storage, self._release, key, n)
+        return out
+
+
+def peak_grad_bytes(cfg, seq: int) -> int:
+    """Peak live bytes of one client's ``grad_and_value(loss)`` at batch 1:
+    the parameters and batch are made before the trace and not counted, the
+    gradients are."""
+    model = tmodels.CausalLM(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=torch.Generator().manual_seed(1))
+    mode = LiveBytes()
+    with mode:
+        grads, loss = torch.func.grad_and_value(model.loss)(
+            params, {"tokens": tokens, "labels": tokens})
+        del grads, loss
+    return mode.peak
+
+
+@pytest.mark.parametrize("variant", ["dense", "mamba2"])
+def test_remat_cuts_the_bytes_a_block_adds(variant):
+    """The bytes one more block adds to the peak (two depths' difference):
+    with remat only the block's input and its gradients stay, far below
+    what remat off keeps."""
+    slope = {}
+    for remat in (False, True):
+        peaks = [peak_grad_bytes(_cfg(tconfigs, variant, remat, num_layers=n), 64)
+                 for n in (2, 4)]
+        slope[remat] = (peaks[1] - peaks[0]) / 2
+    assert 0 < slope[True] < 0.5 * slope[False], slope

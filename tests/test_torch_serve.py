@@ -12,6 +12,8 @@ the port's, the reference's weights carried with
   64 and gemma2's local window of 64 with prompt + generation past them (the
   ring buffer evicts), mamba2, the jamba hybrid, pixtral (VLM) and
   musicgen's four codebooks;
+* the decode writes its cache in place, and ``per_row`` decodes each row of
+  an MoE batch as its own batch of one;
 * a row-positioned decode (``pos`` (B,), per-row ``pos`` leaves, as the slot
   pool keeps them) bitwise the shared-position decode at equal positions,
   and each row its own batch-1 decode within 1e-5 at unequal ones;
@@ -185,18 +187,50 @@ def test_prefill_and_decode_match_jax(family, impl):
         np.testing.assert_allclose(logits.numpy(), jl, atol=1e-5, err_msg=f"step {i}")
 
 
-def test_decode_is_functional_unless_inplace():
+def _clone(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def test_decode_writes_the_cache_in_place():
     model = tmodels.CausalLM(_cfg(tconfigs, "dense"))
     params = model.init(torch.Generator().manual_seed(0))
     prompts = torch.from_numpy(_prompts(model.cfg, 8))
     _, cache = model.prefill(params, {"tokens": prompts})
     cache = tserve.grow_caches(model, cache, 12)
-    before = {k: v.clone() for k, v in cache.items()}
+    before = _clone(cache)
     tok = torch.tensor([3, 4])
-    _, new = model.decode_step(params, tok, cache, 8)
-    assert all(torch.equal(cache[k], before[k]) for k in cache)
-    _, same = model.decode_step(params, tok, cache, 8, inplace=True)
-    assert all(same[k] is cache[k] and torch.equal(cache[k], new[k]) for k in cache)
+    _, same = model.decode_step(params, tok, cache, 8)
+    assert all(same[k] is cache[k] for k in cache)
+    assert not all(torch.equal(cache[k], before[k]) for k in cache)
+    # a gate of False writes the old values back
+    again = _clone(before)
+    model.decode_step(params, tok, again, 8, gate=torch.tensor(False))
+    assert all(torch.equal(again[k], before[k]) for k in cache)
+
+
+def test_per_row_decode_is_each_rows_own():
+    """24 rows of an MoE model (past the capacity floor of 16), half of them
+    one repeated prompt and token: with ``per_row`` each row's logits are its batch-1
+    decode's; routed as one token set, the repeated rows crowd the experts
+    they choose and later rows lose their choices."""
+    model = tmodels.CausalLM(_cfg(tconfigs, "mixtral-ring", attn_impl="plain"))
+    params = model.init(torch.Generator().manual_seed(2))
+    s, b = 8, 24
+    prompts = torch.from_numpy(_prompts(model.cfg, s, b=b, seed=3))
+    prompts[:12] = prompts[0]
+    _, cache = model.prefill(params, {"tokens": prompts})
+    cache = tserve.grow_caches(model, cache, s + 1)
+    tok = torch.from_numpy(_prompts(model.cfg, 1, b=b, seed=4)[:, 0].astype(np.int64))
+    tok[:12] = 7
+    got, _ = model.decode_step(params, tok, _clone(cache), s, per_row=True)
+    flat, _ = model.decode_step(params, tok, _clone(cache), s)
+    for r in range(b):
+        one = {k: (v[:, r:r + 1] if not k.endswith(".pos") else v).clone()
+               for k, v in cache.items()}
+        ref, _ = model.decode_step(params, tok[r:r + 1], one, s)
+        np.testing.assert_allclose(got[r:r + 1].numpy(), ref.numpy(), atol=1e-5,
+                                   err_msg=f"row {r}")
+    assert not torch.allclose(flat, got, atol=1e-5)
 
 
 @pytest.mark.parametrize("family", ["dense", "mixtral-ring", "jamba"])
@@ -213,15 +247,15 @@ def test_row_positions_equal_shared_positions(family):
     rowed = {k: (v[:, None].expand(v.shape[0], 2, v.shape[1]).contiguous()
                  if k.endswith(".pos") else v) for k, v in cache.items()}
     tok = torch.tensor([5, 9])
-    ref, ref_cache = model.decode_step(params, tok, cache, s)
-    got, got_cache = model.decode_step(params, tok, rowed, torch.tensor([s, s]))
+    ref, ref_cache = model.decode_step(params, tok, _clone(cache), s)
+    got, got_cache = model.decode_step(params, tok, _clone(rowed), torch.tensor([s, s]))
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
     for k, v in ref_cache.items():
         want = v[:, None].expand_as(got_cache[k]) if k.endswith(".pos") else v
         np.testing.assert_array_equal(got_cache[k].numpy(), want.numpy(), err_msg=k)
     # row 1 one position behind: its logits are a decode at s - 1 of its own
-    got, _ = model.decode_step(params, tok, rowed, torch.tensor([s, s - 1]))
-    one = {k: (v[:, 1:2] if not k.endswith(".pos") else v) for k, v in cache.items()}
+    got, _ = model.decode_step(params, tok, _clone(rowed), torch.tensor([s, s - 1]))
+    one = {k: (v[:, 1:2] if not k.endswith(".pos") else v).clone() for k, v in cache.items()}
     ref1, _ = model.decode_step(params, tok[1:], one, s - 1)
     np.testing.assert_allclose(got[1:].numpy(), ref1.numpy(), atol=1e-5)
 
