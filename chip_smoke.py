@@ -321,6 +321,29 @@ Phases, one result line each; any failure exits non-zero without the final
             plain version at each bucket S (bf16 tolerance 3e-2, lse 1e-4),
             timed at 2048 against the plain version, SDPA and the bound.
 
+18. collective-width one ``build_fl_train_step`` iteration with
+            ``impl="gossip"`` (the collective backend: hypercube all-reduce
+            and ring gossip, plain PyTorch) at lm-width's granite-8b widths,
+            C = 8 in D = 4, alpha = 2, eager: the flash counters set to 0
+            before it, its flash runs on the device (profiler) all on the
+            tensor-core route, a finite loss, CUDA-event ms and peak memory;
+            then the collective transition on the step's output tree against
+            ``CudaBackend.transition`` (``fused_transition``) on the same tree,
+            every element within one bf16 ulp plus 2^-20 of its leaf's
+            largest input (two f32 summation orders, one cast), both timed
+            (CUDA events), and the collective's transient bytes.
+19. launch   the training CLI through ``repro_torch.launch.train.main``:
+            ``--scenario list``; ``mnist-noniid-ring`` 20 iterations on the
+            auto backend (SGD and transition kernels launched);
+            ``federated-lm-ring --backend collective --mesh auto`` (prints
+            that the mesh resolved to none) against ``--backend dense``
+            within 1e-4; the LM path saved and resumed (``resumed from round
+            2``, finite losses); a reduced ``build_fl_train_step`` at
+            per-client batch 2, ``microbatch=2`` against 1 within 1e-5.
+
+The smoke's total time, build included, and each phase's are printed
+before the kernels line.
+
 ``--phases NAME ...`` runs only those phases (after device and build) and
 prints no kernels or result line: a development run.
 
@@ -331,7 +354,11 @@ bf16 numbers and the ``lm-width`` launches, the flash entries under
 wide backward's with its A/B under ``ab``, and under ``serve_width`` the
 prefill's flash forwards and the forward at (1, 2048, 32, 8, 128)), the LM kernels
 ``families_host_launches``, ``moe_width_launches`` and
-``gemma2_width_launches``, the transition and SGD
+``gemma2_width_launches``, the flash entries' ``collective_width_launches``
+(device runs and host launches of the collective-width step), the
+transition's ``collective_width`` (the collective transition against it at
+granite widths), the SGD and transition ``launch_host_launches`` (the launch
+phase's mnist-noniid-ring run), the transition and SGD
 ``moe_width``/``ssm_width``/``gemma2_width`` (their trees) and
 ``ssm_width_launches``, ``fleet_host_launches`` and
 ``offload_host_launches`` the fleet and offload phases' host counts, the
@@ -466,6 +493,9 @@ SERVE_FAMILIES = ("granite-8b", "mixtral-8x7b", "gemma2-2b", "mamba2-780m",
 SERVE_WIDTH = dict(replicas=2, max_batch=8, buckets=(512, 1024, 2048), gen_cap=256,
                    chunk_steps=8, requests=32, prompt_lens=(512, 1024, 2048))
 SERVE_FULL_CHUNKS = 4  # chunk replays timed with every slot active
+# the collective-width phase: lm-width's model (LM_WIDTH) in C = 8 clients,
+# D = 4 clusters (g = 2, a power of two, as the hypercube needs)
+COLLECTIVE_WIDTH = dict(clients=8, clusters=4)
 # gemma2-2b's depth cut to one local (even) and one global layer; its window
 # 4096 passes S = 2048, so both layers attend causally in full
 GEMMA2_WIDTH = dict(num_layers=2, num_clients=4, num_clusters=2, seq_len=2048, batch_size=1)
@@ -561,6 +591,7 @@ def main() -> None:
 class Smoke:
     def __init__(self, torch, old_flash=None, old_gossip=None, only=None):
         self.torch = torch
+        self.t0 = time.perf_counter()  # the smoke's total time runs from here, build included
         self.only = None if only is None else set(only) | {"device", "build"}
         self.dev = torch.device("cuda")
         self.failed: list[str] = []
@@ -4677,6 +4708,245 @@ class Smoke:
             out[name] = {"argv": argv, "seconds": dt, "losses": losses, "last_lines": lines[-3:]}
         self.detail["examples"] = out
 
+    # -- the collective path and the training CLI -------------------------------
+    def collective_width(self):
+        """One ``build_fl_train_step`` iteration at granite-8b's widths (the
+        lm-width model: 2 layers, bf16, S = 2048, b = 1) with ``impl="gossip"``
+        (C = 8 in D = 4, ring, alpha = 2; eager): the flash counters set to 0
+        just before it and read just after (every launch on the tensor-core
+        route, and its device runs counted by the profiler), the loss finite,
+        CUDA-event ms and peak memory, then a second (warm) step timed alike.
+        Then the collective transition alone on the second step's output tree
+        against ``CudaBackend.transition`` (the ``fused_transition`` kernel)
+        on the same tree: both accumulate in f32 in different orders and cast
+        once, so every element is held to one bf16 ulp of the larger output
+        plus 2^-20 of its leaf's largest input (the f32 bound of two
+        summation orders over at most 8 convex terms and 8 roundings; it
+        matters only where the terms cancel), both timed with CUDA events,
+        and the collective's transient bytes."""
+        import dataclasses
+
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core import FLSpec, build_fl_train_step, resolve_backend, stacked_init
+        from repro_torch.kernels import device_launches
+        from repro_torch.models import CausalLM
+        from repro_torch.optim import sgd
+
+        ow = LM_WIDTH["arch_overrides"]
+        cfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                                  vocab_size=LM_WIDTH["vocab_size"], **ow)
+        model = CausalLM(cfg)
+        c, d, s, b = COLLECTIVE_WIDTH["clients"], COLLECTIVE_WIDTH["clusters"], \
+            LM_WIDTH["seq_len"], LM_WIDTH["batch_size"]
+        fl = FLSpec(c, d, tau1=1, tau2=1, alpha=2, learning_rate=LR, impl="gossip")
+        step = build_fl_train_step(model, sgd(LR), fl, event="inter", device=self.dev)
+        params = stacked_init(model, c, 0, self.dev)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (c, b, s + 1))).to(self.dev)
+        batch = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+        n_params = sum(w[0].numel() for w in params.values())
+        nbytes = sum(w.numel() * w.element_size() for w in params.values())
+
+        counters = self.lm_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def one_step():
+            start.record()
+            out = step(params, (), batch)
+            end.record()
+            return out
+
+        (new, _, loss), ran = device_launches(one_step)
+        torch.cuda.synchronize()
+        step_ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        routes = self.check_routes(counters, {"flash_attention": "tensor_core",
+                                              "flash_attention_backward": "tensor_core"},
+                                   "collective-width (bf16)")
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        new2, _, loss2 = step(new, (), batch)
+        end.record()
+        torch.cuda.synchronize()
+        warm_ms, warm_peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
+        del new
+        new = new2
+        want = {"flash_attention_fwd.tensor_core": cfg.num_layers,
+                "flash_attention_bwd.tensor_core": cfg.num_layers}
+        runs = {k: ran.get(k, 0) for k in want}
+        if runs != want or launches["fused_transition"] or launches["sgd_update"]:
+            raise AssertionError(f"collective-width: device runs {ran}, host launches "
+                                 f"{launches}; expected {want} and no transition or SGD kernel")
+        loss, loss2 = loss.item(), loss2.item()
+        if not (np.isfinite(loss) and np.isfinite(loss2)):
+            raise AssertionError(f"collective-width: losses {loss}, {loss2}")
+        for kname, key in (("flash_attention", "flash_attention_fwd.tensor_core"),
+                           ("flash_attention_backward", "flash_attention_bwd.tensor_core")):
+            self.record[kname]["collective_width_launches"] = {
+                "device": ran[key], "host": launches[kname]}
+        print(f"collective-width: build_fl_train_step(impl='gossip', event='inter') at "
+              f"granite-8b widths ({cfg.num_layers} of 36 layers, {cfg.dtype}, S={s}, b={b}; "
+              f"{n_params} params a client x {c} clients = {nbytes / 1e9:.2f} GB; C={c} in "
+              f"D={d}, ring, alpha=2; eager): loss {loss:.4f}; {step_ms:.2f} ms (CUDA events); "
+              f"peak {peak / 2**30:.2f} GiB; flash device runs {json.dumps(runs)}, host "
+              f"launches {json.dumps(launches)}, routes {json.dumps(routes)}; a second step: "
+              f"loss {loss2:.4f}, {warm_ms:.2f} ms, peak {warm_peak / 2**30:.2f} GiB", flush=True)
+        del batch, toks
+        torch.cuda.empty_cache()
+
+        # the transition alone on the step's output tree: the collective path
+        # (out of place) against the fused_transition kernel (in place)
+        proto = fl.protocol()
+        coll = resolve_backend("collective", proto.clusters, proto.P(), 2, device=self.dev)
+        kern = resolve_backend("cuda", proto.clusters, proto.P(), 2, device=self.dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref = coll.transition(new, "inter")
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - base
+        scale = {k: w.abs().max().float().item() for k, w in new.items()}
+        kern.transition(new, "inter")  # overwrites new
+        err, over, beyond, differ, total = 0.0, 0, 0, 0, 0
+        chunk = 1 << 26
+        for k, w in new.items():
+            a, o = ref[k].view(-1), w.view(-1)
+            floor = 2.0 ** -20 * scale[k]
+            for i in range(0, a.numel(), chunk):
+                x, y = a[i:i + chunk].float(), o[i:i + chunk].float()
+                diff = (x - y).abs()
+                # one bf16 ulp at the larger of the two magnitudes: 2^(e - 8)
+                # for |v| in [2^(e-1), 2^e)
+                ulp = torch.ldexp(torch.ones_like(y), torch.frexp(torch.maximum(x.abs(),
+                                                                              y.abs()))[1] - 8)
+                err = max(err, diff.max().item())
+                beyond += int((diff > ulp).sum().item())
+                over += int((diff > ulp + floor).sum().item())
+                differ += int((diff > 0).sum().item())
+                total += x.numel()
+                del x, y, diff, ulp
+        del ref
+        torch.cuda.empty_cache()
+        print(f"  collective transition vs the fused_transition kernel on the step's tree: max "
+              f"abs err {err:.3e}, {differ} of {total} elements differ, {beyond} by more than "
+              f"one bf16 ulp, {over} by more than one ulp + 2^-20 of the leaf's largest input "
+              f"(held to 0); transient {transient / 1e9:.2f} GB above the tree", flush=True)
+        if over:
+            raise AssertionError(f"collective-width: {over} elements beyond the tolerance")
+        coll_ms = self.cuda_ms(lambda: coll.transition(new, "inter"), reps=3, warmup=1)
+        kern_ms = self.cuda_ms(lambda: kern.transition(new, "inter"), reps=5, warmup=1)
+        m_total = sum(w[0].numel() for w in new.values())
+        bnd, by = self.bound(2 * nbytes, 2 * m_total * (2 * c * d + 2 * d * d), BF16_FLOPS_PER_S)
+        print(f"  transition times (CUDA events, {nbytes / 1e9:.2f} GB tree): collective "
+              f"{coll_ms:.3f} ms, fused_transition {kern_ms:.3f} ms ({coll_ms / kern_ms:.1f}x); "
+              f"bound {bnd:.4f} ms ({by})", flush=True)
+        res = {"step_ms": step_ms, "loss": loss, "peak_bytes": peak, "warm_step_ms": warm_ms,
+               "warm_loss": loss2, "warm_peak_bytes": warm_peak, "device_runs": runs,
+               "host_launches": launches, "flash_routes": routes, "params_per_client": n_params,
+               "tree_bytes": nbytes, "transition": {
+                   "collective_ms": coll_ms, "fused_transition_ms": kern_ms,
+                   "ratio": coll_ms / kern_ms, "bound_ms": bnd, "bound_by": by,
+                   "max_abs_err": err, "elements_differ": differ, "elements": total,
+                   "beyond_one_ulp": beyond, "beyond_tolerance": over,
+                   "transient_bytes": transient}}
+        self.record["fused_transition"]["collective_width"] = res["transition"]
+        self.detail["collective_width"] = res
+        del new
+        torch.cuda.empty_cache()
+
+    def launch(self):
+        """The training CLI on the card through ``repro_torch.launch.train.main``:
+        ``--scenario list``; ``mnist-noniid-ring`` 20 iterations on the auto
+        backend (the SGD and transition kernels, their counters set to 0
+        just before it and read just after); ``federated-lm-ring --backend
+        collective --mesh auto`` against ``--backend dense`` within 1e-4 (it
+        must print that the mesh resolved to none); the LM path with
+        ``--save-dir``, then ``--resume`` (``resumed from round 2``, finite
+        losses); a reduced ``build_fl_train_step`` at per-client batch 2,
+        ``microbatch=2`` against 1 within 1e-5."""
+        import contextlib
+        import dataclasses
+        import io
+        import tempfile
+
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core import FLSpec, build_fl_train_step, stacked_init
+        from repro_torch.launch.train import main as train_main
+        from repro_torch.models import CausalLM
+        from repro_torch.optim import sgd
+
+        def cli(argv):
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                out = train_main(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            text = printed.getvalue()
+            print(f"launch.train {' '.join(argv)}: {time.perf_counter() - t0:.1f}s; last lines "
+                  f"{text.strip().splitlines()[-2:]}", flush=True)
+            return out, text
+
+        def finite(tree):
+            return all(bool(torch.isfinite(v).all()) for v in tree.values())
+
+        res = {}
+        _, text = cli(["--scenario", "list"])
+        res["scenarios"] = len(text.strip().splitlines())
+        counters = self.lm_counters()
+        out, text = cli(["--scenario", "mnist-noniid-ring", "--steps", "20"])
+        launches = {k: counters[k].launches for k in ("sgd_update", "fused_transition")}
+        if not (all(launches.values()) and finite(out) and "done: steps=20" in text):
+            raise AssertionError(f"launch mnist-noniid-ring: host launches {launches}")
+        for kname, n in launches.items():
+            self.record[kname]["launch_host_launches"] = n
+        res["mnist_host_launches"] = launches
+        lm = ["--scenario", "federated-lm-ring", "--steps", "4"]
+        coll, text = cli(lm + ["--backend", "collective", "--mesh", "auto"])
+        if "mesh=auto resolved to none" not in text:
+            raise AssertionError("launch: --mesh auto did not say how it resolved")
+        dense, _ = cli(lm + ["--backend", "dense"])
+        err = max((coll[k] - v).abs().max().item() for k, v in dense.items())
+        if not (finite(coll) and err <= 1e-4):
+            raise AssertionError(f"launch: collective vs dense {err}")
+        res["lm_collective_vs_dense"] = err
+        with tempfile.TemporaryDirectory() as tmp:
+            path = ["--arch", "granite-8b", "--tau1", "1", "--save-dir", tmp]
+            _, first = cli(path + ["--steps", "2", "--save-every", "1"])
+            out, text = cli(path + ["--steps", "4", "--resume"])
+        losses = [float(line.split("loss=")[1].split()[0])
+                  for line in (first + text).splitlines() if line.startswith("round")]
+        if "resumed from round 2" not in text or not (finite(out) and np.isfinite(losses).all()):
+            raise AssertionError(f"launch: resume printed {text!r}")
+        res["lm_path_losses"] = losses
+        # gradient accumulation: microbatch 2 against one batch of 2
+        cfg = dataclasses.replace(get_config("granite-8b").reduced(), vocab_size=512)
+        model = CausalLM(cfg)
+        rng = np.random.default_rng(1)
+        toks = torch.from_numpy(rng.integers(0, 512, (8, 2, 65))).to(self.dev)
+        batch = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+        fl = FLSpec(8, 4, alpha=2, learning_rate=0.1, impl="gossip")
+        params = stacked_init(model, 8, 0, self.dev)
+        got = [build_fl_train_step(model, sgd(0.1), fl, microbatch=m, device=self.dev)(
+            params, (), batch) for m in (1, 2)]
+        mb_err = max(max((got[0][0][k] - v).abs().max().item() for k, v in got[1][0].items()),
+                     abs(got[0][2].item() - got[1][2].item()))
+        print(f"  build_fl_train_step (reduced granite, f32, gossip, b=2): microbatch 2 vs 1 "
+              f"max abs diff {mb_err:.3e} (tol 1e-5)", flush=True)
+        if not mb_err <= 1e-5:
+            raise AssertionError(f"launch: microbatch 2 vs 1 {mb_err}")
+        res["microbatch_2_vs_1"] = mb_err
+        self.detail["launch"] = res
+
     def run(self):
         torch = self.torch
         self.phase("device", self.device)
@@ -4697,8 +4967,14 @@ class Smoke:
             self.phase("examples", self.examples)
             self.phase("serve", self.serve)
             self.phase("serve-width", self.serve_width)
+            self.phase("collective-width", self.collective_width)
+            self.phase("launch", self.launch)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
+        self.detail["total_seconds"] = time.perf_counter() - self.t0
+        print(f"smoke total {self.detail['total_seconds']:.1f}s (phases "
+              f"{json.dumps({k: round(v, 1) for k, v in self.detail['phase_seconds'].items()})})",
+              flush=True)
         out = HERE / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(
@@ -4717,7 +4993,8 @@ class Smoke:
                           "families_host_launches", "moe_width_launches", "moe_width",
                           "ssm_width_launches", "ssm_width", "mixtral_width", "hd160",
                           "gemma2_global", "gemma2_width_launches", "gemma2_width",
-                          "serve_width"):
+                          "serve_width", "collective_width_launches", "collective_width",
+                          "launch_host_launches"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

@@ -1,4 +1,4 @@
-"""Pluggable aggregation backends: one Lemma-1 transition, two implementations.
+"""Pluggable aggregation backends: one Lemma-1 transition, three implementations.
 
 Every schedule applies the same linear operator — ``W <- W @ T_k`` with
 ``T_k in {I, V B, V P^alpha B}`` — to a dict of client-stacked ``(C, ...)``
@@ -31,13 +31,28 @@ Registered implementations:
                    contiguous uniform clusters.  ``transition`` and
                    ``inter_cluster`` **overwrite** the leaves they are given
                    and return them.
+``CollectiveBackend``  The reference's structured path: weighted hypercube
+                   all-reduce (log2(g) exchanges) and ``alpha`` rounds of
+                   ring gossip, on the stacked client axis of one device
+                   (``aggregation.hypercube_cluster_allreduce``,
+                   ``ring_gossip``), the computation the reference runs
+                   under ``vmap`` without a mesh.  Plain PyTorch: the
+                   reference runs it as ``lax.ppermute`` and elementwise ops,
+                   in no Pallas kernel.  Requires a ring mixing stencil,
+                   contiguous uniform clusters of power-of-two size and
+                   D >= 3.  Returns new tensors.
 =================  ==========================================================
 
 Every backend and ``resolve_backend`` take ``device=None``, which means
 ``"cuda"`` and raises without a GPU (``core.device.resolve_device``).
 
-``resolve_backend("auto", ...)`` picks ``cuda`` when the run's device is
-CUDA and the clusters are contiguous and uniform, ``dense`` otherwise.
+``resolve_backend("auto", ...)`` picks ``collective`` when a client mesh is
+given and the scenario satisfies the collective constraints, else ``cuda``
+when the run's device is CUDA and the clusters are contiguous and uniform,
+``dense`` otherwise.  A client mesh needs process-group collectives, which
+are not ported (``launch.mesh.resolve_client_mesh`` resolves ``"auto"`` to
+no mesh on one card and raises for anything it cannot honour), so on one
+card ``"auto"`` is ``cuda``, and ``dense`` on the CPU.
 """
 from __future__ import annotations
 
@@ -46,7 +61,13 @@ from typing import Callable, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from .aggregation import apply_transition_dense, dense_gossip_reference
+from .aggregation import (
+    apply_transition_dense,
+    dense_gossip_reference,
+    hypercube_cluster_allreduce,
+    ring_gossip,
+    ring_mixing_weights,
+)
 from .device import resolve_device
 from .protocol import AggregationEvent, ClusterSpec
 
@@ -54,10 +75,12 @@ __all__ = [
     "AggregationBackend",
     "DenseBackend",
     "CudaBackend",
+    "CollectiveBackend",
     "BACKEND_REGISTRY",
     "register_backend",
     "resolve_backend",
     "select_auto_backend",
+    "collective_supported",
 ]
 
 
@@ -226,6 +249,117 @@ class CudaBackend:
 
 
 # ---------------------------------------------------------------------------
+# Structured collective backend (the stacked client axis of one device)
+# ---------------------------------------------------------------------------
+
+# where the process-group collectives a client mesh needs are queued
+_MESH_NOT_PORTED = ("a client mesh runs the collective transition as process-group "
+                    "collectives, which are not ported yet (ROADMAP.md §1 item 4, "
+                    "'process-group collectives')")
+
+
+class CollectiveBackend:
+    """Hypercube all-reduce + ring gossip over the stacked client axis.
+
+    The reference's ``CollectiveBackend`` without a mesh: the per-client
+    collective code with every ``lax.ppermute`` a fixed permutation of the
+    client axis (``aggregation.hypercube_cluster_allreduce``,
+    ``ring_gossip``).  ``transition`` and ``intra_cluster`` accumulate each
+    leaf in f32 (``x * m^`` promotes a bf16 leaf) and cast back once;
+    ``inter_cluster`` mixes ``(D, ...)`` cluster models in their own dtype.
+
+    The per-call ``weights`` substitute for the bound ``m^`` in the
+    all-reduce, and a per-call ``p`` becomes three ``(D,)`` stencil vectors
+    gathered on the device (``_ring_stencil``), so neither syncs with the
+    host and a captured graph reads both from its static buffers.  Support
+    off the ring stencil cannot be checked on device values: the schedulers
+    check every faulted matrix on the host before it is staged
+    (``FaultSchedule.mixing_stack(require_ring_stencil=True)``, and each
+    async ``P_t`` as it is built), and ``inter_cluster`` checks a ``p`` that
+    lies on the host.  ``mesh`` other than None raises
+    ``NotImplementedError``: that is the multi-device path.
+    """
+
+    name = "collective"
+
+    def __init__(self, clusters: ClusterSpec, p: np.ndarray, alpha: int, device=None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(f"mesh={mesh!r}: {_MESH_NOT_PORTED}; pass mesh=None")
+        if not _uniform_contiguous(clusters):
+            raise ValueError(
+                f"collective backend requires contiguous uniform clusters "
+                f"(C % D == 0, client i in cluster i // (C/D)); got "
+                f"assignments={clusters.assignments}"
+            )
+        g = clusters.num_clients // clusters.num_clusters
+        if g & (g - 1):
+            raise ValueError(
+                f"collective backend requires power-of-two cluster sizes for the "
+                f"hypercube all-reduce; got cluster_size={g}"
+            )
+        d = clusters.num_clusters
+        if d < 3:
+            raise ValueError("collective ring gossip needs >= 3 clusters")
+        self.clusters = clusters
+        self.cluster_size = g
+        self.alpha = alpha
+        self.mesh = None
+        dev = resolve_device(device)
+        self.device = dev
+        # raises if P has support off the ring stencil (non-ring topology)
+        self._ring_w = tuple(_f32(w, dev) for w in ring_mixing_weights(np.asarray(p, np.float64)))
+        self._m_hat = _f32(clusters.m_hat(), dev)
+        idx = torch.arange(d, device=dev)
+        self._stencil_idx = ((idx - 1) % d, idx, (idx + 1) % d)
+
+    def _ring_stencil(self, p: torch.Tensor) -> tuple:
+        """Per-cluster ``(w_left, w_self, w_right)`` gathered from ``p`` on the
+        device: column ``d`` of a ring-stencil matrix holds the three weights
+        cluster ``d``'s gossip uses (the device twin of
+        ``ring_mixing_weights``, without its host-side check)."""
+        left, idx, right = self._stencil_idx
+        p = _f32(p, self.device)
+        return p[left, idx], p[idx, idx], p[right, idx]
+
+    def _apply(self, stacked: dict, event: AggregationEvent, m_hat: torch.Tensor,
+               ring_w: tuple) -> dict:
+        g, out = self.cluster_size, {}
+        for k, x in stacked.items():
+            y = hypercube_cluster_allreduce(x, g, m_hat)
+            # one round a call: the round's input is freed as the next begins,
+            # so a leaf holds at most three f32 copies at once
+            for _ in range(self.alpha if event == "inter" else 0):
+                y = ring_gossip(y, g, *ring_w, 1)
+            out[k] = y.to(x.dtype)
+        return out
+
+    # -- full Lemma-1 transition, (C, ...) -> (C, ...) -----------------------
+    def transition(self, stacked: dict, event: AggregationEvent,
+                   weights: Optional[torch.Tensor] = None,
+                   p: Optional[torch.Tensor] = None) -> dict:
+        if event == "local":
+            return stacked
+        ring_w = self._ring_w if p is None or event != "inter" else self._ring_stencil(p)
+        m_hat = self._m_hat if weights is None else _f32(weights, self.device)
+        return self._apply(stacked, event, m_hat, ring_w)
+
+    # -- factors -------------------------------------------------------------
+    def intra_cluster(self, stacked: dict, weights: torch.Tensor) -> dict:
+        reduced = self._apply(stacked, "intra", _f32(weights, self.device), self._ring_w)
+        # every member of a cluster holds the reduced model; take the leads
+        return {k: v[::self.cluster_size].contiguous() for k, v in reduced.items()}
+
+    def inter_cluster(self, y: dict, p: torch.Tensor, alpha: int = 1) -> dict:
+        if not (isinstance(p, torch.Tensor) and p.device.type == "cuda"):
+            # values on the host: check the stencil, as the reference does
+            # for every P it re-derives (raises off the ring)
+            ring_mixing_weights(np.asarray(torch.as_tensor(p).cpu(), np.float64))
+        ring_w = self._ring_stencil(p)
+        return {k: ring_gossip(v, 1, *ring_w, alpha).to(v.dtype) for k, v in y.items()}
+
+
+# ---------------------------------------------------------------------------
 # Registry + auto selection
 # ---------------------------------------------------------------------------
 
@@ -244,31 +378,61 @@ def register_backend(name: str):
 
 register_backend("dense")(DenseBackend)
 register_backend("cuda")(CudaBackend)
+register_backend("collective")(CollectiveBackend)
 
 
-def select_auto_backend(clusters: ClusterSpec, device) -> str:
-    """``cuda`` on a CUDA device with contiguous uniform clusters, else ``dense``."""
+def collective_supported(clusters: ClusterSpec, p: np.ndarray) -> bool:
+    """Can ``CollectiveBackend`` represent this scenario?  (See its docstring.)"""
+    if not _uniform_contiguous(clusters) or clusters.num_clusters < 3:
+        return False
+    g = clusters.num_clients // clusters.num_clusters
+    if g & (g - 1):  # the hypercube needs power-of-two cluster sizes
+        return False
+    try:
+        ring_mixing_weights(np.asarray(p, np.float64))
+    except ValueError:
+        return False
+    return True
+
+
+def select_auto_backend(clusters: ClusterSpec, device, p: Optional[np.ndarray] = None,
+                        mesh=None) -> str:
+    """Pick a backend name by client mesh, device and cluster layout.
+
+    * ``collective`` when a client mesh is given (``mesh`` as
+      ``launch.mesh.resolve_client_mesh`` returns it) and the scenario
+      satisfies the collective constraints (ring stencil of ``p``,
+      power-of-two uniform clusters, D >= 3), as the reference;
+    * ``cuda`` on a CUDA device with contiguous uniform clusters;
+    * ``dense`` everywhere else.
+    """
+    if mesh is not None and p is not None and collective_supported(clusters, p):
+        return "collective"
     if torch.device(device).type == "cuda" and _uniform_contiguous(clusters):
         return "cuda"
     return "dense"
 
 
 def resolve_backend(spec, clusters: ClusterSpec, p: np.ndarray, alpha: int,
-                    device=None) -> AggregationBackend:
+                    device=None, mesh=None) -> AggregationBackend:
     """Turn a backend spec into a bound instance.
 
     ``spec`` is a registered name, ``"auto"``, ``None`` (== auto), or an
     already-constructed backend (returned as-is).  ``device=None`` means
-    ``"cuda"`` and raises without a GPU.
+    ``"cuda"`` and raises without a GPU.  ``mesh`` (a resolved client mesh,
+    None on one device) goes to the collective backend, which raises for
+    anything but None.
     """
     if spec is None:
         spec = "auto"
     if not isinstance(spec, str):
         return spec
     device = resolve_device(device)
-    name = select_auto_backend(clusters, device) if spec == "auto" else spec
+    name = select_auto_backend(clusters, device, p, mesh) if spec == "auto" else spec
     if name not in BACKEND_REGISTRY:
         raise KeyError(
             f"unknown aggregation backend {name!r}; registered: {sorted(BACKEND_REGISTRY)}"
         )
-    return BACKEND_REGISTRY[name](clusters, np.asarray(p, np.float64), alpha, device=device)
+    kw = {} if mesh is None else {"mesh": mesh}
+    return BACKEND_REGISTRY[name](clusters, np.asarray(p, np.float64), alpha, device=device,
+                                  **kw)

@@ -12,8 +12,10 @@ Every scheduler of the port (``sync``, ``round``, ``async``) takes the
 fleet's device profile (``profile``/``profile_seed``), its ``participation``
 plan, its ``faults`` schedule and its client-state ``store``
 (``repro_torch.state``).  ``validate`` checks their structure as the
-reference does, and rejects ``exec.mesh`` with ``NotImplementedError``
-naming its ROADMAP item.
+reference does.  ``exec.mesh`` takes ``None`` or ``"auto"``, which
+``launch.mesh.resolve_client_mesh`` resolves to no mesh when there are
+fewer devices than clients; a mesh it cannot honour raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,10 +25,6 @@ from typing import Any, Optional
 __all__ = ["ModelSpec", "DataSpec", "FleetSpec", "ExecSpec", "RunConfig", "MODEL_KINDS"]
 
 MODEL_KINDS = ("mnist-cnn", "cifar-cnn")
-
-# what is not ported yet, and where ROADMAP.md queues it
-_NOT_PORTED = {"mesh": "queue 1, 'Multi-device and launch'"}
-
 
 def _model_registry() -> dict:
     from ..models import CifarCNN, MnistCNN
@@ -246,10 +244,10 @@ class RunConfig:
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"exec.{k} must be an int >= 1, got {v!r}")
         self.fleet.validate()
-        if self.exec.mesh is not None:
-            raise NotImplementedError(
-                f"exec.mesh is not ported yet (ROADMAP.md {_NOT_PORTED['mesh']})"
-            )
+        if self.exec.mesh not in (None, "auto"):
+            from ..launch.mesh import resolve_client_mesh
+
+            resolve_client_mesh(self.exec.mesh, self.num_clients or 0)  # raises
         if self.clusters is not None and (
             self.num_clients is not None or self.num_clusters is not None
         ):

@@ -122,7 +122,13 @@ AggregationEvent = Literal["local", "intra", "inter"]
 
 @dataclasses.dataclass(frozen=True)
 class SDFEELConfig:
-    """Hyper-parameters of Algorithm 1."""
+    """Hyper-parameters of Algorithm 1 (+ the structured/dense switch).
+
+    ``aggregation_impl`` is the reference's legacy backend field: a
+    scheduler built with ``backend=None`` maps ``"gossip"`` to the
+    collective backend where the scenario allows it (dense otherwise) and
+    ``"pallas"`` to the CUDA kernels; the default ``"dense"`` leaves the
+    choice to ``"auto"``."""
 
     clusters: ClusterSpec
     topology: Topology
@@ -130,6 +136,7 @@ class SDFEELConfig:
     tau2: int = 1          # inter-cluster period (in units of tau1)
     alpha: int = 1         # gossip rounds per inter-cluster aggregation
     learning_rate: float = 0.01
+    aggregation_impl: Literal["dense", "gossip", "pallas"] = "dense"
 
     def __post_init__(self):
         if self.tau1 < 1 or self.tau2 < 1 or self.alpha < 1:

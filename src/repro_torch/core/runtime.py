@@ -16,6 +16,15 @@ participants, which the store gathers before the round and scatters after
 it; the buffer's tensors never change, so a captured step is captured once
 for every residency.
 
+The aggregation backend is ``dense``, ``cuda`` (the kernels) or
+``collective`` (the reference's hypercube all-reduce and ring gossip on the
+stacked client axis), by name or ``"auto"``.  The sync and round schedulers
+also take the reference's ``mesh`` (``None`` or ``"auto"``, resolved by
+``launch.mesh.resolve_client_mesh``: no mesh on one card) and its legacy
+backend fields: with ``backend=None``, ``aggregation_impl``/``FLSpec.impl``
+``"gossip"`` maps to ``collective`` where the scenario allows it and to
+``dense`` otherwise (``_legacy_impl_backend``).
+
 Per-round participation weights and faulted mixing matrices are runtime
 operands of fixed shape: the sync and round schedulers stage them with
 each step's batches, as the batch entries ``WEIGHTS`` (``(C,)``, a
@@ -44,7 +53,7 @@ from typing import Callable, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from .backends import resolve_backend
+from .backends import collective_supported, resolve_backend
 from .config import FleetSpec, RunConfig
 from .cuda_graph import GraphedStep, copy_into, resolve_graph
 from .device import resolve_device
@@ -325,6 +334,32 @@ class Scheduler(Protocol):
 # Synchronous per-iteration scheduler (Algorithm 1)
 # ---------------------------------------------------------------------------
 
+def _legacy_impl_backend(impl: str, clusters: ClusterSpec, p: np.ndarray) -> str:
+    """The backend the reference's legacy ``aggregation_impl``/``FLSpec.impl``
+    field names, as the port calls it.
+
+    ``"gossip"`` maps to the collective backend only where the scenario
+    satisfies its constraints and degrades to dense otherwise, as in the
+    reference; ``"pallas"`` (the reference's TPU kernels) is ``cuda``."""
+    if impl == "gossip":
+        return "collective" if collective_supported(clusters, p) else "dense"
+    return {"dense": "dense", "pallas": "cuda"}[impl]
+
+
+def _bind_backend(sched, spec, clusters: ClusterSpec, p: np.ndarray, alpha: int) -> None:
+    """``sched.mesh`` and ``sched.backend`` of a sync or round scheduler, and
+    on the collective backend the fault trace's ring-stencil check over its
+    whole horizon (the device cannot check the values it is given)."""
+    from ..launch.mesh import resolve_client_mesh
+
+    sched.mesh = resolve_client_mesh(sched._mesh_spec, clusters.num_clients)
+    sched.backend = resolve_backend(spec, clusters, p, alpha, device=sched.device,
+                                    mesh=sched.mesh)
+    faults = sched.axes.faults
+    if faults is not None and sched.backend.name == "collective":
+        faults.mixing_stack(0, faults.horizon() + 1, require_ring_stencil=True)
+
+
 class SyncScheduler:
     """Algorithm 1 over stacked client models.
 
@@ -365,19 +400,26 @@ class SyncScheduler:
     slots only, and a sampled round's weights are those of the slots
     (``state.sub_weights``: a padding slot weighs exactly 0).  Faults need
     resident state and raise ``ValueError``, as in the reference.
+
+    ``backend=None`` is ``"auto"`` unless ``cfg.aggregation_impl`` names
+    ``"gossip"`` or ``"pallas"``, which map as in the reference
+    (``_legacy_impl_backend``).  On the collective backend a fault trace is
+    checked on the host over its whole horizon at ``bind``: every round's
+    mixing matrix must stay on the ring stencil.
     """
 
     name = "sync"
 
     def __init__(self, cfg: SDFEELConfig, latency: Optional[LatencyModel] = None,
                  backend=None, prefetch: bool = True, graph: Optional[bool] = None,
-                 fleet: Optional[FleetSpec] = None):
+                 fleet: Optional[FleetSpec] = None, mesh=None):
         self.cfg = cfg
         self.latency = latency
         self.prefetch = prefetch
         self.params: Optional[dict] = None
         self._backend_spec = backend
         self._graph_spec = graph
+        self._mesh_spec = mesh
         self.fleet = fleet if fleet is not None else FleetSpec()
         self.profile = self.fleet.resolve_profile(cfg.clusters.num_clients)
         self.axes: Optional[FleetAxes] = None
@@ -416,9 +458,10 @@ class SyncScheduler:
             self._residency_for_round = _ResidencyCache(lambda r: self.store.residency(
                 self.axes.plan.mask(r) if self.axes.sampling else None))
             agg_clusters = self.store.sub_clusters
-        self.backend = resolve_backend(
-            self._backend_spec, agg_clusters, cfg.P(), cfg.alpha, device=device
-        )
+        spec = self._backend_spec
+        if spec is None and cfg.aggregation_impl != "dense":
+            spec = _legacy_impl_backend(cfg.aggregation_impl, agg_clusters, cfg.P())
+        _bind_backend(self, spec, agg_clusters, cfg.P(), cfg.alpha)
         self._local = build_local_update(
             model, optim.sgd(cfg.learning_rate), backend=self.backend
         )
@@ -566,16 +609,6 @@ class SyncScheduler:
 # Whole-round scheduler (the reference's compiled round engine)
 # ---------------------------------------------------------------------------
 
-def _impl_backend(impl: str) -> str:
-    """The backend the reference's ``FLSpec.impl`` names, as the port calls it."""
-    if impl == "gossip":
-        raise NotImplementedError(
-            "impl='gossip' (CollectiveBackend) is not ported yet "
-            "(ROADMAP.md queue 1, 'Multi-device and launch')"
-        )
-    return {"dense": "dense", "pallas": "cuda"}[impl]
-
-
 class RoundScheduler:
     """One step == ``rounds_per_step`` full Algorithm-1 rounds of tau1*tau2 iterations.
 
@@ -601,7 +634,10 @@ class RoundScheduler:
     uplink retries.
 
     ``backend=None`` takes the one ``FLSpec.impl`` names (``dense`` by
-    default, as the reference's round engine); scenarios pass ``"auto"``.
+    default, as the reference's round engine; ``"gossip"`` the collective
+    backend where the scenario allows it, ``_legacy_impl_backend``);
+    scenarios pass ``"auto"``.  On the collective backend a fault trace is
+    checked on the host over its whole horizon at ``bind``.
 
     With a ``host-offload`` store the round engine is built over the store's
     ``k_max`` slots, always in its participation variant (a padding slot
@@ -619,7 +655,7 @@ class RoundScheduler:
 
     def __init__(self, fl, optimizer=None, latency: Optional[LatencyModel] = None,
                  backend=None, rounds_per_step: int = 1, prefetch: bool = True,
-                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None):
+                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None, mesh=None):
         if rounds_per_step < 1:
             raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
         self.fl = fl
@@ -631,6 +667,7 @@ class RoundScheduler:
         self.opt_state = None
         self._backend_spec = backend
         self._graph_spec = graph
+        self._mesh_spec = mesh
         self.fleet = fleet if fleet is not None else FleetSpec()
         self.profile = self.fleet.resolve_profile(fl.num_clients)
         self.axes: Optional[FleetAxes] = None
@@ -692,10 +729,9 @@ class RoundScheduler:
             self._residency_for_step = _ResidencyCache(self._draw_residency)
         self.opt_state = opt.init(self.params)
         spec = self._backend_spec
-        self.backend = resolve_backend(
-            _impl_backend(fl.impl) if spec is None else spec, agg_clusters, self._proto.P(),
-            fl.alpha, device=device,
-        )
+        if spec is None:
+            spec = _legacy_impl_backend(fl.impl, agg_clusters, self._proto.P())
+        _bind_backend(self, spec, agg_clusters, self._proto.P(), fl.alpha)
         self._round_step = build_fl_round_step(
             model, opt, engine_fl, backend=self.backend, rounds_per_step=self.rounds_per_step,
             participation=self.axes.active or not self.store.resident,
@@ -889,7 +925,9 @@ class AsyncScheduler:
     ...)``) and eq. 21-22 through ``gossip_mix_tree``, which reads ``P_t``
     from device memory, one launch each for the tree; on ``dense`` all
     three are the plain expressions the reference writes, the mixed stack
-    copied into ``y``.  The queue already names the next event when a step
+    copied into ``y``; on ``collective`` eq. 19-20 are those expressions and
+    eq. 21-22 the ring gossip, with each ``P_t`` checked on the host to stay
+    on the ring stencil.  The queue already names the next event when a step
     finishes, so its batches are gathered and copied (non-blocking) right
     after the current event's launches; ``prefetch=False`` draws the same
     streams.
@@ -973,6 +1011,10 @@ class AsyncScheduler:
             device=device,
         )
         self._use_kernels = self.backend.name == "cuda"
+        # the collective ring gossip reads P_t's stencil on the device: each
+        # P_t is checked on the host as it is built, where the reference's
+        # inter_cluster re-derives it (raises off the ring)
+        self._ring_only = self.backend.name == "collective"
         self._m_tilde = torch.as_tensor(clusters.m_tilde(), dtype=torch.float32, device=device)
         # per-cluster host operands, f32, staged with each event
         self._m_hat_np = clusters.m_hat()
@@ -1090,6 +1132,10 @@ class AsyncScheduler:
             gaps[d] = 0.0
             graph = cfg.topology if faults is None else faults.adjacency_at(r_fault)
             p_t = staleness_mixing_matrix(graph, d, gaps, cfg.psi)
+            if self._ring_only:
+                from .aggregation import ring_mixing_weights
+
+                ring_mixing_weights(p_t)
             batch = {**batches, **self._operands(d, m_hat, p_t)}
             if self._graph is None:
                 self._event(batch)
@@ -1265,10 +1311,12 @@ def _make_sync(s: dict) -> SyncScheduler:
         tau2=s.pop("tau2", 1),
         alpha=s.pop("alpha", 1),
         learning_rate=s.pop("learning_rate", 0.01),
+        aggregation_impl=s.pop("aggregation_impl", "dense"),
     )
     return SyncScheduler(
         cfg, latency=s.pop("latency", None), backend=s.pop("backend", None),
         prefetch=s.pop("prefetch", True), graph=s.pop("graph", None), fleet=fleet,
+        mesh=s.pop("mesh", None),
     )
 
 
@@ -1293,6 +1341,7 @@ def _make_round(s: dict) -> RoundScheduler:
         fl, optimizer=s.pop("optimizer", None), latency=s.pop("latency", None),
         backend=s.pop("backend", None), rounds_per_step=s.pop("rounds_per_step", 1),
         prefetch=s.pop("prefetch", True), graph=s.pop("graph", None), fleet=fleet,
+        mesh=s.pop("mesh", None),
     )
 
 

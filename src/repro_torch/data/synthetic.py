@@ -95,6 +95,16 @@ class SyntheticLM:
             state = np.where(rng.random(num_sequences) < order_mix, nxt_hot, nxt_rand)
         return SyntheticLM(tokens=seqs, vocab_size=vocab_size)
 
+    def batches(self, batch_size: int, seed: int = 0):
+        """Endless ``{"tokens", "labels"}`` batches of ``batch_size`` sequences,
+        drawn with replacement from an rng seeded with ``seed``."""
+        rng = np.random.default_rng(seed)
+        n = len(self.tokens)
+        while True:
+            idx = rng.integers(0, n, size=batch_size)
+            chunk = self.tokens[idx]
+            yield {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
+
 
 @dataclasses.dataclass
 class FederatedLM:

@@ -9,8 +9,11 @@ corpora (one distinct corpus per client: non-IID), through the named
 ``federated-lm-ring`` scenario.  On a CUDA device each superstep replays from
 one CUDA graph, with the flash attention, SGD and transition kernels.
 As in the reference, bf16 runs with activation checkpointing (``remat``,
-recomputing each block in the backward) and f32 without.  ``--mesh auto`` raises: the collective transition is queued
-under 'Multi-device and launch'.
+recomputing each block in the backward) and f32 without.  ``--mesh auto``
+resolves as the reference's does (``launch.mesh.resolve_client_mesh``): to no
+mesh when there are fewer CUDA devices than clients, which it prints; with a
+device a client it raises, as one client a device needs the process-group
+collectives that are not ported.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--precision", choices=["float32", "bfloat16"], default="float32")
     ap.add_argument("--mesh", choices=["none", "auto"], default="none",
-                    help="'auto' would run the collective transition on a device mesh "
-                         "(not ported: raises NotImplementedError)")
+                    help="'auto': a client mesh when there is a CUDA device a client "
+                         "(not ported: raises), else none")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--heads", type=int, default=12)
     ap.add_argument("--kv-heads", type=int, default=4)
@@ -68,6 +71,10 @@ def main(argv=None) -> dict:
         mesh=None if args.mesh == "none" else "auto",
     )
     runtime = run.runtime
+    if args.mesh == "auto":
+        from repro_torch.launch.mesh import describe_resolution
+
+        print(describe_resolution("auto", args.clients))
     batch_fn = run.batch_source()
     rounds = runtime.scheduler.rounds_for(args.steps)
     steps = runtime.scheduler.steps_for(args.steps)

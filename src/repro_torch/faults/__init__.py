@@ -387,16 +387,34 @@ class FaultSchedule:
         self._mix_cache[r] = p
         return p
 
-    def mixing_stack(self, start_round: int, num_rounds: int) -> np.ndarray:
+    def mixing_stack(self, start_round: int, num_rounds: int,
+                     require_ring_stencil: bool = False) -> np.ndarray:
         """(num_rounds, D, D) float32 stack for rounds ``start_round`` on.
 
         This is the per-round operand of a superstep: values change with the
         surviving edge set, shapes never do, so topology churn reuses one
-        captured graph.
+        captured graph.  ``require_ring_stencil`` verifies on the host (where
+        the values are known) that every matrix stays on the ring stencil —
+        the structural constraint of the collective backend's ring gossip —
+        and raises with the offending round.
         """
-        return np.stack(
+        stack = np.stack(
             [self.mixing_at(start_round + i) for i in range(num_rounds)]
         ).astype(np.float32)
+        if require_ring_stencil:
+            from ..core.aggregation import ring_mixing_weights
+
+            for i in range(num_rounds):
+                try:
+                    ring_mixing_weights(stack[i].astype(np.float64))
+                except ValueError as e:
+                    raise ValueError(
+                        f"faulted mixing matrix of round {start_round + i} "
+                        f"leaves the ring stencil ({e}); the collective "
+                        f"backend cannot apply it — use dense/cuda for "
+                        f"this fault trace"
+                    ) from e
+        return stack
 
     # -- serialization (checkpoints, scenario describe) ----------------------
     def describe(self) -> dict:

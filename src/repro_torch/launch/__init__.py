@@ -1,6 +1,10 @@
-"""Launchers: the serving driver (``launch.serve``).
+"""Launchers: the training and serving entry points and the client mesh.
 
-The reference's production meshes, dry run and training drivers
-(``mesh.py``, ``dryrun.py``, ``train.py``, ``steps.py``) are multi-device and
-are queued under ROADMAP.md queue 1, 'Multi-device and launch'.
+``train.py`` is the training CLI (``python -m repro_torch.launch.train``: the
+LM path on the round scheduler, or any named scenario), ``serve.py`` the
+serving CLI, and ``mesh.py`` resolves a run's ``mesh`` field
+(``None``/``"auto"``: no mesh on a host with fewer CUDA devices than
+clients).  The reference's production meshes, ``dryrun.py`` and
+``steps.py`` need process-group collectives and ``sharding/``, and are
+queued under ROADMAP.md §1 item 4.
 """

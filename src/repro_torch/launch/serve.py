@@ -128,11 +128,12 @@ def serve_scenario(name: str, *, train_steps: int = 4, requests: int = 16,
     ``continuous=True`` serves through the slot-pool
     ``ContinuousFederatedServer`` (budgets heavy-tailed on ``[1, gen]``);
     ``mesh`` other than None raises (the
-    cluster mesh is ROADMAP.md queue 1, 'Multi-device and launch')."""
+    cluster mesh is ROADMAP.md §1 item 4, 'Multi-device and launch': 'mesh
+    serving')."""
     if mesh is not None:
         raise NotImplementedError(
-            "serving on a cluster mesh is not ported yet (ROADMAP.md queue 1, "
-            "'Multi-device and launch'); pass mesh=None")
+            "serving on a cluster mesh is not ported yet (ROADMAP.md §1 item 4, "
+            "'Multi-device and launch': 'mesh serving'); pass mesh=None")
     from ..scenarios import build_scenario
     from ..serving import ContinuousFederatedServer, FederatedServer, synthetic_trace
 
@@ -197,7 +198,8 @@ def main(argv=None):
         return server
     if args.mesh is not None:
         raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP.md queue 1, 'Multi-device and launch')")
+            "--mesh is not ported yet (ROADMAP.md §1 item 4, 'Multi-device and launch': "
+            "'mesh serving')")
 
     import numpy as np
 

@@ -15,7 +15,8 @@ sum (``torch.bincount`` reads its max back), the inverse permutation an
 out-of-place ``scatter``, and no boolean mask selects a ragged subset.
 The reference computes the layer in plain ``jnp``, with no Pallas kernel;
 here the expert GEMMs are ``torch.einsum`` products.  The reference's
-``shard_map`` branch over a device mesh waits for the multi-device slice.
+``shard_map`` branch over a device mesh waits in ROADMAP.md §1 item 4
+('shard_map MoE').
 """
 from __future__ import annotations
 

@@ -51,12 +51,12 @@ def _check_ported(cfg: ArchConfig, decode_impl=None) -> None:
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"{cfg.name}: remat_policy={cfg.remat_policy!r} (save the matmul outputs, set by "
-            f"the multi-device dry run) is not ported yet (ROADMAP.md queue 1, 'Multi-device "
-            f"and launch'); remat_policy='full' is")
+            f"the multi-device dry run) is not ported yet (ROADMAP.md §1 item 4, 'Multi-device "
+            f"and launch': 'dots'); remat_policy='full' is")
     if decode_impl is not None:
         raise NotImplementedError(
             "decode_impl (the sequence-sharded decode of sharding/decode.py) is not ported "
-            "yet (ROADMAP.md queue 1, 'Multi-device and launch'); pass None")
+            "yet (ROADMAP.md §1 item 4, 'Multi-device and launch': 'decode_impl'); pass None")
 
 
 def _audio(cfg: ArchConfig) -> bool:

@@ -14,7 +14,7 @@ parameter dict (the layout the round engine trains and
   side in one program: each op that reads weights runs once a cluster over
   all slots and each slot keeps its own cluster's result (no slot gathers a
   copy of a replica).  ``mesh`` other than None raises: serving on a cluster
-  mesh is ROADMAP.md queue 1, 'Multi-device and launch'.
+  mesh is ROADMAP.md §1 item 4, 'Multi-device and launch': 'mesh serving'.
 
 Weights hot-swap from a live runtime through :class:`ReplicaBuffer`:
 ``publish`` validates the new stack and stages a copy of it, and the server
@@ -198,7 +198,8 @@ class ContinuousFederatedServer(_FederatedMixin, ContinuousServer):
         if mesh is not None:
             raise NotImplementedError(
                 f"mesh={mesh!r}: sharding the replicas over a cluster mesh is not ported yet "
-                f"(ROADMAP.md queue 1, 'Multi-device and launch'); pass mesh=None")
+                f"(ROADMAP.md §1 item 4, 'Multi-device and launch': 'mesh serving'); "
+                f"pass mesh=None")
         cluster_params = self._resolve_stack(cluster_params, runtime)
         self._buf = ReplicaBuffer(cluster_params)
         super().__init__(model, None, max_batch=max_batch, length_buckets=length_buckets,

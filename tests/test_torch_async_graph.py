@@ -314,14 +314,18 @@ def test_async_heterogeneous_example_runs_on_the_cpu():
     assert out["vanilla-async"].wallclock == out["staleness-aware"].wallclock
 
 
-def test_train_federated_lm_example_runs_on_the_cpu_and_refuses_a_mesh():
+def test_train_federated_lm_example_runs_on_the_cpu_and_refuses_a_mesh(monkeypatch, capsys):
     from repro_torch.examples import train_federated_lm
 
     small = ["--device", "cpu", "--steps", "8", "--layers", "1", "--d-model", "32", "--seq",
              "16", "--batch", "1", "--clients", "4", "--heads", "2", "--kv-heads", "1",
              "--head-dim", "16", "--vocab", "128", "--samples", "16"]
-    out = train_federated_lm.main(small)
+    # "auto" is no mesh on a host with fewer devices than clients, and says so
+    out = train_federated_lm.main(small + ["--mesh", "auto"])
+    assert "mesh=auto resolved to none" in capsys.readouterr().out
     assert (out["rounds"], out["steps"]) == (2, 1)
     assert np.isfinite(out["losses"]).all() and np.isfinite(out["eval_loss"])
-    with pytest.raises(NotImplementedError, match="Multi-device and launch"):
+    # with a device a client it would be a mesh, which the port refuses
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
         train_federated_lm.main(small + ["--mesh", "auto"])

@@ -19,6 +19,8 @@ the eager runs' exact kernel runs in every step, counted on the device by
 the profiler (a replay launches nothing from the host, so the wrappers'
 counters move only at a key's warm-up and capture); a new batch shape or
 new parameter tensors re-capture, and the old tensors are never written.
+The collective backend (plain PyTorch: hypercube all-reduce and ring gossip)
+replays on the sync, round and async graphs at 0.0 from its eager runs.
 """
 import numpy as np
 import pytest
@@ -1375,3 +1377,43 @@ def test_device_kernel_names_raises_on_a_session_without_device_records(cuda, mo
         device_launches(lambda: gossip_mix(y, p))
     assert any(name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
                for name, _ in err.value.host_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,steps,kw", [
+    # sync: one graph per event kind, the round's weights and faulted mixing
+    # matrix read from the graph's static buffers
+    ("mnist-iid-ring", 12, {"num_clients": 8, "tau1": 2, "tau2": 2,
+                            "participation": {"strategy": "uniform-k", "k": 1},
+                            "faults": [{"kind": "link-down", "round": 1, "link": [0, 3],
+                                        "until": 3}]}),
+    # round: the fault trace's (R, C) weights and (R, D, D) mixing stacks
+    ("chaos-ring", 4, {}),
+    # async: P_t's ring stencil gathered from the MIXING batch entry
+    ("straggler-bimodal-async", 12, {"num_clients": 8}),
+])
+def test_collective_transition_on_graphs_equals_eager(cuda, name, steps, kw):
+    """The collective backend on the sync, round and async graphs against its
+    eager runs, under cuDNN's deterministic algorithms: the state at 0.0, the
+    graphs replayed."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    states = {}
+    try:
+        for graph in (False, True):
+            run = build_scenario(name, device=cuda, backend="collective", graph=graph,
+                                 num_samples=400, **kw)
+            sched = run.runtime.scheduler
+            assert sched.backend.name == "collective"
+            src = run.batch_source()
+            for _ in range(steps):
+                run.runtime.step(src)
+            state = sched.y if name.endswith("async") else sched.params
+            states[graph] = {k: v.clone() for k, v in state.items()}
+            if graph:
+                graphs = getattr(sched, "_graphs", None) or {"step": sched._graph}
+                assert sum(g.replays for g in graphs.values()) >= 2, graphs
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k, v in states[False].items():
+        assert torch.equal(v, states[True][k]), k

@@ -9,9 +9,13 @@ the same scenario from the same weights (JAX init, carried through numpy)
 on the same batches: ``chaos-ring`` over 6 supersteps (12 rounds, past
 every event, server 2's rejoin at round 8 included) and a faulted sync run
 over 12 rounds stay within 1e-4 of JAX in parameters and losses and equal
-it in wall-clock to 1e-9, on ``dense`` and on the ``cuda`` backend's plain
-path; a faulted async run fires the reference's exact ``outage``,
-``skipped`` and ``cluster`` events with ``y`` within 1e-4.
+it in wall-clock to 1e-9, on ``dense``, on the ``cuda`` backend's plain
+path and on the ``collective`` backend (every faulted matrix of these traces
+stays on the ring stencil); a faulted async run fires the reference's exact
+``outage``, ``skipped`` and ``cluster`` events with ``y`` within 1e-4.  A
+trace that rewires a chord leaves the stencil: ``mixing_stack(...,
+require_ring_stencil=True)`` refuses it as the reference's does, naming the
+round, and so does a collective scheduler at ``bind``.
 """
 import json
 
@@ -78,6 +82,46 @@ def test_schedule_equals_reference_over_its_horizon(name):
     stack = ts.mixing_stack(0, ts.horizon() + 1)
     assert stack.dtype == np.float32
     np.testing.assert_array_equal(stack, js.mixing_stack(0, js.horizon() + 1))
+
+
+@pytest.mark.parametrize("name", sorted(TRACES))
+def test_ring_stencil_gate_refuses_alike(name):
+    events, topology, psi = TRACES[name]
+    (jt, jc), (tt, tc) = _pair(topology)
+    js = jfaults.FaultSchedule(jt, jc, events, psi=psi)
+    ts = tfaults.FaultSchedule(tt, tc, events, psi=psi)
+    n = ts.horizon() + 1
+    try:
+        ref, refused = js.mixing_stack(0, n, require_ring_stencil=True), None
+    except ValueError as e:
+        ref, refused = None, str(e)
+    if refused is None:
+        np.testing.assert_array_equal(ts.mixing_stack(0, n, require_ring_stencil=True), ref)
+        return
+    with pytest.raises(ValueError) as got:
+        ts.mixing_stack(0, n, require_ring_stencil=True)
+    # the same round and reason; the advice names the port's backends
+    cut = "the collective backend cannot apply it"
+    assert str(got.value).split(cut)[0] == refused.split(cut)[0]
+    assert "leaves the ring stencil" in refused
+
+
+def test_collective_schedulers_refuse_a_chord():
+    events = TRACES["explicit-recovery"][0]
+    for name in ("mnist-iid-ring", "round-compiled-ring"):
+        with pytest.raises(ValueError, match="round 5 leaves the ring stencil"):
+            tcore.make_run({"scenario": name, "num_samples": 200, "num_clients": 8,
+                            "backend": "collective", "faults": events}, device="cpu")
+    # async: each P_t is checked on the host as it is built (a chord from the
+    # first round: the first event of one of its ends raises)
+    chord = [{"kind": "link-up", "round": 0, "link": [0, 2]}]
+    run = tscenarios.build_scenario("straggler-bimodal-async", device="cpu",
+                                    backend="collective", faults=chord, **{
+                                        k: v for k, v in ASYNC_KW.items() if k != "faults"})
+    src = run.batch_source()
+    with pytest.raises(ValueError, match="outside the ring stencil"):
+        for _ in range(8):
+            run.runtime.step(src)
 
 
 def test_chaos_ring_rejoin_blends_by_staleness():
@@ -175,7 +219,7 @@ def jax_chaos():
             "params": flatten_params(jax.tree.map(np.asarray, jrun.runtime.scheduler.params))}
 
 
-@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("backend", ["dense", "cuda", "collective"])
 def test_chaos_ring_tracks_jax(jax_chaos, backend):
     ref = jax_chaos
     trun = tscenarios.build_scenario("chaos-ring", device="cpu", backend=backend, **CHAOS_KW)
@@ -208,7 +252,7 @@ def jax_sync_faults():
             "params": jax.tree.map(np.asarray, jrun.runtime.scheduler.params)}
 
 
-@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("backend", ["dense", "cuda", "collective"])
 def test_sync_under_faults_tracks_jax(jax_sync_faults, backend):
     ref = jax_sync_faults
     trun = tscenarios.build_scenario("mnist-iid-ring", device="cpu", backend=backend, **SYNC_KW)
@@ -257,7 +301,7 @@ def jax_async_faults():
             "y": jax.tree.map(np.asarray, jrun.runtime.scheduler.y)}
 
 
-@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("backend", ["dense", "cuda", "collective"])
 def test_async_outage_and_skipped_events_track_jax(jax_async_faults, backend):
     ref = jax_async_faults
     assert {k for k, _, _ in ref["events"]} == {"cluster", "outage", "skipped"}

@@ -7,10 +7,12 @@ packages run the same registered scenario from the same weights (JAX init,
 carried through numpy) on the same batches: ``sampled-k-ring`` (sync, 10
 iterations, ``tau2=2``) and a sampled, profile-paced round engine stay
 within 1e-4 of JAX on parameters and losses and equal it in wall-clock to
-1e-9, on ``dense`` and on the ``cuda`` backend's plain path;
-``dropout-participation-async`` fires the reference's exact event kinds
-(``cluster``/``skipped``) with ``y`` within 1e-4.  ``"full"`` participation
-is bitwise the run without a plan.
+1e-9, on ``dense``, on the ``cuda`` backend's plain path and on the
+``collective`` backend (``sampled-k-ring``'s 5 clients a cluster refuse it
+in both packages, and the legacy ``aggregation_impl="gossip"`` degrades to
+dense); ``dropout-participation-async`` fires the reference's exact event
+kinds (``cluster``/``skipped``) with ``y`` within 1e-4.  ``"full"``
+participation is bitwise the run without a plan.
 """
 import jax
 import numpy as np
@@ -119,9 +121,20 @@ def jax_sampled():
             "params": jax.tree.map(np.asarray, jrun.runtime.scheduler.params)}
 
 
-@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("backend", ["dense", "cuda", "collective"])
 def test_sampled_k_ring_tracks_jax(jax_sampled, backend):
     ref = jax_sampled
+    if backend == "collective":
+        # 5 clients a cluster: the hypercube cannot take it, in either package,
+        # and the legacy aggregation_impl="gossip" degrades to dense (whose
+        # run is the dense case's), as the reference's does
+        for mod, kw in ((tscenarios, {"device": "cpu"}), (jscenarios, {})):
+            with pytest.raises(ValueError, match="power-of-two cluster sizes"):
+                mod.build_scenario("sampled-k-ring", tau2=2, backend="collective", **kw)
+            legacy = mod.build_scenario("sampled-k-ring", tau2=2, backend=None,
+                                        aggregation_impl="gossip", **kw)
+            assert legacy.runtime.scheduler.backend.name == "dense"
+        return
     trun = tscenarios.build_scenario("sampled-k-ring", device="cpu", tau2=2, backend=backend)
     sched = trun.runtime.scheduler
     assert sched.backend.name == backend and sched.axes.sampling
@@ -152,7 +165,7 @@ def jax_round_sampled():
             "params": flatten_params(jax.tree.map(np.asarray, jrun.runtime.scheduler.params))}
 
 
-@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("backend", ["dense", "cuda", "collective"])
 def test_round_participation_tracks_jax(jax_round_sampled, backend):
     ref = jax_round_sampled
     trun = tscenarios.build_scenario("round-compiled-ring", device="cpu", backend=backend,
@@ -256,7 +269,7 @@ def jax_dropout():
             "y": jax.tree.map(np.asarray, jrun.runtime.scheduler.y)}
 
 
-@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("backend", ["dense", "cuda", "collective"])
 def test_dropout_participation_async_tracks_jax(jax_dropout, backend):
     ref = jax_dropout
     assert {k for k, _, _ in ref["events"]} == {"cluster", "skipped"}

@@ -86,8 +86,8 @@ def test_round_step_matches_jax(kind, backend):
 def test_round_engine_refuses_unported_variants():
     # the participation and mixing operands are ported (test_torch_participation.py,
     # test_torch_faults.py) and so are client-state stores (test_torch_state.py);
-    # a mixing stack without weights has no caller, as in the reference, and the
-    # gossip engine waits
+    # a mixing stack without weights has no caller, as in the reference; the
+    # gossip engine is ported (the collective backend) and a mesh is not
     fl = tcore.FLSpec(num_clients=4, num_clusters=2)
     with pytest.raises(ValueError, match="requires participation=True"):
         tcore.build_fl_round_step(tmodels.MnistCNN(), toptim.sgd(0.1), fl,
@@ -97,9 +97,12 @@ def test_round_engine_refuses_unported_variants():
                                     store={"kind": "host-offload", "k_max": 4})
     ev = run.runtime.step(run.batch_source())
     assert run.runtime.scheduler.store.k_max == 4 and bool(torch.isfinite(ev.losses).all())
+    rt = tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
+                         "backend": None, "impl": "gossip"}, device="cpu")
+    assert rt.scheduler.backend.name == "collective"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
-                        "backend": None, "impl": "gossip"}, device="cpu")
+                        "backend": None, "impl": "gossip", "mesh": object()}, device="cpu")
 
 
 LM_SMALL = dict(arch_overrides=dict(d_model=64, d_ff=128), seq_len=16, num_samples=64)

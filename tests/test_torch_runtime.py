@@ -130,18 +130,21 @@ def test_backends_default_to_cuda(entry):
 
 @pytest.mark.parametrize("override,error", [
     # client-state stores run on every scheduler, or raise the reference's own
-    # ValueError (a sparse store with no participation plan); the device mesh
-    # is not ported and every scheduler refuses it
+    # ValueError (a sparse store with no participation plan); mesh "auto" is no
+    # mesh on a host with fewer devices than clients, as in the reference, a
+    # mesh the port cannot honour raises, and the async scheduler takes no mesh
+    # (the reference's refuses the key)
     ({"store": {"kind": "host-offload", "k_max": 4}}, ValueError),
     ({"store": "host-offload", "participation": {"strategy": "uniform-k", "k": 2}}, None),
-    ({"mesh": "auto"}, NotImplementedError),
+    ({"mesh": "auto"}, "no mesh"),
     ({"mesh": "auto", "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
-     NotImplementedError),
+     "no mesh"),
+    ({"mesh": object()}, NotImplementedError),
     ({"scenario": "round-compiled-ring", "store": {"kind": "host-offload", "k_max": 4}},
      ValueError),
     ({"scenario": "dropout-participation-async", "num_clients": 8, "theta_max": 2,
       "store": "host-offload"}, None),
-    ({"scheduler": "async", "mesh": "auto", "psi": "staleness"}, NotImplementedError),
+    ({"scheduler": "async", "mesh": "auto", "psi": "staleness"}, TypeError),
 ])
 def test_non_default_fleet_raises(override, error):
     override = dict(override)
@@ -155,6 +158,11 @@ def test_non_default_fleet_raises(override, error):
 
     if error is NotImplementedError:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_and_step()
+    elif error == "no mesh":
+        assert build_and_step().scheduler.mesh is None
+    elif error is TypeError:
+        with pytest.raises(TypeError, match="unused scenario keys"):
             build_and_step()
     elif error is ValueError:
         with pytest.raises(ValueError, match="needs a participation mask"):
@@ -185,14 +193,15 @@ def test_fleet_axes_are_taken_by_every_scheduler(scenario, extra, axis):
 
 def test_store_refusal_names_its_roadmap_item():
     # a store is ported: what it refuses is the reference's (faults need
-    # resident state); the mesh's refusal still names its ROADMAP item
+    # resident state); the refusal of a mesh the port cannot honour names its
+    # ROADMAP item
     with pytest.raises(ValueError, match="fault injection requires a resident"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400,
                         "store": "host-offload",
                         "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="'Multi-device and launch'"):
-        tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "mesh": "auto"},
+    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+        tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "mesh": object()},
                        device="cpu")
     with pytest.raises(TypeError, match="fleet.participation must be"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400,
@@ -247,7 +256,8 @@ def test_port_imports_neither_jax_nor_reference():
             "launch"} <= {f.parent.name for f in files if f.name == "__init__.py"}
     assert {"engine.py", "slots.py", "federated.py", "traffic.py"} <= {
         f.name for f in files if f.parent.name == "serving"}
-    assert "serve.py" in {f.name for f in files if f.parent.name == "launch"}
+    assert {"serve.py", "train.py", "mesh.py"} <= {
+        f.name for f in files if f.parent.name == "launch"}
     assert {"quickstart.py", "async_heterogeneous.py", "train_federated_lm.py",
             "serve_batched.py", "serve_decode.py", "serve_federated.py"} <= {
         f.name for f in files if f.parent.name == "examples"}

@@ -6,7 +6,8 @@
 * Host rows: ``HostArrayStore`` round trips in RAM and spilled, and a
   spilled row is a record the reference's checkpoint layer reads.
 * Identity offload (``k_max == N``) against the port's dense store, on the
-  sync, round and async schedulers, both backends: 0.0.  The same
+  sync, round and async schedulers, the dense and ``cuda`` backends and (sync
+  and round) the collective one: 0.0.  The same
   operations run on the same shapes (on the round engine the offload run
   takes the weights variant, whose ``V(w)`` carries the bound ``m^``
   verbatim).
@@ -177,7 +178,8 @@ def _client_rows(sched, c):
 
 
 @pytest.mark.parametrize("scheduler,backend", [
-    ("sync", "cuda"), ("sync", "dense"), ("round", "cuda"), ("round", "dense")])
+    ("sync", "cuda"), ("sync", "dense"), ("sync", "collective"), ("round", "cuda"),
+    ("round", "dense"), ("round", "collective")])
 def test_identity_offload_equals_dense_store(fed_data, scheduler, backend):
     batches = _batches(fed_data, 8)
     kw = dict(tau1=2, tau2=1, alpha=1, backend=backend)
