@@ -331,8 +331,26 @@ Phases, one result line each; any failure exits non-zero without the final
             ``CudaBackend.transition`` (``fused_transition``) on the same tree,
             every element within one bf16 ulp plus 2^-20 of its leaf's
             largest input (two f32 summation orders, one cast), both timed
-            (CUDA events), and the collective's transient bytes.
-19. launch   the training CLI through ``repro_torch.launch.train.main``:
+            (CUDA events), and the collective's transient bytes; the plain
+            versions of the transition and SGD kernels timed on the tree.
+19. mesh     the process-group path as one NCCL rank (one card):
+            ``init_process_group("nccl", world_size=1)`` with a timeout and
+            ``make_client_mesh(1)``; ``ppermute`` of one client's bf16 tree
+            at lm-width's model bitwise (a rank its own partner copies),
+            timed beside ``copy_`` of the same bytes and the bytes bound
+            (a same-device clone: the transition never makes a rank its
+            own partner), ``gather_rows`` (NCCL all-gather) bitwise and
+            timed, and the schedulers' mesh reductions on the tree:
+            ``fleet_weighted_sum`` (NCCL all-reduce, timed),
+            ``cluster_sums_on_mesh`` (NCCL broadcast) and
+            ``gather_rows_to_host``, each bitwise; the
+            sharding rules for all ten configs at published widths on meta
+            tensors (each at least half its bytes on ``model``), and
+            ``distribute_params`` of the tree onto a 1x1 ``DeviceMesh`` and
+            back, bitwise; ``make_concrete_batch`` for granite-8b at the
+            four input shapes on the card.  The group is destroyed at the
+            end of the phase, also when it fails.
+20. launch   the training CLI through ``repro_torch.launch.train.main``:
             ``--scenario list``; ``mnist-noniid-ring`` 20 iterations on the
             auto backend (SGD and transition kernels launched);
             ``federated-lm-ring --backend collective --mesh auto`` (prints
@@ -4723,7 +4741,8 @@ class Smoke:
         plus 2^-20 of its leaf's largest input (the f32 bound of two
         summation orders over at most 8 convex terms and 8 roundings; it
         matters only where the terms cancel), both timed with CUDA events,
-        and the collective's transient bytes."""
+        and the collective's transient bytes; last the plain versions of the
+        transition and SGD kernels on the same tree, leaf by leaf, timed."""
         import dataclasses
 
         import numpy as np
@@ -4847,6 +4866,24 @@ class Smoke:
         print(f"  transition times (CUDA events, {nbytes / 1e9:.2f} GB tree): collective "
               f"{coll_ms:.3f} ms, fused_transition {kern_ms:.3f} ms ({coll_ms / kern_ms:.1f}x); "
               f"bound {bnd:.4f} ms ({by})", flush=True)
+        # the two tree kernels' plain versions on the granite tree, leaf by
+        # leaf (out of place; the SGD's gradient a random tree of the same
+        # leaves): the kernel table's plain_ms at these widths
+        from repro_torch.kernels import fused_transition_ref, sgd_update_ref
+
+        vt, p, bt = kern._vt, kern._p, kern._bt
+        tr_plain_ms = self.cuda_ms(lambda: [fused_transition_ref(w.view(c, -1), vt, p, bt, 2)
+                                            for w in new.values()], reps=2, warmup=1)
+        grads = {k: torch.randn_like(w) for k, w in new.items()}
+        sgd_plain_ms = self.cuda_ms(lambda: [sgd_update_ref(w, grads[k], LR)
+                                             for k, w in new.items()], reps=3, warmup=1)
+        del grads
+        torch.cuda.empty_cache()
+        print(f"  [{self.smi}] plain versions on the same tree, leaf by leaf (CUDA events): "
+              f"fused_transition_ref {tr_plain_ms:.3f} ms (alpha 2), sgd_update_ref "
+              f"{sgd_plain_ms:.3f} ms", flush=True)
+        self.record["sgd_update"]["collective_width"] = {"plain_ms": sgd_plain_ms,
+                                                         "tree_bytes": nbytes}
         res = {"step_ms": step_ms, "loss": loss, "peak_bytes": peak, "warm_step_ms": warm_ms,
                "warm_loss": loss2, "warm_peak_bytes": warm_peak, "device_runs": runs,
                "host_launches": launches, "flash_routes": routes, "params_per_client": n_params,
@@ -4855,11 +4892,174 @@ class Smoke:
                    "ratio": coll_ms / kern_ms, "bound_ms": bnd, "bound_by": by,
                    "max_abs_err": err, "elements_differ": differ, "elements": total,
                    "beyond_one_ulp": beyond, "beyond_tolerance": over,
-                   "transient_bytes": transient}}
+                   "transient_bytes": transient, "plain_ms": tr_plain_ms}}
         self.record["fused_transition"]["collective_width"] = res["transition"]
         self.detail["collective_width"] = res
         del new
         torch.cuda.empty_cache()
+
+    def mesh(self):
+        """The process-group path as one NCCL rank (the machine has one card):
+        ``init_process_group("nccl", world_size=1)`` on a free local port with
+        a timeout, ``make_client_mesh(1)`` on ``cuda:0``; ``ppermute`` of one
+        client's bf16 tree at lm-width's model (the collective-width model
+        at C = 1; a rank its own partner copies, so it is a same-device clone
+        and no exchange the transition makes) held bitwise to its input and
+        timed beside a ``copy_`` of the same bytes and the bytes bound,
+        ``gather_rows`` (an NCCL all-gather) held bitwise and timed, and the
+        schedulers' consensus, cluster models and checkpoint gather on the
+        tree (``fleet_weighted_sum``, an NCCL all-reduce, timed;
+        ``cluster_sums_on_mesh``, an NCCL broadcast; ``gather_rows_to_host``)
+        held bitwise to the row in f32 or on the host; the
+        sharding rules for all ten configs at published widths on meta
+        tensors (no allocation; every config at least half its bytes on the
+        16-way ``model`` axis), then ``distribute_params`` of the tree onto a
+        1x1 NCCL ``DeviceMesh`` and back, bitwise; ``make_concrete_batch``
+        for granite-8b at each of the four shapes on the card (train at C =
+        16).  The group is destroyed at the end, also when the phase fails."""
+        import dataclasses
+        import datetime
+        import socket
+
+        import torch.distributed as dist
+
+        torch = self.torch
+        from repro_torch.configs import ARCH_NAMES, get_config
+        from repro_torch.configs.shapes import SHAPES, input_specs, make_concrete_batch
+        from repro_torch.core.aggregation import (
+            cluster_sums_on_mesh, fleet_weighted_sum, gather_rows, gather_rows_to_host, ppermute,
+        )
+        from repro_torch.launch.mesh import make_client_mesh
+        from repro_torch.models import CausalLM
+        from repro_torch.sharding import (
+            MeshAxes, describe_sharding, distribute_params, param_pspecs,
+        )
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            res = {"nvidia_smi": self.smi}
+            mesh = make_client_mesh(1)
+            if (mesh.size, mesh.index, mesh.device, mesh.backend) != (
+                    1, 0, torch.device("cuda", 0), "nccl"):
+                raise AssertionError(f"mesh: {mesh}")
+            ow = LM_WIDTH["arch_overrides"]
+            cfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                                      vocab_size=LM_WIDTH["vocab_size"], **ow)
+            shapes = CausalLM(cfg).param_shapes()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            tree = {k: torch.randn((1,) + tuple(v.shape), generator=gen, device=self.dev)
+                    .to(v.dtype) for k, v in shapes.items()}
+            nbytes = sum(v.numel() * v.element_size() for v in tree.values())
+            moved = ppermute(tree, mesh, [(0, 0)])
+            gathered = gather_rows(tree, mesh)
+            for k, v in tree.items():
+                if not (torch.equal(moved[k], v) and torch.equal(gathered[k], v)):
+                    raise AssertionError(f"mesh: ppermute or gather_rows changed {k}")
+            del moved, gathered
+            # the schedulers' reductions at weight 1: the row in f32, bitwise
+            one = torch.ones(1, device=self.dev)
+            summed = fleet_weighted_sum(tree, mesh, one)
+            clustered = cluster_sums_on_mesh(tree, mesh, 1, one)
+            for k, v in tree.items():
+                if not (torch.equal(summed[k], v[0].float())
+                        and torch.equal(clustered[k], v.float())):
+                    raise AssertionError(f"mesh: fleet_weighted_sum or cluster_sums changed {k}")
+            del summed, clustered
+            hosted = gather_rows_to_host(tree, mesh)
+            for k, v in tree.items():
+                if not (hosted[k].device.type == "cpu" and torch.equal(hosted[k], v.cpu())):
+                    raise AssertionError(f"mesh: gather_rows_to_host changed {k}")
+            del hosted
+            dst = {k: torch.empty_like(v) for k, v in tree.items()}
+
+            def copy():
+                for k, v in tree.items():
+                    dst[k].copy_(v)
+
+            perm_ms = self.cuda_ms(lambda: ppermute(tree, mesh, [(0, 0)]), reps=10)
+            gather_ms = self.cuda_ms(lambda: gather_rows(tree, mesh), reps=10)
+            reduce_ms = self.cuda_ms(lambda: fleet_weighted_sum(tree, mesh, one), reps=10)
+            copy_ms = self.cuda_ms(copy, reps=10)
+            del dst
+            bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"mesh [{self.smi}]: one NCCL rank, ppermute of one client's "
+                  f"{cfg.dtype} tree at lm-width ({len(tree)} leaves, {nbytes / 1e9:.3f} GB): "
+                  f"{perm_ms:.4f} ms (CUDA events; a rank its own partner: a same-device "
+                  f"clone), copy_ of the same bytes {copy_ms:.4f} ms, gather_rows (NCCL "
+                  f"all-gather) {gather_ms:.4f} ms, fleet_weighted_sum (f32 cast, scale, NCCL "
+                  f"all-reduce) {reduce_ms:.4f} ms; bytes bound {bnd:.4f} ms (read + write at "
+                  f"3.35 TB/s); all bitwise, cluster_sums_on_mesh and gather_rows_to_host too",
+                  flush=True)
+            res["exchange"] = {"tree_bytes": nbytes, "leaves": len(tree), "ppermute_ms": perm_ms,
+                               "copy_ms": copy_ms, "gather_rows_ms": gather_ms,
+                               "fleet_weighted_sum_ms": reduce_ms,
+                               "bound_ms": bnd, "bound_by": "bytes", "bitwise": True}
+
+            # the sharding rules at published widths, on meta tensors
+            rules = {}
+            for name in ARCH_NAMES:
+                pcfg = get_config(name)
+                pshape = CausalLM(pcfg).param_shapes()
+                specs = param_pspecs(pcfg, pshape, MeshAxes())
+                total = sum(v.numel() * v.element_size() for v in pshape.values())
+                on_model = sum(v.numel() * v.element_size() for k, v in pshape.items()
+                               if "model" in specs[k])
+                rules[name] = {**describe_sharding(pcfg, specs), "bytes": total,
+                               "model_share": on_model / total}
+                print(f"  sharding {name}: {json.dumps(describe_sharding(pcfg, specs))}, "
+                      f"{on_model / total:.4f} of {total / 1e9:.2f} GB on 'model' (16-way)",
+                      flush=True)
+            low = {k: v["model_share"] for k, v in rules.items() if v["model_share"] < 0.5}
+            if low:
+                raise AssertionError(f"mesh: configs with under half their bytes sharded: {low}")
+            res["sharding"] = rules
+            from torch.distributed.device_mesh import init_device_mesh
+
+            dm = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            specs = param_pspecs(cfg, tree, MeshAxes(), client_axis="data")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            laid = distribute_params(tree, specs, dm)
+            back = {k: v.full_tensor() for k, v in laid.items()}
+            torch.cuda.synchronize()
+            dist_s = time.perf_counter() - t0
+            bad = [k for k, v in tree.items() if not torch.equal(back[k], v)]
+            if bad:
+                raise AssertionError(f"mesh: distribute_params round trip changed {bad}")
+            print(f"  distribute_params of the tree on a 1x1 NCCL DeviceMesh (data, model) and "
+                  f"back: bitwise, {dist_s:.3f} s", flush=True)
+            res["distribute_round_trip"] = {"bitwise": True, "seconds": dist_s}
+            del laid, back, tree
+
+            # the input shapes at granite-8b's published widths, on the card
+            gcfg = get_config("granite-8b")
+            batches = {}
+            for i, (sname, shape) in enumerate(SHAPES.items()):
+                c = 16 if shape.step == "train" else None
+                batch = make_concrete_batch(gcfg, shape, rng_seed=i, num_clients=c)
+                specs_in = input_specs(gcfg, shape, c)
+                for k, v in batch.items():
+                    if (v.device.type != "cuda" or v.shape != specs_in[k].shape
+                            or v.dtype != specs_in[k].dtype):
+                        raise AssertionError(f"mesh: {sname} {k} {v.shape} {v.dtype}")
+                for k in ("tokens", "labels", "token"):
+                    if k in batch and not (0 <= int(batch[k].min())
+                                           and int(batch[k].max()) < gcfg.vocab_size):
+                        raise AssertionError(f"mesh: {sname} {k} out of the vocabulary")
+                if "pos" in batch and int(batch["pos"]) != shape.seq_len - 1:
+                    raise AssertionError(f"mesh: {sname} pos {int(batch['pos'])}")
+                batches[sname] = {k: list(v.shape) for k, v in batch.items()}
+                del batch
+            print(f"  make_concrete_batch(granite-8b) on the card: {json.dumps(batches)}",
+                  flush=True)
+            res["shapes"] = batches
+            self.detail["mesh"] = res
+        finally:
+            dist.destroy_process_group()
 
     def launch(self):
         """The training CLI on the card through ``repro_torch.launch.train.main``:
@@ -4968,6 +5168,7 @@ class Smoke:
             self.phase("serve", self.serve)
             self.phase("serve-width", self.serve_width)
             self.phase("collective-width", self.collective_width)
+            self.phase("mesh", self.mesh)
             self.phase("launch", self.launch)
         if "jax" in sys.modules:
             self.failed.append("jax imported")

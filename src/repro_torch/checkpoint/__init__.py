@@ -170,11 +170,15 @@ def _rebuild(tmpl, it):
     return tmpl
 
 
-def restore_checkpoint(directory: str, like, step: Optional[int] = None):
+def restore_checkpoint(directory: str, like, step: Optional[int] = None,
+                       row: Optional[int] = None):
     """Restore into the structure of ``like``: ``(state, manifest)``.
 
     Each leaf takes its template's dtype and device (tensors) or dtype
-    (arrays); the count, names and shapes must match the manifest's."""
+    (arrays); the count, names and shapes must match the manifest's.  With
+    ``row``, each leaf is read memory-mapped and only ``[row:row + 1]`` of
+    its first axis is kept, as a rank of a client mesh restores its own
+    client of a stacked checkpoint into its ``(1, ...)`` row."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -190,7 +194,9 @@ def restore_checkpoint(directory: str, like, step: Optional[int] = None):
         name = _SEP.join(path) or "leaf"
         if entry["name"] != name:
             raise ValueError(f"checkpoint leaf {entry['name']!r} where the template has {name!r}")
-        arr = np.load(os.path.join(src, entry["file"]))
+        arr = np.load(os.path.join(src, entry["file"]), mmap_mode=None if row is None else "r")
+        if row is not None:
+            arr = np.array(arr[row:row + 1])
         if tuple(arr.shape) != tuple(np.shape(tmpl)):
             raise ValueError(f"shape mismatch for {name}: {arr.shape} vs {tuple(np.shape(tmpl))}")
         out.append(_restored(tmpl, arr))

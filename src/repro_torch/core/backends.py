@@ -33,14 +33,18 @@ Registered implementations:
                    and return them.
 ``CollectiveBackend``  The reference's structured path: weighted hypercube
                    all-reduce (log2(g) exchanges) and ``alpha`` rounds of
-                   ring gossip, on the stacked client axis of one device
-                   (``aggregation.hypercube_cluster_allreduce``,
+                   ring gossip.  Without a mesh on the stacked client axis
+                   of one device (``aggregation.hypercube_cluster_allreduce``,
                    ``ring_gossip``), the computation the reference runs
-                   under ``vmap`` without a mesh.  Plain PyTorch: the
-                   reference runs it as ``lax.ppermute`` and elementwise ops,
-                   in no Pallas kernel.  Requires a ring mixing stencil,
-                   contiguous uniform clusters of power-of-two size and
-                   D >= 3.  Returns new tensors.
+                   under ``vmap``; on a client mesh (``launch.mesh``, one
+                   client a rank) as point-to-point messages between the
+                   ranks (``aggregation.hypercube_allreduce_on_mesh``,
+                   ``ring_gossip_on_mesh``), as the reference runs it under
+                   ``shard_map``.  Plain PyTorch and ``torch.distributed``:
+                   the reference runs it as ``lax.ppermute`` and elementwise
+                   ops, in no Pallas kernel.  Requires a ring mixing
+                   stencil, contiguous uniform clusters of power-of-two size
+                   and D >= 3.  Returns new tensors.
 =================  ==========================================================
 
 Every backend and ``resolve_backend`` take ``device=None``, which means
@@ -49,10 +53,9 @@ Every backend and ``resolve_backend`` take ``device=None``, which means
 ``resolve_backend("auto", ...)`` picks ``collective`` when a client mesh is
 given and the scenario satisfies the collective constraints, else ``cuda``
 when the run's device is CUDA and the clusters are contiguous and uniform,
-``dense`` otherwise.  A client mesh needs process-group collectives, which
-are not ported (``launch.mesh.resolve_client_mesh`` resolves ``"auto"`` to
-no mesh on one card and raises for anything it cannot honour), so on one
-card ``"auto"`` is ``cuda``, and ``dense`` on the CPU.
+``dense`` otherwise.  ``launch.mesh.resolve_client_mesh`` gives a client
+mesh only over an initialized process group of one rank a client, so in one
+process ``"auto"`` is ``cuda`` on the card and ``dense`` on the CPU.
 """
 from __future__ import annotations
 
@@ -64,8 +67,10 @@ import torch
 from .aggregation import (
     apply_transition_dense,
     dense_gossip_reference,
+    hypercube_allreduce_on_mesh,
     hypercube_cluster_allreduce,
     ring_gossip,
+    ring_gossip_on_mesh,
     ring_mixing_weights,
 )
 from .device import resolve_device
@@ -252,21 +257,24 @@ class CudaBackend:
 # Structured collective backend (the stacked client axis of one device)
 # ---------------------------------------------------------------------------
 
-# where the process-group collectives a client mesh needs are queued
-_MESH_NOT_PORTED = ("a client mesh runs the collective transition as process-group "
-                    "collectives, which are not ported yet (ROADMAP.md §1 item 4, "
-                    "'process-group collectives')")
-
-
 class CollectiveBackend:
-    """Hypercube all-reduce + ring gossip over the stacked client axis.
+    """Hypercube all-reduce + ring gossip over the client axis.
 
-    The reference's ``CollectiveBackend`` without a mesh: the per-client
-    collective code with every ``lax.ppermute`` a fixed permutation of the
-    client axis (``aggregation.hypercube_cluster_allreduce``,
-    ``ring_gossip``).  ``transition`` and ``intra_cluster`` accumulate each
-    leaf in f32 (``x * m^`` promotes a bf16 leaf) and cast back once;
-    ``inter_cluster`` mixes ``(D, ...)`` cluster models in their own dtype.
+    Without a mesh, the reference's ``CollectiveBackend`` under ``vmap``: the
+    per-client collective code with every ``lax.ppermute`` a fixed
+    permutation of the stacked client axis
+    (``aggregation.hypercube_cluster_allreduce``, ``ring_gossip``).
+    ``transition`` and ``intra_cluster`` accumulate each leaf in f32 (``x *
+    m^`` promotes a bf16 leaf) and cast back once; ``inter_cluster`` mixes
+    ``(D, ...)`` cluster models in their own dtype.
+
+    With ``mesh`` (a ``launch.mesh.ClientMesh`` of C ranks), the reference's
+    ``shard_map`` path: ``transition`` takes this rank's ``(1, ...)`` row,
+    reads its own entry of the weights and its cluster's of the stencil,
+    and exchanges with the other ranks (``hypercube_allreduce_on_mesh``,
+    ``ring_gossip_on_mesh``) leaf by leaf, so a leaf's f32 copies are the
+    most it holds beside the row.  ``intra_cluster`` and ``inter_cluster``
+    keep the stacked path, as in the reference.
 
     The per-call ``weights`` substitute for the bound ``m^`` in the
     all-reduce, and a per-call ``p`` becomes three ``(D,)`` stencil vectors
@@ -276,16 +284,20 @@ class CollectiveBackend:
     check every faulted matrix on the host before it is staged
     (``FaultSchedule.mixing_stack(require_ring_stencil=True)``, and each
     async ``P_t`` as it is built), and ``inter_cluster`` checks a ``p`` that
-    lies on the host.  ``mesh`` other than None raises
-    ``NotImplementedError``: that is the multi-device path.
+    lies on the host.
     """
 
     name = "collective"
 
     def __init__(self, clusters: ClusterSpec, p: np.ndarray, alpha: int, device=None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh={mesh!r}: {_MESH_NOT_PORTED}; pass mesh=None")
+        from ..launch.mesh import ClientMesh
+
+        if mesh is not None and not isinstance(mesh, ClientMesh):
+            raise ValueError(f"mesh must be None or a launch.mesh.ClientMesh, got {mesh!r}")
+        if mesh is not None and mesh.size != clusters.num_clients:
+            raise ValueError(f"mesh axis {mesh.axis_name!r} has size {mesh.size}, need one "
+                             f"rank a client ({clusters.num_clients})")
         if not _uniform_contiguous(clusters):
             raise ValueError(
                 f"collective backend requires contiguous uniform clusters "
@@ -304,8 +316,8 @@ class CollectiveBackend:
         self.clusters = clusters
         self.cluster_size = g
         self.alpha = alpha
-        self.mesh = None
-        dev = resolve_device(device)
+        self.mesh = mesh
+        dev = mesh.device if mesh is not None else resolve_device(device)
         self.device = dev
         # raises if P has support off the ring stencil (non-ring topology)
         self._ring_w = tuple(_f32(w, dev) for w in ring_mixing_weights(np.asarray(p, np.float64)))
@@ -334,14 +346,30 @@ class CollectiveBackend:
             out[k] = y.to(x.dtype)
         return out
 
+    def _apply_on_mesh(self, row: dict, event: AggregationEvent, m_hat: torch.Tensor,
+                       ring_w: tuple) -> dict:
+        """This rank's ``(1, ...)`` row through the exchanges, leaf by leaf as
+        the reference's ``per_leaf``, so one leaf bounds the f32 scratch."""
+        mesh, g, out = self.mesh, self.cluster_size, {}
+        alpha = self.alpha if event == "inter" else 0
+        for k, x in row.items():
+            y = hypercube_allreduce_on_mesh(x, mesh, g, m_hat[mesh.index])
+            out[k] = ring_gossip_on_mesh(y, mesh, g, *ring_w, alpha).to(x.dtype)
+        return out
+
     # -- full Lemma-1 transition, (C, ...) -> (C, ...) -----------------------
     def transition(self, stacked: dict, event: AggregationEvent,
                    weights: Optional[torch.Tensor] = None,
                    p: Optional[torch.Tensor] = None) -> dict:
+        """The Lemma-1 transition; on a mesh ``stacked`` is this rank's
+        ``(1, ...)`` row, and ``weights`` (``(C,)``) and ``p`` (``(D, D)``)
+        are the fleet's, of which the rank reads its own entries."""
         if event == "local":
             return stacked
         ring_w = self._ring_w if p is None or event != "inter" else self._ring_stencil(p)
         m_hat = self._m_hat if weights is None else _f32(weights, self.device)
+        if self.mesh is not None:
+            return self._apply_on_mesh(stacked, event, m_hat, ring_w)
         return self._apply(stacked, event, m_hat, ring_w)
 
     # -- factors -------------------------------------------------------------
@@ -420,8 +448,8 @@ def resolve_backend(spec, clusters: ClusterSpec, p: np.ndarray, alpha: int,
     ``spec`` is a registered name, ``"auto"``, ``None`` (== auto), or an
     already-constructed backend (returned as-is).  ``device=None`` means
     ``"cuda"`` and raises without a GPU.  ``mesh`` (a resolved client mesh,
-    None on one device) goes to the collective backend, which raises for
-    anything but None.
+    None on one device) goes to the collective backend; the other backends
+    take none.
     """
     if spec is None:
         spec = "auto"
@@ -433,6 +461,14 @@ def resolve_backend(spec, clusters: ClusterSpec, p: np.ndarray, alpha: int,
         raise KeyError(
             f"unknown aggregation backend {name!r}; registered: {sorted(BACKEND_REGISTRY)}"
         )
-    kw = {} if mesh is None else {"mesh": mesh}
+    if mesh is None:
+        return BACKEND_REGISTRY[name](clusters, np.asarray(p, np.float64), alpha, device=device)
+    if name != "collective":
+        # a rank holds one client's row; the reference's dense product over a
+        # sharded axis is a gather the port does not make
+        raise ValueError(
+            f"backend {name!r} on a client mesh: a rank holds one client, so only the "
+            f"collective backend runs there (a ring stencil, D >= 3, uniform contiguous "
+            f"power-of-two clusters); run without a mesh for {name!r}")
     return BACKEND_REGISTRY[name](clusters, np.asarray(p, np.float64), alpha, device=device,
-                                  **kw)
+                                  mesh=mesh)

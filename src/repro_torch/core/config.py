@@ -12,10 +12,10 @@ Every scheduler of the port (``sync``, ``round``, ``async``) takes the
 fleet's device profile (``profile``/``profile_seed``), its ``participation``
 plan, its ``faults`` schedule and its client-state ``store``
 (``repro_torch.state``).  ``validate`` checks their structure as the
-reference does.  ``exec.mesh`` takes ``None`` or ``"auto"``, which
-``launch.mesh.resolve_client_mesh`` resolves to no mesh when there are
-fewer devices than clients; a mesh it cannot honour raises
-``NotImplementedError`` naming its ROADMAP item.
+reference does.  ``exec.mesh`` takes ``None``, ``"auto"`` or a
+``launch.mesh.ClientMesh``: the sync and round schedulers resolve it
+(``launch.mesh.resolve_client_mesh``) to a client mesh over an initialized
+process group, one client a rank, or to no mesh.
 """
 from __future__ import annotations
 
@@ -244,10 +244,14 @@ class RunConfig:
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"exec.{k} must be an int >= 1, got {v!r}")
         self.fleet.validate()
-        if self.exec.mesh not in (None, "auto"):
-            from ..launch.mesh import resolve_client_mesh
+        if self.exec.mesh is not None:
+            from ..launch.mesh import ClientMesh
 
-            resolve_client_mesh(self.exec.mesh, self.num_clients or 0)  # raises
+            # its size is checked where it binds: against the aggregation's
+            # clients, an offload store's slots
+            if not (self.exec.mesh == "auto" or isinstance(self.exec.mesh, ClientMesh)):
+                raise ValueError(f"exec.mesh must be None, 'auto', or a ClientMesh, got "
+                                 f"{self.exec.mesh!r}")
         if self.clusters is not None and (
             self.num_clients is not None or self.num_clusters is not None
         ):

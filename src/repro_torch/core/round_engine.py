@@ -32,6 +32,13 @@ weights, threaded into every transition of that round.  With
 threaded into its inter transition.  Both are device tensors read where
 they lie, so a captured step reads them from its static input buffers and
 a new round's values never change the graph.
+
+On a client mesh (a collective backend bound to a ``launch.mesh.ClientMesh``)
+``params`` and ``opt_state`` are this rank's ``(1, ...)`` row, the step
+takes the rank's row of the fleet's batches (every rank draws the same
+stream) and the fleet's ``(R, C)`` weights and ``(R, D, D)`` matrices, of
+which the backend reads the rank's entries, and all-gathers the losses, so
+every rank returns what one process returns.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ def build_fl_round_step(model, opt, fl: FLSpec, backend=None, rounds_per_step: i
     taken with ``participation=True``, ``mixing`` (``(R, D, D)``) with
     ``mixing=True`` too.  ``backend`` defaults to the dense Lemma-1 backend
     on ``device``."""
+    from .aggregation import fleet_mean_losses, mesh_rows
     from .backends import resolve_backend
     from .local_update import build_local_update
 
@@ -65,6 +73,7 @@ def build_fl_round_step(model, opt, fl: FLSpec, backend=None, rounds_per_step: i
     ipr = tau1 * tau2
     mixing_on = mixing
     local_update = build_local_update(model, opt, backend=backend)
+    mesh = getattr(backend, "mesh", None)
 
     def round_step(params, opt_state, batches, weights=None, mixing=None):
         n = next(iter(batches.values())).shape[0]
@@ -74,6 +83,8 @@ def build_fl_round_step(model, opt, fl: FLSpec, backend=None, rounds_per_step: i
         if (weights is not None) != participation or (mixing is not None) != mixing_on:
             raise TypeError(f"this round step takes weights: {participation}, "
                             f"mixing: {mixing_on}")
+        if mesh is not None:
+            batches = mesh_rows(batches, mesh, dim=1)
         losses = []
         it = 0
         for r in range(rounds_per_step):
@@ -84,12 +95,14 @@ def build_fl_round_step(model, opt, fl: FLSpec, backend=None, rounds_per_step: i
                 for _ in range(tau1):
                     params, opt_state, client_losses = local_update(
                         params, opt_state, {k: v[it] for k, v in batches.items()})
-                    losses.append(client_losses.mean())
+                    losses.append(client_losses if mesh is not None else client_losses.mean())
                     it += 1
                 params = backend.transition(params, "intra", weights=w)
             # T_intra @ T_inter = T_inter (B V = I_D), as in the reference; under
             # participation both factors use the round's weights
             params = backend.transition(params, "inter", weights=w, p=p)
+        if mesh is not None:
+            return params, opt_state, fleet_mean_losses(torch.cat(losses), mesh)
         return params, opt_state, torch.stack(losses)
 
     return round_step

@@ -17,13 +17,25 @@ it; the buffer's tensors never change, so a captured step is captured once
 for every residency.
 
 The aggregation backend is ``dense``, ``cuda`` (the kernels) or
-``collective`` (the reference's hypercube all-reduce and ring gossip on the
-stacked client axis), by name or ``"auto"``.  The sync and round schedulers
-also take the reference's ``mesh`` (``None`` or ``"auto"``, resolved by
-``launch.mesh.resolve_client_mesh``: no mesh on one card) and its legacy
+``collective`` (the reference's hypercube all-reduce and ring gossip), by
+name or ``"auto"``.  The sync and round schedulers also take the
+reference's ``mesh`` (``None``, ``"auto"`` or a ``launch.mesh.ClientMesh``,
+resolved by ``launch.mesh.resolve_client_mesh`` over the clients the
+aggregation spans, an offload store's slots included) and its legacy
 backend fields: with ``backend=None``, ``aggregation_impl``/``FLSpec.impl``
 ``"gossip"`` maps to ``collective`` where the scenario allows it and to
 ``dense`` otherwise (``_legacy_impl_backend``).
+
+On a client mesh, one client a rank of a ``torch.distributed`` process
+group, each rank's ``params`` are its client's ``(1, ...)`` row and the
+collective backend exchanges rows between the ranks.  Every rank draws the
+same batch stream and takes its row; participation weights and fault
+matrices stay the fleet's runtime tensors, of which each rank reads its own
+entries.  ``global_params`` (and so evaluation) all-reduces each rank's
+``m_i w^(i)`` and ``cluster_params`` reduces within each cluster, one model
+a rank, so every rank reports what one process reports; an offload
+store's scatter gathers into the store's buffer, which every rank holds.  A mesh runs eagerly: ``graph=None`` is off there and
+``graph=True`` raises.
 
 Per-round participation weights and faulted mixing matrices are runtime
 operands of fixed shape: the sync and round schedulers stage them with
@@ -53,6 +65,9 @@ from typing import Callable, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from .aggregation import (
+    cluster_sums_on_mesh, fleet_weighted_sum, gather_rows, mesh_rows, own_rows,
+)
 from .backends import collective_supported, resolve_backend
 from .config import FleetSpec, RunConfig
 from .cuda_graph import GraphedStep, copy_into, resolve_graph
@@ -346,13 +361,60 @@ def _legacy_impl_backend(impl: str, clusters: ClusterSpec, p: np.ndarray) -> str
     return {"dense": "dense", "pallas": "cuda"}[impl]
 
 
-def _bind_backend(sched, spec, clusters: ClusterSpec, p: np.ndarray, alpha: int) -> None:
-    """``sched.mesh`` and ``sched.backend`` of a sync or round scheduler, and
-    on the collective backend the fault trace's ring-stencil check over its
-    whole horizon (the device cannot check the values it is given)."""
+def _resolve_mesh(sched, num_clients: int) -> None:
+    """``sched.mesh`` over the ``num_clients`` clients the aggregation spans
+    (a store's slots under offload), and on a mesh the rank's device."""
     from ..launch.mesh import resolve_client_mesh
 
-    sched.mesh = resolve_client_mesh(sched._mesh_spec, clusters.num_clients)
+    sched.mesh = resolve_client_mesh(sched._mesh_spec, num_clients, device=sched.device)
+    if sched.mesh is not None:
+        sched.device = sched.mesh.device
+
+
+def _resolve_mesh_graph(sched) -> bool:
+    """Whether the scheduler replays CUDA graphs: never on a mesh, whose
+    exchanges no graph captures here."""
+    if sched.mesh is None:
+        return resolve_graph(sched._graph_spec, sched.device)
+    if sched._graph_spec:
+        raise NotImplementedError(
+            "graph=True on a client mesh: capturing the process-group exchanges is not "
+            "ported yet (ROADMAP.md §1 item 4, 'graphs on a mesh'); pass graph=None or False")
+    return False
+
+
+def _stacked(sched, tree: dict) -> dict:
+    """An offload store's ``(k_max, ...)`` buffer stack: the tree, or on a
+    mesh the ranks' rows all-gathered into the store's buffer, which every
+    rank holds."""
+    return tree if sched.mesh is None else gather_rows(tree, sched.mesh, out=sched.store.buffer)
+
+
+def _consensus(sched) -> dict:
+    """``sum_i m_i w^(i)`` in f32: one tensordot over the stack, or on a mesh
+    the all-reduce of each rank's ``m_i w^(i)``."""
+    if sched.mesh is not None:
+        return fleet_weighted_sum(sched.params, sched.mesh, sched._m)
+    return {k: torch.tensordot(sched._m, w.float(), dims=([0], [0]))
+            for k, w in sched.params.items()}
+
+
+def _cluster_models(sched, clusters: ClusterSpec) -> dict:
+    """The ``(D, ...)`` models ``y^(d) = sum_{i in d} m^_i w^(i)`` in f32: one
+    tensordot over the stack, or on a mesh the hypercube all-reduce within
+    each cluster and a broadcast from each."""
+    if sched.mesh is not None:
+        m_hat = torch.as_tensor(clusters.m_hat(), dtype=torch.float32, device=sched.device)
+        return cluster_sums_on_mesh(sched.params, sched.mesh, sched.backend.cluster_size,
+                                    m_hat)
+    v = torch.as_tensor(clusters.V(), dtype=torch.float32, device=sched.device)
+    return {k: torch.tensordot(v, w.float(), dims=([0], [0])) for k, w in sched.params.items()}
+
+
+def _bind_backend(sched, spec, clusters: ClusterSpec, p: np.ndarray, alpha: int) -> None:
+    """``sched.backend`` of a sync or round scheduler, and on the collective
+    backend the fault trace's ring-stencil check over its whole horizon (the
+    device cannot check the values it is given)."""
     sched.backend = resolve_backend(spec, clusters, p, alpha, device=sched.device,
                                     mesh=sched.mesh)
     faults = sched.axes.faults
@@ -442,16 +504,20 @@ class SyncScheduler:
                               self.latency, seed)
         self.store = self.fleet.resolve_store(cfg.clusters.num_clients)
         if self.store.resident:
-            self.params = stacked_init(model, cfg.clusters.num_clients, seed, device)
+            _resolve_mesh(self, cfg.clusters.num_clients)
+            # on a mesh the rank's client only: every copy is the same init
+            self.params = stacked_init(
+                model, 1 if self.mesh else cfg.clusters.num_clients, seed, self.device)
             self.store.attach(self)
             agg_clusters = cfg.clusters
         else:
             if self.axes.faults is not None:
                 raise ValueError(_OFFLOAD_FAULTS)
             # the aggregation runs over the store's sub-fleet (same clusters,
-            # slot-sized), on its fixed buffer
-            self.store.bind(cfg.clusters, model, seed, device)
-            self.params = self.store.buffer
+            # slot-sized), on its fixed buffer (on a mesh, the rank's slot of it)
+            self.store.bind(cfg.clusters, model, seed, self.device)
+            _resolve_mesh(self, self.store.sub_clusters.num_clients)
+            self.params = own_rows(self.store.buffer, self.mesh)
             self._res = None        # residency of the round the buffer holds, or None
             self._buf_round = None
             # round r's residency, a pure function of r (the feed stages ahead)
@@ -467,10 +533,10 @@ class SyncScheduler:
         )
         # the consensus weights, (N,) on the device: resident state only (an
         # offloaded run's consensus is the store's, and keeps N off the device)
-        self._m = (torch.as_tensor(cfg.clusters.m(), dtype=torch.float32, device=device)
+        self._m = (torch.as_tensor(cfg.clusters.m(), dtype=torch.float32, device=self.device)
                    if self.store.resident else None)
-        self._feed = BatchFeed(device, self.prefetch)
-        self._graphs = self._build_graphs() if resolve_graph(self._graph_spec, device) else None
+        self._feed = BatchFeed(self.device, self.prefetch)
+        self._graphs = self._build_graphs() if _resolve_mesh_graph(self) else None
 
     def _build_graphs(self) -> dict:
         """One ``GraphedStep`` per event kind over ``_body``, in one memory pool."""
@@ -482,6 +548,8 @@ class SyncScheduler:
         """One protocol iteration: the local SGD step, then the transition
         with the round's weights and mixing matrix where the batch has them."""
         batch, ops = _split_operands(batch)
+        if self.mesh is not None:
+            batch = mesh_rows(batch, self.mesh)
         params, _, _ = self._local(self.params, (), batch)
         if event != "local":
             params = self.backend.transition(params, event, *ops)
@@ -543,7 +611,7 @@ class SyncScheduler:
             # the round's first iteration: its residents into the buffer
             self._buf_round = self._round_of(k)
             self._res = self._residency_for_round(self._buf_round)
-            self.params = self.store.gather(self._res)
+            self.params = own_rows(self.store.gather(self._res), self.mesh)
         if self._graphs is None:
             self.params = self._update(event, batch)
         else:
@@ -551,7 +619,7 @@ class SyncScheduler:
         if offload and event == "inter":
             # the round's boundary: every resident holds its cluster's
             # post-gossip aggregate, which the store keeps
-            self.store.scatter(self._res, self.params)
+            self.store.scatter(self._res, _stacked(self, self.params))
             self._buf_round = None
         return event, self._event_dt(k, event)
 
@@ -590,20 +658,16 @@ class SyncScheduler:
         if not self.store.resident:
             if self._buf_round is None:
                 return self.store.global_params()
-            return self.store.global_params(resident=self._res, buffer=self.params)
-        return {
-            k: torch.tensordot(self._m, w.float(), dims=([0], [0])).to(w.dtype)
-            for k, w in self.params.items()
-        }
+            return self.store.global_params(resident=self._res,
+                                            buffer=_stacked(self, self.params))
+        return {k: v.to(self.params[k].dtype) for k, v in _consensus(self).items()}
 
     def cluster_params(self) -> dict:
         """Stacked ``(D, ...)`` per-cluster models y^(d) = sum_{i in d} m^_i w^(i)."""
         if not self.store.resident:
             raise NotImplementedError(_OFFLOAD_CLUSTERS)
-        v = torch.as_tensor(self.cfg.clusters.V(), dtype=torch.float32, device=self.device)
-        return {k: torch.tensordot(v, w.float(), dims=([0], [0])).to(w.dtype)
-                for k, w in self.params.items()}
-
+        return {k: v.to(self.params[k].dtype)
+                for k, v in _cluster_models(self, self.cfg.clusters).items()}
 
 # ---------------------------------------------------------------------------
 # Whole-round scheduler (the reference's compiled round engine)
@@ -714,14 +778,17 @@ class RoundScheduler:
                               self.latency, seed)
         self.store = self.fleet.resolve_store(fl.num_clients)
         if self.store.resident:
-            self.params = stacked_init(model, fl.num_clients, seed, device)
+            _resolve_mesh(self, fl.num_clients)
+            self.params = stacked_init(model, 1 if self.mesh else fl.num_clients, seed,
+                                       self.device)
             self.store.attach(self)
             engine_fl, agg_clusters = fl, clusters
         else:
             if self.axes.faults is not None:
                 raise ValueError(_OFFLOAD_FAULTS)
-            self.store.bind(clusters, model, seed, device)
-            self.params = self.store.buffer
+            self.store.bind(clusters, model, seed, self.device)
+            _resolve_mesh(self, self.store.sub_clusters.num_clients)
+            self.params = own_rows(self.store.buffer, self.mesh)
             engine_fl = dataclasses.replace(fl, num_clients=self.store.k_max)
             agg_clusters = self.store.sub_clusters
             self._full_w = clusters.m_hat()
@@ -737,10 +804,10 @@ class RoundScheduler:
             participation=self.axes.active or not self.store.resident,
             mixing=self.axes.faults is not None,
         )
-        self._m = (torch.as_tensor(clusters.m(), dtype=torch.float32, device=device)
+        self._m = (torch.as_tensor(clusters.m(), dtype=torch.float32, device=self.device)
                    if self.store.resident else None)  # as SyncScheduler's
-        self._feed = BatchFeed(device, self.prefetch)
-        self._graph = self._build_graph() if resolve_graph(self._graph_spec, device) else None
+        self._feed = BatchFeed(self.device, self.prefetch)
+        self._graph = self._build_graph() if _resolve_mesh_graph(self) else None
 
     def _build_graph(self) -> GraphedStep:
         return GraphedStep(self._body, lambda: (self.params, self.opt_state), self.device)
@@ -846,12 +913,12 @@ class RoundScheduler:
         stacked, staged = _split_store_rows(
             self._feed.get(k, batch_source, functools.partial(self._offload_batch, batch_source)))
         res = self._residency_for_step(k)
-        self.params = self.store.gather(res, staged)
+        self.params = own_rows(self.store.gather(res, staged), self.mesh)
         # sgd's state is (); a stateful optimizer restarts every superstep
         # under offload, as in the reference
         copy_into(self.opt_state, self.optimizer.init(self.params))
         losses = self._run(stacked)
-        self.store.scatter(res, self.params)
+        self.store.scatter(res, _stacked(self, self.params))
         rps = self.rounds_per_step
         if self.profile is None:
             dt = rps * self._round_time
@@ -869,18 +936,14 @@ class RoundScheduler:
         under offload the store's (every superstep scatters before it ends)."""
         if not self.store.resident:
             return self.store.global_params()
-        return {k: torch.tensordot(self._m, w.float(), dims=([0], [0]))
-                for k, w in self.params.items()}
+        return _consensus(self)
 
     def cluster_params(self) -> dict:
         """Stacked ``(D, ...)`` per-cluster models at the last round boundary
         (steps end on the inter-cluster gossip), in f32."""
         if not self.store.resident:
             raise NotImplementedError(_OFFLOAD_CLUSTERS)
-        v = torch.as_tensor(self._proto.clusters.V(), dtype=torch.float32, device=self.device)
-        return {k: torch.tensordot(v, w.float(), dims=([0], [0]))
-                for k, w in self.params.items()}
-
+        return _cluster_models(self, self._proto.clusters)
 
 # ---------------------------------------------------------------------------
 # Asynchronous event-driven scheduler (Section IV)

@@ -15,10 +15,14 @@ The port's ``repro.core.sdfeel``:
 * ``init_stacked``.
 
 The reference lowers this step under ``shard_map`` with one client a device
-of its ``data`` mesh axis.  Here the client axis is stacked on one device, as
-the reference runs it under ``vmap`` without a mesh; ``mesh`` takes what
-``launch.mesh.resolve_client_mesh`` takes (``None``, or ``"auto"``, which is
-no mesh on one card) and raises for a mesh it cannot honour.
+of its ``data`` mesh axis.  ``mesh`` takes what
+``launch.mesh.resolve_client_mesh`` takes.  On a client mesh (one client a
+rank of a process group) ``params`` and ``opt_state`` are this rank's ``(1,
+...)`` row, the step takes the rank's row of the fleet's batch and the
+collective backend exchanges with the other ranks; the loss is the fleet's,
+all-gathered.  Without a mesh the client axis is stacked on one device, as
+the reference runs it under ``vmap``; there the port also runs
+``impl="gossip"``, where the reference raises (a stated deviation).
 """
 from __future__ import annotations
 
@@ -80,17 +84,25 @@ def build_fl_train_step(model, opt, fl: FLSpec, event: str = "inter", mesh=None,
     steps on the mean of their gradients, with f32 accumulators: the same
     SGD step as one batch, in a fraction of the activation memory.  With
     ``participation=True`` the step takes a ``(C,)`` ``weights`` tensor, the
-    round's intra-cluster weights, for its transition.  ``param_specs``
-    (the reference's sharding of a mesh's leaves) is ignored without a mesh,
-    as in the reference.  ``device=None`` means ``"cuda"``.
+    round's intra-cluster weights, for its transition.  On a client mesh
+    (``impl="gossip"`` only) ``params``/``opt_state`` are the rank's ``(1,
+    ...)`` row and ``batch`` and ``weights`` the fleet's.  ``param_specs``
+    (the reference's sharding of a mesh's leaves) is not used: a rank holds
+    its client whole.  ``device=None`` means ``"cuda"``.
     """
     from ..launch.mesh import resolve_client_mesh
+    from .aggregation import fleet_mean_losses, mesh_rows
     from .backends import resolve_backend
     from .device import resolve_device
     from .local_update import build_local_update
 
     device = resolve_device(device)
-    mesh = resolve_client_mesh(mesh, fl.num_clients)  # None, or it raises
+    mesh = resolve_client_mesh(mesh, fl.num_clients, device=device)
+    if mesh is not None:
+        device = mesh.device
+        if fl.impl != "gossip":
+            raise ValueError(f"impl={fl.impl!r} on a client mesh: a rank holds one client, "
+                             f"so the step runs impl='gossip' (the collective backend)")
     proto = fl.protocol()
     if fl.impl == "gossip" and event != "local":
         if fl.topology != "ring" or fl.num_clusters < 3:
@@ -128,15 +140,16 @@ def build_fl_train_step(model, opt, fl: FLSpec, event: str = "inter", mesh=None,
         # one micro-batch: the shared batched stage
         local_update = build_local_update(model, opt, backend=backend)
 
-    def train_step(params, opt_state, batch):
-        params, opt_state, loss = local_update(params, opt_state, batch)
-        params = backend.transition(params, event)
-        return params, opt_state, loss.mean()
-
-    def train_step_p(params, opt_state, batch, weights):
+    def train_step_p(params, opt_state, batch, weights=None):
+        if mesh is not None:
+            batch = mesh_rows(batch, mesh)
         params, opt_state, loss = local_update(params, opt_state, batch)
         params = backend.transition(params, event, weights=weights)
-        return params, opt_state, loss.mean()
+        loss = loss.mean() if mesh is None else fleet_mean_losses(loss, mesh)[0]
+        return params, opt_state, loss
+
+    def train_step(params, opt_state, batch):
+        return train_step_p(params, opt_state, batch)
 
     return train_step_p if participation else train_step
 

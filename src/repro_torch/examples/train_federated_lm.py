@@ -10,10 +10,10 @@ corpora (one distinct corpus per client: non-IID), through the named
 one CUDA graph, with the flash attention, SGD and transition kernels.
 As in the reference, bf16 runs with activation checkpointing (``remat``,
 recomputing each block in the backward) and f32 without.  ``--mesh auto``
-resolves as the reference's does (``launch.mesh.resolve_client_mesh``): to no
-mesh when there are fewer CUDA devices than clients, which it prints; with a
-device a client it raises, as one client a device needs the process-group
-collectives that are not ported.
+resolves as ``launch.mesh.resolve_client_mesh`` does: to no mesh when there
+are fewer CUDA devices than clients, which it prints; with a device a client
+it asks for one process a client (``python -m repro_torch.launch.train
+--mesh auto`` under ``torchrun``), where the client mesh runs.
 """
 from __future__ import annotations
 
@@ -33,8 +33,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--precision", choices=["float32", "bfloat16"], default="float32")
     ap.add_argument("--mesh", choices=["none", "auto"], default="none",
-                    help="'auto': a client mesh when there is a CUDA device a client "
-                         "(not ported: raises), else none")
+                    help="'auto': none when there are fewer CUDA devices than clients; "
+                         "a client mesh needs one process a client (launch.train)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--heads", type=int, default=12)
     ap.add_argument("--kv-heads", type=int, default=4)

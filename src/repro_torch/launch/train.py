@@ -19,18 +19,63 @@ enumerates them).  Checkpoints are the reference's format
 
 ``--backend`` picks the aggregation backend (``auto``: the CUDA kernels on
 the card, dense on the CPU; ``collective``: the reference's hypercube
-all-reduce and ring gossip).  ``--mesh auto`` resolves to no mesh when the
-host has fewer CUDA devices than clients, as in the reference, and says so;
-with enough devices it raises, as one client a device is not ported.
+all-reduce and ring gossip).  ``--mesh auto`` in one process resolves to no
+mesh when the host has fewer CUDA devices than clients, as in the reference,
+and says so.  Under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` in the environment) it
+starts the process group, ``nccl`` on CUDA devices and ``gloo`` with
+``--device cpu``, and trains on the client mesh, one client a rank, on the
+collective backend; rank 0 prints and writes the checkpoints, and the group
+is destroyed at exit::
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh auto \
+        --backend collective --clients 8 --clusters 4 [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import time
 
 import numpy as np
 
 __all__ = ["main", "run_scenario"]
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# how long a rank waits for its peers before the process group fails
+_DIST_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _say(*args) -> None:
+    """``print`` on rank 0 only (every rank without a process group)."""
+    if _rank() == 0:
+        print(*args, flush=True)
+
+
+def _start_process_group(args) -> bool:
+    """Under torchrun's environment with ``--mesh auto``: start the default
+    process group (``nccl`` on CUDA devices, ``gloo`` on the CPU, with a
+    timeout so a missing peer fails instead of hanging) and return True."""
+    import torch
+    import torch.distributed as dist
+
+    if args.mesh != "auto" or not all(k in os.environ for k in _TORCHRUN_ENV):
+        return False
+    if dist.is_initialized():
+        return False
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl" if cuda else "gloo", init_method="env://",
+                            timeout=_DIST_TIMEOUT)
+    return True
 
 
 def run_scenario(args) -> dict | None:
@@ -41,7 +86,7 @@ def run_scenario(args) -> dict | None:
 
     if args.scenario == "list":
         for sc in list_scenarios():
-            print(f"{sc.name:28s} [{sc.scheduler:5s}] {sc.description}")
+            _say(f"{sc.name:28s} [{sc.scheduler:5s}] {sc.description}")
         return None
     sc = get_scenario(args.scenario)
     overrides = {"seed": args.seed, "backend": args.backend}
@@ -68,17 +113,18 @@ def run_scenario(args) -> dict | None:
     run = sc.build(device=args.device, **overrides)
     sched = run.runtime.scheduler
     if args.mesh != "none":
-        print(describe_resolution(args.mesh, sched.backend.clusters.num_clients))
+        _say(describe_resolution(args.mesh, sched.backend.clusters.num_clients,
+                                 device=sched.device))
     prof = getattr(sched, "profile", None) or getattr(getattr(sched, "cfg", None),
                                                       "profile", None)
     hline = f" H={prof.heterogeneity():.1f}" if prof is not None else ""
-    print(f"scenario={sc.name} scheduler={sc.scheduler} topology={sc.topology} "
-          f"partition={sc.partition}{hline}")
+    _say(f"scenario={sc.name} scheduler={sc.scheduler} topology={sc.topology} "
+         f"partition={sc.partition}{hline}")
     t0 = time.time()
     hist = run.run(args.steps, eval_every=max(1, args.steps // 4))
     acc = f" acc={hist.accuracy[-1]:.3f}" if hist.accuracy else ""
-    print(f"done: steps={args.steps} loss={hist.loss[-1]:.4f}{acc} "
-          f"simulated_wallclock={hist.wallclock[-1]:.1f}s ({time.time() - t0:.1f}s real)")
+    _say(f"done: steps={args.steps} loss={hist.loss[-1]:.4f}{acc} "
+         f"simulated_wallclock={hist.wallclock[-1]:.1f}s ({time.time() - t0:.1f}s real)")
     return run.runtime.global_params()
 
 
@@ -143,9 +189,9 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["auto", "dense", "cuda", "collective"],
                     help="aggregation backend for the Lemma-1 transition")
     ap.add_argument("--mesh", default="none", choices=["none", "auto"],
-                    help="client device mesh: 'auto' resolves to none when there are "
-                         "fewer CUDA devices than clients (one client a device is not "
-                         "ported, and raises)")
+                    help="client mesh: 'auto' under torchrun trains one client a rank; "
+                         "in one process it resolves to none when there are fewer CUDA "
+                         "devices than clients")
     ap.add_argument("--participation", default=None,
                     choices=["full", "uniform-k", "availability", "trace"],
                     help="per-round client participation strategy "
@@ -179,10 +225,23 @@ def main(argv=None):
     """Run the CLI; returns the consensus parameters (None for ``--scenario
     list``)."""
     args = _parser().parse_args(argv)
-    if args.scenario is not None:
-        return run_scenario(args)
+    started = _start_process_group(args)
+    try:
+        if args.scenario is not None:
+            return run_scenario(args)
+        return _train_lm(args)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train_lm(args):
+    """The LM path: federated training of a causal LM on the round scheduler."""
 
     from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from ..core.aggregation import gather_rows_to_host
     from ..configs import get_config
     from ..core.config import ExecSpec, FleetSpec, ModelSpec, RunConfig
     from ..core.runtime import make_run
@@ -222,7 +281,8 @@ def main(argv=None):
     runtime = make_run(rc, device=args.device)
     sched = runtime.scheduler
     if args.mesh != "none":
-        print(describe_resolution(args.mesh, sched.backend.clusters.num_clients))
+        _say(describe_resolution(args.mesh, sched.backend.clusters.num_clients,
+                                 device=sched.device))
     ipr = sched.iterations_per_round
     rps = sched.rounds_per_step
     steps = sched.steps_for(args.steps)
@@ -239,36 +299,38 @@ def main(argv=None):
                 "checkpointable tree"
             )
         if latest_step(args.save_dir) is not None:
-            sched.params, manifest = restore_checkpoint(args.save_dir, sched.params)
+            # on a mesh each rank reads its own row of the (C, ...) stack
+            sched.params, manifest = restore_checkpoint(
+                args.save_dir, sched.params, row=None if sched.mesh is None else sched.mesh.index)
             if (manifest.get("metadata") or {}).get("unit") == "round":
                 start_round = manifest["step"]
             else:
                 # pre-runtime checkpoints counted protocol iterations; round up
                 # so no already-applied iteration is ever re-applied
                 start_round = -(-manifest["step"] // ipr)
-                print(f"legacy checkpoint: step {manifest['step']} -> round {start_round}")
+                _say(f"legacy checkpoint: step {manifest['step']} -> round {start_round}")
                 if manifest["step"] % ipr:
-                    print(f"WARNING: checkpoint stopped mid-round; iterations "
-                          f"{manifest['step'] + 1}..{start_round * ipr} (incl. the "
-                          f"round-boundary aggregation) are skipped — resumed "
-                          f"trajectory is inexact for the whole-round engine")
-            print(f"resumed from round {start_round}")
+                    _say(f"WARNING: checkpoint stopped mid-round; iterations "
+                         f"{manifest['step'] + 1}..{start_round * ipr} (incl. the "
+                         f"round-boundary aggregation) are skipped — resumed "
+                         f"trajectory is inexact for the whole-round engine")
+            _say(f"resumed from round {start_round}")
             if start_round >= rounds:
-                print(f"checkpoint already at round {start_round} >= target "
-                      f"{rounds}; nothing to train")
+                _say(f"checkpoint already at round {start_round} >= target "
+                     f"{rounds}; nothing to train")
     start_step = -(-start_round // rps)
     if start_round % rps:
-        print(f"WARNING: checkpoint round {start_round} does not align with "
-              f"--rounds-per-step {rps}; resuming from superstep {start_step} "
-              f"(rounds {start_round + 1}..{start_step * rps} are skipped)")
+        _say(f"WARNING: checkpoint round {start_round} does not align with "
+             f"--rounds-per-step {rps}; resuming from superstep {start_step} "
+             f"(rounds {start_round + 1}..{start_step * rps} are skipped)")
     if resident:
-        n_params = sum(p.numel() for p in sched.params.values()) // args.clients
+        n_params = sum(p[0].numel() for p in sched.params.values())
     else:
         n_params = sum(np.size(x) for x in sched.store.state_of(0))
-    print(f"arch={cfg.name} params/client={n_params:,} clients={args.clients} "
-          f"clusters={args.clusters} tau1={args.tau1} tau2={args.tau2} "
-          f"alpha={args.alpha} rounds={rounds} ({rounds * ipr} iterations, "
-          f"{steps} dispatches of {rps} round(s))")
+    _say(f"arch={cfg.name} params/client={n_params:,} clients={args.clients} "
+         f"clusters={args.clusters} tau1={args.tau1} tau2={args.tau2} "
+         f"alpha={args.alpha} rounds={rounds} ({rounds * ipr} iterations, "
+         f"{steps} dispatches of {rps} round(s))")
 
     # per-client non-IID-ish token streams (different seeds = different stats)
     streams = [
@@ -288,20 +350,23 @@ def main(argv=None):
         # reading a loss waits for the device: only on the logging steps, so
         # supersteps dispatch back-to-back
         if r % args.log_every == 0 or s == steps or s == start_step + 1:
-            print(f"round {r:4d} (iter {r * ipr:5d}) "
-                  f"loss={float(ev.losses[-1]):.4f} ({time.time() - t0:.1f}s)")
+            _say(f"round {r:4d} (iter {r * ipr:5d}) "
+                 f"loss={float(ev.losses[-1]):.4f} ({time.time() - t0:.1f}s)")
         if args.save_dir and (r % args.save_every == 0 or s == steps):
             meta = {"arch": cfg.name, "unit": "round", "run_config": rc.describe()}
+            # on a mesh the rows go to rank 0's host, which writes
             if resident:
-                save_checkpoint(args.save_dir, sched.params, step=r, metadata=meta)
+                state = (sched.params if sched.mesh is None
+                         else gather_rows_to_host(sched.params, sched.mesh))
             else:
                 # offload stores checkpoint the consensus model: the stacked
                 # per-client tree never exists on the device to snapshot
-                save_checkpoint(args.save_dir, runtime.global_params(), step=r,
-                                metadata=meta | {"consensus": True})
+                state, meta = runtime.global_params(), meta | {"consensus": True}
+            if _rank() == 0:
+                save_checkpoint(args.save_dir, state, step=r, metadata=meta)
     # consensus phase: weighted global model
     global_params = runtime.global_params()
-    print("done; consensus model extracted.")
+    _say("done; consensus model extracted.")
     return global_params
 
 

@@ -292,6 +292,13 @@ class CausalLM:
                 params["head"] = init_dense(gen, d, v, dt)
         return params
 
+    def param_shapes(self) -> dict:
+        """The leaves of ``init`` as meta-device tensors: names, shapes and
+        dtypes at any width, with no storage (the counterpart of the
+        reference's ``jax.eval_shape(model.init, key)``)."""
+        with torch.device("meta"):
+            return self.init(torch.Generator())
+
     # -- embedding / head -----------------------------------------------------
     def embed_tokens(self, params: dict, tokens: torch.Tensor,
                      frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -12,6 +12,8 @@ orders, the difference compounds over the events, and the ``cuda``
 backend's eq. 19 multiplies by ``1 / theta_i`` where the reference divides
 (1 ulp).  On the CPU the ``cuda`` backend runs the kernels' plain versions.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -21,6 +23,11 @@ import repro.scenarios as jscenarios
 import repro_torch.scenarios as tscenarios
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import cluster_agg, gossip_mix, normalized_update
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 SMALL = {"num_clients": 8, "num_clusters": 4, "num_samples": 400}
 EVENTS = 12

@@ -20,6 +20,8 @@ The eight public names the examples call (``RoundScheduler.rounds_for``,
 equal to the reference's on the same inputs, and each example's ``main``
 runs on the CPU at a small size.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -37,6 +39,11 @@ from repro_torch.core.cuda_graph import copy_into
 from repro_torch.core.runtime import (
     CLUSTER, INV_THETA, M_HAT, MIXING, STEP_MASK, THETA,
 )
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 TINY = {"num_clients": 8, "num_clusters": 4, "num_samples": 400, "theta_max": 3,
         "batch_size": 2}
@@ -325,7 +332,8 @@ def test_train_federated_lm_example_runs_on_the_cpu_and_refuses_a_mesh(monkeypat
     assert "mesh=auto resolved to none" in capsys.readouterr().out
     assert (out["rounds"], out["steps"]) == (2, 1)
     assert np.isfinite(out["losses"]).all() and np.isfinite(out["eval_loss"])
-    # with a device a client it would be a mesh, which the port refuses
+    # with a device a client it would be a mesh, which needs one process a
+    # client: the port names the launch that starts them
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         train_federated_lm.main(small + ["--mesh", "auto"])

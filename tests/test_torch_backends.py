@@ -5,6 +5,8 @@ JAX ``DenseBackend`` on every event, with masked participation weights and a
 faulted mixing matrix (a ring with one link removed), within 1e-5 (f32;
 the static path forms T_k in float64, the kernel path factors it).
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,11 @@ import torch
 import repro.core as jcore
 import repro_torch.core as tcore
 from repro_torch.convert import params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 

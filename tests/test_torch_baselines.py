@@ -9,9 +9,12 @@ and on the ``cuda`` backend's, whose local step is the ``sgd_update``
 kernel's plain version on CPU tensors.  FEEL's schedule is the reference's
 numpy stream (``default_rng(seed + 1)``).
 """
+import os
+
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 import repro.data as jdata
@@ -20,6 +23,11 @@ import repro_torch.core as tcore
 import repro_torch.data as tdata
 import repro_torch.models as tmodels
 from repro_torch.convert import params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 C, ITERS = 8, 10
 

@@ -24,6 +24,11 @@ from repro_torch.convert import flatten_params, params_from_numpy
 from repro_torch.data import FederatedDataset, iid_partition, mnist_like
 from repro_torch.models import MnistCNN
 
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
+
 
 def _jax_state(seed=0):
     """A JAX training state: stacked MnistCNN params (one leaf in bf16), an

@@ -16,6 +16,8 @@
   and ``launch.mesh``'s resolution (no mesh on a host with fewer devices
   than clients; a raise for what the port cannot honour).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,11 @@ import repro_torch.core.aggregation as tagg
 import repro_torch.scenarios as tscenarios
 from repro_torch.convert import params_to_numpy
 from repro_torch.launch import mesh as tmesh
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 ATOL = 1e-6
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -216,7 +223,7 @@ def test_collective_constraints_raise_the_reference_errors():
         jspec = jcore.ClusterSpec(spec.num_clients, spec.assignments, spec.data_sizes)
         with pytest.raises(ValueError, match=msg):
             jcore.CollectiveBackend(jspec, p, 1)
-    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+    with pytest.raises(ValueError, match="a launch.mesh.ClientMesh"):
         tcore.CollectiveBackend(tcore.ClusterSpec.uniform(8, 4), ring8, 1, device="cpu",
                                 mesh=object())
 
@@ -273,12 +280,14 @@ def test_mesh_resolution():
     assert tmesh.resolve_client_mesh("auto", n + 1) is None
     assert tmesh.resolve_cluster_mesh("auto", n + 1) is None
     assert "resolved to none" in tmesh.describe_resolution("auto", n + 1)
-    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+    # a device a client without a process group: one process a client is
+    # the launcher's to start, and the error names it
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
         tmesh.resolve_client_mesh("auto", n)
-    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+    with pytest.raises(ValueError, match="mesh must be None, 'auto', or a ClientMesh"):
         tmesh.resolve_client_mesh(object(), 8)
     with pytest.raises(ValueError, match="mesh must be None, 'auto'"):
         tmesh.resolve_client_mesh("data", 8)
-    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+    with pytest.raises(ValueError, match="exec.mesh must be None, 'auto', or a ClientMesh"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 200,
                         "mesh": object()}, device="cpu")

@@ -22,6 +22,8 @@ new parameter tensors re-capture, and the old tensors are never written.
 The collective backend (plain PyTorch: hypercube all-reduce and ring gossip)
 replays on the sync, round and async graphs at 0.0 from its eager runs.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,11 @@ from repro_torch.kernels.flash_attention import route
 from repro_torch.models import MnistCNN
 from repro_torch.optim import sgd
 from repro_torch.scenarios import build_scenario
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 RNG = np.random.default_rng(0)
 

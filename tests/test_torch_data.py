@@ -1,9 +1,17 @@
 """Port parity: synthetic data, partitions and stacked batches are identical."""
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import repro.data as jdata
 import repro_torch.data as tdata
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("name", ["mnist_like", "cifar_like"])

@@ -27,6 +27,7 @@ the port's (weights carried with ``convert.params_from_numpy``):
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,11 @@ import repro_torch.scenarios as tscenarios
 from repro_torch.convert import (
     flatten_params, params_from_numpy, params_to_numpy, unflatten_params,
 )
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True, scope="module")

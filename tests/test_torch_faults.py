@@ -18,10 +18,12 @@ require_ring_stencil=True)`` refuses it as the reference's does, naming the
 round, and so does a collective scheduler at ``bind``.
 """
 import json
+import os
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 import repro.core.topology as jtopo
@@ -32,6 +34,11 @@ import repro_torch.core.topology as ttopo
 import repro_torch.faults as tfaults
 import repro_torch.scenarios as tscenarios
 from repro_torch.convert import flatten_params, params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 CHAOS = tscenarios.get_scenario("chaos-ring").faults["events"]
 TRACES = {

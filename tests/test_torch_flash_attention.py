@@ -9,6 +9,8 @@ per-sample loop, ragged sequence lengths, and the wrappers' refusals.  The
 route each dtype and head width takes on the card, and the bf16 rounding of
 P and dS that the tensor-core kernels do, held to the card's tolerances.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,11 @@ from repro_torch.kernels import (
     flash_attention_fwd_ref,
 )
 from repro_torch.kernels.flash_attention import route
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 RNG = np.random.default_rng(0)
 

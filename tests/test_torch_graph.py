@@ -12,6 +12,7 @@ parity tests (JAX's weights carried across with ``repro_torch.convert``).
 The card tests (``test_torch_cuda.py``) hold the replays themselves.
 """
 import dataclasses
+import os
 import re
 from pathlib import Path
 
@@ -26,6 +27,11 @@ import repro_torch.scenarios as tscenarios
 from repro_torch.convert import flatten_params, params_from_numpy, params_to_numpy
 from repro_torch.core import make_run
 from repro_torch.core.cuda_graph import GraphedStep, copy_into, graph_key, resolve_graph
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 LM_SMALL = dict(arch_overrides=dict(d_model=64, d_ff=128), seq_len=16, num_samples=64)
 

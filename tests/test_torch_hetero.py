@@ -5,8 +5,11 @@ eq. 22 staleness mixing matrix and the per-client batch streams are numpy
 in both packages (the port keeps copies), so they must agree exactly (1e-12
 for the float64 mixing matrix, whose sums run in the same order).
 """
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 from repro.core.topology import TOPOLOGIES as J_TOPOLOGIES
@@ -15,6 +18,11 @@ import repro.hetero as jhetero
 import repro_torch.core as tcore
 import repro_torch.data as tdata
 import repro_torch.hetero as thetero
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 PROFILE_SPECS = {
     "uniform": {"kind": "uniform", "heterogeneity": 4.0, "bandwidth_spread": 2.0,

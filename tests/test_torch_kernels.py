@@ -8,6 +8,8 @@ aggregation, 1e-6 f32 SGD and normalized update, 3e-2 bf16.
 ``test_torch_cuda.py`` holds each CUDA kernel against its plain version on
 the card.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,11 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.fused_sgd.ops import plan_launches as sgd_plan
 from repro_torch.kernels.fused_transition.ops import MAX_LEAVES, plan_launches
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 RNG = np.random.default_rng(0)
 

@@ -15,6 +15,7 @@ round engine on the collective backend.
 * ``--scenario mnist-noniid-ring`` and ``--backend collective --mesh auto``
   run on the CPU and print how the mesh resolved.
 """
+import os
 import shutil
 
 import jax
@@ -27,6 +28,11 @@ import repro.scenarios as jscenarios
 import repro_torch.launch.train as ttrain
 import repro_torch.scenarios as tscenarios
 from repro_torch.convert import flatten_params, params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 LM_SMALL = dict(arch_overrides=dict(d_model=64, d_ff=128, num_layers=1), seq_len=16,
                 num_samples=64, vocab_size=128, rounds_per_step=1)

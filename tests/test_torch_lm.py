@@ -12,6 +12,7 @@ federated LM corpora and batches bitwise equal to the reference's.
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,11 @@ import repro_torch.models as tmodels
 from repro_torch.convert import (
     flatten_params, params_from_numpy, params_to_numpy, unflatten_params,
 )
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)

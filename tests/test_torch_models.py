@@ -3,6 +3,8 @@
 Logits, loss and gradients agree within 1e-5 (f32; XLA and oneDNN reduce
 convolutions in different orders).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,11 @@ import torch
 import repro.models as jmodels
 import repro_torch.models as tmodels
 from repro_torch.convert import params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 

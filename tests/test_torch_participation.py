@@ -14,6 +14,8 @@ dense); ``dropout-participation-async`` fires the reference's exact event
 kinds (``cluster``/``skipped``) with ``y`` within 1e-4.  ``"full"``
 participation is bitwise the run without a plan.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -28,6 +30,11 @@ import repro_torch.hetero as thetero
 import repro_torch.participation as tpart
 import repro_torch.scenarios as tscenarios
 from repro_torch.convert import flatten_params, params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 ROUNDS = 12
 SIZES = tuple(float(s) for s in np.random.default_rng(3).uniform(0.5, 2.0, 12))

@@ -2,11 +2,19 @@
 
 The port's numpy copies must give the reference's float64 matrices exactly.
 """
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 import repro_torch.core as tcore
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 CASES = [
     ("ring", lambda m: m.ClusterSpec.uniform(20, 4), 2),

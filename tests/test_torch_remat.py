@@ -34,6 +34,7 @@ card's depth plan (bf16, S = 2048)::
 """
 import dataclasses
 import functools
+import os
 import weakref
 
 import jax
@@ -52,6 +53,11 @@ from repro_torch.convert import (
     flatten_params, params_from_numpy, params_to_numpy, unflatten_params,
 )
 from torch.utils._python_dispatch import TorchDispatchMode
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True, scope="module")

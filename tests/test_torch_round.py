@@ -13,6 +13,7 @@ to the reference the same way, wall-clock included; their eval losses fall
 to about 0.02, so they are compared within 1e-5 absolute.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,11 @@ import repro_torch.models as tmodels
 import repro_torch.optim as toptim
 import repro_torch.scenarios as tscenarios
 from repro_torch.convert import flatten_params, params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 TINY_LM = dict(d_model=64, d_ff=128, num_kv_heads=2, head_dim=16, vocab_size=64)
 
@@ -87,7 +93,8 @@ def test_round_engine_refuses_unported_variants():
     # the participation and mixing operands are ported (test_torch_participation.py,
     # test_torch_faults.py) and so are client-state stores (test_torch_state.py);
     # a mixing stack without weights has no caller, as in the reference; the
-    # gossip engine is ported (the collective backend) and a mesh is not
+    # gossip engine is ported (the collective backend), and so is a client mesh
+    # (test_torch_mesh.py), but not graphs on a mesh
     fl = tcore.FLSpec(num_clients=4, num_clusters=2)
     with pytest.raises(ValueError, match="requires participation=True"):
         tcore.build_fl_round_step(tmodels.MnistCNN(), toptim.sgd(0.1), fl,
@@ -100,9 +107,17 @@ def test_round_engine_refuses_unported_variants():
     rt = tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
                          "backend": None, "impl": "gossip"}, device="cpu")
     assert rt.scheduler.backend.name == "collective"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="mesh must be None, 'auto', or a ClientMesh"):
         tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
                         "backend": None, "impl": "gossip", "mesh": object()}, device="cpu")
+    # binding exchanges nothing, so a mesh without its group reaches the refusal
+    from repro_torch.launch.mesh import ClientMesh
+
+    mesh = ClientMesh(group=None, axis_name="data", size=8, index=0, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4, 'graphs on a mesh'"):
+        tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
+                        "backend": None, "impl": "gossip", "mesh": mesh, "graph": True},
+                       device="cpu")
 
 
 LM_SMALL = dict(arch_overrides=dict(d_model=64, d_ff=128), seq_len=16, num_samples=64)

@@ -7,6 +7,7 @@ and inter events) agree within 1e-4 max abs on the parameters and 1e-4
 relative on the eval loss — XLA and oneDNN reduce convolutions in different
 orders, and the difference compounds over the steps.
 """
+import os
 import ast
 import pathlib
 
@@ -25,6 +26,11 @@ import repro_torch.models as tmodels
 import repro_torch.optim as toptim
 import repro_torch.scenarios as tscenarios
 from repro_torch.convert import params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -131,15 +137,15 @@ def test_backends_default_to_cuda(entry):
 @pytest.mark.parametrize("override,error", [
     # client-state stores run on every scheduler, or raise the reference's own
     # ValueError (a sparse store with no participation plan); mesh "auto" is no
-    # mesh on a host with fewer devices than clients, as in the reference, a
-    # mesh the port cannot honour raises, and the async scheduler takes no mesh
+    # mesh on a host with fewer devices than clients, as in the reference, an
+    # object that is no mesh raises, and the async scheduler takes no mesh
     # (the reference's refuses the key)
     ({"store": {"kind": "host-offload", "k_max": 4}}, ValueError),
     ({"store": "host-offload", "participation": {"strategy": "uniform-k", "k": 2}}, None),
     ({"mesh": "auto"}, "no mesh"),
     ({"mesh": "auto", "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
      "no mesh"),
-    ({"mesh": object()}, NotImplementedError),
+    ({"mesh": object()}, "not a mesh"),
     ({"scenario": "round-compiled-ring", "store": {"kind": "host-offload", "k_max": 4}},
      ValueError),
     ({"scenario": "dropout-participation-async", "num_clients": 8, "theta_max": 2,
@@ -161,6 +167,9 @@ def test_non_default_fleet_raises(override, error):
             build_and_step()
     elif error == "no mesh":
         assert build_and_step().scheduler.mesh is None
+    elif error == "not a mesh":
+        with pytest.raises(ValueError, match="mesh must be None, 'auto', or a ClientMesh"):
+            build_and_step()
     elif error is TypeError:
         with pytest.raises(TypeError, match="unused scenario keys"):
             build_and_step()
@@ -193,14 +202,14 @@ def test_fleet_axes_are_taken_by_every_scheduler(scenario, extra, axis):
 
 def test_store_refusal_names_its_roadmap_item():
     # a store is ported: what it refuses is the reference's (faults need
-    # resident state); the refusal of a mesh the port cannot honour names its
-    # ROADMAP item
+    # resident state); a mesh that is none of None, "auto" and a ClientMesh
+    # is refused by name
     with pytest.raises(ValueError, match="fault injection requires a resident"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400,
                         "store": "host-offload",
                         "faults": [{"kind": "link-down", "round": 1, "link": [0, 1]}]},
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+    with pytest.raises(ValueError, match="exec.mesh must be None, 'auto', or a ClientMesh"):
         tcore.make_run({"scenario": "mnist-iid-ring", "num_samples": 400, "mesh": object()},
                        device="cpu")
     with pytest.raises(TypeError, match="fleet.participation must be"):
@@ -258,6 +267,8 @@ def test_port_imports_neither_jax_nor_reference():
         f.name for f in files if f.parent.name == "serving"}
     assert {"serve.py", "train.py", "mesh.py"} <= {
         f.name for f in files if f.parent.name == "launch"}
+    assert "rules.py" in {f.name for f in files if f.parent.name == "sharding"}
+    assert "shapes.py" in {f.name for f in files if f.parent.name == "configs"}
     assert {"quickstart.py", "async_heterogeneous.py", "train_federated_lm.py",
             "serve_batched.py", "serve_decode.py", "serve_federated.py"} <= {
         f.name for f in files if f.parent.name == "examples"}

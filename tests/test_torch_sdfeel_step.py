@@ -12,6 +12,8 @@ its step applies (its gossip step runs only under ``shard_map`` on a mesh of
 one device a client).  A whole step of the reference's own (inter,
 ``microbatch`` 2, with the round's weights) is held directly too.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,11 @@ import repro_torch.core as tcore
 import repro_torch.models as tmodels
 import repro_torch.optim as toptim
 from repro_torch.convert import params_from_numpy, params_to_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 C, D, B, LR, ATOL = 8, 4, 2, 0.1, 1e-5
 
@@ -110,9 +117,10 @@ def test_step_checks_and_mesh():
     # a local step needs no collective, as in the reference
     tcore.build_fl_train_step(model, opt, tcore.FLSpec(4, 2, impl="gossip"), event="local",
                               device="cpu")
-    # "auto" is no mesh here (fewer devices than clients); a mesh object raises
+    # "auto" is no mesh here (fewer devices than clients, no process group);
+    # an object that is not a ClientMesh raises
     tcore.build_fl_train_step(model, opt, tcore.FLSpec(C, D, impl="gossip"), mesh="auto",
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="'process-group collectives'"):
+    with pytest.raises(ValueError, match="mesh must be None, 'auto', or a ClientMesh"):
         tcore.build_fl_train_step(model, opt, tcore.FLSpec(C, D, impl="gossip"),
                                   mesh=object(), device="cpu")

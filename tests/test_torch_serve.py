@@ -24,6 +24,7 @@ the port's, the reference's weights carried with
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,11 @@ from repro.launch.serve import generate as jgenerate
 from repro.launch.serve import grow_caches as jgrow
 from repro_torch.convert import flatten_params, params_from_numpy
 from repro_torch.launch import serve as tserve
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True, scope="module")

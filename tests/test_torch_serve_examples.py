@@ -3,10 +3,17 @@
 pool), ``examples.serve_batched``, ``serve_decode`` (musicgen's codebooks)
 and ``serve_federated`` (train, serve, hot swap) at tiny sizes; ``--mesh``
 and the CUDA default without a card raise."""
+import os
+
 import pytest
 import torch
 
 from repro_torch.launch import serve as tserve
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 def test_serve_main_and_examples_on_cpu(capsys):

@@ -23,6 +23,7 @@
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import numpy as np
@@ -39,6 +40,11 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.serving import (
     BatchServer, ContinuousFederatedServer, ContinuousServer, FederatedServer, Request,
 )
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,6 +27,11 @@ from repro_torch.models import CausalLM
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving import ContinuousFederatedServer, Request
 
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
+
 BUCKETS = (8, 16)
 GEN_CAP = 10
 

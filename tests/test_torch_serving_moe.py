@@ -12,6 +12,7 @@ budgets, are token for token the reference's at temperature 0, and so are
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import numpy as np
@@ -25,6 +26,11 @@ import repro_torch.configs as tconfigs
 import repro_torch.models as tmodels
 import repro_torch.serving as tserving
 from repro_torch.convert import flatten_params, params_from_numpy
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -41,6 +41,11 @@ import repro_torch.state as tstate
 from repro_torch.convert import params_to_numpy, store_from_numpy
 from repro_torch.models import MnistCNN
 
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
+
 C, D = 8, 4
 UNIFORM_K = {"strategy": "uniform-k", "k": 1}
 

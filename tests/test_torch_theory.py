@@ -4,12 +4,20 @@ The port's ``repro_torch.core.theory`` is a numpy copy of
 ``repro.core.theory``: the same inputs give the same floats, bit for bit,
 and the same refusals.
 """
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import repro.core.theory as jtheory
 import repro_torch.core.theory as ttheory
 from repro_torch.core import ClusterSpec, mixing_matrix, ring, zeta
+
+# six test workers share the host's cores: one intra-op thread each, also
+# in the processes a test starts
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(1)
 
 M = ClusterSpec.uniform(20, 4).m()
 # (tau1, tau2, alpha, zeta, eta, L, sigma2, kappa2)
