@@ -211,7 +211,8 @@ Phases, one result line each; any failure exits non-zero without the final
             counter set to 0 just before the phase and read just after:
             ``federated-lm-ring`` with ``model=CausalLM(...)`` for
             mixtral-8x7b, grok-1-314b, mamba2-780m, jamba-1.5-large-398b
-            (one block of 8 layers) and pixtral-12b, 3 supersteps each,
+            (one block of 8 layers) and pixtral-12b, 3 supersteps of one
+            round each,
             an eager and a graph run under deterministic algorithms (``warn_only``; the ops without
             a deterministic implementation are named) and the profiler:
             graph = eager at 0.0, the graph replayed, kernel runs on the
@@ -358,9 +359,33 @@ Phases, one result line each; any failure exits non-zero without the final
             within 1e-4; the LM path saved and resumed (``resumed from round
             2``, finite losses); a reduced ``build_fl_train_step`` at
             per-client batch 2, ``microbatch=2`` against 1 within 1e-5.
+21. steps    the step builders of ``launch.steps`` on a ``(data=1,
+            model=1)`` NCCL ``DeviceMesh`` (one rank): ``build_serve`` of
+            granite-8b at its published widths and 36 layers (bf16) on
+            decode_32k cut to batch 4, a full 32,768-slot cache, 4 decode
+            steps through ``make_decode_impl`` (the third wraps the ring),
+            bitwise ``CausalLM.decode_step`` on a copy of the cache;
+            ``build_prefill`` on prefill_32k cut to batch 1, bitwise
+            ``CausalLM.prefill``, its 36 flash forwards on the tensor-core
+            route; ``build_train`` at lm-width's cut (C = 4 in D = 2 on the
+            rank, ``impl="dense"``), its flash forward and backward and
+            ``fused_transition`` run on the device, against
+            ``build_fl_train_step`` within one bf16 ulp of each leaf's
+            largest magnitude.  ms a decode step and a prefill (CUDA events)
+            and the peak memory.
 
 The smoke's total time, build included, and each phase's are printed
 before the kernels line.
+
+A profiler session sometimes loses device records (``ROADMAP.md`` §3),
+which falsifies a launch count and nothing else.
+``kernels.device_kernel_names`` notes each graph replay whose every record
+was lost (a recorded ``cudaGraphLaunch`` no CUDA record shares a
+correlation id with), and each phase prints how many its sessions lost.  A
+phase that fails after such a loss, or on ``ShortSessionError`` (an eager
+session with fewer device runs than host launches), runs once more, from
+the start, and is held exactly as before; a phase that fails otherwise, or
+fails twice, fails the run.
 
 ``--phases NAME ...`` runs only those phases (after device and build) and
 prints no kernels or result line: a development run.
@@ -380,6 +405,8 @@ phase's mnist-noniid-ring run), the transition and SGD
 ``moe_width``/``ssm_width``/``gemma2_width`` (their trees) and
 ``ssm_width_launches``, ``fleet_host_launches`` and
 ``offload_host_launches`` the fleet and offload phases' host counts, the
+flash and transition entries' ``steps_launches`` their device runs in the
+steps phase's train step, the
 transition's ``offload_maxd8`` its D = 8 numbers, and gossip_mix's
 ``by_value_ab`` its A/B against the by-value kernel at MNIST); the async
 kernels' ``launches`` are their runs on the device in the async phase's
@@ -480,6 +507,11 @@ FAMILY_STEPS = 3
 # layers a family lane keeps where reduced() has more: jamba's one block of 8
 # (attention at offset 4, MoE every second layer), for the phase's time
 FAMILY_LAYERS = {"jamba-1.5-large-398b": 8}
+# the family lanes' supersteps, cut to make room for the steps phase: one
+# round (4 iterations, an intra and an inter event) where the scenario takes
+# two (on the H100 the phase took 177.3 s at two, jamba's
+# lane 87.9 of it, and 156.5 with jamba's alone at one, jamba 58.3)
+FAMILY_ROUNDS_PER_STEP = 1
 # families whose training amplifies f32 rounding so fast that two runs of the
 # same math drift apart within a superstep: reduced jamba (16 layers, or the
 # lane's 8, at the scenario's learning rate 0.1; the CPU's plain versions
@@ -511,6 +543,24 @@ SERVE_FAMILIES = ("granite-8b", "mixtral-8x7b", "gemma2-2b", "mamba2-780m",
 SERVE_WIDTH = dict(replicas=2, max_batch=8, buckets=(512, 1024, 2048), gen_cap=256,
                    chunk_steps=8, requests=32, prompt_lens=(512, 1024, 2048))
 SERVE_FULL_CHUNKS = 4  # chunk replays timed with every slot active
+# the steps phase: granite-8b's decode_32k cut to this batch and these decode
+# steps (from position 32,766: the third wraps the ring), and lm-width's
+# model in C = 4 clients, D = 2 clusters stacked on the rank
+STEPS_DECODE = dict(batch=4, steps=4)
+STEPS_TRAIN = dict(clients=4, clusters=2)
+# the steps phase's gradient check: a local step (no transition, the update
+# is the gradient alone) of lm-width's model with f32 weights and bf16
+# activations, so each update spans hundreds of f32 ulps of its weight at
+# this learning rate, in C = D = 2
+STEPS_LOCAL = dict(clients=2, clusters=2, learning_rate=1.0)
+# limits on each leaf's |update - the direct step's update| / |the direct
+# step's update|: after the inter step (the transition's mixing dominates
+# the update) and after the local step (the gradient alone).  On the H100
+# the gaps were 1.6e-7 (the head; the transition, fused_transition against
+# the dense product) and 0.0 at every leaf; a skipped update gives 1, a
+# wrong gradient about as much, and 1e-2 leaves room for another GEMM
+# algorithm between the per-client and the vmapped step
+STEPS_UPDATE_TOL = dict(inter=1e-5, local=1e-2)
 # the collective-width phase: lm-width's model (LM_WIDTH) in C = 8 clients,
 # D = 4 clusters (g = 2, a power of two, as the hypercube needs)
 COLLECTIVE_WIDTH = dict(clients=8, clusters=4)
@@ -527,6 +577,7 @@ WIDTH_PARTS = (("flash", ("flash_",)), ("sgd_update", ("sgd_update_kernel",)),
 # and three inter events, so each event kind's graph warms up on its first
 # call, captures on its second and is replayed twice
 SYNC_ITERS = 30
+PHASE_ATTEMPTS = 2  # a phase runs again only after a session in it lost device records
 # the fleet phase: chaos-ring supersteps a run (12 rounds at R = 2, past every
 # fault event and server 2's rejoin), warm steps timed after the held runs,
 # and each baseline's iterations
@@ -630,19 +681,54 @@ class Smoke:
         if self.only is not None and name not in self.only:
             return
         t0 = time.perf_counter()
-        try:
-            fn()
-        except Exception:  # report every phase, then fail the run
-            traceback.print_exc()
-            self.failed.append(name)
-            print(f"[{name}] FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
-        else:
-            print(f"[{name}] ok in {time.perf_counter() - t0:.1f}s", flush=True)
+        for attempt in range(1, PHASE_ATTEMPTS + 1):
+            seen = len(self.session_losses())
+            try:
+                fn()
+            except Exception as err:  # report every phase, then fail the run
+                traceback.print_exc()
+                lost = self.note_losses(name, seen)
+                short = type(err).__name__ == "ShortSessionError"  # records lost, by definition
+                if (lost or short) and attempt < PHASE_ATTEMPTS:
+                    print(f"[{name}] failed after {lost} of its profiler sessions lost graph "
+                          f"replays' records{' and an eager session came back short' * short}; "
+                          f"the phase runs again", flush=True)
+                    self.detail.setdefault("phases_run_again", []).append(name)
+                    gc.collect()
+                    self.torch.cuda.synchronize()
+                    continue
+                self.failed.append(name)
+                print(f"[{name}] FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
+            else:
+                self.note_losses(name, seen)
+                print(f"[{name}] ok in {time.perf_counter() - t0:.1f}s", flush=True)
+            break
         self.detail.setdefault("phase_seconds", {})[name] = time.perf_counter() - t0
         # what a phase left (its runs, their graphs, pools and staged batches,
         # also when it failed) is freed before the next phase captures
         gc.collect()
         self.torch.cuda.synchronize()
+
+    @staticmethod
+    def session_losses() -> list:
+        """``kernels.device_kernel_names.losses``: the graph replays (or an
+        empty session's launches), a list for each profiler session that lost
+        some, whose device records were lost (none before the kernels package
+        is imported)."""
+        kernels = sys.modules.get("repro_torch.kernels")
+        return kernels.device_kernel_names.losses if kernels is not None else []
+
+    def note_losses(self, name, seen) -> int:
+        """Print and keep the losses of the sessions since the ``seen``-th;
+        how many sessions lost records."""
+        new = self.session_losses()[seen:]
+        if new:
+            print(f"  {name}: {len(new)} profiler sessions lost every device record of "
+                  f"{[len(lost) for lost in new]} recorded launches; first "
+                  f"{[lost[:3] for lost in new[:3]]}", flush=True)
+            self.detail.setdefault("session_losses", {}).setdefault(name, []).extend(
+                lost[:20] for lost in new)
+        return len(new)
 
     def cuda_ms(self, fn, reps=20, warmup=3) -> float:
         torch = self.torch
@@ -3019,7 +3105,8 @@ class Smoke:
 
     def family_lane(self, name) -> dict:
         """``FAMILY_STEPS`` supersteps of federated-lm-ring on ``name``'s reduced
-        model (cut to ``FAMILY_LAYERS``): an eager and a graph run under
+        model (cut to ``FAMILY_LAYERS``, supersteps of ``FAMILY_ROUNDS_PER_STEP``): an
+        eager and a graph run under
         deterministic algorithms
         and the profiler (kernel runs on the device exactly
         ``lm_launches``: flash per attention layer, the leaf-table kernels
@@ -3043,6 +3130,7 @@ class Smoke:
 
         def drive(graph, impl="cuda", **kw):
             gc.collect()
+            kw = {"rounds_per_step": FAMILY_ROUNDS_PER_STEP, **kw}
             model = CausalLM(dataclasses.replace(cfg, attn_impl=impl))
             before = self.host_counts()
             (run, dt, losses), ran = device_launches(
@@ -5061,6 +5149,268 @@ class Smoke:
         finally:
             dist.destroy_process_group()
 
+    def steps(self):
+        """The step builders of ``launch.steps`` on a ``(data=1, model=1)``
+        ``DeviceMesh`` over one NCCL rank (``make_test_mesh``; the group made
+        on a free local port with a timeout, destroyed at the end).
+        ``build_serve``: granite-8b at its published widths and depth (36
+        layers, bf16, random weights from a seed) on ``decode_32k`` cut to
+        batch ``STEPS_DECODE["batch"]``, against a full cache (random K/V in
+        every one of the 32,768 slots, slot i at position i), decode steps
+        at positions 32,766 on, the third wrapping the ring to slot 0, each
+        through ``make_decode_impl`` and held bitwise against
+        ``CausalLM.decode_step`` without it on the same weights, tokens and
+        a copy of the cache (logits and caches); ``build_prefill`` on
+        ``prefill_32k`` cut to batch 1, held bitwise against
+        ``CausalLM.prefill`` (last logits and all 36 layers' caches), every
+        flash forward on the tensor-core route; ``build_train`` at
+        ``lm-width``'s cut (2 layers, C = 4 in D = 2 stacked on the rank,
+        ``impl="dense"``, S = 2048), its flash forward and backward and
+        ``fused_transition`` counted on the device (``device_launches``,
+        counters set to 0 just before and read just after), held against
+        ``build_fl_train_step`` called directly: each leaf's update (result
+        minus start) within ``STEPS_UPDATE_TOL["inter"]`` of the direct
+        step's, relative to its norm, and the loss within 1e-3 relative;
+        then the gradient alone, a local step at ``STEPS_LOCAL`` (f32
+        weights, bf16 activations) within ``STEPS_UPDATE_TOL["local"]``.
+        Prints ms a decode step, a prefill and a train step (CUDA events;
+        the train step and the direct one both warm and unprofiled) and the
+        peak memory."""
+        import dataclasses
+        import datetime
+        import gc
+        import socket
+
+        import numpy as np
+        import torch.distributed as dist
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import SHAPES, InputShape
+        from repro_torch.core import FLSpec, build_fl_train_step
+        from repro_torch.kernels import device_launches, flash_attention_fwd
+        from repro_torch.launch import build_prefill, build_serve, build_train, make_test_mesh
+        from repro_torch.models import CausalLM
+        from repro_torch.optim import sgd
+
+        def events_ms(fn):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            return out, start.elapsed_time(end)
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            res = {"nvidia_smi": self.smi}
+            mesh = make_test_mesh(1, 1)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cfg = get_config("granite-8b")
+            plain = CausalLM(cfg)
+            params = {k: v[0] for k, v in self.random_stack(cfg, 1).items()}
+            rng = np.random.default_rng(0)
+
+            # -- serve: decode_32k cut to a small batch, through make_decode_impl
+            b, sc = STEPS_DECODE["batch"], SHAPES["decode_32k"].seq_len
+            serve, abstract = build_serve(cfg, InputShape("decode_32k", sc, b, "decode"), mesh)
+            gen = torch.Generator(device=self.dev).manual_seed(1)
+            cache = {}
+            for k, v in abstract[1].items():
+                if k.endswith(".pos"):
+                    cache[k] = torch.arange(sc, dtype=torch.int32, device=self.dev).expand(
+                        v.shape).contiguous()
+                    continue
+                cache[k] = torch.empty(v.shape, dtype=v.dtype, device=self.dev)
+                for i in range(v.shape[0]):  # a block at a time: small f32 scratch
+                    cache[k][i] = torch.randn(v.shape[1:], generator=gen, device=self.dev)
+            ref = {k: v.clone() for k, v in cache.items()}
+            cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+            decode_ms, plain_ms, mism = [], [], []
+            for t in range(STEPS_DECODE["steps"]):
+                pos = sc - 2 + t
+                tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).to(
+                    self.dev)
+                (logits, cache), ms = events_ms(lambda: serve(params, cache, tok, pos))
+                (want, ref), pms = events_ms(lambda: plain.decode_step(params, tok, ref, pos))
+                decode_ms.append(ms)
+                plain_ms.append(pms)
+                got = logits.full_tensor()
+                if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+                    mism.append((pos, (got - want).abs().max().item()))
+            bad = [k for k, v in cache.items() if not torch.equal(v.to_local(), ref[k])]
+            if mism or bad:
+                raise AssertionError(f"steps: decode_impl vs decode_step: logits {mism}, "
+                                     f"caches {bad[:4]}")
+            wrapped = int(cache["pos0.pos"].to_local()[0, 0])
+            if wrapped != sc:
+                raise AssertionError(f"steps: slot 0 holds position {wrapped}, not {sc}")
+            del cache, ref, logits, want, got
+            gc.collect()
+            print(f"steps [{self.smi}]: build_serve granite-8b (36 layers, bf16) decode_32k at "
+                  f"batch {b} on a (1, 1) DeviceMesh, cache {cache_bytes / 1e9:.2f} GB: "
+                  f"{STEPS_DECODE['steps']} steps at positions {sc - 2}.. (the ring wrapped to "
+                  f"slot 0), bitwise CausalLM.decode_step (logits and caches); ms a step "
+                  f"{json.dumps([round(x, 3) for x in decode_ms])} (plain decode_step "
+                  f"{json.dumps([round(x, 3) for x in plain_ms])}; CUDA events, the first "
+                  f"warm-up included)", flush=True)
+            res["serve"] = {"batch": b, "cache_len": sc, "cache_bytes": cache_bytes,
+                            "decode_ms": decode_ms, "plain_decode_ms": plain_ms,
+                            "bitwise": True, "wrapped_slot0_pos": wrapped}
+
+            # -- prefill: prefill_32k cut to batch 1
+            s = SHAPES["prefill_32k"].seq_len
+            prefill, _ = build_prefill(cfg, InputShape("prefill_32k", s, 1, "prefill"), mesh)
+            batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s)).astype(
+                np.int32)).to(self.dev)}
+            tc = flash_attention_fwd.routes.get("tensor_core", 0)
+            (out, ms_first), ran = device_launches(lambda: events_ms(
+                lambda: prefill(params, batch)))
+            tc_launches = flash_attention_fwd.routes.get("tensor_core", 0) - tc
+            _, ms = events_ms(lambda: prefill(params, batch))
+            want, plain_pms = events_ms(lambda: plain.prefill(params, batch))
+            logits, caches = out
+            # the positions' caches come out plain (made from a plain arange)
+            full = lambda v: v.full_tensor() if hasattr(v, "full_tensor") else v  # noqa: E731
+            bad = [k for k, v in caches.items() if not torch.equal(full(v), want[1][k])]
+            if not torch.equal(full(logits), want[0]) or bad:
+                raise AssertionError(f"steps: build_prefill vs CausalLM.prefill: caches {bad[:4]}")
+            n_attn = cfg.num_layers
+            if ran.get("flash_attention_fwd.tensor_core") != n_attn or tc_launches != n_attn:
+                raise AssertionError(f"steps: prefill flash forwards {ran} (want {n_attn} on "
+                                     f"the tensor-core route)")
+            del out, logits, caches, want
+            gc.collect()
+            print(f"  build_prefill granite-8b prefill_32k at batch 1: {ms:.1f} ms a prefill "
+                  f"(first {ms_first:.1f}; plain CausalLM.prefill {plain_pms:.1f}; CUDA events), "
+                  f"bitwise (last logits, 36 layers' caches); flash forwards on the device "
+                  f"{ran.get('flash_attention_fwd.tensor_core')} on the tensor-core route",
+                  flush=True)
+            res["prefill"] = {"seq": s, "ms": ms, "first_ms": ms_first, "plain_ms": plain_pms,
+                              "bitwise": True, "device_runs": ran}
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            serve_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+            # -- train: lm-width's cut, C = 4 in D = 2 stacked on the rank
+            tcfg = dataclasses.replace(get_config("granite-8b"), vocab_size=LM_WIDTH["vocab_size"],
+                                       **LM_WIDTH["arch_overrides"])
+            c, d = STEPS_TRAIN["clients"], STEPS_TRAIN["clusters"]
+            fl = FLSpec(c, d, tau1=1, tau2=1, alpha=1, learning_rate=0.01, impl="dense")
+            seq = LM_WIDTH["seq_len"]
+            train, _ = build_train(tcfg, InputShape("lm-width", seq, c, "train"), mesh, fl=fl)
+            direct = build_fl_train_step(CausalLM(tcfg), sgd(0.01), fl, device=self.dev)
+            stack = self.random_stack(tcfg, c)
+
+            def train_batch(cfg, clients):
+                toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (clients, 1, seq + 1))
+                                        .astype(np.int32)).to(self.dev)
+                return {"tokens": toks[..., :-1].contiguous(),
+                        "labels": toks[..., 1:].contiguous()}
+
+            def fresh(tree):
+                return {k: v.clone() for k, v in tree.items()}
+
+            def update_gaps(start, got, want):
+                """Each leaf's |got - want| / |want - start|: the two steps'
+                updates of the same start, held against the direct one's."""
+                gaps = {}
+                for k, w in want.items():
+                    dw = w.float() - start[k].float()
+                    dg = got[k].float() - start[k].float()
+                    norm = float(dw.norm())
+                    gap = float((dg - dw).norm())
+                    # a leaf that neither step moves (an update under half
+                    # its weight's ulp) has no gap
+                    gaps[k] = gap / norm if norm else (0.0 if gap == 0 else float("inf"))
+                return gaps
+
+            tbatch = train_batch(tcfg, c)
+            counters = self.lm_counters()
+            (got, _, loss), ran = device_launches(lambda: train(fresh(stack), (), tbatch))
+            host = {k: fn.launches for k, fn in counters.items()}
+            need = ("flash_attention_fwd", "flash_attention_bwd", "fused_transition")
+            if not all(ran.get(k) for k in need):
+                raise AssertionError(f"steps: train kernel runs on the device {ran}")
+            got = {k: v.full_tensor() for k, v in got.items()}
+            want, _, want_loss = direct(fresh(stack), (), tbatch)
+            inter_gap = update_gaps(stack, got, want)
+            rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+            del got, want
+            # both steps timed the same way: warm, CUDA events, no profiler
+            _, train_ms = events_ms(lambda: train(fresh(stack), (), tbatch))
+            _, direct_ms = events_ms(lambda: direct(fresh(stack), (), tbatch))
+            train_peak = torch.cuda.max_memory_allocated()
+            del stack
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the gradient path: a local step with f32 weights, the update
+            # -lr * grad alone
+            lcfg = dataclasses.replace(tcfg, dtype="float32", activation_dtype="bfloat16")
+            lc, lr = STEPS_LOCAL["clients"], STEPS_LOCAL["learning_rate"]
+            lfl = FLSpec(lc, STEPS_LOCAL["clusters"], tau1=1, tau2=1, alpha=1,
+                         learning_rate=lr, impl="dense")
+            ltrain, _ = build_train(lcfg, InputShape("lm-width", seq, lc, "train"), mesh, fl=lfl,
+                                    event="local")
+            ldirect = build_fl_train_step(CausalLM(lcfg), sgd(lr), lfl, event="local",
+                                          device=self.dev)
+            lstack, lbatch = self.random_stack(lcfg, lc, seed=1), train_batch(lcfg, lc)
+            lgot, _, lloss = ltrain(fresh(lstack), (), lbatch)
+            lgot = {k: v.full_tensor() for k, v in lgot.items()}
+            lwant, _, lwant_loss = ldirect(fresh(lstack), (), lbatch)
+            local_gap = update_gaps(lstack, lgot, lwant)
+            still = [k for k, w in lwant.items() if torch.equal(w, lstack[k])]
+            if still:
+                raise AssertionError(f"steps: the local step left leaves unchanged: {still}")
+            lrel = abs(float(lloss) - float(lwant_loss)) / abs(float(lwant_loss))
+            del lgot, lwant, lstack
+            gc.collect()
+            torch.cuda.empty_cache()
+            worst_inter, worst_local = (max(g, key=g.get) for g in (inter_gap, local_gap))
+            if (inter_gap[worst_inter] > STEPS_UPDATE_TOL["inter"]
+                    or local_gap[worst_local] > STEPS_UPDATE_TOL["local"]
+                    or not rel <= 1e-3 or not lrel <= 1e-3):
+                raise AssertionError(
+                    f"steps: build_train vs build_fl_train_step: update gap inter {worst_inter} "
+                    f"{inter_gap[worst_inter]:.3e} (tol {STEPS_UPDATE_TOL['inter']}), local "
+                    f"{worst_local} {local_gap[worst_local]:.3e} (tol "
+                    f"{STEPS_UPDATE_TOL['local']}), loss rel {rel:.3e} / {lrel:.3e}")
+            for kname, key in (("flash_attention", "flash_attention_fwd"),
+                               ("flash_attention_backward", "flash_attention_bwd"),
+                               ("fused_transition", "fused_transition")):
+                self.record[kname]["steps_launches"] = ran[key]
+            print(f"  build_train lm-width cut (granite widths, 2 layers, C={c} in D={d} on the "
+                  f"rank, impl dense, S={seq}, bf16): {train_ms:.1f} ms a step (build_fl_train_step "
+                  f"directly {direct_ms:.1f}; CUDA events, both warm, neither profiled); kernel "
+                  f"runs on the device {json.dumps(ran)}, host launches {json.dumps(host)}; "
+                  f"against build_fl_train_step, each leaf's update gap relative to the direct "
+                  f"update: inter step worst {worst_inter} {inter_gap[worst_inter]:.3e} (tol "
+                  f"{STEPS_UPDATE_TOL['inter']}), local step (f32 weights, bf16 activations, "
+                  f"C={lc}, lr {lr}) worst {worst_local} {local_gap[worst_local]:.3e} (tol "
+                  f"{STEPS_UPDATE_TOL['local']}); loss {float(loss):.6f} vs "
+                  f"{float(want_loss):.6f}, local {float(lloss):.6f} vs {float(lwant_loss):.6f} "
+                  f"(rel tol 1e-3); peak memory serve+prefill {serve_peak / 2**30:.2f} GiB, "
+                  f"train {train_peak / 2**30:.2f} GiB", flush=True)
+            print(f"  update gaps by leaf: inter {json.dumps(inter_gap)}; local "
+                  f"{json.dumps(local_gap)}", flush=True)
+            res["train"] = {"ms": train_ms, "direct_ms": direct_ms, "device_runs": ran,
+                            "host_launches": host, "update_gap_inter": inter_gap,
+                            "update_gap_local": local_gap, "loss": float(loss),
+                            "direct_loss": float(want_loss), "local_loss": float(lloss),
+                            "local_direct_loss": float(lwant_loss)}
+            res["peak_bytes"] = {"serve_prefill": serve_peak, "train": train_peak}
+            self.detail["steps"] = res
+        finally:
+            dist.destroy_process_group()
+
     def launch(self):
         """The training CLI on the card through ``repro_torch.launch.train.main``:
         ``--scenario list``; ``mnist-noniid-ring`` 20 iterations on the auto
@@ -5170,6 +5520,7 @@ class Smoke:
             self.phase("collective-width", self.collective_width)
             self.phase("mesh", self.mesh)
             self.phase("launch", self.launch)
+            self.phase("steps", self.steps)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
         self.detail["total_seconds"] = time.perf_counter() - self.t0
@@ -5195,7 +5546,7 @@ class Smoke:
                           "ssm_width_launches", "ssm_width", "mixtral_width", "hd160",
                           "gemma2_global", "gemma2_width_launches", "gemma2_width",
                           "serve_width", "collective_width_launches", "collective_width",
-                          "launch_host_launches"):
+                          "launch_host_launches", "steps_launches"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

@@ -35,7 +35,12 @@ receives from its source.  ``hypercube_allreduce_on_mesh`` and
 The consensus is ``fleet_weighted_sum`` (an all-reduce of ``m_i x_i``), the
 cluster models ``cluster_sums_on_mesh``; ``gather_rows_to_host`` brings the
 rows to one rank's host for a checkpoint, and ``gather_rows`` all-gathers
-them into the ``(C, ...)`` stack on every rank.
+them into the ``(C, ...)`` stack on every rank.  The dense transition on a
+mesh is ``dense_transition_on_mesh``: the rows gathered, then this rank's
+column of the Lemma-1 matrix applied, as XLA's gather does for the
+reference's dense step on a sharded client axis.  A mesh's peers are named
+by their global rank, so it may span any group (a ``DeviceMesh``'s ``data``
+dimension among them).
 
 ``backends.CollectiveBackend`` is the scheduler-facing interface over the
 gossip form, ``DenseBackend`` over the dense one.
@@ -57,6 +62,7 @@ __all__ = [
     "hypercube_allreduce_on_mesh",
     "ring_gossip_on_mesh",
     "gather_rows",
+    "dense_transition_on_mesh",
     "fleet_weighted_sum",
     "cluster_sums_on_mesh",
     "gather_rows_to_host",
@@ -202,6 +208,16 @@ def ring_mixing_weights(p_matrix: np.ndarray) -> tuple[np.ndarray, np.ndarray, n
 # The same form on a client mesh: one client a rank, point-to-point messages
 # --------------------------------------------------------------------------
 
+def _global(mesh, rank: int) -> int:
+    """The global rank of ``mesh``'s ``rank``-th member: ``torch.distributed``
+    names a peer by its rank in the default group, whatever group a message
+    goes through (a mesh over a subgroup, as a ``DeviceMesh``'s ``data``
+    dimension, has members whose ranks differ from their index)."""
+    import torch.distributed as dist
+
+    return dist.get_global_rank(mesh.group, rank)
+
+
 def _exchange(mesh, pairs: list) -> list:
     """One output per ``(tensor, perm)`` of ``pairs``, where ``perm`` lists
     ``(source, destination)`` ranks, with all of their messages in one
@@ -219,10 +235,10 @@ def _exchange(mesh, pairs: list) -> list:
             if src == me and dst == me:
                 out = x.clone()
             elif src == me:
-                ops.append(dist.P2POp(dist.isend, x, dst, group))
+                ops.append(dist.P2POp(dist.isend, x, _global(mesh, dst), group))
             elif dst == me:
                 out = torch.empty_like(x)
-                ops.append(dist.P2POp(dist.irecv, out, src, group))
+                ops.append(dist.P2POp(dist.irecv, out, _global(mesh, src), group))
         outs.append(torch.zeros_like(x) if out is None else out)
     if ops:
         for req in dist.batch_isend_irecv(ops):
@@ -310,6 +326,20 @@ def gather_rows(tree: dict, mesh, out: dict | None = None) -> dict:
     return out
 
 
+def dense_transition_on_mesh(row: dict, mesh, t_matrix: torch.Tensor) -> dict:
+    """``W <- W @ T`` on a client mesh: this rank's ``(1, ...)`` row of the
+    result, ``sum_j T[j, index] W_j``, leaf by leaf.  Each leaf's rows are
+    all-gathered into the ``(C, ...)`` stack and mixed in f32 by this rank's
+    column of the ``(C, C)`` matrix, then cast to the leaf's dtype, the
+    arithmetic of ``apply_transition_dense`` for one output row."""
+    col = t_matrix.float()[:, mesh.index:mesh.index + 1]
+    out = {}
+    for k, v in row.items():
+        stack = gather_rows({k: v}, mesh)[k]
+        out[k] = torch.tensordot(col, stack.float(), dims=([0], [0])).to(v.dtype)
+    return out
+
+
 def fleet_weighted_sum(tree: dict, mesh, weights: torch.Tensor) -> dict:
     """``sum_i w_i x_i`` over the ranks' ``(1, ...)`` rows, in f32, the same on
     every rank: each rank scales its row by its own entry of the ``(C,)``
@@ -342,7 +372,7 @@ def cluster_sums_on_mesh(tree: dict, mesh, cluster_size: int, weights: torch.Ten
         for d in range(d_count):
             if d == own:
                 stack[d].copy_(y)
-            dist.broadcast(stack[d], src=d * cluster_size, group=mesh.group)
+            dist.broadcast(stack[d], src=_global(mesh, d * cluster_size), group=mesh.group)
         out[k] = stack
     return out
 
@@ -359,14 +389,14 @@ def gather_rows_to_host(tree: dict, mesh, dst: int = 0) -> dict | None:
     for k, v in tree.items():
         v = v.contiguous()
         if out is None:
-            dist.send(v, dst, group=mesh.group)
+            dist.send(v, _global(mesh, dst), group=mesh.group)
             continue
         host = torch.empty((mesh.size,) + tuple(v.shape[1:]), dtype=v.dtype, device="cpu")
         host[dst].copy_(v[0])
         buf = torch.empty_like(v)
         for r in range(mesh.size):
             if r != dst:
-                dist.recv(buf, r, group=mesh.group)
+                dist.recv(buf, _global(mesh, r), group=mesh.group)
                 host[r].copy_(buf[0])
         out[k] = host
     return out

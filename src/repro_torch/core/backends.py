@@ -67,6 +67,7 @@ import torch
 from .aggregation import (
     apply_transition_dense,
     dense_gossip_reference,
+    dense_transition_on_mesh,
     hypercube_allreduce_on_mesh,
     hypercube_cluster_allreduce,
     ring_gossip,
@@ -137,14 +138,24 @@ def _f32(x, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class DenseBackend:
-    """Lemma-1 matrix products — correct for every cluster layout."""
+    """Lemma-1 matrix products — correct for every cluster layout.
+
+    With ``mesh`` (a ``launch.mesh.ClientMesh`` of C ranks) ``transition``
+    takes this rank's ``(1, ...)`` row and returns its row of the product
+    (``aggregation.dense_transition_on_mesh``: the rows gathered, this
+    rank's column of ``T_k`` applied)."""
 
     name = "dense"
 
-    def __init__(self, clusters: ClusterSpec, p: np.ndarray, alpha: int, device=None):
+    def __init__(self, clusters: ClusterSpec, p: np.ndarray, alpha: int, device=None,
+                 mesh=None):
+        if mesh is not None and mesh.size != clusters.num_clients:
+            raise ValueError(f"mesh axis {mesh.axis_name!r} has size {mesh.size}, need one "
+                             f"rank a client ({clusters.num_clients})")
         self.clusters = clusters
         self.alpha = alpha
-        dev = resolve_device(device)
+        self.mesh = mesh
+        dev = mesh.device if mesh is not None else resolve_device(device)
         self.device = dev
         # static path: P^alpha and T_k in float64 on the host, then f32
         self._t = {e: _f32(_t_matrix(clusters, p, alpha, e), dev) for e in ("intra", "inter")}
@@ -166,20 +177,29 @@ class DenseBackend:
     def inter_cluster(self, y: dict, p: torch.Tensor, alpha: int = 1) -> dict:
         return dense_gossip_reference(y, torch.as_tensor(p, device=self.device), alpha)
 
-    def transition(self, stacked: dict, event: AggregationEvent,
-                   weights: Optional[torch.Tensor] = None,
-                   p: Optional[torch.Tensor] = None) -> dict:
-        if event == "local":
-            return stacked
+    def t_matrix(self, event: AggregationEvent, weights: Optional[torch.Tensor] = None,
+                 p: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The ``(C, C)`` f32 ``T_k`` of a non-local event with the call's
+        ``weights`` and ``p``."""
         if p is not None and event == "inter":
             # per-call mixing matrix: P^alpha in f32 on the device (the
             # static path's P^alpha is float64 on the host)
             w = self._m_hat_full if weights is None else weights
             p_a = torch.linalg.matrix_power(_f32(p, self.device), self.alpha)
-            return apply_transition_dense(stacked, self._v(w) @ (p_a @ self._m_event["intra"]))
+            return self._v(w) @ (p_a @ self._m_event["intra"])
         if weights is None:
-            return apply_transition_dense(stacked, self._t[event])
-        return apply_transition_dense(stacked, self._v(weights) @ self._m_event[event])
+            return self._t[event]
+        return self._v(weights) @ self._m_event[event]
+
+    def transition(self, stacked: dict, event: AggregationEvent,
+                   weights: Optional[torch.Tensor] = None,
+                   p: Optional[torch.Tensor] = None) -> dict:
+        if event == "local":
+            return stacked
+        t = self.t_matrix(event, weights, p)
+        if self.mesh is not None:
+            return dense_transition_on_mesh(stacked, self.mesh, t)
+        return apply_transition_dense(stacked, t)
 
 
 # ---------------------------------------------------------------------------
@@ -464,8 +484,9 @@ def resolve_backend(spec, clusters: ClusterSpec, p: np.ndarray, alpha: int,
     if mesh is None:
         return BACKEND_REGISTRY[name](clusters, np.asarray(p, np.float64), alpha, device=device)
     if name != "collective":
-        # a rank holds one client's row; the reference's dense product over a
-        # sharded axis is a gather the port does not make
+        # a rank holds one client's row; the schedulers exchange rows through
+        # the collective backend (build_fl_train_step's dense step takes
+        # DenseBackend(mesh=) directly)
         raise ValueError(
             f"backend {name!r} on a client mesh: a rank holds one client, so only the "
             f"collective backend runs there (a ring stencil, D >= 3, uniform contiguous "

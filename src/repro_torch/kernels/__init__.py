@@ -18,6 +18,11 @@ names to the wrappers (keys ``<wrapper>`` and ``<wrapper>.<route>``);
 run each host launch is one device run, so ``check_eager_session(ran,
 host)`` raises ``ShortSessionError``, naming the kernels whose records are
 missing, when a session counted fewer runs than the wrappers launched.
+A session that kept some device records but lost every record of a graph
+replay it launched (a ``cudaGraphLaunch`` whose CUPTI correlation id, which
+the replay's kernels share, no CUDA record carries) appends those launches
+to ``device_kernel_names.losses``, so a caller can tell a short count from
+a lost record.
 """
 import re
 
@@ -115,8 +120,15 @@ def device_kernel_names(fn):
     and a synchronize, before it stops.  On the H100 a session sometimes
     comes back with none of its kernel records though the host's launch is
     recorded; such a session raises ``EmptySessionError`` rather than
-    return a short count.  ``kernels.session_check`` counts how often, and
-    ``ROADMAP.md`` §3 keeps the record."""
+    return a short count.  A session that lost every record of some graph
+    replays returns what it saw and appends ``[("cudaGraphLaunch", ms from
+    the session's start), ...]`` of those replays to
+    ``device_kernel_names.losses`` (an empty session appends its launches
+    too).  A kernel launch without a record is not taken for a loss: a
+    launch made while a stream captures a graph runs nothing, and on the
+    H100 one to three others a session, at the same offsets run to run,
+    have none where no count falls short.  ``kernels.session_check``
+    counts how often, and ``ROADMAP.md`` §3 keeps the record."""
     import time
 
     import torch
@@ -130,14 +142,25 @@ def device_kernel_names(fn):
         time.sleep(MARGIN_S)
     res = prof.profiler.kineto_results
     events = list(res.events())
-    names = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
-    if not names:
-        t0 = res.trace_start_ns() if hasattr(res, "trace_start_ns") else 0
-        host = [(e.name(), round((e.start_ns() - t0) / 1e6, 3)) for e in events
+    cuda = [e for e in events if e.device_type() == DeviceType.CUDA]
+    launches = [e for e in events
                 if e.device_type() != DeviceType.CUDA and e.name() in HOST_LAUNCH_CALLS]
-        if host:
-            raise EmptySessionError(host)
-    return out, names
+    t0 = res.trace_start_ns() if hasattr(res, "trace_start_ns") else 0
+    at = lambda e: (e.name(), round((e.start_ns() - t0) / 1e6, 3))
+    if not cuda:
+        if launches:
+            device_kernel_names.losses.append([at(e) for e in launches])
+            raise EmptySessionError([at(e) for e in launches])
+        return out, []
+    ran = {e.correlation_id() for e in cuda}
+    lost = [at(e) for e in launches
+            if e.name() == "cudaGraphLaunch" and e.correlation_id() not in ran]
+    if lost:
+        device_kernel_names.losses.append(lost)
+    return out, [e.name() for e in cuda]
+
+
+device_kernel_names.losses = []
 
 
 def device_launches(fn):

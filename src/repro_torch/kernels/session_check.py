@@ -1,6 +1,6 @@
 """Repeated profiler sessions: does ``device_launches`` ever come back short?
 
-    python -m repro_torch.kernels.session_check [--sessions 1000] [--runs 3] [--only async]
+    python -m repro_torch.kernels.session_check [--sessions 1000] [--runs 3] [--only async|cifar]
 
 A session counts, from ``torch.profiler``'s CUDA records, the kernels of one
 iteration of ``mnist-noniid-ring`` (``tau2=2``) replayed from the sync
@@ -27,6 +27,13 @@ graph for its one cluster size, warmed up and captured first), then
 ``empty`` counts the sessions that recorded the host's launches and no CUDA
 record, the sessions ``device_kernel_names`` refuses to count.
 ``--only async`` runs that variant alone.
+
+The ``cifar`` variant (``--only cifar``): ``--sessions`` fresh runs of
+``cifar-dirichlet-torus`` on the sync scheduler's CUDA graphs, each built and
+stepped 30 iterations inside one ``device_kernel_names`` session, as the
+smoke's cifar phase counts them (an iteration's graph holds about a
+thousand kernels): off sessions, and the sessions that lost every record of
+some graph replay (``device_kernel_names.losses``), apart and together.
 
 For an off session it keeps the CUDA records it did see and the launch
 calls the host made (``cudaGraphLaunch``, ``cudaLaunchKernel``), with their
@@ -103,11 +110,45 @@ def _async_sessions(sessions: int) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _cifar_sessions(sessions: int, iters: int = 30) -> dict:
+    """``sessions`` fresh graphed runs of ``cifar-dirichlet-torus``, each in
+    one session: off sessions, lossy sessions, and both."""
+    from repro_torch.scenarios import build_scenario
+
+    from . import count_kernels, device_kernel_names
+
+    def drive():
+        run = build_scenario("cifar-dirichlet-torus", graph=True)
+        src = run.batch_source()
+        for _ in range(iters):
+            run.runtime.step(src)
+        return run
+
+    rows, t0 = [], time.perf_counter()
+    for i in range(sessions):
+        seen = len(device_kernel_names.losses)
+        run, names = device_kernel_names(drive)
+        cfg = run.runtime.scheduler.cfg
+        want = {"sgd_update": iters,
+                "fused_transition": sum(cfg.event_at(k) != "local" for k in range(1, iters + 1))}
+        got = count_kernels(names)
+        lost = device_kernel_names.losses[seen:]
+        rows.append({"session": i, "got": got, "want": want, "records": len(names),
+                     "lost_launches": sum(map(len, lost)), "lost": [x[:5] for x in lost]})
+        del run
+    off = [r for r in rows if r["got"] != r["want"]]
+    lossy = [r for r in rows if r["lost_launches"]]
+    return {"sessions": sessions, "off_sessions": len(off), "lossy_sessions": len(lossy),
+            "off_and_lossy": sum(1 for r in off if r["lost_launches"]),
+            "records": [r["records"] for r in rows], "off": off[:10], "lossy": lossy[:10],
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1000)
     ap.add_argument("--runs", type=int, default=3)
-    ap.add_argument("--only", choices=["async"], default=None)
+    ap.add_argument("--only", choices=["async", "cifar"], default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -119,6 +160,16 @@ def main(argv=None) -> int:
     from repro_torch.scenarios import build_scenario
 
     out = {"device": torch.cuda.get_device_name(0), "sessions": args.sessions}
+    if args.only == "cifar":
+        out["cifar"] = c = _cifar_sessions(args.sessions)
+        print(f"session_check cifar: {args.sessions} fresh graphed 30-iteration runs, one "
+              f"session each: {c['off_sessions']} off, {c['lossy_sessions']} lost records of "
+              f"some graph replay, {c['off_and_lossy']} both; device records a session "
+              f"{min(c['records'])}-{max(c['records'])}; first off: "
+              f"{json.dumps(c['off'][:2])[:1500]}; first lossy: "
+              f"{json.dumps(c['lossy'][:2])[:1500]}; {c['seconds']:.2f}s", flush=True)
+        _write(out)
+        return 1 if c["off_sessions"] else 0
     out["async"] = _async_sessions(args.sessions)
     off_any = bool(out["async"]["off_sessions"])
     print(f"session_check async: {args.sessions} one-event sessions of the graphed event, "

@@ -23,9 +23,14 @@ field into a mesh or ``None``:
 * a ``ClientMesh`` is checked (its size is the client count) and passed
   through.
 
-The reference's production and test meshes (``make_production_mesh``,
-``make_test_mesh``, ``mesh_axes_for``) wait for ROADMAP.md §1 item 4's
-'steps' and 'dryrun'.
+``make_test_mesh`` is the reference's test mesh: a
+``torch.distributed.device_mesh.DeviceMesh`` with dimensions ``("pod",)
+"data", "model"`` over the initialized group (``torchrun --nproc-per-node
+N`` gives one of N ranks), which the step builders of ``launch.steps`` take;
+``mesh_axes_for`` names its axes for the sharding rules, and
+``ClientMesh.from_device_mesh`` is the client mesh of one of its dimensions
+(a subgroup).  The reference's ``make_production_mesh`` waits for ROADMAP.md
+§1 item 4's 'dryrun'.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from typing import Any
 import torch
 
 __all__ = ["ClientMesh", "make_client_mesh", "resolve_client_mesh", "make_cluster_mesh",
-           "resolve_cluster_mesh", "describe_resolution"]
+           "resolve_cluster_mesh", "describe_resolution", "make_test_mesh", "mesh_axes_for"]
 
 _LAUNCH = ("one process a {what}: torchrun --nproc-per-node {n} -m "
            "repro_torch.launch.train ... --mesh auto")
@@ -57,6 +62,20 @@ class ClientMesh:
         import torch.distributed as dist
 
         return dist.get_backend(self.group)
+
+    @classmethod
+    def from_device_mesh(cls, device_mesh, axis_name: str = "data") -> "ClientMesh":
+        """The client mesh of ``device_mesh``'s ``axis_name`` dimension: its
+        group (a subgroup of the default one), its size, this rank's
+        coordinate there and the mesh's device for this rank."""
+        from ..sharding.context import mesh_axis_sizes
+
+        dev = torch.device(device_mesh.device_type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return cls(group=device_mesh.get_group(axis_name), axis_name=axis_name,
+                   size=mesh_axis_sizes(device_mesh)[axis_name],
+                   index=device_mesh.get_local_rank(axis_name), device=dev)
 
 
 def _mesh_device(device) -> torch.device:
@@ -141,3 +160,41 @@ def describe_resolution(spec, num_clients: int, device=None) -> str:
                 f"{num_clients} clients, so the stacked client axis stays on one device")
     return (f"mesh=auto resolved to a client mesh: {mesh.size} ranks over "
             f"{mesh.backend}, one client a rank (rank {mesh.index} on {mesh.device})")
+
+
+def make_test_mesh(data: int = 2, model: int = 2, pod: int | None = None, device=None):
+    """A ``DeviceMesh`` of ``(pod,) data, model`` ranks over the initialized
+    default process group, row-major in rank order, as the reference's
+    ``jax.make_mesh``.  ``device=None`` means ``cuda:<LOCAL_RANK>`` (nccl);
+    ``"cpu"`` gives a gloo mesh.  Raises ``ValueError`` naming the launch
+    when no group is initialized or its world size is not the mesh's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (pod, data, model) if pod else (data, model)
+    names = ("pod", "data", "model") if pod else ("data", "model")
+    n = 1
+    for x in shape:
+        n *= x
+    launch = _LAUNCH.format(what="mesh device", n=n)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs an initialized process "
+                         f"group of {n} ranks, have none; launch " + launch)
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} ranks: the process "
+                         f"group has {world} rank(s); launch " + launch)
+    dev = _mesh_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+def mesh_axes_for(device_mesh):
+    """The sharding rules' axis names of a test or production mesh."""
+    from ..sharding.context import mesh_axis_sizes
+    from ..sharding.rules import MeshAxes
+
+    sizes = mesh_axis_sizes(device_mesh)
+    return MeshAxes(model="model", data="data", pod="pod" if "pod" in sizes else None,
+                    model_size=sizes["model"])

@@ -10,7 +10,18 @@ has two executions, chosen by ``ArchConfig.attn_impl``:
   softmax in PyTorch, differentiated by autograd.
 
 Both take the reference's layout: q ``(B, S, Hq, hd)``, k/v ``(B, S, Hkv,
-hd)``.  Decode attends one new token a row against a KV cache
+hd)``.  On ``DTensor`` operands (the step builders of ``launch.steps``)
+attention runs per rank under ``local_map`` on local tensors, so the flash
+wrappers only see plain ones: a rank whose q heads are sharded attends with
+the KV heads its heads read (GQA by the heads' global index), and with
+``shard_chunk`` (a head count the model axis does not divide, gemma2's) each
+model rank takes its own rows of every query chunk against the whole K/V,
+the reference's sequence-parallel attention, in the plain blocked form
+(``_rows_attention``).  The flash kernels take equal query and key lengths,
+so ``impl="cuda"`` there raises ``NotImplementedError`` (ROADMAP.md §1 item
+4, 'flash rows') rather than give way to the plain form.  ``embedding`` looks a
+vocab-sharded ``DTensor`` table up by rows on each rank and sums the
+partial rows.  Decode attends one new token a row against a KV cache
 (``decode_attention``): plain PyTorch with f32 scores, as the reference has
 no Pallas kernel there, with the (accumulator, sum, max) stats exposed
 (``decode_attention_stats``) as the reference's for an LSE merge.
@@ -29,6 +40,7 @@ __all__ = [
     "causal_attention",
     "decode_attention",
     "decode_attention_stats",
+    "embedding",
     "finalize_decode_stats",
     "gated_mlp",
     "dense",
@@ -121,19 +133,149 @@ def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return torch.stack(outs, dim=1).reshape(b, s, hq, hd).to(q.dtype)
 
 
+def _rows_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                    *, window: Optional[int], logit_cap: Optional[float],
+                    chunk: int) -> torch.Tensor:
+    """Causal GQA attention of the query rows at ``q_pos`` (``(n, r)``: ``r``
+    rows of each of the ``n`` query chunks of ``chunk`` positions) against
+    the whole K/V: q ``(B, n, r, Hq, hd)`` -> ``(B, n, r, Hq, hd)``.  Each
+    chunk's rows attend to the keys up to the chunk's end (from the first
+    key the window reaches), exact softmax in f32."""
+    b, n, r, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = hd ** -0.5
+    outs = []
+    for i in range(n):
+        first = 0 if window is None else max(0, (i * chunk - window + 1) // chunk) * chunk
+        end = (i + 1) * chunk
+        kp = torch.arange(first, end, device=q.device)
+        qi = q[:, i].reshape(b, r, hkv, g, hd).float()
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qi, k[:, first:end].float()) * scale
+        scores = softcap(scores, logit_cap)
+        mask = q_pos[i][:, None] >= kp[None, :]
+        if window is not None:
+            mask &= (q_pos[i][:, None] - kp[None, :]) < window
+        scores = torch.where(mask, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, v[:, first:end].float())
+        outs.append(out.reshape(b, r, hq, hd))
+    return torch.stack(outs, dim=1).to(q.dtype)
+
+
+def _attention_on_mesh(q, k, v, attend, *, shard_chunk: bool, chunk: int):
+    """Causal attention of DTensor q, k, v, one rank's share under
+    ``local_map``.  The batch stays sharded where q's is; q's heads stay
+    sharded where they are (K/V whole there, the rank reading its heads'
+    KV heads); every other dimension is gathered.  With ``shard_chunk`` the
+    context's model axis shards the rows of each query chunk instead, for
+    ``attend.impl == "plain"`` only."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..sharding.context import current, mesh_axis_sizes, mesh_coord
+
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    sizes = mesh_axis_sizes(mesh)
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    ctx = current()
+    row_axis = None
+    if shard_chunk and ctx is not None and ctx["model_axis"] in sizes:
+        c = min(chunk, s)
+        if s % c == 0 and c % sizes[ctx["model_axis"]] == 0:
+            row_axis = ctx["model_axis"]
+    if row_axis is not None and attend.impl == "cuda":
+        raise NotImplementedError(
+            f"sequence-parallel attention ({hq} heads on a model axis of "
+            f"{sizes[row_axis]}) through the flash kernels, which take equal query and key "
+            f"lengths, is not ported yet (ROADMAP.md §1 item 4, 'Multi-device and launch': "
+            f"'flash rows'); attn_impl='plain' runs it in the reference's blocked form")
+    q_pl, kv_pl, out_pl, kv_grad, head_axes = [], [], [], [], []
+    for n, p in zip(names, q.placements):
+        if n == row_axis:
+            q_pl.append(Replicate()), kv_pl.append(Replicate())
+            out_pl.append(Shard(2)), kv_grad.append(Partial())
+        elif isinstance(p, Shard) and p.dim == 0:
+            q_pl.append(p), kv_pl.append(p), out_pl.append(p), kv_grad.append(p)
+        elif isinstance(p, Shard) and p.dim == 2 and hq % sizes[n] == 0:
+            head_axes.append(n)
+            q_pl.append(p), kv_pl.append(Replicate())
+            out_pl.append(Shard(3) if row_axis else p), kv_grad.append(Partial())
+        else:
+            q_pl.append(Replicate()), kv_pl.append(Replicate())
+            out_pl.append(Replicate()), kv_grad.append(Replicate())
+    q_grad = [Partial() if n == row_axis else pl for n, pl in zip(names, q_pl)]
+    heads = 1
+    for n in head_axes:
+        heads *= sizes[n]
+    h0 = mesh_coord(mesh, head_axes) * (hq // heads)
+    r_idx = mesh_coord(mesh, [row_axis]) if row_axis else 0
+
+    def local(ql, kl, vl):
+        hq_l = ql.shape[2]
+        if hq_l != hq:
+            if hq_l % g == 0:          # whole KV groups
+                kl, vl = (t[:, :, h0 // g:(h0 + hq_l) // g] for t in (kl, vl))
+            elif g % hq_l == 0:        # the rank's heads share one KV head
+                kl, vl = (t[:, :, h0 // g:h0 // g + 1] for t in (kl, vl))
+            else:                      # one KV head a query head
+                kl, vl = (t.repeat_interleave(g, dim=2)[:, :, h0:h0 + hq_l] for t in (kl, vl))
+        if row_axis is None:
+            return attend(ql, kl, vl)
+        c = min(chunk, s)
+        m = sizes[row_axis]
+        rl = c // m
+        pos = torch.arange(s, device=ql.device).reshape(s // c, c)[:, r_idx * rl:(r_idx + 1) * rl]
+        qr = ql.reshape(ql.shape[0], s // c, c, hq_l, hd)[:, :, r_idx * rl:(r_idx + 1) * rl]
+        return _rows_attention(qr, kl, vl, pos, window=attend.window, logit_cap=attend.cap,
+                               chunk=c)
+
+    out = local_map(local, out_placements=list(out_pl),
+                    in_placements=(tuple(q_pl), tuple(kv_pl), tuple(kv_pl)),
+                    in_grad_placements=(tuple(q_grad), tuple(kv_grad), tuple(kv_grad)),
+                    device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    if row_axis is None:
+        return out
+    # the rows gathered back (all-gather over the model axis) before the
+    # chunks merge into the sequence
+    whole = tuple(Replicate() if n == row_axis else p for n, p in zip(names, out.placements))
+    return out.redistribute(mesh, whole).reshape(b, s, hq, hd)
+
+
+class _Attend:
+    """The one-device attention of ``causal_attention`` with its options bound."""
+
+    def __init__(self, impl: str, window, cap, chunk: int):
+        self.impl, self.window, self.cap, self.chunk = impl, window, cap, chunk
+
+    def __call__(self, q, k, v):
+        if self.impl == "cuda":
+            from ..kernels import flash_attention
+
+            return flash_attention(q, k, v, self.window, self.cap)
+        return blocked_causal_attention(q, k, v, window=self.window, logit_cap=self.cap,
+                                        chunk=self.chunk)
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int], logit_cap: Optional[float], impl: str,
-                     chunk: int = 512) -> torch.Tensor:
+                     chunk: int = 512, shard_chunk: bool = False) -> torch.Tensor:
     """Causal GQA attention through the flash kernels (``impl="cuda"``) or the
-    plain blocked path (``impl="plain"``)."""
-    if impl == "cuda":
-        from ..kernels import flash_attention
+    plain blocked path (``impl="plain"``).  On DTensors each rank computes
+    its share (``_attention_on_mesh``); ``shard_chunk`` asks for the
+    sequence-parallel split over the context's model axis, which
+    ``impl="cuda"`` refuses (``NotImplementedError``)."""
+    if impl not in ("cuda", "plain"):
+        raise ValueError(f"attention impl must be 'cuda' or 'plain', got {impl!r}")
+    from ..sharding.context import is_dtensor
 
-        return flash_attention(q, k, v, window, logit_cap)
-    if impl == "plain":
-        return blocked_causal_attention(q, k, v, window=window, logit_cap=logit_cap,
-                                        chunk=chunk)
-    raise ValueError(f"attention impl must be 'cuda' or 'plain', got {impl!r}")
+    if is_dtensor(q):
+        return _attention_on_mesh(q, k, v, _Attend(impl, window, logit_cap, chunk),
+                                  shard_chunk=shard_chunk, chunk=chunk)
+    return _Attend(impl, window, logit_cap, chunk)(q, k, v)
 
 
 def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -183,6 +325,52 @@ def decode_attention(q, k_cache, v_cache, slot_pos, q_pos, *, window=None,
     acc, l, m = decode_attention_stats(q, k_cache, v_cache, slot_pos, q_pos,
                                        window=window, logit_cap=logit_cap)
     return finalize_decode_stats(acc, l, m, q.dtype)
+
+
+def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, weight)``.  A ``DTensor`` table sharded on its
+    vocabulary dimension is looked up under ``local_map``: each rank gathers
+    the rows it holds (zeros for a token outside them) and the partial rows
+    are summed over the vocabulary's axes (a ``Partial`` result made
+    ``Replicate``); the table's other placements pass through."""
+    from ..sharding.context import is_dtensor, mesh_coord
+
+    if not is_dtensor(weight):
+        return F.embedding(tokens, weight)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = weight.device_mesh
+    names = list(mesh.mesh_dim_names)
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    vocab_axes, t_pl, out_pl, w_grad = [], [], [], []
+    for n, pw, pt in zip(names, weight.placements, tokens.placements):
+        if isinstance(pw, Shard) and pw.dim == 0:
+            vocab_axes.append(n)
+            t_pl.append(Replicate()), out_pl.append(Partial()), w_grad.append(pw)
+        elif isinstance(pw, Shard):
+            t_pl.append(Replicate()), out_pl.append(Shard(tokens.dim())), w_grad.append(pw)
+        elif isinstance(pt, Shard):
+            # the table whole, the tokens split: each rank's gradient of the
+            # table is its share of the sum
+            t_pl.append(pt), out_pl.append(pt), w_grad.append(Partial())
+        else:
+            t_pl.append(Replicate()), out_pl.append(Replicate()), w_grad.append(pw)
+    v_local = weight.to_local().shape[0]
+    lo = mesh_coord(mesh, vocab_axes) * v_local
+
+    def local(t, w):
+        mine = (t >= lo) & (t < lo + v_local)
+        rows = F.embedding(torch.where(mine, t - lo, torch.zeros_like(t)), w)
+        return rows * mine[..., None].to(rows.dtype)
+
+    out = local_map(local, out_placements=list(out_pl),
+                    in_placements=(tuple(t_pl), tuple(weight.placements)),
+                    in_grad_placements=(tuple(t_pl), tuple(w_grad)),
+                    device_mesh=mesh, redistribute_inputs=True)(tokens, weight)
+    full = tuple(Replicate() if isinstance(p, Partial) else p for p in out.placements)
+    return out.redistribute(mesh, full) if full != tuple(out.placements) else out
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:

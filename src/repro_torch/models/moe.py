@@ -14,9 +14,18 @@ and inside a CUDA graph's capture: the per-expert counts are a compare and
 sum (``torch.bincount`` reads its max back), the inverse permutation an
 out-of-place ``scatter``, and no boolean mask selects a ragged subset.
 The reference computes the layer in plain ``jnp``, with no Pallas kernel;
-here the expert GEMMs are ``torch.einsum`` products.  The reference's
-``shard_map`` branch over a device mesh waits in ROADMAP.md §1 item 4
-('shard_map MoE').
+here the expert GEMMs are ``torch.einsum`` products.
+
+On ``DTensor`` operands (``launch.steps``) the layer runs as the reference's
+``shard_map`` branch (``_moe_on_mesh``): when the activation-sharding
+context allows it (``moe_shard_map``) and the batch divides the context's
+batch axes, each batch shard routes, dispatches and combines its own
+examples, and the aux loss is the mean over those axes.  Routing and the
+dispatch run on each rank's local tensors; the expert GEMMs run as DTensor
+products on the sub-mesh of the other axes (the model axis, where the
+experts' ``d_ff`` is sharded).  Without the branch a prefill keeps the
+batch shards it has (each example routes on its own), and a decode
+gathers its batch, which routes as one token set.
 """
 from __future__ import annotations
 
@@ -123,6 +132,11 @@ def moe_mlp(x: torch.Tensor, params: dict, *, num_experts_per_tok: int,
     examples, not one per example.  For ``S == 1`` (decode) the batch is one
     flat token set.  ``capacity``, the slots an expert takes, defaults to
     ``moe_capacity``'s; at the token count no choice is dropped."""
+    from ..sharding.context import is_dtensor
+
+    if is_dtensor(x):
+        return _moe_on_mesh(x, params, num_experts_per_tok=num_experts_per_tok,
+                            capacity_factor=capacity_factor, capacity=capacity)
     b, s, d = x.shape
     e = params["w_router"].shape[1]
     k = num_experts_per_tok
@@ -139,6 +153,71 @@ def moe_mlp(x: torch.Tensor, params: dict, *, num_experts_per_tok: int,
     src_tok, valid, slot_flat, w, aux = _route(xt, params["w_router"], k, capacity)
     out = _combine(_experts(_dispatch(xt, src_tok, valid), params), slot_flat, w)
     return out.reshape(b, s, d), aux
+
+
+def _moe_on_mesh(x, params: dict, *, num_experts_per_tok: int, capacity_factor: float,
+                 capacity: Optional[int]):
+    """``moe_mlp`` of a DTensor ``x``, manual over the batch axes (the
+    reference's ``shard_map`` over them) and by DTensor over the others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..sharding.context import current, from_local_on, mesh_axis_sizes, on_submesh
+
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    sizes = mesh_axis_sizes(mesh)
+    b, s, _ = x.shape
+    manual = []
+    if s > 1:
+        # each example routes on its own: the batch shards x has stay manual
+        manual = [n for n, p in zip(names, x.placements)
+                  if isinstance(p, Shard) and p.dim == 0]
+        ctx = current()
+        if ctx is not None and ctx["moe_shard_map"]:
+            axes = [a for a in ctx["batch_axes"] if sizes.get(a, 1) > 1]
+            div = 1
+            for a in axes:
+                div *= sizes[a]
+            if axes and b % div == 0:
+                manual = axes
+    want = tuple(Shard(0) if n in manual else Replicate() for n in names)
+    if tuple(x.placements) != want:
+        x = x.redistribute(mesh, want)
+    auto = tuple(n for n in names if n not in manual)
+    n_manual = 1
+    for n in manual:
+        n_manual *= sizes[n]
+    xl = x.to_local()
+    local = {n: on_submesh(w, auto) for n, w in params.items()}
+    router = local.pop("w_router")
+    router = router.full_tensor() if hasattr(router, "full_tensor") else router
+    k = num_experts_per_tok
+    e = router.shape[1]
+
+    def experts(buf):
+        if not auto:
+            return _experts(buf, local)
+        sub = local["w_gate"].device_mesh
+        out = _experts(from_local_on(buf, sub, (Replicate(),) * len(auto)), local)
+        return out.redistribute(sub, (Replicate(),) * len(auto)).to_local()
+
+    vmap = torch.func.vmap
+    if s > 1:
+        cap = capacity or moe_capacity(s, k, e, capacity_factor)
+        src_tok, valid, slot_flat, w, aux = vmap(lambda xe: _route(xe, router, k, cap))(xl)
+        out = vmap(_combine)(experts(vmap(_dispatch)(xl, src_tok, valid)), slot_flat, w)
+        aux = aux.mean()
+    else:
+        t = b * s
+        cap = capacity or moe_capacity(t, k, e, capacity_factor)
+        xt = xl.reshape(t, -1)
+        src_tok, valid, slot_flat, w, aux = _route(xt, router, k, cap)
+        out = _combine(experts(_dispatch(xt, src_tok, valid)), slot_flat, w).reshape(xl.shape)
+    out = from_local_on(out, mesh, want)
+    # the mean over the batch shards: each rank's share, summed
+    aux = from_local_on(aux / n_manual, mesh,
+                        tuple(Partial() if n in manual else Replicate() for n in names))
+    return out, aux.redistribute(mesh, (Replicate(),) * len(names))
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int, num_experts: int,

@@ -29,17 +29,28 @@ with ``attn_impl="cuda"``), ``decode_hidden`` and ``decode_step`` (one token a
 row against ring-buffer KV caches and mamba states, written in place, plain
 PyTorch); the decode also takes the clusters' models of a ``(D, ...)``
 stack with a cluster index a row.
+
+On a mesh (``launch.steps``: DTensor leaves under
+``sharding.activation_sharding``) the same code runs as DTensor ops; the
+embedding, attention and MoE take their per-rank forms (``models.layers``,
+``models.moe``), and a head count the model axis does not divide runs the
+attention sequence-parallel (the reference's ``shard_chunk``; with
+``attn_impl="plain"`` only, as 'flash rows' of ROADMAP.md §1 item 4 waits).
+``CausalLM(decode_impl=)`` takes ``sharding.make_decode_impl``'s
+sequence-sharded decode, which writes each rank's cache shard in place; a
+gated or cluster-routed decode through it is 'mesh serving''s (ROADMAP.md
+§1 item 4).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from .config import ArchConfig
 from .layers import (
-    causal_attention, decode_attention, dense, gated_mlp, init_dense, rms_norm, rope, softcap,
+    causal_attention, decode_attention, dense, embedding, gated_mlp, init_dense, rms_norm, rope,
+    softcap,
 )
 from .mamba import init_mamba_cache, init_mamba_params, mamba_decode_step, mamba_forward
 from .moe import init_moe_params, moe_mlp
@@ -47,16 +58,12 @@ from .moe import init_moe_params, moe_mlp
 __all__ = ["CausalLM"]
 
 
-def _check_ported(cfg: ArchConfig, decode_impl=None) -> None:
+def _check_ported(cfg: ArchConfig) -> None:
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"{cfg.name}: remat_policy={cfg.remat_policy!r} (save the matmul outputs, set by "
             f"the multi-device dry run) is not ported yet (ROADMAP.md §1 item 4, 'Multi-device "
             f"and launch': 'dots'); remat_policy='full' is")
-    if decode_impl is not None:
-        raise NotImplementedError(
-            "decode_impl (the sequence-sharded decode of sharding/decode.py) is not ported "
-            "yet (ROADMAP.md §1 item 4, 'Multi-device and launch': 'decode_impl'); pass None")
 
 
 def _audio(cfg: ArchConfig) -> bool:
@@ -117,10 +124,16 @@ def _attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, window: Optional[in
     """Full-sequence attention: (out, the layer's cache or None).  The cache
     holds the last ``min(window, S)`` positions' k, v (param dtype) and their
     positions (int32), as the reference's prefill."""
+    from ..sharding.context import model_axis_size
+
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
+    # a head count the model axis does not divide shards the query rows
+    # instead (sequence-parallel attention, the reference's shard_chunk)
+    ms = model_axis_size()
     out = causal_attention(q, k, v, window=window, logit_cap=cfg.attn_logit_softcap,
-                           impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+                           impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                           shard_chunk=ms > 1 and cfg.num_heads % ms != 0)
     cache = None
     if return_cache:
         sc = min(window, s) if window is not None else s
@@ -183,7 +196,13 @@ class _Remat(torch.autograd.Function):
     clients and inside a captured round.  ``fn(x, positions, leaves) -> (x,
     aux)``, the aux an f32 scalar (zeros for a block without MoE); every
     tensor ``fn`` reads comes in as an input (a tensor it closed over would
-    belong to a transform level the generated vmap rule has left)."""
+    belong to a transform level the generated vmap rule has left).
+
+    On a mesh (DTensor operands, no ``torch.func`` transform around the
+    step) the backward recomputes the block under autograd instead, in the
+    activation-sharding context the forward ran in (the engine may run a
+    backward on another thread): ``torch.func.vjp`` would hand the kernels
+    functorch-wrapped local shards."""
 
     generate_vmap_rule = True
 
@@ -193,14 +212,27 @@ class _Remat(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
+        from ..sharding.context import current
+
         fn, x, positions, *leaves = inputs
         ctx.fn = fn
+        ctx.sharding = current()
         ctx.save_for_backward(x, positions, *leaves)
 
     @staticmethod
     def backward(ctx, dx, daux):
+        from ..sharding.context import is_dtensor, restored
+
         x, positions, *leaves = ctx.saved_tensors
         fn = ctx.fn
+        if is_dtensor(x):
+            ins = [t.detach().requires_grad_() for t in (x, *leaves)]
+            with restored(ctx.sharding), torch.enable_grad():
+                outs = fn(ins[0], positions, ins[1:])
+            keep = [(o, g) for o, g in zip(outs, (dx, daux)) if o.requires_grad]
+            grads = torch.autograd.grad([o for o, _ in keep], ins, [g for _, g in keep],
+                                        allow_unused=True)
+            return (None, grads[0], None, *grads[1:])
         # torch.func.grad differentiates with create_graph=True, which would
         # record the recomputation for a second derivative and keep every
         # recomputed block alive; detached operands keep it to this call
@@ -265,7 +297,7 @@ class CausalLM:
     """Functional causal LM over flat parameter dicts."""
 
     def __init__(self, cfg: ArchConfig, long_context: bool = False, decode_impl=None):
-        _check_ported(cfg, decode_impl)
+        _check_ported(cfg)
         self.cfg = cfg
         self.long_context = long_context
         self.decode_impl = decode_impl
@@ -306,11 +338,11 @@ class CausalLM:
         first ``F`` positions replaced by ``frontend_embeds`` (B, F, d)."""
         cfg = self.cfg
         if _audio(cfg):
-            x = F.embedding(tokens[:, 0], params["embed"][0]).to(cfg.act_dtype)
+            x = embedding(tokens[:, 0], params["embed"][0]).to(cfg.act_dtype)
             for k in range(1, cfg.num_codebooks):
-                x = x + F.embedding(tokens[:, k], params["embed"][k]).to(cfg.act_dtype)
+                x = x + embedding(tokens[:, k], params["embed"][k]).to(cfg.act_dtype)
         else:
-            x = F.embedding(tokens, params["embed"])  # (B, S, d)
+            x = embedding(tokens, params["embed"])  # (B, S, d)
         x = x.to(cfg.act_dtype)
         if cfg.embed_scale:
             # the scale rounded to the activations' dtype, as the reference's,
@@ -497,18 +529,28 @@ class CausalLM:
             q, k, v = _route(lambda p: _qkv(p, rms_norm(x, p["ln_mix"], cfg.norm_eps), cfg,
                                             q_pos[:, None]), plist, sel)
             k_c, v_c, pos_c = (cache[pre + n][block] for n in ("k", "v", "pos"))
-            # the ring buffer: position q lands in slot q % Sc
-            slot = (q_pos % k_c.shape[1]).long()
-            rows = torch.arange(b, device=x.device)
-            _write(k_c, (rows, slot), k[:, 0], gate)
-            _write(v_c, (rows, slot), v[:, 0], gate)
-            if pos_c.dim() == 1:  # one position row shared by the batch
-                _write(pos_c, (slot[:1],), q_pos[:1], gate)
-            else:
-                _write(pos_c, (rows, slot), q_pos, gate)
             window = cfg.window_for_layer(li, self.long_context)
-            o = decode_attention(q[:, 0], k_c, v_c, pos_c, q_pos, window=window,
-                                 logit_cap=cfg.attn_logit_softcap)
+            if self.decode_impl is not None:
+                if gate is not None or sel is not None:
+                    raise NotImplementedError(
+                        "a gated or cluster-routed decode through decode_impl (the slot "
+                        "pool's, the federated servers') is not ported yet (ROADMAP.md §1 "
+                        "item 4, 'Multi-device and launch': 'mesh serving')")
+                # the sharded decode writes its cache shards in place
+                o = self.decode_impl(q[:, 0], k_c, v_c, pos_c, q_pos[0], k[:, 0], v[:, 0],
+                                     window=window, logit_cap=cfg.attn_logit_softcap)[0]
+            else:
+                # the ring buffer: position q lands in slot q % Sc
+                slot = (q_pos % k_c.shape[1]).long()
+                rows = torch.arange(b, device=x.device)
+                _write(k_c, (rows, slot), k[:, 0], gate)
+                _write(v_c, (rows, slot), v[:, 0], gate)
+                if pos_c.dim() == 1:  # one position row shared by the batch
+                    _write(pos_c, (slot[:1],), q_pos[:1], gate)
+                else:
+                    _write(pos_c, (rows, slot), q_pos, gate)
+                o = decode_attention(q[:, 0], k_c, v_c, pos_c, q_pos, window=window,
+                                     logit_cap=cfg.attn_logit_softcap)
             o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim)
 
             def mixed(p):

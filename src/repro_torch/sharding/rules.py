@@ -32,7 +32,8 @@ published width without allocating it.  A spec is a :class:`Spec`, a plain
 tuple with one entry a dimension: a mesh-axis name, a tuple of names, or
 ``None``.  ``to_placements`` maps a spec onto a
 ``torch.distributed.device_mesh.DeviceMesh`` as DTensor placements, and
-``distribute_params`` lays a tree out with ``distribute_tensor``.
+``distribute_params`` lays a tree out (``distribute_tensor``, or a
+redistribution of a DTensor laid out otherwise).
 """
 from __future__ import annotations
 
@@ -243,9 +244,22 @@ def to_placements(spec: Spec, device_mesh) -> tuple:
 
 
 def distribute_params(params: dict, specs: dict, device_mesh) -> dict:
-    """Lay ``params`` out on ``device_mesh`` by ``specs``, as DTensors (every
-    rank passes the same full tensors)."""
-    from torch.distributed.tensor import distribute_tensor
+    """``params`` laid out by ``specs`` on ``device_mesh`` as DTensors, as a
+    jitted step's ``in_shardings`` lay out its operands: a DTensor already so
+    laid out is kept (the same object, so a step may write it in place), one
+    laid out otherwise is redistributed, and a plain tensor (the same full
+    tensor on every rank) is distributed, without a copy on a mesh of one
+    rank."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
-    return {k: distribute_tensor(v, device_mesh, to_placements(specs[k], device_mesh))
-            for k, v in params.items()}
+    single = device_mesh.size() == 1
+    out = {}
+    for k, v in params.items():
+        pl = to_placements(specs[k], device_mesh)
+        if isinstance(v, DTensor):
+            out[k] = v if tuple(v.placements) == pl else v.redistribute(device_mesh, pl)
+        elif single:
+            out[k] = DTensor.from_local(v, device_mesh, pl, run_check=False)
+        else:
+            out[k] = distribute_tensor(v, device_mesh, pl)
+    return out

@@ -165,6 +165,40 @@ def test_gossip_mix_refuses_p_on_another_device():
     assert bool((y == 1).all())
 
 
+class _Event:
+    """A profiler record as ``device_kernel_names`` reads it."""
+
+    def __init__(self, name, device, correlation=0):
+        self._name, self._device, self._correlation = name, device, correlation
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._device
+
+    def start_ns(self):
+        return 2_500_000
+
+    def correlation_id(self):
+        return self._correlation
+
+
+class _Session:
+    """A profiler session that comes back with ``events``."""
+
+    def __init__(self, events, **_):
+        self.profiler = type("P", (), {})()
+        self.profiler.kineto_results = type("R", (), {"events": lambda s: events,
+                                                      "trace_start_ns": lambda s: 0})()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 def test_device_kernel_names_refuses_a_session_without_device_records(monkeypatch):
     """A session that recorded the host's launches and no CUDA record raises
     ``EmptySessionError`` (carrying what it saw) instead of counting none."""
@@ -173,44 +207,57 @@ def test_device_kernel_names_refuses_a_session_without_device_records(monkeypatc
 
     from repro_torch import kernels
 
-    class Event:
-        def __init__(self, name, device):
-            self._name, self._device = name, device
-
-        def name(self):
-            return self._name
-
-        def device_type(self):
-            return self._device
-
-        def start_ns(self):
-            return 2_500_000
-
-    class Session:
-        def __init__(self, events, **_):
-            self.profiler = type("P", (), {})()
-            self.profiler.kineto_results = type("R", (), {"events": lambda s: events,
-                                                          "trace_start_ns": lambda s: 0})()
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
-    host = [Event("cudaGraphLaunch", DeviceType.CPU), Event("aten::add_", DeviceType.CPU)]
+    host = [_Event("cudaGraphLaunch", DeviceType.CPU), _Event("aten::add_", DeviceType.CPU)]
     monkeypatch.setattr(kernels, "MARGIN_S", 0.0)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Session(host, **kw))
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(host, **kw))
     with pytest.raises(kernels.EmptySessionError, match="no CUDA record") as err:
         kernels.device_launches(lambda: 7)
     assert err.value.host_launches == [("cudaGraphLaunch", 2.5)]
     # device records: counted; nothing launched at all: an empty count
-    ran = host + [Event("void gossip_mix_kernel<float, 4>(LeafTable)", DeviceType.CUDA)]
-    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Session(ran, **kw))
+    ran = host + [_Event("void gossip_mix_kernel<float, 4>(LeafTable)", DeviceType.CUDA)]
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(ran, **kw))
     assert kernels.device_launches(lambda: 7) == (7, {"gossip_mix": 1})
-    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Session(host[1:], **kw))
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(host[1:], **kw))
     assert kernels.device_launches(lambda: 7) == (7, {})
+
+
+def test_device_kernel_names_records_launches_whose_device_records_were_lost(monkeypatch):
+    """A session that kept some CUDA records but none of a graph replay's
+    (matched by the ``cudaGraphLaunch``'s correlation id) still counts what
+    it saw, and appends that replay to ``device_kernel_names.losses``; a
+    session whose every replay has its records appends nothing, nor does a
+    kernel launch without a record; an empty one appends its launches
+    before it raises."""
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    from repro_torch import kernels
+
+    monkeypatch.setattr(kernels, "MARGIN_S", 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(kernels.device_kernel_names, "losses", [])
+    cpu, dev = DeviceType.CPU, DeviceType.CUDA
+    sgd, tr = "void sgd_update_kernel<float>(LeafTable)", "void fused_transition_kernel<float>"
+    kept = [_Event("cudaGraphLaunch", cpu, 1), _Event(sgd, dev, 1), _Event(tr, dev, 1),
+            _Event("cudaGraphLaunch", cpu, 2), _Event(sgd, dev, 2),
+            _Event("cudaLaunchKernel", cpu, 3), _Event(sgd, dev, 3)]
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(kept, **kw))
+    assert kernels.device_launches(lambda: 7) == (7, {"sgd_update": 3, "fused_transition": 1})
+    assert kernels.device_kernel_names.losses == []
+    lost = kept[:4] + kept[5:]  # the second replay's only record is gone
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(lost, **kw))
+    assert kernels.device_launches(lambda: 7) == (7, {"sgd_update": 2, "fused_transition": 1})
+    assert kernels.device_kernel_names.losses == [[("cudaGraphLaunch", 2.5)]]
+    unmatched = kept[:6]  # a kernel launch whose record is missing
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(unmatched, **kw))
+    assert kernels.device_launches(lambda: 7) == (7, {"sgd_update": 2, "fused_transition": 1})
+    assert len(kernels.device_kernel_names.losses) == 1
+    empty = [_Event("cudaLaunchKernel", cpu, 4)]
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(empty, **kw))
+    with pytest.raises(kernels.EmptySessionError):
+        kernels.device_launches(lambda: 7)
+    assert kernels.device_kernel_names.losses[1:] == [[("cudaLaunchKernel", 2.5)]]
 
 
 def test_check_eager_session_names_the_kernels_whose_records_are_missing():

@@ -21,8 +21,9 @@ TF32 off (the CPU has none):
 * the memory remat saves: a trace of live tensors (``LiveBytes``) over one
   client's ``grad_and_value`` at two depths gives the bytes a block adds,
   which remat cuts to a small share of remat off's;
-* ``remat_policy="dots"`` and a ``decode_impl`` raise, naming the queue item;
-  every published config (remat on by default) now builds.
+* ``remat_policy="dots"``, and a gated decode through a ``decode_impl``
+  (the slot pool's), raise, naming the queue item; every published config
+  (remat on by default) now builds.
 
 ``peak_grad_bytes`` also takes a published config at full width, for the
 card's depth plan (bf16, S = 2048)::
@@ -197,8 +198,14 @@ def test_dots_policy_and_decode_impl_raise():
     cfg = _cfg(tconfigs, "dense", True)
     with pytest.raises(NotImplementedError, match="Multi-device and launch"):
         tmodels.CausalLM(dataclasses.replace(cfg, remat_policy="dots"))
-    with pytest.raises(NotImplementedError, match="Multi-device and launch"):
-        tmodels.CausalLM(cfg, decode_impl=object())
+    # a decode_impl builds (the sequence-sharded decode, sharding/decode.py);
+    # a gated decode through one is 'mesh serving''s
+    model = tmodels.CausalLM(cfg, decode_impl=object())
+    params = model.init(torch.Generator().manual_seed(0))
+    cache = model.init_cache(2, 8)
+    with pytest.raises(NotImplementedError, match="Multi-device and launch.*'mesh serving'"):
+        model.decode_step(params, torch.zeros(2, dtype=torch.int32), cache, 0,
+                          gate=torch.tensor(True))
 
 
 @pytest.mark.parametrize("name", tconfigs.ARCH_NAMES)
