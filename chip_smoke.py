@@ -372,7 +372,22 @@ Phases, one result line each; any failure exits non-zero without the final
             ``fused_transition`` run on the device, against
             ``build_fl_train_step`` within one bf16 ulp of each leaf's
             largest magnitude.  ms a decode step and a prefill (CUDA events)
-            and the peak memory.
+            and the peak memory; each step's own peak (its operands plus
+            the rise of allocated memory during it) for the dryrun phase.
+22. dots     remat's ``"dots"`` policy at lm-width's cut: one vmapped
+            gradient of 4 clients with remat off, ``"full"`` and
+            ``"dots"``, bitwise across the three, each one's peak memory
+            above the operands and warm gradients a second.
+23. dryrun   the dry run in a child process that never initializes CUDA:
+            granite-8b decode_32k traced on the production mesh (256 fake
+            ranks, ``"cuda"``-typed), and the steps phase's three steps
+            traced on a (1, 1) fake mesh, each held against that phase's
+            measurement (predicted peak within 10%, measured ms at least
+            0.95x ``max(compute, memory)``); the card's ``total_memory``
+            held equal to ``roofline.analysis.HW["device_memory"]``.
+24. mesh-serve ``ContinuousFederatedServer(mesh=)`` on one NCCL rank (D = 1:
+            plumbing, no exchange between cards), the reference's check
+            config, tokens equal to the off-mesh server's.
 
 The smoke's total time, build included, and each phase's are printed
 before the kernels line.
@@ -418,6 +433,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -532,7 +548,7 @@ SSM_WIDTH = dict(num_layers=4, num_clients=8, num_clusters=4, seq_len=2048, batc
 # supersteps a run; 80 GB holds the deepest, as a CPU trace of live tensors
 # (tests/test_torch_remat.py's peak_grad_bytes) puts one client's remat
 # gradient at 58.6 MB a layer and 1.68 GB besides at S = 2048 (PERF.md)
-SSM_DEPTHS, SSM_STEPS = (48, 24, 12), 2
+SSM_DEPTHS, SSM_STEPS = (48, 24), 2
 # the serve phase: the serving scenarios' training supersteps, requests and
 # generation cap; the reduced families generate is run on
 SERVE_STEPS, SERVE_REQUESTS, SERVE_GEN = 2, 12, 12
@@ -561,6 +577,10 @@ STEPS_LOCAL = dict(clients=2, clusters=2, learning_rate=1.0)
 # wrong gradient about as much, and 1e-2 leaves room for another GEMM
 # algorithm between the per-client and the vmapped step
 STEPS_UPDATE_TOL = dict(inter=1e-5, local=1e-2)
+# the dots phase: lm-width's model, one vmapped local gradient of this many
+# clients a call, timed this many times after a warm-up
+DOTS = dict(clients=4, timed=3)
+DRYRUN_TIMEOUT = 600  # seconds the dryrun phase's child may take
 # the collective-width phase: lm-width's model (LM_WIDTH) in C = 8 clients,
 # D = 4 clusters (g = 2, a power of two, as the hypercube needs)
 COLLECTIVE_WIDTH = dict(clients=8, clusters=4)
@@ -646,7 +666,12 @@ def main() -> None:
     ap.add_argument("--phases", nargs="+", default=None, metavar="PHASE",
                     help="run only these phases after device and build (a partial run: it "
                          "prints no kernels line and no result line)")
+    ap.add_argument("--dryrun-child", type=Path, default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)  # the dryrun phase's child process
     args = ap.parse_args()
+    if args.dryrun_child is not None:
+        dryrun_child(args.dryrun_child)
+        return
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
     sys.path.insert(0, str(SRC))
@@ -655,6 +680,58 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     Smoke(torch, args.old_flash, args.old_gossip, args.phases).run()
+
+
+def dryrun_child(out: Path) -> None:
+    """The dryrun phase's traces (``Smoke.dryrun``), written to ``out`` as
+    JSON, in a process that never initializes CUDA: granite-8b
+    ``decode_32k`` on the production mesh (``launch.dryrun.run_one``), then
+    the steps phase's three steps on a ``"cuda"``-typed ``(1, 1)`` mesh of a
+    fake process group, each with its predicted peak and roofline terms."""
+    import dataclasses
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, InputShape
+    from repro_torch.core import FLSpec
+    from repro_torch.launch import build_prefill, build_serve, build_train
+    from repro_torch.launch.dryrun import _operands, run_one, trace_step
+    from repro_torch.roofline import HW, roofline_terms
+
+    res = {"production": dict(run_one("granite-8b", "decode_32k", "single"), ok=True)}
+    dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1), mesh_dim_names=("data", "model"))
+    cfg = get_config("granite-8b")
+    tcfg = dataclasses.replace(cfg, vocab_size=LM_WIDTH["vocab_size"],
+                               **LM_WIDTH["arch_overrides"])
+    sc = SHAPES["decode_32k"].seq_len
+    c, d = STEPS_TRAIN["clients"], STEPS_TRAIN["clusters"]
+    fl = FLSpec(c, d, tau1=1, tau2=1, alpha=1, learning_rate=0.01, impl="dense")
+    plans = {
+        "decode": (build_serve(cfg, InputShape("decode_32k", sc, STEPS_DECODE["batch"],
+                                               "decode"), mesh), sc - 1),
+        "prefill": (build_prefill(cfg, InputShape("prefill_32k", SHAPES["prefill_32k"].seq_len,
+                                                  1, "prefill"), mesh), 0),
+        "train": (build_train(tcfg, InputShape("lm-width", LM_WIDTH["seq_len"], c, "train"),
+                              mesh, fl=fl), 0),
+    }
+    res["steps"] = {}
+    for name, ((step, abstract), pos) in plans.items():
+        kind = "train" if name == "train" else name
+        counter, memory, secs = trace_step(step, _operands(step, abstract, kind, mesh, pos))
+        res["steps"][name] = {"peak_bytes": memory["argument_bytes"] + counter.peak_bytes,
+                              "memory": memory, "roofline": roofline_terms(counter).as_dict(),
+                              "trace_s": secs, "kernels": dict(counter.kernels)}
+    dist.destroy_process_group()
+    res["cuda_initialized"] = torch.cuda.is_initialized()
+    res["hw_device_memory"] = HW["device_memory"]
+    out.write_text(json.dumps(res, default=str))
 
 
 class Smoke:
@@ -5201,6 +5278,25 @@ class Smoke:
             torch.cuda.synchronize()
             return out, start.elapsed_time(end)
 
+        held = {"hi": 0}  # the peak before the last reset, for serve_peak and train_peak
+
+        def step_peak(fn, operands):
+            """``fn()`` and the step's own peak: its operands' bytes plus the
+            rise of allocated memory over what the process held before it
+            (the dry run's prediction counts the same)."""
+            torch.cuda.synchronize()
+            held["hi"] = max(held["hi"], torch.cuda.max_memory_allocated())
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            nbytes = sum(t.numel() * t.element_size() for t in operands)
+            return out, nbytes + torch.cuda.max_memory_allocated() - before
+
+        def tensors(*trees):
+            return [t for tree in trees for t in (tree.values() if isinstance(tree, dict)
+                                                  else [tree])]
+
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
@@ -5237,7 +5333,9 @@ class Smoke:
                 pos = sc - 2 + t
                 tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).to(
                     self.dev)
-                (logits, cache), ms = events_ms(lambda: serve(params, cache, tok, pos))
+                ((logits, cache), ms), decode_peak = step_peak(
+                    lambda: events_ms(lambda: serve(params, cache, tok, pos)),
+                    tensors(params, cache, tok))
                 (want, ref), pms = events_ms(lambda: plain.decode_step(params, tok, ref, pos))
                 decode_ms.append(ms)
                 plain_ms.append(pms)
@@ -5273,7 +5371,8 @@ class Smoke:
             (out, ms_first), ran = device_launches(lambda: events_ms(
                 lambda: prefill(params, batch)))
             tc_launches = flash_attention_fwd.routes.get("tensor_core", 0) - tc
-            _, ms = events_ms(lambda: prefill(params, batch))
+            (_, ms), prefill_peak = step_peak(lambda: events_ms(lambda: prefill(params, batch)),
+                                              tensors(params, batch))
             want, plain_pms = events_ms(lambda: plain.prefill(params, batch))
             logits, caches = out
             # the positions' caches come out plain (made from a plain arange)
@@ -5297,7 +5396,8 @@ class Smoke:
             del params
             gc.collect()
             torch.cuda.empty_cache()
-            serve_peak = torch.cuda.max_memory_allocated()
+            serve_peak = max(held["hi"], torch.cuda.max_memory_allocated())
+            held["hi"] = 0
             torch.cuda.reset_peak_memory_stats()
 
             # -- train: lm-width's cut, C = 4 in D = 2 stacked on the rank
@@ -5346,9 +5446,13 @@ class Smoke:
             rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
             del got, want
             # both steps timed the same way: warm, CUDA events, no profiler
-            _, train_ms = events_ms(lambda: train(fresh(stack), (), tbatch))
-            _, direct_ms = events_ms(lambda: direct(fresh(stack), (), tbatch))
-            train_peak = torch.cuda.max_memory_allocated()
+            p = fresh(stack)
+            (_, train_ms), train_step_peak = step_peak(
+                lambda: events_ms(lambda: train(p, (), tbatch)), tensors(p, tbatch))
+            p = fresh(stack)
+            _, direct_ms = events_ms(lambda: direct(p, (), tbatch))
+            del p
+            train_peak = max(held["hi"], torch.cuda.max_memory_allocated())
             del stack
             gc.collect()
             torch.cuda.empty_cache()
@@ -5407,9 +5511,223 @@ class Smoke:
                             "direct_loss": float(want_loss), "local_loss": float(lloss),
                             "local_direct_loss": float(lwant_loss)}
             res["peak_bytes"] = {"serve_prefill": serve_peak, "train": train_peak}
+            # each step's own peak and its warm time, which the dryrun phase
+            # holds its trace's prediction against
+            res["step_peak_bytes"] = {"decode": decode_peak, "prefill": prefill_peak,
+                                      "train": train_step_peak}
+            res["step_ms"] = {"decode": min(decode_ms[1:]), "prefill": ms, "train": train_ms}
             self.detail["steps"] = res
         finally:
             dist.destroy_process_group()
+
+    def dots(self):
+        """Remat's ``"dots"`` policy at ``lm-width``'s cut (granite-8b widths,
+        2 layers, S = 2048, bf16, random weights from a seed): one vmapped
+        local gradient of ``DOTS["clients"]`` clients (the round engine's
+        ``vmap(grad_and_value)``) with remat off, ``"full"`` and ``"dots"``
+        on the same weights and batch, in turns; the gradients held bitwise
+        across the three (the dots backward takes the kept products back
+        through the formulas the unsaved products' backward takes), and each
+        one's peak memory above the weights and batch (``max_memory_allocated``)
+        and warm gradients a second (CUDA events, ``DOTS["timed"]`` calls
+        after one warm-up)."""
+        import dataclasses
+        import gc
+
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import CausalLM
+
+        base = dataclasses.replace(get_config("granite-8b"), vocab_size=LM_WIDTH["vocab_size"],
+                                   **LM_WIDTH["arch_overrides"])
+        c, seq = DOTS["clients"], LM_WIDTH["seq_len"]
+        params = self.random_stack(base, c)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, base.vocab_size, (c, 1, seq + 1)).astype(
+            np.int32)).to(self.dev)
+        batch = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+        modes = {"off": dict(remat=False), "full": dict(remat=True, remat_policy="full"),
+                 "dots": dict(remat=True, remat_policy="dots")}
+        res, grads = {}, {}
+        for name, over in modes.items():
+            model = CausalLM(dataclasses.replace(base, **over))
+            step = torch.func.vmap(torch.func.grad_and_value(model.loss))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            g, loss = step(params, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            grads[name] = (loss, g)
+            del g
+            times = []
+            for _ in range(DOTS["timed"]):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = step(params, batch)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                del out
+            res[name] = {"peak_above_operands_bytes": peak, "ms": times,
+                         "grads_per_s_warm": 1e3 / min(times)}
+        ref_loss, ref = grads["off"]
+        for name in ("full", "dots"):
+            loss, g = grads[name]
+            bad = [k for k, v in g.items() if not torch.equal(v, ref[k])]
+            res[name]["bitwise_off"] = not bad and torch.equal(loss, ref_loss)
+            if not res[name]["bitwise_off"]:
+                raise AssertionError(f"dots: {name} gradients differ from remat off at {bad[:4]}")
+        if not all(bool(torch.isfinite(v).all()) for v in ref.values()):
+            raise AssertionError("dots: non-finite gradients")
+        del grads, ref, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        peaks = {k: v["peak_above_operands_bytes"] for k, v in res.items()}
+        print(f"dots [{self.smi}]: lm-width cut (granite-8b widths, {base.num_layers} layers, "
+              f"S={seq}, bf16), vmap(grad_and_value) over {c} clients: gradients bitwise remat "
+              f"off, full and dots; peak above the weights and batch "
+              f"{json.dumps({k: round(v / 2**30, 3) for k, v in peaks.items()})} GiB; warm "
+              f"gradients/s {json.dumps({k: round(v['grads_per_s_warm'], 4) for k, v in res.items()})}"
+              f" (CUDA events, best of {DOTS['timed']}); ordering off >= dots >= full: "
+              f"{peaks['off'] >= peaks['dots'] >= peaks['full']}", flush=True)
+        self.detail["dots"] = res
+
+    def dryrun(self):
+        """The dry run on this machine, in a child process
+        (``python3 chip_smoke.py --dryrun-child``) that imports torch and the
+        port and never touches CUDA: (a) granite-8b ``decode_32k`` traced on
+        the production mesh (256 ranks of a fake process group,
+        ``"cuda"``-typed), its record printed; (b) the ``steps`` phase's
+        decode, prefill and train steps traced on a ``(1, 1)`` mesh of a
+        fake group at that phase's shapes, each prediction held against
+        that phase's measurement: the peak (operands plus the peak of what
+        the step makes) within 10% of the step's measured peak, and the
+        measured warm ms no less than 0.95x the roofline term ``max(compute,
+        memory)``; (c) the child's CUDA never initialized (no context, no
+        allocation) and this process's allocated memory unchanged across
+        it."""
+        import tempfile
+
+        torch = self.torch
+        steps = self.detail.get("steps")
+        if not steps or "step_peak_bytes" not in steps:
+            raise AssertionError("dryrun: needs the steps phase's measurements (run it first)")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "dryrun.json"
+            t0 = time.perf_counter()
+            child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                    "--dryrun-child", str(out)], capture_output=True, text=True,
+                                   timeout=DRYRUN_TIMEOUT, env=dict(os.environ,
+                                                                    PYTHONPATH=str(SRC)))
+            seconds = time.perf_counter() - t0
+            if child.returncode != 0:
+                raise AssertionError(f"dryrun child failed: {child.stderr[-4000:]}")
+            got = json.loads(out.read_text())
+        after = torch.cuda.memory_allocated()
+        rec = got["production"]
+        print(f"dryrun [{self.smi}]: child {seconds:.1f}s; (a) production mesh record (derived "
+              f"from the H100 SXM's peaks, not measured): {json.dumps(rec)}", flush=True)
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  torch.cuda.get_device_properties(0).total_memory {total} bytes; "
+              f"roofline.analysis.HW['device_memory'] {got['hw_device_memory']}", flush=True)
+        held = {}
+        for name, pred in got["steps"].items():
+            peak = steps["step_peak_bytes"][name]
+            ms = steps["step_ms"][name]
+            bound_ms = 1e3 * max(pred["roofline"]["compute_s"], pred["roofline"]["memory_s"])
+            ratio = pred["peak_bytes"] / peak
+            held[name] = {"predicted_peak_bytes": pred["peak_bytes"], "measured_peak_bytes": peak,
+                          "peak_ratio": ratio, "measured_ms": ms, "bound_ms": bound_ms,
+                          "ms_over_bound": ms / bound_ms, "dominant": pred["roofline"]["dominant"],
+                          "trace_s": pred["trace_s"], "kernels": pred["kernels"]}
+            print(f"  (b) {name}: predicted peak {pred['peak_bytes'] / 2**30:.3f} GiB, measured "
+                  f"{peak / 2**30:.3f} GiB, ratio {ratio:.4f} (tol 10%); measured {ms:.3f} ms, "
+                  f"roofline max(compute, memory) {bound_ms:.3f} ms ({pred['roofline']['dominant']}"
+                  f"), measured / bound {ms / bound_ms:.3f} (floor 0.95); traced in "
+                  f"{pred['trace_s']:.1f}s, kernels {json.dumps(pred['kernels'])}", flush=True)
+        print(f"  (c) the child's CUDA initialized: {got['cuda_initialized']}; this process's "
+              f"allocated memory {before} -> {after} bytes", flush=True)
+        self.detail["dryrun"] = {"seconds": seconds, "production": rec, "held": held,
+                                 "child_cuda_initialized": got["cuda_initialized"],
+                                 "allocated_before_after": [before, after],
+                                 "total_memory_bytes": total}
+        bad = [n for n, h in held.items()
+               if not (abs(h["peak_ratio"] - 1) <= 0.10 and h["ms_over_bound"] >= 0.95)]
+        if (bad or got["cuda_initialized"] or before != after
+                or got["hw_device_memory"] != total):
+            raise AssertionError(f"dryrun: held {bad}, child CUDA {got['cuda_initialized']}, "
+                                 f"allocated {before} -> {after}")
+
+    def mesh_serve(self):
+        """``ContinuousFederatedServer(mesh=)`` on one NCCL rank (the group made
+        on a free local port with a timeout, destroyed at the end): D = 1, so
+        the slot pool's token exchange is an all-reduce over one rank,
+        plumbing, not an exchange between cards.  The reference's check
+        (``tests/spmd_check.py``'s ``check_continuous_mesh_serving``: a
+        2-layer f32 dense model, 12 requests, 4 slots, buckets (8, 16),
+        chunks of 3 steps) with one replica; every request's tokens held
+        equal to the off-mesh server's on the card (graphed chunk)."""
+        import datetime
+        import socket
+
+        import numpy as np
+        import torch.distributed as dist
+
+        torch = self.torch
+        from repro_torch.launch.mesh import make_cluster_mesh
+        from repro_torch.models import CausalLM
+        from repro_torch.models.config import ArchConfig
+        from repro_torch.serving import ContinuousFederatedServer, Request
+
+        cfg = ArchConfig(name="spmd-serve", family="dense", num_layers=2, d_model=32, d_ff=64,
+                         vocab_size=64, num_heads=2, num_kv_heads=1, head_dim=16,
+                         dtype="float32", remat=False, attn_chunk=16, tie_embeddings=True)
+        model = CausalLM(cfg)
+        stack = {k: v[None].to(self.dev) for k, v in
+                 model.init(torch.Generator().manual_seed(0)).items()}
+        rng = np.random.default_rng(0)
+        reqs = [dict(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(3, 17))),
+                     max_new_tokens=int(rng.integers(1, 9)),
+                     eos_id=int(rng.integers(0, cfg.vocab_size)),
+                     cluster_id=int(rng.integers(0, 1))) for i in range(12)]
+
+        def serve(mesh):
+            srv = ContinuousFederatedServer(model, stack, mesh=mesh, max_batch=4,
+                                            length_buckets=(8, 16), gen_cap=8, chunk_steps=3)
+            batch = [Request(**r) for r in reqs]
+            for r in batch:
+                srv.submit(r)
+            srv.run()
+            return [r.output for r in batch], srv
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            on, srv = serve(make_cluster_mesh(1))
+            where = f"{srv.mesh.size} rank over {srv.mesh.backend}"
+            off, _ = serve(None)
+        finally:
+            dist.destroy_process_group()
+        same = all(np.array_equal(a, b) for a, b in zip(on, off))
+        tokens = sum(len(t) for t in on)
+        print(f"mesh-serve [{self.smi}]: ContinuousFederatedServer on a cluster mesh of one "
+              f"NCCL rank (D = 1: the per-step token all-reduce runs over one rank, plumbing, "
+              f"not an exchange between cards), the reference's check config at f32, 12 "
+              f"requests, {tokens} tokens: equal to the off-mesh server's {same}; mesh "
+              f"{where}", flush=True)
+        self.detail["mesh_serve"] = {"requests": len(on), "tokens": tokens, "equal_off_mesh": same}
+        if not same:
+            raise AssertionError("mesh-serve: tokens differ from the off-mesh server's")
 
     def launch(self):
         """The training CLI on the card through ``repro_torch.launch.train.main``:
@@ -5521,6 +5839,9 @@ class Smoke:
             self.phase("mesh", self.mesh)
             self.phase("launch", self.launch)
             self.phase("steps", self.steps)
+            self.phase("dots", self.dots)
+            self.phase("dryrun", self.dryrun)
+            self.phase("mesh-serve", self.mesh_serve)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
         self.detail["total_seconds"] = time.perf_counter() - self.t0

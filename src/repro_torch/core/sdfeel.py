@@ -219,7 +219,7 @@ def _build_on_device_mesh(model, opt, fl: FLSpec, event: str, mesh, client_axis:
     """``build_fl_train_step`` on a ``DeviceMesh`` (the module docstring)."""
     from torch.distributed.tensor import DTensor, Shard
 
-    from ..launch.mesh import ClientMesh
+    from ..launch.mesh import ClientMesh, on_fake_group
     from .aggregation import fleet_mean_losses
     from .backends import CudaBackend, DenseBackend
 
@@ -243,7 +243,9 @@ def _build_on_device_mesh(model, opt, fl: FLSpec, event: str, mesh, client_axis:
                          f"axis), got {tuple(names)}")
     sub = mesh[rest] if len(rest) > 1 else mesh[rest[0]]
     device = torch.device(mesh.device_type)
-    if device.type == "cuda":
+    if on_fake_group(mesh):
+        device = torch.device("meta")  # a dry run's mesh: nothing runs
+    elif device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     proto = fl.protocol()
     if n == 1:

@@ -28,6 +28,7 @@ import torch
 
 from .._build import check, load, stream_of
 from .._leaves import MAX_LEAVES, leaf_outputs, plan_launches
+from .._trace import nbytes, report, traced
 from .ref import cluster_agg_ref
 
 __all__ = ["cluster_agg", "cluster_agg_tree", "plan_launches", "MAX_LEAVES"]
@@ -56,6 +57,12 @@ def _agg(flats: list, outs: list, weights: torch.Tensor, d: int) -> list:
     tensor of ``flats`` (checked alike and on the weights' device) into
     ``outs`` (a ``(D, M)`` tensor, or None for a new one); returns the
     results."""
+    if traced(flats[0] if flats else weights):
+        outs = [torch.empty((d, w.shape[1]), dtype=w.dtype, device=w.device) if o is None else o
+                for w, o in zip(flats, outs)]
+        report("cluster_agg", 2.0 * sum(w.numel() for w in flats), "f32",
+               nbytes(*flats, *outs, weights))
+        return outs
     if weights.device.type == "cpu":
         res = [cluster_agg_ref(w, weights, d) for w in flats]
         return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]

@@ -45,10 +45,11 @@ from typing import Optional
 import torch
 
 from .._build import check, load, stream_of
+from .._trace import nbytes, report, traced
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "MAX_HEAD_DIM",
-           "route"]
+           "route", "live_pairs"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256  # widest tile the kernels are built for
@@ -111,9 +112,9 @@ def _check(q, k, v, window, logit_cap, extra=()):
             raise ValueError(f"{name} on {t.device} but q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention needs a contiguous {name}")
-        if t.device.type == "cuda" and t.data_ptr() % 16:
+        if t.device.type == "cuda" and not traced(t) and t.data_ptr() % 16:
             raise ValueError(f"flash_attention needs {name} on a 16-byte boundary (TMA)")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda") and not traced(q):
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
 
 
@@ -121,14 +122,38 @@ def _scale(hd: int) -> float:
     return hd ** -0.5  # the original hd, as the reference
 
 
+# the peak each route's products run at (roofline.analysis.PEAK_FLOPS)
+_CLASS = {"tensor_core": "bf16", "split_tf32": "split_tf32", "cuda_core": "f32"}
+
+
+def live_pairs(s: int, window: Optional[int]) -> int:
+    """(query, key) pairs a head attends causally over ``s`` positions,
+    the last ``window`` keys of each query where one is set."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _flops(q: torch.Tensor, window: Optional[int]) -> float:
+    """The forward's counted flops: ``4 * hd`` a live pair, every head."""
+    b, s, hq, hd = q.shape
+    return 4.0 * hd * live_pairs(s, window) * b * hq
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None,
                         logit_cap: Optional[float] = None):
     """(out ``(B, S, Hq, hd)`` in q's dtype, lse ``(B, Hq, S)`` f32)."""
     _check(q, k, v, window, logit_cap)
+    b, s, hq, hd = q.shape
+    if traced(q):
+        out = torch.empty_like(q)
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        report("flash_attention_fwd", _flops(q, window), _CLASS[route(q.dtype, hd)],
+               nbytes(q, k, v, out, lse))
+        return out, lse
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, window, logit_cap)
-    b, s, hq, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     lib, fns, _ = _bind()
@@ -156,6 +181,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != (b, hq, s):
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if traced(q):
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        report("flash_attention_bwd", 2.5 * _flops(q, window),
+               _CLASS[route(q.dtype, hd, backward=True)], nbytes(q, k, v, out, lse, dout, *grads))
+        return grads
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, window, logit_cap)
     way = route(q.dtype, hd, backward=True)

@@ -29,6 +29,7 @@ import torch
 
 from .._build import check, load, stream_of
 from .._leaves import MAX_LEAVES, leaf_outputs, plan_launches
+from .._trace import nbytes, report, traced
 from .ref import normalized_update_ref, sgd_update_ref
 
 __all__ = ["sgd_update", "sgd_update_tree", "normalized_update", "normalized_update_tree",
@@ -64,6 +65,10 @@ def _sgd(ws: list, gs: list, outs: list, lr: float) -> list:
     """``w - lr * g`` for every (checked) leaf, all on one device, into
     ``outs`` (a tensor, which may alias ``w``, or None for a new one)."""
     device = ws[0].device
+    if traced(ws[0]):
+        outs = [torch.empty_like(w) if o is None else o for w, o in zip(ws, outs)]
+        report("sgd_update", 2.0 * sum(w.numel() for w in ws), "f32", nbytes(*ws, *gs, *outs))
+        return outs
     if device.type == "cpu":
         res = [sgd_update_ref(w, g, lr) for w, g in zip(ws, gs)]
         return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]
@@ -130,6 +135,11 @@ def _norm(wfs: list, w0s: list, outs: list, inv_theta) -> list:
     one device, into ``outs`` (a tensor, which may alias an input, or None
     for a new one)."""
     device = wfs[0].device
+    if traced(wfs[0]):
+        outs = [torch.empty_like(w) if o is None else o for w, o in zip(wfs, outs)]
+        report("normalized_update", 2.0 * sum(w.numel() for w in wfs), "f32",
+               nbytes(*wfs, *w0s, *outs))
+        return outs
     if device.type == "cpu":
         res = [normalized_update_ref(a, b, inv_theta) for a, b in zip(wfs, w0s)]
         return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]

@@ -26,6 +26,7 @@ import torch
 
 from .._build import check, load, stream_of
 from .._leaves import MAX_LEAVES, plan_launches
+from .._trace import nbytes, report, traced
 from .ref import fused_transition_ref
 
 __all__ = ["fused_transition", "fused_transition_tree", "plan_launches", "MAX_D", "MAX_LEAVES"]
@@ -60,6 +61,13 @@ def _transition(flats: list, outs: list, vt, p, bt, alpha: int) -> list:
     """The transition of every ``(C, M)`` tensor of ``flats`` (checked alike
     and on the factors' device) into ``outs`` (a tensor, which may alias its
     input, or None for a new one); returns the results."""
+    if traced(flats[0] if flats else vt):
+        d, c = vt.shape
+        outs = [torch.empty_like(w) if o is None else o for w, o in zip(flats, outs)]
+        m = sum(w.shape[1] for w in flats)
+        report("fused_transition", 2.0 * m * (2 * d * c + alpha * d * d), "f32",
+               nbytes(*flats, *outs, vt, p, bt))
+        return outs
     if vt.device.type == "cpu":
         res = [fused_transition_ref(w, vt, p, bt, alpha) for w in flats]
         return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]

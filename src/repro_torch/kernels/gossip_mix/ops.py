@@ -28,6 +28,7 @@ import torch
 
 from .._build import check, load, stream_of
 from .._leaves import MAX_LEAVES, leaf_outputs, plan_launches
+from .._trace import nbytes, report, traced
 from .ref import gossip_mix_ref
 
 __all__ = ["gossip_mix", "gossip_mix_tree", "plan_launches", "MAX_D", "MAX_LEAVES"]
@@ -58,6 +59,12 @@ def _mix(flats: list, outs: list, p: torch.Tensor, alpha: int) -> list:
     alike, all on one device) into ``outs`` (a ``(D, M)`` tensor, which may
     alias its input, or None for a new one); returns the results."""
     device = flats[0].device
+    if traced(flats[0]):
+        outs = [torch.empty_like(y) if o is None else o for y, o in zip(flats, outs)]
+        d = p.shape[0]
+        report("gossip_mix", 2.0 * alpha * d * sum(y.numel() for y in flats), "f32",
+               nbytes(*flats, *outs, p))
+        return outs
     if p.device != device:
         raise ValueError(f"p on {p.device}, the leaves on {device}: p must lie on the "
                          f"leaves' device")

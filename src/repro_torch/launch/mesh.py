@@ -29,8 +29,17 @@ field into a mesh or ``None``:
 N`` gives one of N ranks), which the step builders of ``launch.steps`` take;
 ``mesh_axes_for`` names its axes for the sharding rules, and
 ``ClientMesh.from_device_mesh`` is the client mesh of one of its dimensions
-(a subgroup).  The reference's ``make_production_mesh`` waits for ROADMAP.md
-§1 item 4's 'dryrun'.
+(a subgroup).
+
+``make_production_mesh`` is the reference's production mesh, ``(16, 16)``
+``("data", "model")`` or ``(2, 16, 16)`` ``("pod", "data", "model")``, over a
+fake process group of 256 or 512 ranks (``torch.distributed``'s ``fake``
+backend: this process is rank 0, every collective returns at once), for
+the dry run (``launch.dryrun``), which traces one rank's step on it.  Its
+shapes are the reference's, so the sharding rules lay every leaf out as
+the reference's do.  On nodes of 8 H100s a ``model`` axis of 16 spans two
+nodes: in row-major rank order its groups cross the network, and
+``roofline.analysis`` charges them to it.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ from typing import Any
 import torch
 
 __all__ = ["ClientMesh", "make_client_mesh", "resolve_client_mesh", "make_cluster_mesh",
-           "resolve_cluster_mesh", "describe_resolution", "make_test_mesh", "mesh_axes_for"]
+           "resolve_cluster_mesh", "describe_resolution", "make_test_mesh", "mesh_axes_for",
+           "make_production_mesh", "on_fake_group"]
 
 _LAUNCH = ("one process a {what}: torchrun --nproc-per-node {n} -m "
            "repro_torch.launch.train ... --mesh auto")
@@ -71,7 +81,9 @@ class ClientMesh:
         from ..sharding.context import mesh_axis_sizes
 
         dev = torch.device(device_mesh.device_type)
-        if dev.type == "cuda":
+        if on_fake_group(device_mesh):
+            dev = torch.device("meta")  # a dry run's mesh: nothing runs
+        elif dev.type == "cuda":
             dev = torch.device("cuda", torch.cuda.current_device())
         return cls(group=device_mesh.get_group(axis_name), axis_name=axis_name,
                    size=mesh_axis_sizes(device_mesh)[axis_name],
@@ -188,6 +200,42 @@ def make_test_mesh(data: int = 2, model: int = 2, pod: int | None = None, device
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return DeviceMesh(dev.type, torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+def on_fake_group(device_mesh) -> bool:
+    """Whether ``device_mesh`` lies over a fake process group (the dry run's):
+    nothing runs there, so what a step builds for it goes on ``meta``, and
+    no device is touched."""
+    import torch.distributed as dist
+
+    return dist.get_backend(device_mesh.get_group(0)) == "fake"
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production mesh over a fake process group of 256
+    (or 512 with ``multi_pod``) ranks, started here unless one of that size
+    is (``ValueError`` for a group of another size).  ``device`` names the
+    mesh's device type: ``"cuda"`` where CUDA exists, else ``"cpu"``, by
+    default.  Nothing runs on the device: the fake group exchanges nothing
+    and its ranks are not processes."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for x in shape:
+        n *= x
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    elif dist.get_world_size() != n:
+        raise ValueError(f"the production mesh needs a process group of {n} ranks, the "
+                         f"initialized one has {dist.get_world_size()}")
+    dev = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    return DeviceMesh(torch.device(dev).type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=names)
 
 
 def mesh_axes_for(device_mesh):

@@ -9,6 +9,14 @@ training-to-serving loop of a federated scenario.  Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --reduced \\
         --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
+With ``--scenario <name> --continuous --mesh auto`` under ``torchrun
+--nproc-per-node D`` (D the scenario's clusters) each rank serves one
+cluster's replica (``ContinuousFederatedServer(mesh=)``); ``--device cpu``
+runs the ranks over gloo::
+
+    OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --scenario lm-serving-continuous --continuous --mesh auto --device cpu
+
 Sampling at ``temperature > 0`` draws Gumbel noise from a counter-based hash
 of a key per row (``sample_tokens``, ``next_keys``): the draws follow from
 the seed and are plain tensor ops, so a captured CUDA graph replays them.
@@ -127,13 +135,10 @@ def serve_scenario(name: str, *, train_steps: int = 4, requests: int = 16,
 
     ``continuous=True`` serves through the slot-pool
     ``ContinuousFederatedServer`` (budgets heavy-tailed on ``[1, gen]``);
-    ``mesh`` other than None raises (the
-    cluster mesh is ROADMAP.md §1 item 4, 'Multi-device and launch': 'mesh
-    serving')."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving on a cluster mesh is not ported yet (ROADMAP.md §1 item 4, "
-            "'Multi-device and launch': 'mesh serving'); pass mesh=None")
+    ``mesh`` (None, ``"auto"`` or a ``launch.mesh.ClientMesh``) then puts
+    one cluster replica a rank of the default process group, as the
+    reference's shards the replica axis.  Every rank trains the scenario
+    alike (one seed), so every rank serves the same stack."""
     from ..scenarios import build_scenario
     from ..serving import ContinuousFederatedServer, FederatedServer, synthetic_trace
 
@@ -144,7 +149,7 @@ def serve_scenario(name: str, *, train_steps: int = 4, requests: int = 16,
     history = run.run(train_steps)
     if continuous:
         server = ContinuousFederatedServer(
-            run.runtime.model, runtime=run.runtime, max_batch=max_batch,
+            run.runtime.model, runtime=run.runtime, mesh=mesh, max_batch=max_batch,
             length_buckets=tuple(length_buckets), gen_cap=gen)
         budgets = (1, gen)
     else:
@@ -177,29 +182,17 @@ def main(argv=None):
                     help="serve through the continuous slot-pool engine "
                          "(mid-decode admission, decode chunks on a CUDA graph)")
     ap.add_argument("--mesh", default=None,
-                    help="'auto' would shard the cluster replicas over a mesh "
-                         "(not ported: raises NotImplementedError)")
+                    help="'auto' puts one cluster replica a rank of the continuous "
+                         "server (--scenario ... --continuous; under torchrun "
+                         "--nproc-per-node D, D the scenario's clusters)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     if args.scenario is not None:
-        server, _, _ = serve_scenario(
-            args.scenario, train_steps=args.train_steps, requests=args.requests,
-            max_batch=args.max_batch, gen=args.gen, continuous=args.continuous,
-            mesh=args.mesh, device=args.device)
-        s = server.stats
-        engine = "continuous" if args.continuous else "static"
-        print(f"scenario={args.scenario} engine={engine} clusters={server.num_clusters} "
-              f"requests={s.requests} batches={s.batches}")
-        print(f"{s.tokens_generated} tokens in {s.wall_s:.2f}s -> {s.tokens_per_s:.1f} tok/s, "
-              f"{s.requests_per_s:.2f} req/s (mean occupancy {s.mean_occupancy:.2f})")
-        print(f"latency p50/p95 {s.latency_p50:.3f}/{s.latency_p95:.3f}s, "
-              f"ttft p50/p95 {s.ttft_p50:.3f}/{s.ttft_p95:.3f}s")
-        return server
+        return _serve_scenario_main(args)
     if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP.md §1 item 4, 'Multi-device and launch': "
-            "'mesh serving')")
+        raise ValueError("--mesh applies to the continuous federated server: pass "
+                         "--scenario <name> --continuous")
 
     import numpy as np
 
@@ -228,6 +221,37 @@ def main(argv=None):
           f"kernel builds included)")
     print("sample tokens:", out[0, :10].tolist())
     return out
+
+
+def _serve_scenario_main(args):
+    """``--scenario``: under torchrun with ``--mesh auto`` the default
+    process group is started first (``launch.train``'s rule) and only rank
+    0 prints."""
+    from .train import _say, _start_process_group
+
+    started = _start_process_group(args)
+    try:
+        server, _, _ = serve_scenario(
+            args.scenario, train_steps=args.train_steps, requests=args.requests,
+            max_batch=args.max_batch, gen=args.gen, continuous=args.continuous,
+            mesh=args.mesh, device=args.device)
+        s = server.stats
+        engine = "continuous" if args.continuous else "static"
+        mesh = getattr(server, "mesh", None)
+        where = ("one device" if mesh is None else
+                 f"a cluster mesh of {mesh.size} ranks over {mesh.backend}")
+        _say(f"scenario={args.scenario} engine={engine} clusters={server.num_clusters} "
+             f"requests={s.requests} batches={s.batches} on {where}")
+        _say(f"{s.tokens_generated} tokens in {s.wall_s:.2f}s -> {s.tokens_per_s:.1f} tok/s, "
+             f"{s.requests_per_s:.2f} req/s (mean occupancy {s.mean_occupancy:.2f})")
+        _say(f"latency p50/p95 {s.latency_p50:.3f}/{s.latency_p95:.3f}s, "
+             f"ttft p50/p95 {s.ttft_p50:.3f}/{s.ttft_p95:.3f}s")
+        return server
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -28,6 +28,8 @@ no Pallas kernel there, with the (accumulator, sum, max) stats exposed
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -45,6 +47,7 @@ __all__ = [
     "gated_mlp",
     "dense",
     "init_dense",
+    "saved_products",
     "softcap",
 ]
 
@@ -374,10 +377,98 @@ def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = x @ w.to(x.dtype)
+    """``x @ w (+ b)``, ``w`` cast to ``x``'s dtype.  Every product of the
+    model without batch dimensions of its own goes through here: the
+    projections, the MoE router and mamba's projections, which remat's
+    ``"dots"`` policy keeps (``saved_products``)."""
+    w = w.to(x.dtype)
+    tape = getattr(_TAPE, "tape", None)
+    y = x @ w if tape is None else tape.product(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+# -- remat's "dots" policy: the products a block keeps ---------------------------
+
+_TAPE = threading.local()
+
+
+class _Tape:
+    """The products of one block's run, in call order: recorded by the
+    forward, handed back one by one by the recomputation."""
+
+    def __init__(self, saved: Optional[list]):
+        self.replay = saved is not None
+        self.saved = list(saved) if self.replay else []
+        self.next = 0
+
+    def product(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if not self.replay:
+            y = x @ w
+            self.saved.append(y)
+            return y
+        i, self.next = self.next, self.next + 1
+        return _Product.apply(x, w, self.saved[i] if i < len(self.saved) else None)
+
+
+@contextlib.contextmanager
+def saved_products(saved: Optional[list] = None):
+    """Inside, ``dense`` records its products on the yielded tape
+    (``saved=None``, the block's forward) or returns ``saved``'s in turn
+    without multiplying (the block's recomputation).  A product past the
+    end of ``saved`` is one whose value the backward never reads: zeros
+    stand for it, and its gradients are still those of the product."""
+    prev = getattr(_TAPE, "tape", None)
+    _TAPE.tape = tape = _Tape(saved)
+    try:
+        yield tape
+    finally:
+        _TAPE.tape = prev
+
+
+def _mm_grads(x2: torch.Tensor, w: torch.Tensor, g: torch.Tensor, need: tuple):
+    """The gradients of ``x2 @ w`` (both 2-d) for the output gradient ``g``,
+    by the formulas autograd's ``mm`` takes (a column-major operand gets its
+    gradient column-major), so that they equal the unsaved product's bit for
+    bit."""
+    dx = dw = None
+    if need[0]:
+        col = x2.stride(0) == 1 and x2.stride(1) == x2.shape[0]
+        dx = w.mm(g.t()).t() if col else g.mm(w.t())
+    if need[1]:
+        col = w.stride(0) == 1 and w.stride(1) == w.shape[0]
+        dw = g.t().mm(x2).t() if col else x2.t().mm(g)
+    return dx, dw
+
+
+class _Product(torch.autograd.Function):
+    """``x @ w`` whose value was kept by the forward (``y``; ``None`` for
+    zeros): no product is taken again, and the backward gives ``dy @ w^T``
+    and ``x^T dy`` as ``x @ w``'s would: ``x`` folded to 2-d as ``matmul``
+    folds it.  The products it stands for are taken outside any ``vmap``
+    inside the gradient's transform (the MoE router's logits too), so its
+    generated vmap rule batches these formulas as the product's own."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, y):
+        if y is None:
+            return torch.zeros_like(x[..., :1]).expand(*x.shape[:-1], w.shape[-1])
+        return y.view_as(y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _ = inputs
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        x2 = x.reshape(-1, x.shape[-1])
+        dx, dw = _mm_grads(x2, w, dy.reshape(-1, dy.shape[-1]), ctx.needs_input_grad[:2])
+        return (None if dx is None else dx.reshape(x.shape)), dw, None
 
 
 def gated_mlp(x: torch.Tensor, params: dict) -> torch.Tensor:

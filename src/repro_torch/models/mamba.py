@@ -9,7 +9,8 @@ have separate projections, and each of x, B and C its own depthwise causal
 conv, which is conv-then-split computed per stream.
 
 The reference computes the mixer in plain ``jnp`` with no Pallas kernel;
-here the SSD products are ``torch.einsum``.  Decode keeps an O(1)-size
+here the SSD products are ``torch.einsum`` and the projections
+``layers.dense`` (which remat's ``"dots"`` policy keeps).  Decode keeps an O(1)-size
 state a layer (``init_mamba_cache``, ``mamba_decode_step``): the SSM state
 and a (conv_width - 1)-deep tail of each conv's inputs,
 
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import rms_norm
+from .layers import dense, rms_norm
 
 __all__ = ["init_mamba_params", "mamba_forward", "ssd_chunked", "init_mamba_cache",
            "mamba_decode_step"]
@@ -142,11 +143,8 @@ def _ssd_recurrence(s_c, total, cf, seg, h0):
 
 def _project(params: dict, x: torch.Tensor):
     """x: (B, S, d) -> (z, xr, b, c, dt_raw), the pre-conv streams."""
-    def mm(w):
-        return torch.einsum("bsd,do->bso", x, w.to(x.dtype))
-
-    return (mm(params["w_z"]), mm(params["w_x"]), mm(params["w_b"]), mm(params["w_c"]),
-            mm(params["w_dt"]))
+    return (dense(x, params["w_z"]), dense(x, params["w_x"]), dense(x, params["w_b"]),
+            dense(x, params["w_c"]), dense(x, params["w_dt"]))
 
 
 def mamba_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, h0=None, conv_tail=None):
@@ -170,7 +168,7 @@ def mamba_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, h0=None, conv_
     y = y.reshape(bsz, s, di)
     gated = y * F.silu(z.float())
     out = rms_norm(gated.to(x.dtype), params["norm_scale"], cfg.norm_eps)
-    out = torch.einsum("bsd,do->bso", out, params["out_proj"].to(x.dtype))
+    out = dense(out, params["out_proj"])
     return out, (h_final, {"x": tail_x, "b": tail_b, "c": tail_c})
 
 
@@ -208,5 +206,5 @@ def mamba_decode_step(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dic
     y = y.reshape(bsz, 1, di)
     gated = y * F.silu(z.float())
     out = rms_norm(gated.to(x.dtype), params["norm_scale"], cfg.norm_eps)
-    out = torch.einsum("bsd,do->bso", out, params["out_proj"].to(x.dtype))
+    out = dense(out, params["out_proj"])
     return out, {"ssm": h_new, "conv_x": tail_x, "conv_b": tail_b, "conv_c": tail_c}

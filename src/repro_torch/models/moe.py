@@ -14,7 +14,8 @@ and inside a CUDA graph's capture: the per-expert counts are a compare and
 sum (``torch.bincount`` reads its max back), the inverse permutation an
 out-of-place ``scatter``, and no boolean mask selects a ragged subset.
 The reference computes the layer in plain ``jnp``, with no Pallas kernel;
-here the expert GEMMs are ``torch.einsum`` products.
+here the expert GEMMs are ``torch.einsum`` products and the router's
+logits ``layers.dense``.
 
 On ``DTensor`` operands (``launch.steps``) the layer runs as the reference's
 ``shard_map`` branch (``_moe_on_mesh``): when the activation-sharding
@@ -34,12 +35,23 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .layers import dense
+
 __all__ = ["moe_mlp", "init_moe_params", "router_topk", "moe_capacity"]
 
 
-def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int):
-    """Returns (expert_ids (T, k), combine_weights (T, k), aux_loss, probs)."""
-    logits = torch.einsum("td,de->te", x.float(), w_router.float())
+def router_logits(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
+    """The f32 router logits ``x @ w_router`` of tokens ``(..., d)``: one
+    product over all tokens, taken outside the per-example ``vmap`` so that
+    remat's ``"dots"`` policy can keep it (``layers.dense``)."""
+    return dense(x.float(), w_router.float())
+
+
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int,
+                logits: Optional[torch.Tensor] = None):
+    """Returns (expert_ids (T, k), combine_weights (T, k), aux_loss, probs);
+    ``logits`` are ``router_logits(x, w_router)`` where already taken."""
+    logits = router_logits(x, w_router) if logits is None else logits
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.topk(probs, k, dim=-1)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
@@ -54,7 +66,8 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int):
     return ids, weights, aux, probs
 
 
-def _route(xt: torch.Tensor, w_router: torch.Tensor, k: int, capacity: int):
+def _route(xt: torch.Tensor, w_router: torch.Tensor, k: int, capacity: int,
+           logits: Optional[torch.Tensor] = None):
     """Routing and slot bookkeeping for one flat token set. xt: (T, d) ->
     (src_tok (E, cap) token of each expert slot, valid (E, cap), slot_flat
     (T * k,) slot of each (token, choice) or E * cap when dropped, combine
@@ -62,7 +75,7 @@ def _route(xt: torch.Tensor, w_router: torch.Tensor, k: int, capacity: int):
     t = xt.shape[0]
     e = w_router.shape[1]
     dev = xt.device
-    ids, weights, aux, _ = router_topk(xt, w_router, k)
+    ids, weights, aux, _ = router_topk(xt, w_router, k, logits)
 
     flat_e = ids.reshape(t * k)
     flat_tok = torch.arange(t * k, device=dev) // k      # token of each assignment
@@ -144,7 +157,8 @@ def moe_mlp(x: torch.Tensor, params: dict, *, num_experts_per_tok: int,
     if s > 1:
         capacity = capacity or moe_capacity(s, k, e, capacity_factor)
         src_tok, valid, slot_flat, w, aux = vmap(
-            lambda xe: _route(xe, params["w_router"], k, capacity))(x)
+            lambda xe, le: _route(xe, params["w_router"], k, capacity, le))(
+                x, router_logits(x, params["w_router"]))
         expert_out = _experts(vmap(_dispatch)(x, src_tok, valid), params)
         return vmap(_combine)(expert_out, slot_flat, w), aux.mean()
     t = b * s
@@ -204,7 +218,8 @@ def _moe_on_mesh(x, params: dict, *, num_experts_per_tok: int, capacity_factor: 
     vmap = torch.func.vmap
     if s > 1:
         cap = capacity or moe_capacity(s, k, e, capacity_factor)
-        src_tok, valid, slot_flat, w, aux = vmap(lambda xe: _route(xe, router, k, cap))(xl)
+        src_tok, valid, slot_flat, w, aux = vmap(
+            lambda xe, le: _route(xe, router, k, cap, le))(xl, router_logits(xl, router))
         out = vmap(_combine)(experts(vmap(_dispatch)(xl, src_tok, valid)), slot_flat, w)
         aux = aux.mean()
     else:

@@ -20,10 +20,10 @@ through ``models.mamba.mamba_forward``.  Modalities as in the reference:
 loss masks those positions), and audio sums ``(B, K, S)`` codebook tokens'
 embeddings and emits ``K`` heads of logits.
 
-``cfg.remat`` (policy ``"full"``) runs each block through ``_Remat``, an
-``autograd.Function`` that keeps only the block's input and recomputes the
-block in its backward (the reference's ``jax.checkpoint``); policy
-``"dots"`` raises ``NotImplementedError``.  Serving: ``init_cache``,
+``cfg.remat`` runs each block through ``_Remat``, an ``autograd.Function``
+that keeps only the block's input (policy ``"full"``), or also the products
+without batch dimensions (``"dots"``, ``dots_saved``), and recomputes the
+rest of the block in its backward (the reference's ``jax.checkpoint``).  Serving: ``init_cache``,
 ``prefill`` (the caches of a full-sequence pass, through the flash forward
 with ``attn_impl="cuda"``), ``decode_hidden`` and ``decode_step`` (one token a
 row against ring-buffer KV caches and mamba states, written in place, plain
@@ -38,11 +38,12 @@ attention sequence-parallel (the reference's ``shard_chunk``; with
 ``attn_impl="plain"`` only, as 'flash rows' of ROADMAP.md §1 item 4 waits).
 ``CausalLM(decode_impl=)`` takes ``sharding.make_decode_impl``'s
 sequence-sharded decode, which writes each rank's cache shard in place; a
-gated or cluster-routed decode through it is 'mesh serving''s (ROADMAP.md
-§1 item 4).
+gated or cluster-routed decode through it raises, as no path of the
+reference takes one (ROADMAP.md §1 item 4, 'decode_impl').
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -50,20 +51,38 @@ import torch
 from .config import ArchConfig
 from .layers import (
     causal_attention, decode_attention, dense, embedding, gated_mlp, init_dense, rms_norm, rope,
-    softcap,
+    saved_products, softcap,
 )
 from .mamba import init_mamba_cache, init_mamba_params, mamba_decode_step, mamba_forward
 from .moe import init_moe_params, moe_mlp
 
-__all__ = ["CausalLM"]
+__all__ = ["CausalLM", "dots_saved"]
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy={cfg.remat_policy!r} (save the matmul outputs, set by "
-            f"the multi-device dry run) is not ported yet (ROADMAP.md §1 item 4, 'Multi-device "
-            f"and launch': 'dots'); remat_policy='full' is")
+def dots_saved(cfg: ArchConfig) -> list:
+    """The products remat's ``"dots"`` policy keeps from a block's forward,
+    in the order the block takes them: ``"posI.<weight>"`` for the product
+    of a layer's input with that weight (``layers.dense``).  See
+    ``_Remat``."""
+    names = []
+    for i in range(cfg.scan_period):
+        if cfg.layer_kind(i) == "attn":
+            names += [f"pos{i}.attn.{w}" for w in ("wq", "wk", "wv", "wo")]
+        else:
+            names += [f"pos{i}.mamba.{w}" for w in ("w_z", "w_x", "w_b", "w_c", "w_dt",
+                                                      "out_proj")]
+        if cfg.d_ff:
+            names += ([f"pos{i}.ffn.w_router"] if cfg.is_moe_layer(i) else
+                      [f"pos{i}.ffn.{w}" for w in ("w_gate", "w_up", "w_down")])
+    return names if _reads_last_product(cfg) else names[:-1]
+
+
+def _reads_last_product(cfg: ArchConfig) -> bool:
+    """Whether a block's backward reads its last product's value: a post-norm
+    reads it, and an MoE router's softmax; the down or output projection
+    that only the block's residual add takes is not read."""
+    last = cfg.scan_period - 1
+    return cfg.use_post_norm or bool(cfg.d_ff and cfg.is_moe_layer(last))
 
 
 def _audio(cfg: ArchConfig) -> bool:
@@ -198,6 +217,25 @@ class _Remat(torch.autograd.Function):
     tensor ``fn`` reads comes in as an input (a tensor it closed over would
     belong to a transform level the generated vmap rule has left).
 
+    ``dots`` is ``None`` for policy ``"full"``.  For ``"dots"`` (the
+    reference's ``dots_with_no_batch_dims_saveable``) the forward also keeps
+    the products ``layers.dense`` takes (``layers.saved_products``) and
+    returns them as extra outputs, which the generated vmap rule carries
+    over the client axis; the recomputation then takes each back through
+    ``layers._Product`` instead of multiplying again, and recomputes the
+    rest.  The reference's policy sees one client's products (its
+    ``jax.checkpoint`` lies inside the ``vmap``), so it keeps the products
+    without batch dimensions of their own: every projection, attention's
+    q, k, v and output, the gated MLP's gate, up and down, the MoE router's
+    logits, mamba's z, x, B, C and dt projections and its output projection
+    (``dots_saved`` lists a block's).  Attention's per-head products and
+    the flash op, the MoE's expert GEMMs (an expert axis) and combine, and
+    the SSD products are recomputed.  As in the reference, a product whose
+    value the backward never reads is not kept (``dots`` False: the
+    block's last product, a down or output projection that only the
+    residual add takes); the recomputation puts zeros in its place.  The
+    gradients are those of ``"full"`` and of remat off, bit for bit.
+
     On a mesh (DTensor operands, no ``torch.func`` transform around the
     step) the backward recomputes the block under autograd instead, in the
     activation-sharding context the forward ran in (the engine may run a
@@ -207,32 +245,42 @@ class _Remat(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(fn, x, positions, *leaves):
-        return fn(x, positions, leaves)
+    def forward(fn, dots, x, positions, *leaves):
+        if dots is None:
+            return fn(x, positions, leaves)
+        with saved_products() as tape:
+            out = fn(x, positions, leaves)
+        kept = tape.saved if dots else tape.saved[:-1]
+        return (*out, *kept)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         from ..sharding.context import current
 
-        fn, x, positions, *leaves = inputs
+        fn, _, x, positions, *leaves = inputs
         ctx.fn = fn
         ctx.sharding = current()
-        ctx.save_for_backward(x, positions, *leaves)
+        ctx.n_leaves = len(leaves)
+        kept = output[2:]
+        ctx.mark_non_differentiable(*kept)
+        ctx.save_for_backward(x, positions, *leaves, *kept)
 
     @staticmethod
-    def backward(ctx, dx, daux):
+    def backward(ctx, dx, daux, *_):
         from ..sharding.context import is_dtensor, restored
 
-        x, positions, *leaves = ctx.saved_tensors
+        x, positions, *rest = ctx.saved_tensors
+        leaves, kept = rest[:ctx.n_leaves], rest[ctx.n_leaves:]
         fn = ctx.fn
+        replay = saved_products(kept) if kept else contextlib.nullcontext()
         if is_dtensor(x):
             ins = [t.detach().requires_grad_() for t in (x, *leaves)]
-            with restored(ctx.sharding), torch.enable_grad():
+            with restored(ctx.sharding), torch.enable_grad(), replay:
                 outs = fn(ins[0], positions, ins[1:])
             keep = [(o, g) for o, g in zip(outs, (dx, daux)) if o.requires_grad]
             grads = torch.autograd.grad([o for o, _ in keep], ins, [g for _, g in keep],
                                         allow_unused=True)
-            return (None, grads[0], None, *grads[1:])
+            return (None, None, grads[0], None, *grads[1:])
         # torch.func.grad differentiates with create_graph=True, which would
         # record the recomputation for a second derivative and keep every
         # recomputed block alive; detached operands keep it to this call
@@ -240,9 +288,10 @@ class _Remat(torch.autograd.Function):
         # block's backward takes without remat), and the flash op has no
         # second derivative anyway
         inputs = [t.detach() for t in (x, *leaves)]
-        _, pull = torch.func.vjp(lambda x_, *ls: fn(x_, positions, ls), *inputs)
+        with replay:
+            _, pull = torch.func.vjp(lambda x_, *ls: fn(x_, positions, ls), *inputs)
         dx, *dleaves = pull((dx.detach(), daux.detach()))
-        return (None, dx, None, *dleaves)
+        return (None, None, dx, None, *dleaves)
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +346,8 @@ class CausalLM:
     """Functional causal LM over flat parameter dicts."""
 
     def __init__(self, cfg: ArchConfig, long_context: bool = False, decode_impl=None):
-        _check_ported(cfg)
+        if cfg.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got {cfg.remat_policy!r}")
         self.cfg = cfg
         self.long_context = long_context
         self.decode_impl = decode_impl
@@ -381,6 +431,7 @@ class CausalLM:
                   for k, w in params.items() if k.startswith("blocks.")}
         names = sorted(blocks)
         remat = cfg.remat and not return_cache
+        dots = _reads_last_product(cfg) if cfg.remat_policy == "dots" else None
 
         def block_fn(x, positions, leaves):
             p_all = dict(zip(names, leaves))
@@ -400,7 +451,8 @@ class CausalLM:
         for i in range(nb):
             leaves = tuple(blocks[k][i] for k in names)
             if remat:
-                x, a = _Remat.apply(lambda *args: block_fn(*args)[:2], x, positions, *leaves)
+                x, a = _Remat.apply(lambda *args: block_fn(*args)[:2], dots, x, positions,
+                                    *leaves)[:2]
                 c = None
             else:
                 x, a, c = block_fn(x, positions, leaves)
@@ -534,8 +586,9 @@ class CausalLM:
                 if gate is not None or sel is not None:
                     raise NotImplementedError(
                         "a gated or cluster-routed decode through decode_impl (the slot "
-                        "pool's, the federated servers') is not ported yet (ROADMAP.md §1 "
-                        "item 4, 'Multi-device and launch': 'mesh serving')")
+                        "pool's, the federated servers') is not ported: no path of the "
+                        "reference takes it (ROADMAP.md §1 item 4, 'Multi-device and "
+                        "launch': 'decode_impl', its slot-pool forms filed as not needed)")
                 # the sharded decode writes its cache shards in place
                 o = self.decode_impl(q[:, 0], k_c, v_c, pos_c, q_pos[0], k[:, 0], v[:, 0],
                                      window=window, logit_cap=cfg.attn_logit_softcap)[0]

@@ -317,14 +317,16 @@ class ContinuousServer:
     ``ContinuousFederatedServer``) with decode chunks of ``chunk_steps``
     steps, harvesting finished slots after each chunk.  ``graph`` as a
     scheduler's: None replays the chunk from a CUDA graph on the card and
-    runs it eagerly on the CPU, False is the eager chunk."""
+    runs it eagerly on the CPU, False is the eager chunk.  ``share`` and
+    ``own`` are a cluster mesh's (``ContinuousFederatedServer(mesh=)``,
+    ``slots.build_slot_programs``)."""
 
     _stacked = False  # federated subclass: weights are a (D, ...) stack
 
     def __init__(self, model, params, *, max_batch: int = 8,
                  length_buckets: tuple[int, ...] = (32, 64, 128), gen_cap: int = 64,
                  chunk_steps: int = 8, temperature: float = 0.0, seed: int = 0,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, share=None, own: Optional[int] = None):
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -343,7 +345,7 @@ class ContinuousServer:
                                       device=device)
         self._prefill_p, self._admit_p, self._chunk_p = build_slot_programs(
             model, temperature=temperature, gen_cap=gen_cap, chunk_steps=chunk_steps,
-            stacked=self._stacked, device=device, graph=graph)
+            stacked=self._stacked, device=device, graph=graph, share=share, own=own)
         self._steps_seen = 0
         self._active_steps_seen = 0
         self.stats = ServeStats()
@@ -374,12 +376,23 @@ class ContinuousServer:
     def _at_admission_boundary(self) -> None:
         """Hook: the only point where serving weights may change."""
 
+    def _prefills(self, req: Request) -> bool:
+        """Hook: whether this process prefills ``req`` (on a cluster mesh,
+        only the rank of its cluster)."""
+        return True
+
+    def _replica(self, d):
+        """Hook: the index of cluster ``d``'s replica in ``_weights()``."""
+        return d
+
     # -- admission -----------------------------------------------------------
     def _admit_one(self, req: Request, slot: int) -> None:
         blen = _bucket_len(req.prompt.shape[-1], self.buckets)
         toks = torch.from_numpy(_pad_prompt(req, blen)[None]).to(self._state["tok"].device)
         d = self._cluster_index(req)
-        logits, row_cache = self._prefill_p(self._weights(), d, toks)
+        logits = row_cache = None
+        if self._prefills(req):
+            logits, row_cache = self._prefill_p(self._weights(), self._replica(d), toks)
         key_row = initial_keys(self._key, 1, toks.device)
         self._key += 1
         eos = -1 if req.eos_id is None else req.eos_id

@@ -13,8 +13,12 @@ parameter dict (the layout the round engine trains and
   carries its cluster index, so slots of different clusters decode side by
   side in one program: each op that reads weights runs once a cluster over
   all slots and each slot keeps its own cluster's result (no slot gathers a
-  copy of a replica).  ``mesh`` other than None raises: serving on a cluster
-  mesh is ROADMAP.md §1 item 4, 'Multi-device and launch': 'mesh serving'.
+  copy of a replica).  On a cluster mesh (``mesh=``, one rank a cluster
+  of the default process group) each rank holds its cluster's replica and
+  the whole pool, prefills its cluster's admissions, decodes every slot on
+  its replica and keeps its own slots' tokens; one collective a step (and
+  an admission) gives every rank every slot's tokens, so the pool runs as
+  the off-mesh one does, bit for bit.
 
 Weights hot-swap from a live runtime through :class:`ReplicaBuffer`:
 ``publish`` validates the new stack and stages a copy of it, and the server
@@ -29,6 +33,9 @@ with, the buffer flips, and admission reopens on the new weights.
 """
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 
 from .engine import BatchServer, ContinuousServer, Request, _bucket_len
@@ -42,18 +49,26 @@ def _copy_tree(tree: dict) -> dict:
 
 
 class ReplicaBuffer:
-    """The active stacked ``(D, ...)`` replica dict and a staged one.
+    """The active stacked ``(D, ...)`` replica dict and a staged one (with
+    ``row``, a cluster mesh rank's: that ``(1, ...)`` row of each).
 
     ``stage`` rejects a stack with another cluster count or non-finite
     leaves before anything changes, then keeps a copy of it; ``flip`` copies
     the staged copy into the active tensors in place.  When to flip is the
     server's policy (batch boundary or drained slot pool)."""
 
-    def __init__(self, stack: dict):
-        self._active = _copy_tree(stack)
-        self._staged = None
+    def __init__(self, stack: dict, row: Optional[int] = None):
         self.num_clusters = int(next(iter(stack.values())).shape[0])
+        self._row = row
+        self._active = _copy_tree(self._mine(stack))
+        self._staged = None
         self.swaps = 0
+
+    def _mine(self, stack: dict) -> dict:
+        """The stack, or on a cluster mesh its ``(1, ...)`` row ``row``."""
+        if self._row is None:
+            return stack
+        return {k: v[self._row:self._row + 1] for k, v in stack.items()}
 
     @property
     def pending(self) -> bool:
@@ -73,7 +88,7 @@ class ReplicaBuffer:
             if not bool(torch.isfinite(leaf).all()):
                 raise ValueError(f"published stack has non-finite values at {name!r}; "
                                  f"keeping last-good weights")
-        self._staged = _copy_tree(stack)
+        self._staged = _copy_tree(self._mine(stack))
 
     def flip(self) -> bool:
         if self._staged is None:
@@ -186,26 +201,44 @@ class ContinuousFederatedServer(_FederatedMixin, ContinuousServer):
     Slots are cluster-heterogeneous: one decode program serves any cluster
     mix the Zipf trace produces.  A pending publish closes admission,
     in-flight slots drain on their prefill-time weights, and the buffer
-    flips at the first admission boundary with an empty pool."""
+    flips at the first admission boundary with an empty pool.
+
+    ``mesh`` (None, ``"auto"`` or a ``launch.mesh.ClientMesh`` of D ranks,
+    resolved by ``launch.mesh.resolve_cluster_mesh`` on ``mesh_axis``) puts
+    one replica a rank: rank ``d`` keeps row ``d`` of the stack (the
+    ``(1, ...)`` row of ``sharding.replica_pspecs``), and ``publish`` stages
+    each rank's row of the new stack, which every rank checks whole so
+    that all decide alike.  Every rank runs the same slot loop on the same
+    requests; see the module docstring.  On a mesh the decode chunk runs
+    eagerly: ``graph=True`` raises (ROADMAP.md §1 item 4, 'graphs on a
+    mesh')."""
 
     _stacked = True
 
     def __init__(self, model, cluster_params=None, *, runtime=None, mesh=None,
-                 max_batch: int = 8,
+                 mesh_axis: str = "cluster", max_batch: int = 8,
                  length_buckets: tuple[int, ...] = (32, 64, 128), gen_cap: int = 64,
                  chunk_steps: int = 8, temperature: float = 0.0, seed: int = 0,
                  graph=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh={mesh!r}: sharding the replicas over a cluster mesh is not ported yet "
-                f"(ROADMAP.md §1 item 4, 'Multi-device and launch': 'mesh serving'); "
-                f"pass mesh=None")
+        from ..launch.mesh import resolve_cluster_mesh
+
         cluster_params = self._resolve_stack(cluster_params, runtime)
-        self._buf = ReplicaBuffer(cluster_params)
+        num_clusters = int(next(iter(cluster_params.values())).shape[0])
+        device = next(iter(cluster_params.values())).device
+        self.mesh = resolve_cluster_mesh(mesh, num_clusters, mesh_axis, device=device)
+        share = own = None
+        if self.mesh is not None:
+            if graph:
+                raise NotImplementedError(
+                    "graph=True on a cluster mesh: capturing the decode chunk's exchange is "
+                    "not ported yet (ROADMAP.md §1 item 4, 'graphs on a mesh'); pass "
+                    "graph=None or False")
+            graph, own = False, self.mesh.index
+            share = functools.partial(_share_tokens, group=self.mesh.group)
+        self._buf = ReplicaBuffer(cluster_params, row=own)
         super().__init__(model, None, max_batch=max_batch, length_buckets=length_buckets,
                          gen_cap=gen_cap, chunk_steps=chunk_steps, temperature=temperature,
-                         seed=seed, graph=graph)
-        self.mesh = None
+                         seed=seed, graph=graph, share=share, own=own)
         self._runtime = runtime
         self.rejected = 0
 
@@ -225,6 +258,23 @@ class ContinuousFederatedServer(_FederatedMixin, ContinuousServer):
         if self._buf.pending and not self._occupied:
             self._buf.flip()
 
+    def _prefills(self, req: Request) -> bool:
+        return self.mesh is None or req.cluster_id == self.mesh.index
+
+    def _replica(self, d):
+        return d if self.mesh is None else 0
+
     def submit(self, req: Request):
         self._check_cluster(req)
         super().submit(req)
+
+
+def _share_tokens(tok: torch.Tensor, mine: torch.Tensor, *, group) -> torch.Tensor:
+    """Every rank's ``tok`` where it is ``mine`` there: each slot is one
+    rank's, whose token the others take (a sum over ranks of the tokens
+    each keeps, zeros elsewhere; one all-reduce)."""
+    import torch.distributed as dist
+
+    out = torch.where(mine, tok, torch.zeros_like(tok))
+    dist.all_reduce(out, group=group)
+    return out

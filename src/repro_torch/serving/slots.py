@@ -31,6 +31,16 @@ Federated weights (``stacked``): the chunk reads a ``(D, ...)`` stack, and
 over all slots, each slot keeping its own cluster's result: no slot gathers
 a copy of its cluster's weights (a per-slot gather would copy the model per
 slot).
+
+On a cluster mesh (``share``, ``ContinuousFederatedServer(mesh=)``) each
+rank holds one cluster's replica as a ``(1, ...)`` stack and the whole
+pool: it prefills only its cluster's admissions, and its chunk runs every
+slot on its replica, the same ops at the same shapes as the off-mesh
+chunk's pass for that cluster, so its own slots' rows are those of the
+off-mesh pool bit for bit and the others' are never read.  ``share(tok,
+mine)`` then gives every rank the tokens each slot's own rank drew (one
+collective a decode step and an admission), so every control vector, and
+each rank's own cache rows, follow the off-mesh pool exactly.
 """
 from __future__ import annotations
 
@@ -144,11 +154,16 @@ class _Chunk:
 
 
 def build_slot_programs(model, *, temperature: float, gen_cap: int, chunk_steps: int,
-                        stacked: bool, device=None, graph: Optional[bool] = None):
+                        stacked: bool, device=None, graph: Optional[bool] = None,
+                        share=None, own: Optional[int] = None):
     """The three slot programs ``(prefill, admit, chunk)``.
 
     ``stacked=True`` is the federated variant: weights arrive as one ``(D,
-    ...)`` stack and ``state["cluster"]`` routes each slot to its replica."""
+    ...)`` stack and ``state["cluster"]`` routes each slot to its replica.
+    On a cluster mesh ``share(tok, mine)`` makes the tokens of the slots
+    where ``mine`` is True (cluster ``own``'s, this rank's) the same on
+    every rank, and the stack is this rank's ``(1, ...)`` row; an admission
+    of another rank's cluster comes with no prefill (``row_cache`` None)."""
     cfg = model.cfg
     if cfg.modality == "audio" and cfg.num_codebooks > 1:
         raise ValueError("continuous batching supports single-codebook token "
@@ -160,7 +175,7 @@ def build_slot_programs(model, *, temperature: float, gen_cap: int, chunk_steps:
         return model.prefill(params, {"tokens": toks})
 
     def _admit(state, row_cache, row_logits, slot, blen, eos, budget, key_row, cluster):
-        for name, big in state["cache"].items():
+        for name, big in (state["cache"] if row_cache is not None else {}).items():
             row = row_cache[name]
             if _is_pos_leaf(name):  # (nblocks, Sc_row) -> the slot's row, -1 padded
                 big[:, slot, :row.shape[-1]] = row
@@ -169,7 +184,12 @@ def build_slot_programs(model, *, temperature: float, gen_cap: int, chunk_steps:
                 r = row[:, 0]
                 big[:, slot, :r.shape[1]] = r.to(big.dtype)
                 big[:, slot, r.shape[1]:] = 0
-        tok0 = sample_tokens(row_logits[:, -1], vocab, temperature, key_row)
+        if row_logits is not None:
+            tok0 = sample_tokens(row_logits[:, -1], vocab, temperature, key_row)
+        else:
+            tok0 = torch.zeros(1, dtype=torch.int64, device=key_row.device)
+        if share is not None:
+            tok0 = share(tok0, torch.tensor(row_logits is not None, device=tok0.device))
         state["tok"][slot] = tok0[0]
         state["pos"][slot] = blen
         state["done"][slot] = False
@@ -195,6 +215,8 @@ def build_slot_programs(model, *, temperature: float, gen_cap: int, chunk_steps:
                                       gate=go, per_row=True)
         keys = next_keys(st["key"])
         new_tok = sample_tokens(logits[:, -1], vocab, temperature, keys)
+        if share is not None:
+            new_tok = share(new_tok, st["cluster"] == own)
         still = ~done_now
         # finished and empty slots freeze tok and pos: their next ring write
         # rewrites the same k/v at the same slot

@@ -28,8 +28,9 @@ is all-gathered over ``model`` first.  The per-rank body runs under
 reference's ``shard_map``) on plain local tensors.
 
 The contract is the reference's: one position row ``(Sc,)`` shared by the
-batch.  The slot pool's per-row positions (``(B, Sc)``) are ROADMAP.md §1
-item 4's 'mesh serving'.
+batch.  The slot pool's per-row positions (``(B, Sc)``) raise: no path of
+the reference takes them (the slot pool on a cluster mesh decodes each
+rank's replica whole, ``serving/federated.py``).
 """
 from __future__ import annotations
 
@@ -145,8 +146,9 @@ def make_decode_impl(mesh, *, seq_axes: tuple, batch_axes: tuple, gather_heads: 
         if slot_pos.dim() != 1:
             raise NotImplementedError(
                 "per-row cache positions (the slot pool's) on a sharded decode are not "
-                "ported yet (ROADMAP.md §1 item 4, 'Multi-device and launch': 'mesh "
-                "serving'); the sharded decode takes one position row shared by the batch")
+                "ported: no path of the reference takes them (ROADMAP.md §1 item 4, "
+                "'Multi-device and launch': 'decode_impl', its slot-pool forms filed as not "
+                "needed); the sharded decode takes one position row shared by the batch")
         q_pos = torch.as_tensor(q_pos).reshape(())
         if q_pos.dim() == 0 and hasattr(q_pos, "placements"):
             q_pos = q_pos.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()

@@ -265,7 +265,7 @@ def test_per_row_positions_raise_mesh_serving():
     impl = make_decode_impl(_Mesh(), seq_axes=("model",), batch_axes=("data",),
                             gather_heads=False)
     kv = torch.zeros(2, 4, 1, 8)
-    with pytest.raises(NotImplementedError, match="'mesh serving'"):
+    with pytest.raises(NotImplementedError, match="'decode_impl', its slot-pool forms"):
         impl(torch.zeros(2, 2, 8), kv, kv, torch.zeros(2, 4), torch.tensor(0),
              torch.zeros(2, 1, 8), torch.zeros(2, 1, 8), window=None, logit_cap=None)
 

@@ -163,8 +163,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         flash_attention_fwd(q, k, v, window=0)
     with pytest.raises(ValueError, match="logit_cap"):
         flash_attention_fwd(q, k, v, logit_cap=-1.0)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+    # a meta tensor holds no data: the wrapper takes its traced path (the dry
+    # run's), which launches nothing and returns the kernel's shapes, and
+    # still refuses what the kernels do not take
+    launched = flash_attention_fwd.launches
+    mo, ml = flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert (mo.is_meta, tuple(mo.shape), tuple(ml.shape), ml.dtype) == (
+        True, tuple(q.shape), (1, 4, 16), torch.float32)
+    assert flash_attention_fwd.launches == launched
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"), window=0)
     out, lse = flash_attention_fwd(q, k, v)
     with pytest.raises(TypeError, match="lse"):
         flash_attention_bwd(q, k, v, out, lse.double(), out)

@@ -61,12 +61,14 @@ def test_arch_config_matches_reference(name):
 
 
 def test_remat_and_unported_layers_raise():
-    # every layer kind and full activation checkpointing are ported; the
-    # "dots" policy (save the matmul outputs) is not
+    # every layer kind and both remat policies ("full", and "dots", which
+    # keeps the matmul outputs) are ported; another policy raises
     cfg = tconfigs.get_config("granite-8b")
     assert tmodels.CausalLM(cfg).cfg.remat
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tmodels.CausalLM(dataclasses.replace(cfg, remat_policy="dots"))
+    dots = dataclasses.replace(cfg, remat_policy="dots")
+    assert tmodels.CausalLM(dots).cfg.remat_policy == "dots"
+    with pytest.raises(ValueError, match="remat_policy"):
+        tmodels.CausalLM(dataclasses.replace(cfg, remat_policy="offload"))
 
 
 # tiny variants: S = 16, two attention chunks of 8 on the plain path

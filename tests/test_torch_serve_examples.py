@@ -36,9 +36,13 @@ def test_serve_main_and_examples_on_cpu(capsys):
 
 
 def test_serve_refuses_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="Multi-device and launch"):
-        tserve.serve_scenario("federated-lm-serving", mesh="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="Multi-device and launch"):
+    # a mesh the cluster-mesh rules cannot honour, and --mesh off the
+    # continuous scenario server, raise (mesh serving runs in
+    # tests/test_torch_serving_mesh.py)
+    with pytest.raises(ValueError, match="mesh must be None, 'auto', or a ClientMesh"):
+        tserve.serve_scenario("lm-serving-continuous", mesh="everywhere", continuous=True,
+                              train_steps=0, device="cpu")
+    with pytest.raises(ValueError, match="--continuous"):
         tserve.main(["--device", "cpu", "--mesh", "auto"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -345,8 +345,8 @@ def test_guards_at_submit():
         fed.submit(Request(uid=2, prompt=np.arange(4, dtype=np.int32)))
     with pytest.raises(ValueError, match="out of range"):
         fed.submit(Request(uid=3, prompt=np.arange(4, dtype=np.int32), cluster_id=3))
-    with pytest.raises(NotImplementedError, match="Multi-device and launch"):
-        ContinuousFederatedServer(model, stack, mesh="auto")
+    with pytest.raises(ValueError, match="mesh must be None, 'auto', or a ClientMesh"):
+        ContinuousFederatedServer(model, stack, mesh="everywhere")
     assert cont.pending() == 0
 
 
