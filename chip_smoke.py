@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--old-flash SOURCE] [--old-gossip SOURCE]
+    python3 chip_smoke.py [--old-flash SOURCE] [--old-gossip SOURCE] [--parent-flash DIR]
 
 Phases, one result line each; any failure exits non-zero without the final
 ``{"ok": true, ...}`` line:
@@ -255,9 +255,10 @@ Phases, one result line each; any failure exits non-zero without the final
             plain versions) against remat on (peak memory, it/s), one
             client's gradients remat on against off (bitwise, or within 1e-6
             relative in f32 leaves and a bf16 ulp in bf16 ones); then remat
-            on at the deepest of 48, 24 and 12 layers that fits (at least
-            12).  No flash launch, the mixed SGD and transition launches
-            held, finite losses.
+            on at 24 layers (at least 12 must run; 48 fitted in 40.30 GiB
+            when it was tried, before the flash-rows phase took its time).
+            No flash launch, the mixed SGD and transition launches held,
+            finite losses.
 14. offload host-offloaded client state (``repro_torch.state``), every
             kernel counter zeroed just before the phase and read just after
             (each of the five fleet kernels must have launched):
@@ -388,6 +389,22 @@ Phases, one result line each; any failure exits non-zero without the final
 24. mesh-serve ``ContinuousFederatedServer(mesh=)`` on one NCCL rank (D = 1:
             plumbing, no exchange between cards), the reference's check
             config, tokens equal to the off-mesh server's.
+25. flash-rows sequence-parallel attention through the flash kernels'
+            query-row map ('flash rows'): at gemma2-2b's published
+            attention widths (8/4 heads, hd 256, bf16, cap 50, S 4096,
+            512-row chunks, the model axis's 16 ranks emulated one by one;
+            window 4096, 1024 and none), at hd 128 bf16 on 2 ranks and at
+            f32 hd 64 (the split-TF32 and CUDA-core routes), each rank's
+            map call against its plain version, the ranks' rows and dQ rows
+            against the full kernel's and their summed dK and dV against
+            the full kernel's; launch counters zeroed before and read
+            after, each route's device runs counted; the map-less calls of
+            every route bitwise the kernels before the map (built from
+            ``--parent-flash DIR`` or git; skipped and said so without
+            either); the map call timed at gemma2-2b's rank-1 shape beside
+            its bound from the map's live pairs, the plain version, and
+            ``scaled_dot_product_attention`` with the map's boolean mask
+            where no cap or window bites.
 
 The smoke's total time, build included, and each phase's are printed
 before the kernels line.
@@ -422,8 +439,10 @@ phase's mnist-noniid-ring run), the transition and SGD
 ``offload_host_launches`` the fleet and offload phases' host counts, the
 flash and transition entries' ``steps_launches`` their device runs in the
 steps phase's train step, the
-transition's ``offload_maxd8`` its D = 8 numbers, and gossip_mix's
-``by_value_ab`` its A/B against the by-value kernel at MNIST); the async
+transition's ``offload_maxd8`` its D = 8 numbers, gossip_mix's
+``by_value_ab`` its A/B against the by-value kernel at MNIST, and the flash
+entries' ``flash_rows`` (the map call timed at gemma2-2b's rank-1 shape)
+and ``flash_rows_launches`` (host launches in the flash-rows phase)); the async
 kernels' ``launches`` are their runs on the device in the async phase's
 graphed run, ``host_launches`` the wrappers' counts there; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -504,6 +523,26 @@ FLASH_SHAPES = {
 }
 # the f32 forward at granite-8b's head layout (B = 2), timed beside the lm shape
 GRANITE_F32 = (2, 2048, 32, 8, 128, None, None)
+# 'flash rows', sequence-parallel attention: each of the model axis's ranks
+# takes rl = chunk / ranks rows of every query chunk against the whole K and
+# V, in one call through the query-row map.  gemma2-2b's published attention
+# widths (8/4 heads, hd 256, cap 50, its 512-row chunks, S 4096, the
+# production model axis's 16 ranks emulated one by one), then hd 128 bf16 on
+# 2 ranks and f32 hd 64 (the split-TF32 forward and CUDA-core backward):
+# (name, (B, S, Hq, Hkv, hd), dtype, chunk, ranks, windows, cap)
+FLASH_ROWS = (
+    ("gemma2-2b", (1, 4096, 8, 4, 256), "bfloat16", 512, 16, (4096, 1024, None), 50.0),
+    ("hd128-m2", (1, 2048, 32, 8, 128), "bfloat16", 512, 2, (None, 1024), None),
+    ("f32-hd64", (2, 1024, 8, 2, 64), "float32", 256, 4, (None, 200), None),
+)
+# spin kernels of no wrapper before the flash-rows phase's counted calls:
+# after the smoke's other phases a session lost its first 17-39 records
+FLASH_ROWS_PAD = 64
+# the flash sources at the parent of the query-row map, which the map-less
+# calls are held bitwise against (``--parent-flash`` or git)
+PARENT_FLASH = ("29bd8ca", tuple(
+    f"src/repro_torch/kernels/flash_attention/csrc/{name}.cu"
+    for name in ("flash_attention", "flash_attention_sm90", "flash_attention_split_tf32")))
 # the forward before the split-TF32 redesign: its source at this commit
 OLD_FLASH = ("db70968", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu")
 # gossip_mix as it took P by value in its launch parameters: its source at this commit
@@ -545,10 +584,11 @@ MOE_WIDTH = dict(num_layers=1, num_clients=4, num_clusters=2, seq_len=2048, batc
 # tensors at these widths, C = 1), so C = 8 holds 4 layers in about 57 GB
 SSM_WIDTH = dict(num_layers=4, num_clients=8, num_clusters=4, seq_len=2048, batch_size=1)
 # with remat on, the depths ssm-width tries, deepest first, and the
-# supersteps a run; 80 GB holds the deepest, as a CPU trace of live tensors
-# (tests/test_torch_remat.py's peak_grad_bytes) puts one client's remat
-# gradient at 58.6 MB a layer and 1.68 GB besides at S = 2048 (PERF.md)
-SSM_DEPTHS, SSM_STEPS = (48, 24), 2
+# supersteps a run; 80 GB holds all 48 layers, as a CPU trace of live
+# tensors (tests/test_torch_remat.py's peak_grad_bytes) puts one client's
+# remat gradient at 58.6 MB a layer and 1.68 GB besides at S = 2048
+# (PERF.md), and the 48-layer run showed; 24 keeps the phase's time down
+SSM_DEPTHS, SSM_STEPS = (24,), 2
 # the serve phase: the serving scenarios' training supersteps, requests and
 # generation cap; the reduced families generate is run on
 SERVE_STEPS, SERVE_REQUESTS, SERVE_GEN = 2, 12, 12
@@ -663,6 +703,10 @@ def main() -> None:
     ap.add_argument("--old-gossip", type=Path, default=None,
                     help="CUDA source of gossip_mix with P by value in its parameters "
                          f"(default: {OLD_GOSSIP[1]} at commit {OLD_GOSSIP[0]}, from git)")
+    ap.add_argument("--parent-flash", type=Path, default=None, metavar="DIR",
+                    help="a folder with the three flash sources before the query-row map "
+                         f"(default: commit {PARENT_FLASH[0]}'s, from git); the flash-rows "
+                         "phase holds the map-less calls bitwise against them")
     ap.add_argument("--phases", nargs="+", default=None, metavar="PHASE",
                     help="run only these phases after device and build (a partial run: it "
                          "prints no kernels line and no result line)")
@@ -679,7 +723,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    Smoke(torch, args.old_flash, args.old_gossip, args.phases).run()
+    Smoke(torch, args.old_flash, args.old_gossip, args.phases, args.parent_flash).run()
 
 
 def dryrun_child(out: Path) -> None:
@@ -735,7 +779,7 @@ def dryrun_child(out: Path) -> None:
 
 
 class Smoke:
-    def __init__(self, torch, old_flash=None, old_gossip=None, only=None):
+    def __init__(self, torch, old_flash=None, old_gossip=None, only=None, parent_flash=None):
         self.torch = torch
         self.t0 = time.perf_counter()  # the smoke's total time runs from here, build included
         self.only = None if only is None else set(only) | {"device", "build"}
@@ -750,6 +794,8 @@ class Smoke:
         self.old_gossip_src = old_gossip
         self.old_gossip = None  # the by-value gossip_mix launcher, once built
         self.old_gossip_cases = 0  # tree calls held bitwise against it
+        self.parent_flash_src = parent_flash
+        self.parent_flash = None  # the parent's flash library, once built
 
     # -- helpers -------------------------------------------------------------
     def phase(self, name, fn):
@@ -918,9 +964,11 @@ class Smoke:
         old = self.start_old(OLD_FLASH, self.old_flash_src, "old_flash", "flash forward")
         old_gossip = self.start_old(OLD_GOSSIP, self.old_gossip_src, "old_gossip",
                                     "by-value gossip_mix")
+        parent = self.start_parent_flash()
         libs = _build.build_all()
         self.finish_old_flash(old)
         self.finish_old_gossip(old_gossip)
+        self.finish_parent_flash(parent)
         dt = time.perf_counter() - t0
         print(f"built {sorted(libs)} in {dt:.2f}s (parallel nvcc, one per source; sm_90a)",
               flush=True)
@@ -957,6 +1005,66 @@ class Smoke:
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.detail[key] = str(src)
         return so, proc
+
+    def start_parent_flash(self):
+        """Start ``nvcc`` on the three flash sources as they stood before the
+        query-row map (``--parent-flash``, else ``git show`` of
+        ``PARENT_FLASH``), one library; None where they are not at hand."""
+        from repro_torch.kernels import _build
+
+        out_dir = _build._build_root() / f"parent_flash_{PARENT_FLASH[0]}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        srcs = []
+        for path in PARENT_FLASH[1]:
+            name = Path(path).name
+            if self.parent_flash_src is not None:
+                srcs.append(self.parent_flash_src / name)
+                continue
+            got = subprocess.run(["git", "-C", str(HERE), "show", f"{PARENT_FLASH[0]}:{path}"],
+                                 capture_output=True, text=True)
+            if got.returncode != 0:
+                print(f"flash sources at {PARENT_FLASH[0]}: none given and no git history here "
+                      f"({got.stderr.strip()[:120]}): the map-less calls' bitwise hold "
+                      f"against them is skipped", flush=True)
+                self.detail["parent_flash"] = "skipped: no source"
+                return None
+            (out_dir / name).write_text(got.stdout)
+            srcs.append(out_dir / name)
+        so = out_dir / "libflash_attention_parent.so"
+        proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                                 *map(str, srcs)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.detail["parent_flash"] = [str(x) for x in srcs]
+        return so, proc
+
+    def finish_parent_flash(self, started) -> None:
+        """Bind the parent's launchers (its signatures: one S, no map)."""
+        import ctypes
+
+        if started is None:
+            return
+        so, proc = started
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the parent's flash sources:\n{log}")
+        spills = {sym[-90:]: r for sym, r in self.ptxas_report(log).items() if r["spill_stores"]}
+        print(f"  the parent's flash kernels ({PARENT_FLASH[0]}) built; ptxas spills: "
+              f"{spills or 'none'}", flush=True)
+        lib = ctypes.CDLL(str(so))
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p]
+        fns = {}
+        for key, sym, ptrs in (("split_tf32", "flash_attention_fwd_split_tf32_launch", 5),
+                               ("tensor_core", "flash_attention_fwd_sm90_launch", 5),
+                               ("cuda_core_bwd", "flash_attention_bwd_launch", 10),
+                               ("tensor_core_bwd", "flash_attention_bwd_sm90_launch", 10)):
+            fn = getattr(lib, sym)
+            fn.argtypes = [ctypes.c_void_p] * ptrs + tail
+            fn.restype = ctypes.c_int
+            fns[key] = fn
+        lib.flash_attention_sm90_rows.argtypes = [ctypes.c_int]
+        fns["rows"] = lib.flash_attention_sm90_rows
+        self.parent_flash = fns
 
     def finish_old_flash(self, started) -> None:
         import ctypes
@@ -5815,6 +5923,292 @@ class Smoke:
         res["microbatch_2_vs_1"] = mb_err
         self.detail["launch"] = res
 
+    def flash_rows(self):
+        """'flash rows': sequence-parallel attention through the flash
+        kernels' query-row map, at each shape of ``FLASH_ROWS``: each rank's
+        map call (``rows = (rl, chunk, r * rl)``, its rows of every chunk,
+        one launch forward and one backward) against its plain version on
+        the same inputs; the ranks' rows assembled against the full kernel's,
+        their dQ rows likewise, and their dK and dV summed against the full
+        kernel's.  The launch counters are zeroed just before the shapes run
+        and read just after (every map call and full call launches once);
+        each route's device runs are counted from the profiler around one
+        window's map calls, after ``FLASH_ROWS_PAD`` spin kernels of no
+        wrapper (``padded_kernel_names``; held by route where the session
+        kept every record, reported where it lost some, ROADMAP.md §3).  Then the map-less calls of every route held bitwise against
+        the parent's kernels (``--parent-flash``, or git), and the map call
+        timed at gemma2-2b's per-rank shape."""
+        torch = self.torch
+        from repro_torch.kernels import (
+            count_kernels, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+            flash_attention_fwd_ref,
+        )
+        from repro_torch.kernels.flash_attention import route
+        from repro_torch.kernels.flash_attention.ref import query_positions
+
+        for w in (flash_attention_fwd, flash_attention_bwd):
+            w.launches = 0
+            w.routes = dict.fromkeys(w.routes, 0)
+        calls, res, worst = 0, {}, {"forward": 0.0, "backward": 0.0}
+        for name, shape, dt, chunk, ranks, windows, cap in FLASH_ROWS:
+            dtype = getattr(torch, dt)
+            f_tol, g_tol = (2e-5, 1e-4) if dtype == torch.float32 else (3e-2, 3e-2)
+            b, s, hq, hkv, hd = shape
+            rl = chunk // ranks
+            q, k, v, dout = self.flash_inputs(shape, dtype, seed=3)
+            rec = {"shape": list(shape), "dtype": dt, "chunk": chunk, "ranks": ranks,
+                   "rows_a_rank": s // chunk * rl, "cap": cap,
+                   "routes": [route(dtype, hd), route(dtype, hd, backward=True)], "windows": {}}
+            for window in windows:
+                out_f, lse_f = flash_attention_fwd(q, k, v, window, cap)
+                dq_f, dk_f, dv_f = flash_attention_bwd(q, k, v, out_f, lse_f, dout, window, cap)
+                calls += 1
+                out_a, dq_a = torch.empty_like(out_f), torch.empty_like(dq_f)
+                dk_a = torch.zeros(dk_f.shape, dtype=torch.float32, device=self.dev)
+                dv_a = torch.zeros(dv_f.shape, dtype=torch.float32, device=self.dev)
+                errs = {"forward": 0.0, "lse": 0.0, "backward": 0.0}
+                rank_calls = []
+                for r in range(ranks):
+                    rows = (rl, chunk, r * rl)
+                    pos = query_positions(s // chunk * rl, rows, self.dev)
+                    qr, dor = q[:, pos].contiguous(), dout[:, pos].contiguous()
+                    o_r, l_r = flash_attention_fwd(qr, k, v, window, cap, rows)
+                    grads = flash_attention_bwd(qr, k, v, o_r, l_r, dor, window, cap, rows)
+                    calls += 1
+                    ref_o, ref_l = flash_attention_fwd_ref(qr, k, v, window, cap, rows)
+                    refs = flash_attention_bwd_ref(qr, k, v, o_r, l_r, dor, window, cap, rows)
+                    errs["forward"] = max(errs["forward"],
+                                          (o_r.float() - ref_o.float()).abs().max().item())
+                    errs["lse"] = max(errs["lse"], (l_r - ref_l).abs().max().item())
+                    for g, ref in zip(grads, refs):
+                        e = (g.float() - ref.float()).abs().max().item()
+                        if not e <= g_tol * max(1.0, ref.float().abs().max().item()):
+                            raise AssertionError(f"flash rows {name} window={window} rank {r}: "
+                                                 f"gradient max abs err {e} (tol {g_tol} "
+                                                 f"relative)")
+                        errs["backward"] = max(errs["backward"], e)
+                    out_a[:, pos], dq_a[:, pos] = o_r, grads[0]
+                    dk_a += grads[1].float()
+                    dv_a += grads[2].float()
+                    rank_calls.append((qr, dor, rows))
+                    del ref_o, ref_l, refs, grads, o_r, l_r
+                if not (errs["forward"] <= f_tol and errs["lse"] <= 1e-4):
+                    raise AssertionError(f"flash rows {name} window={window}: forward max abs "
+                                         f"err {errs['forward']} (tol {f_tol}), lse "
+                                         f"{errs['lse']} (tol 1e-4)")
+                # the ranks' rows against the full kernel's
+                full = {"rows_vs_full": (out_a.float() - out_f.float()).abs().max().item(),
+                        "dq_rows_vs_full": (dq_a.float() - dq_f.float()).abs().max().item()}
+                for key, got, want in (("dk_sum_vs_full", dk_a, dk_f),
+                                       ("dv_sum_vs_full", dv_a, dv_f)):
+                    full[key] = (got - want.float()).abs().max().item()
+                    if not full[key] <= g_tol * max(1.0, want.float().abs().max().item()):
+                        raise AssertionError(f"flash rows {name} window={window}: {key} "
+                                             f"{full[key]} (tol {g_tol} relative)")
+                for key, tol in (("rows_vs_full", f_tol), ("dq_rows_vs_full", g_tol * max(
+                        1.0, dq_f.float().abs().max().item()))):
+                    if not full[key] <= tol:
+                        raise AssertionError(f"flash rows {name} window={window}: {key} "
+                                             f"{full[key]} (tol {tol})")
+                rec["windows"][str(window)] = dict(errs, **full)
+                worst["forward"] = max(worst["forward"], errs["forward"])
+                worst["backward"] = max(worst["backward"], errs["backward"])
+                print(f"  flash rows {name} {shape} {dt} chunk {chunk} on {ranks} ranks "
+                      f"({rl} rows a chunk) window={window} cap={cap}: "
+                      + ", ".join(f"{key} {val:.3e}" for key, val in rec["windows"][
+                          str(window)].items()), flush=True)
+                if window == windows[0]:
+                    def map_calls():
+                        for qr, dor, rows in rank_calls:
+                            o_r, l_r = flash_attention_fwd(qr, k, v, window, cap, rows)
+                            flash_attention_bwd(qr, k, v, o_r, l_r, dor, window, cap, rows)
+
+                    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+                    _, names, pads = self.padded_kernel_names(map_calls)
+                    ran = count_kernels(names)
+                    host = {"flash_attention_fwd": flash_attention_fwd.launches - before[0],
+                            "flash_attention_bwd": flash_attention_bwd.launches - before[1]}
+                    calls += ranks
+                    rec["device_runs"], rec["pad_runs"] = ran, [pads, FLASH_ROWS_PAD]
+                    short = {key: (ran.get(key, 0), n) for key, n in host.items()
+                             if ran.get(key, 0) < n}
+                    print(f"  flash rows {name}: device runs of one window's {ranks} map calls "
+                          f"(forward and backward) by route: {ran}; the session kept {pads} of "
+                          f"the {FLASH_ROWS_PAD} spin kernels before them", flush=True)
+                    if short:
+                        # the profiler lost records (ROADMAP.md §3), the
+                        # launches themselves are held by the host counts
+                        rec["device_runs_short"] = short
+                        print(f"  flash rows {name}: the session lost device records (device "
+                              f"runs, host launches): {short}", flush=True)
+                    else:
+                        want = {f"flash_attention_fwd.{rec['routes'][0]}": ranks,
+                                f"flash_attention_bwd.{rec['routes'][1]}": ranks}
+                        if any(ran.get(key) != n for key, n in want.items()):
+                            raise AssertionError(f"flash rows {name}: device runs {ran}, want "
+                                                 f"{want}")
+                del out_f, lse_f, dq_f, dk_f, dv_f, out_a, dq_a, dk_a, dv_a, rank_calls
+            res[name] = rec
+            del q, k, v, dout
+            torch.cuda.empty_cache()
+        host = {"forward": flash_attention_fwd.launches, "backward": flash_attention_bwd.launches,
+                "forward_routes": dict(flash_attention_fwd.routes),
+                "backward_routes": dict(flash_attention_bwd.routes)}
+        print(f"  flash rows: host launches over the phase {host} ({calls} calls each way)",
+              flush=True)
+        if host["forward"] != calls or host["backward"] != calls:
+            raise AssertionError(f"flash rows: {host} host launches for {calls} calls")
+        res["host_launches"] = host
+        res["parent_bitwise"] = self.flash_rows_parent()
+        res["timed"] = self.time_flash_rows()
+        self.detail["flash_rows"] = res
+        for kname, part in (("flash_attention", "forward"), ("flash_attention_backward",
+                                                            "backward")):
+            self.record[kname]["flash_rows_launches"] = host[part]
+            self.record[kname]["flash_rows"] = dict(res["timed"][part],
+                                                    max_abs_err=worst[part])
+
+    def padded_kernel_names(self, fn) -> tuple:
+        """``(fn(), the device kernels fn ran, the pad's records kept)`` from
+        one profiler session in which ``FLASH_ROWS_PAD`` spin kernels of no
+        wrapper run first: late in the smoke a session has lost its first
+        few dozen records (ROADMAP.md §3), and the pad takes that loss."""
+        torch = self.torch
+        from repro_torch.kernels import device_kernel_names
+
+        def padded():
+            for _ in range(FLASH_ROWS_PAD):
+                torch.cuda._sleep(1)
+            return fn()
+
+        out, names = device_kernel_names(padded)
+        pads = sum("spin_kernel" in n for n in names)
+        return out, [n for n in names if "spin_kernel" not in n], pads
+
+    def flash_rows_parent(self) -> dict:
+        """The map-less calls of every route bitwise the parent's kernels
+        (built from its sources) on the same inputs: the tensor-core forward
+        and backward at gemma2-2b's (window 4096, cap 50; the wide backward)
+        and at hd 128 (the narrow one), the split-TF32 forward and the
+        CUDA-core backward at f32 hd 64 and at bf16 hd 100 (hd % 8 != 0)."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention_bwd, flash_attention_fwd
+        from repro_torch.kernels.flash_attention import route
+
+        if self.parent_flash is None:
+            return {"skipped": self.detail.get("parent_flash", "no source")}
+        fns = self.parent_flash
+        stream = torch.cuda.current_stream().cuda_stream
+        out = {}
+        for name, shape, dtype, window, cap in (
+                ("gemma2-2b", (1, 4096, 8, 4, 256), torch.bfloat16, 4096, 50.0),
+                ("hd128", (1, 2048, 32, 8, 128), torch.bfloat16, 1024, None),
+                ("f32-hd64", (2, 1024, 8, 2, 64), torch.float32, 200, None),
+                ("bf16-hd100", (2, 640, 8, 2, 100), torch.bfloat16, None, 50.0)):
+            b, s, hq, hkv, hd = shape
+            q, k, v, dout = self.flash_inputs(shape, dtype, seed=4)
+            o, lse = flash_attention_fwd(q, k, v, window, cap)
+            grads = flash_attention_bwd(q, k, v, o, lse, dout, window, cap)
+            fwd_way, bwd_way = route(dtype, hd), route(dtype, hd, backward=True)
+            code = 0 if dtype == torch.float32 else 1
+            args = (b, s, hq, hkv, hd, window or 0, float(cap or 0.0), hd ** -0.5, code, stream)
+            po, pl = torch.empty_like(o), torch.empty_like(lse)
+            rc = fns[fwd_way](q.data_ptr(), k.data_ptr(), v.data_ptr(), po.data_ptr(),
+                              pl.data_ptr(), *args)
+            pg = tuple(torch.empty_like(t) for t in (q, k, v))
+            n_rows = s if bwd_way == "cuda_core" else 2 * fns["rows"](s)
+            scratch = torch.empty((b, hq, n_rows), dtype=torch.float32, device=self.dev)
+            rc = rc or fns[f"{bwd_way}_bwd"](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in pg), *args)
+            torch.cuda.synchronize()
+            if rc:
+                raise RuntimeError(f"the parent's flash kernels: cudaError_t {rc}")
+            same = {"out": torch.equal(o, po), "lse": torch.equal(lse, pl),
+                    **{n: torch.equal(g, p) for n, g, p in zip(("dq", "dk", "dv"), grads, pg)}}
+            out[name] = {"routes": [fwd_way, bwd_way], "bitwise": same}
+            print(f"  flash map-less {name} {shape} {str(dtype)[6:]} ({fwd_way} forward, "
+                  f"{bwd_way} backward) against the parent's kernels: bitwise {same}",
+                  flush=True)
+            if not all(same.values()):
+                raise AssertionError(f"flash map-less {name}: not bitwise the parent's: {same}")
+            del q, k, v, dout, o, lse, grads, po, pl, pg, scratch
+        torch.cuda.empty_cache()
+        return out
+
+    def time_flash_rows(self) -> dict:
+        """The map call at gemma2-2b's per-rank shape (rank 1 of 16: 256 rows
+        of 4096 keys, 8/4 heads, hd 256, bf16), forward and backward, with
+        window 4096 and cap 50 as the model runs it: CUDA-event ms of the
+        kernel and its plain version beside the bound from the map's live
+        pairs.  The library: ``scaled_dot_product_attention`` with the map's
+        boolean (Sq, Sk) mask computes the call only without cap or window,
+        so it is timed at that shape beside the kernel there (with a cap no
+        single library call computes it)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import (
+            flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+            flash_attention_fwd_ref,
+        )
+        from repro_torch.kernels.flash_attention.ops import live_pairs
+        from repro_torch.kernels.flash_attention.ref import _mask, query_positions
+
+        name, shape, _, chunk, ranks, _, cap = FLASH_ROWS[0]
+        b, s, hq, hkv, hd = shape
+        rl = chunk // ranks
+        rows = (rl, chunk, rl)
+        sq = s // chunk * rl
+        pos = query_positions(sq, rows, self.dev)
+        q, k, v, dout = self.flash_inputs(shape, torch.bfloat16, seed=5)
+        qr, dor = q[:, pos].contiguous(), dout[:, pos].contiguous()
+        out = {"forward": {}, "backward": {}}
+        for label, window, c in (("model", 4096, cap), ("no_cap_no_window", None, None)):
+            o, lse = flash_attention_fwd(qr, k, v, window, c, rows)
+            pairs = live_pairs(sq, window, rows)
+            flops = 4.0 * hd * pairs * b * hq
+            item = q.element_size()
+            qo, kv = b * sq * hq * hd * item, b * s * hkv * hd * item
+            row_b = b * hq * sq * 4
+            bytes_f, bytes_b = 2 * qo + 2 * kv + row_b, 4 * qo + 4 * kv + row_b
+            t = {"forward": {
+                "ms": self.cuda_ms(lambda: flash_attention_fwd(qr, k, v, window, c, rows)),
+                "plain_ms": self.cuda_ms(
+                    lambda: flash_attention_fwd_ref(qr, k, v, window, c, rows), reps=5)},
+                "backward": {
+                "ms": self.cuda_ms(lambda: flash_attention_bwd(qr, k, v, o, lse, dor, window, c,
+                                                               rows)),
+                "plain_ms": self.cuda_ms(lambda: flash_attention_bwd_ref(
+                    qr, k, v, o, lse, dor, window, c, rows), reps=5)}}
+            for part, fl, by in (("forward", flops, bytes_f), ("backward", 2.5 * flops, bytes_b)):
+                bnd, kind = self.bound(by, fl, BF16_FLOPS_PER_S)
+                t[part].update(bound_ms=bnd, bound_by=kind, live_pairs=pairs, flops=fl,
+                               tflops=fl / t[part]["ms"] / 1e9, bound_share=bnd / t[part]["ms"])
+            if window is None and c is None:
+                mask = _mask(pos, s, None)
+                qt, kt, vt, gt = (x.transpose(1, 2) for x in (qr, k, v, dor))
+                sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                              enable_gqa=True)
+                leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+                lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+                t["forward"]["library_ms"] = self.cuda_ms(sdpa)
+                t["forward"]["library_kernels"] = sorted(set(self.padded_kernel_names(sdpa)[1]))
+                t["backward"]["library_ms"] = self.cuda_ms(
+                    lambda: torch.autograd.grad(lib_out, leaves, gt, retain_graph=True))
+                del qt, kt, vt, gt, leaves, lib_out, mask
+            else:
+                t["forward"]["library_ms"] = t["backward"]["library_ms"] = None
+            for part in out:
+                out[part][label] = dict(t[part], shape=[b, sq, s, hq, hkv, hd], rows=list(rows),
+                                        window=window, cap=c)
+                print(f"  time flash rows {name} rank 1 {label} {part}: " + ", ".join(
+                    f"{key}={val:.6g}" if isinstance(val, float) else f"{key}={val}"
+                    for key, val in out[part][label].items()), flush=True)
+            del o, lse
+        del q, k, v, dout, qr, dor
+        torch.cuda.empty_cache()
+        return out
+
     def run(self):
         torch = self.torch
         self.phase("device", self.device)
@@ -5842,6 +6236,7 @@ class Smoke:
             self.phase("dots", self.dots)
             self.phase("dryrun", self.dryrun)
             self.phase("mesh-serve", self.mesh_serve)
+            self.phase("flash-rows", self.flash_rows)
         if "jax" in sys.modules:
             self.failed.append("jax imported")
         self.detail["total_seconds"] = time.perf_counter() - self.t0
@@ -5867,7 +6262,8 @@ class Smoke:
                           "ssm_width_launches", "ssm_width", "mixtral_width", "hd160",
                           "gemma2_global", "gemma2_width_launches", "gemma2_width",
                           "serve_width", "collective_width_launches", "collective_width",
-                          "launch_host_launches", "steps_launches"):
+                          "launch_host_launches", "steps_launches", "flash_rows",
+                          "flash_rows_launches"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

@@ -15,7 +15,10 @@
 // (q . k) * hd^-0.5, then cap * tanh(s / cap) when a cap is set; key kp is
 // live for query qp when kp <= qp (and qp - kp < window when a window is
 // set).  NEG_INF = -1e30, masked probabilities are exactly 0; f32 arithmetic
-// throughout, outputs in the input dtype.
+// throughout, outputs in the input dtype.  A query-row map (Shape::rl, cs,
+// r0; flash_attention_sm90.cu) puts query row j of q (B, Sq, Hq, hd) at
+// position (j / rl) * cs + r0 + j % rl of k and v (B, Sk, Hkv, hd); without
+// one rl = cs = Sq, r0 = 0 and row j sits at j.
 //
 // What bounds it: at the path's shapes the work is about 2.5 x 4 * hd flops
 // per live (query, key) pair against (4 + 4) * S * H * hd elements of
@@ -51,10 +54,11 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
 struct Shape {
-  int B, S, Hq, Hkv, hd;
-  int window;   // <= 0: no window
-  float cap;    // <= 0: no cap
-  float scale;  // hd^-0.5 of the original hd
+  int B, Sq, Sk, Hq, Hkv, hd;  // Sq query rows, Sk keys
+  int rl, cs, r0;  // query row j at position (j / rl) * cs + r0 + j % rl
+  int window;      // <= 0: no window
+  float cap;       // <= 0: no cap
+  float scale;     // hd^-0.5 of the original hd
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -66,8 +70,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ bool live(int qp, int kp, const Shape& sh) {
-  return kp <= qp && qp < sh.S && (sh.window <= 0 || qp - kp < sh.window);
+// the position of query row j (without a map, j)
+__device__ __forceinline__ int qpos(int j, const Shape& sh) {
+  return j / sh.rl * sh.cs + sh.r0 + j % sh.rl;
+}
+
+// the map's inverse: the number of query rows at positions below p
+__device__ __forceinline__ int rows_before(int p, const Shape& sh) {
+  const int n = p / sh.cs;
+  return min(sh.Sq, n * sh.rl + min(max(p - n * sh.cs - sh.r0, 0), sh.rl));
+}
+
+// key kp is live for query row j at position qp
+__device__ __forceinline__ bool live(int j, int qp, int kp, const Shape& sh) {
+  return kp <= qp && j < sh.Sq && (sh.window <= 0 || qp - kp < sh.window);
 }
 
 __device__ __forceinline__ float capped(float raw, float cap) {
@@ -99,11 +115,11 @@ __device__ __forceinline__ const float4& ld4(const float* p) {
 // (row stride ld floats), as f32; rows >= S and columns >= hd are zero.
 template <typename T, int HD>
 __device__ void load_tile(float* dst, int ld, const T* __restrict__ src, int b, int h, int H,
-                          const Shape& sh, int row0, int rows) {
+                          int S, const Shape& sh, int row0, int rows) {
   for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD, s = row0 + r;
     float x = 0.f;
-    if (s < sh.S && d < sh.hd) x = to_f32(src[(((int64_t)b * sh.S + s) * H + h) * sh.hd + d]);
+    if (s < S && d < sh.hd) x = to_f32(src[(((int64_t)b * S + s) * H + h) * sh.hd + d]);
     dst[r * ld + d] = x;
   }
 }
@@ -116,7 +132,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, const Shape sh) {
   const int64_t row = blockIdx.x * (int64_t)kWarps + threadIdx.x / 32;
-  if (row >= (int64_t)sh.B * sh.S * sh.Hq) return;
+  if (row >= (int64_t)sh.B * sh.Sq * sh.Hq) return;
   const int lane = threadIdx.x % 32;
   const T* o = out + row * sh.hd;
   const T* g = dout + row * sh.hd;
@@ -124,9 +140,9 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   for (int d = lane; d < sh.hd; d += 32) acc = fmaf(to_f32(o[d]), to_f32(g[d]), acc);
   acc = warp_sum(acc);
   if (lane == 0) {
-    const int64_t sh_ = (int64_t)sh.S * sh.Hq;
+    const int64_t sh_ = (int64_t)sh.Sq * sh.Hq;
     const int64_t b = row / sh_, s = (row % sh_) / sh.Hq, h = row % sh.Hq;
-    delta[(b * sh.Hq + h) * sh.S + s] = acc;
+    delta[(b * sh.Hq + h) * sh.Sq + s] = acc;
   }
 }
 
@@ -139,7 +155,7 @@ template <typename T, int HD, int RK, int BQ>
 struct DkDv {
   static constexpr int BK = kWarps * RK, JQ = BQ / 32, NC = HD / 32, LD = HD + 4;
   static constexpr size_t smem =
-      sizeof(float) * (2 * BK * HD + 2 * BQ * LD + 2 * BK * BQ + 2 * BQ);
+      sizeof(float) * (2 * BK * HD + 2 * BQ * LD + 2 * BK * BQ + 2 * BQ) + sizeof(int) * BQ;
 };
 
 template <typename T, int HD, int RK, int BQ>
@@ -159,12 +175,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ds = Ps + BK * BQ;                     // BK x BQ: dS
   float* Ls = Ds + BK * BQ;                     // BQ: lse
   float* Es = Ls + BQ;                          // BQ: delta
+  int* Qp = reinterpret_cast<int*>(Es + BQ);     // BQ: the queries' positions
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x / sh.Hkv, kvh = blockIdx.x % sh.Hkv, G = sh.Hq / sh.Hkv;
   const int k0 = (gridDim.y - 1 - blockIdx.y) * BK;  // heaviest tiles first
-  load_tile<T, HD>(Ks, HD, k, b, kvh, sh.Hkv, sh, k0, BK);
-  load_tile<T, HD>(Vs, HD, v, b, kvh, sh.Hkv, sh, k0, BK);
+  load_tile<T, HD>(Ks, HD, k, b, kvh, sh.Hkv, sh.Sk, sh, k0, BK);
+  load_tile<T, HD>(Vs, HD, v, b, kvh, sh.Hkv, sh.Sk, sh, k0, BK);
 
   float gk[RK][NC], gv[RK][NC];
 #pragma unroll
@@ -172,18 +189,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) gk[i][c] = gv[i][c] = 0.f;
 
-  const int k_last = min(k0 + BK, sh.S) - 1;
-  const int q_end = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
+  // the query rows whose positions reach these keys (the map's inverse)
+  const int k_last = min(k0 + BK, sh.Sk) - 1;
+  const int q_end = sh.window > 0 ? rows_before(k_last + sh.window, sh) : sh.Sq;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const float* lse_h = lse + ((int64_t)b * sh.Hq + h) * sh.S;
-    const float* delta_h = delta + ((int64_t)b * sh.Hq + h) * sh.S;
-    for (int q0 = (k0 / BQ) * BQ; q0 < q_end; q0 += BQ) {
+    const float* lse_h = lse + ((int64_t)b * sh.Hq + h) * sh.Sq;
+    const float* delta_h = delta + ((int64_t)b * sh.Hq + h) * sh.Sq;
+    for (int q0 = rows_before(k0, sh) / BQ * BQ; q0 < q_end; q0 += BQ) {
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, HD>(Qs, LD, q, b, h, sh.Hq, sh, q0, BQ);
-      load_tile<T, HD>(Gs, LD, dout, b, h, sh.Hq, sh, q0, BQ);
+      load_tile<T, HD>(Qs, LD, q, b, h, sh.Hq, sh.Sq, sh, q0, BQ);
+      load_tile<T, HD>(Gs, LD, dout, b, h, sh.Hq, sh.Sq, sh, q0, BQ);
       for (int r = threadIdx.x; r < BQ; r += kThreads) {
-        const bool in = q0 + r < sh.S;
+        const bool in = q0 + r < sh.Sq;
+        Qp[r] = qpos(q0 + r, sh);
         Ls[r] = in ? lse_h[q0 + r] : 0.f;
         Es[r] = in ? delta_h[q0 + r] : 0.f;
       }
@@ -217,9 +236,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = warp * RK + i, kp = k0 + r;
 #pragma unroll
         for (int j = 0; j < JQ; ++j) {
-          const int c = lane + 32 * j, qp = q0 + c;
+          const int c = lane + 32 * j, qr = q0 + c;
           float p = 0.f, ds = 0.f;
-          if (live(qp, kp, sh)) {
+          if (live(qr, Qp[c], kp, sh)) {
             const float raw = s[i][j] * sh.scale;
             p = expf(capped(raw, sh.cap) - Ls[c]);
             ds = p * (dp[i][j] - Es[c]);
@@ -261,8 +280,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RK; ++i) {
     const int kp = k0 + warp * RK + i;
-    if (kp >= sh.S) continue;
-    const int64_t off = (((int64_t)b * sh.S + kp) * sh.Hkv + kvh) * sh.hd;
+    if (kp >= sh.Sk) continue;
+    const int64_t off = (((int64_t)b * sh.Sk + kp) * sh.Hkv + kvh) * sh.hd;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
@@ -281,7 +300,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD, int RQ, int BK>
 struct Dq {
   static constexpr int BQ = kWarps * RQ, JK = BK / 32, NC = HD / 32, LD = HD + 4;
-  static constexpr size_t smem = sizeof(float) * (2 * BQ * HD + 2 * BK * LD + BQ * BK);
+  static constexpr size_t smem =
+      sizeof(float) * (2 * BQ * HD + 2 * BK * LD + BQ * BK) + sizeof(int) * BQ;
 };
 
 template <typename T, int HD, int RQ, int BK>
@@ -297,30 +317,36 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* Ks = Gs + BQ * HD;                     // BK x LD
   float* Vs = Ks + BK * LD;                     // BK x LD
   float* Ds = Vs + BK * LD;                     // BQ x BK: dS
+  int* Qp = reinterpret_cast<int*>(Ds + BQ * BK);  // BQ: the rows' positions
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.x, b = bh / sh.Hq, h = bh % sh.Hq, kvh = h / (sh.Hq / sh.Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
-  load_tile<T, HD>(Qs, HD, q, b, h, sh.Hq, sh, q0, BQ);
-  load_tile<T, HD>(Gs, HD, dout, b, h, sh.Hq, sh, q0, BQ);
+  load_tile<T, HD>(Qs, HD, q, b, h, sh.Hq, sh.Sq, sh, q0, BQ);
+  load_tile<T, HD>(Gs, HD, dout, b, h, sh.Hq, sh.Sq, sh, q0, BQ);
 
+  // the rows' positions, in shared memory (read where a pair is tested;
+  // held in registers across the loop they made ptxas spill)
+  for (int r = threadIdx.x; r < BQ; r += kThreads) Qp[r] = qpos(q0 + r, sh);
   float lr[RQ], er[RQ], acc[RQ][NC];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const int qp = q0 + warp * RQ + i;
-    const bool in = qp < sh.S;
-    lr[i] = in ? lse[(int64_t)bh * sh.S + qp] : 0.f;
-    er[i] = in ? delta[(int64_t)bh * sh.S + qp] : 0.f;
+    const int qr = q0 + warp * RQ + i;
+    const bool in = qr < sh.Sq;
+    lr[i] = in ? lse[(int64_t)bh * sh.Sq + qr] : 0.f;
+    er[i] = in ? delta[(int64_t)bh * sh.Sq + qr] : 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int q_last = min(q0 + BQ, sh.S) - 1;
-  const int k_first = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
-  for (int k0 = (k_first / BK) * BK; k0 <= q_last; k0 += BK) {
+  // the key tiles from the window's reach of the first row's position to
+  // the last row's position
+  const int p_last = qpos(min(q0 + BQ, sh.Sq) - 1, sh);
+  const int k_first = sh.window > 0 ? max(0, qpos(q0, sh) - sh.window + 1) : 0;
+  for (int k0 = (k_first / BK) * BK; k0 <= p_last; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD>(Ks, LD, k, b, kvh, sh.Hkv, sh, k0, BK);
-    load_tile<T, HD>(Vs, LD, v, b, kvh, sh.Hkv, sh, k0, BK);
+    load_tile<T, HD>(Ks, LD, k, b, kvh, sh.Hkv, sh.Sk, sh, k0, BK);
+    load_tile<T, HD>(Vs, LD, v, b, kvh, sh.Hkv, sh.Sk, sh, k0, BK);
     __syncthreads();
 
     float s[RQ][JK], dp[RQ][JK];
@@ -348,12 +374,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
-      const int r = warp * RQ + i, qp = q0 + r;
+      const int r = warp * RQ + i;
 #pragma unroll
       for (int j = 0; j < JK; ++j) {
         const int kp = k0 + lane + 32 * j;
         float ds = 0.f;
-        if (live(qp, kp, sh)) {
+        if (live(q0 + r, Qp[r], kp, sh)) {
           const float raw = s[i][j] * sh.scale;
           const float p = expf(capped(raw, sh.cap) - lr[i]);
           ds = p * (dp[i][j] - er[i]);
@@ -385,9 +411,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const int qp = q0 + warp * RQ + i;
-    if (qp >= sh.S) continue;
-    T* o = dq + (((int64_t)b * sh.S + qp) * sh.Hq + h) * sh.hd;
+    const int qr = q0 + warp * RQ + i;
+    if (qr >= sh.Sq) continue;
+    T* o = dq + (((int64_t)b * sh.Sq + qr) * sh.Hq + h) * sh.hd;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
@@ -417,7 +443,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out, co
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* g_ = static_cast<const T*>(dout);
-  const int64_t rows = (int64_t)sh.B * sh.S * sh.Hq;
+  const int64_t rows = (int64_t)sh.B * sh.Sq * sh.Hq;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, st>>>(
       static_cast<const T*>(out), g_, delta, sh);
   cudaError_t e = cudaGetLastError();
@@ -426,7 +452,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out, co
   using KV = DkDv<T, HD, R, B2>;
   auto kv_kern = flash_bwd_dkdv_kernel<T, HD, R, B2>;
   if ((e = allow_smem<KV>(kv_kern)) != cudaSuccess) return e;
-  dim3 kv_grid(sh.B * sh.Hkv, (sh.S + KV::BK - 1) / KV::BK);
+  dim3 kv_grid(sh.B * sh.Hkv, (sh.Sk + KV::BK - 1) / KV::BK);
   kv_kern<<<kv_grid, kThreads, KV::smem, st>>>(q_, k_, v_, g_, lse, delta, static_cast<T*>(dk),
                                                static_cast<T*>(dv), sh);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -434,7 +460,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out, co
   using QD = Dq<T, HD, R, B2>;
   auto q_kern = flash_bwd_dq_kernel<T, HD, R, B2>;
   if ((e = allow_smem<QD>(q_kern)) != cudaSuccess) return e;
-  dim3 q_grid(sh.B * sh.Hq, (sh.S + QD::BQ - 1) / QD::BQ);
+  dim3 q_grid(sh.B * sh.Hq, (sh.Sq + QD::BQ - 1) / QD::BQ);
   q_kern<<<q_grid, kThreads, QD::smem, st>>>(q_, k_, v_, g_, lse, delta, static_cast<T*>(dq), sh);
   return cudaGetLastError();
 }
@@ -451,24 +477,32 @@ cudaError_t bwd_hd(const void* q, const void* k, const void* v, const void* out,
   return bwd<T, 256, 4, 32>(q, k, v, out, dout, lse, delta, dq, dk, dv, sh, st);
 }
 
-bool make_shape(Shape* sh, int B, int S, int Hq, int Hkv, int hd, int window, float cap,
-                float scale) {
-  if (B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv || hd < 1 || hd > 256) return false;
-  *sh = Shape{B, S, Hq, Hkv, hd, window, cap, scale};
+// refuses a query-row map a row of which sits at or past Sk
+bool make_shape(Shape* sh, int B, int Sq, int Sk, int Hq, int Hkv, int hd, int rl, int cs,
+                int r0, int window, float cap, float scale) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv || hd < 1 || hd > 256 ||
+      rl < 1 || cs < rl || r0 < 0 || r0 > cs - rl ||
+      (int64_t)((Sq - 1) / rl) * cs + r0 + (Sq - 1) % rl >= Sk)
+    return false;
+  *sh = Shape{B, Sq, Sk, Hq, Hkv, hd, rl, cs, r0, window, cap, scale};
   return true;
 }
 
 }  // namespace
 
-// dq, dk, dv (the shapes of q, k, v) are written; delta is (B, Hq, S) f32
-// scratch.  Three launches: delta, dK/dV, dQ.
+// dq, dk, dv (the shapes of q, k, v) are written; delta is (B, Hq, Sq) f32
+// scratch; query row j sits at position (j / rl) * cs + r0 + j % rl of the
+// Sk keys (rl = cs = Sq, r0 = 0 without a map).  Three launches: delta,
+// dK/dV, dQ.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* out, const void* dout, const float* lse,
                                           float* delta, void* dq, void* dk, void* dv, int B,
-                                          int S, int Hq, int Hkv, int hd, int window, float cap,
-                                          float scale, int dtype, void* stream) {
+                                          int Sq, int Sk, int Hq, int Hkv, int hd, int rl, int cs,
+                                          int r0, int window, float cap, float scale, int dtype,
+                                          void* stream) {
   Shape sh;
-  if (!make_shape(&sh, B, S, Hq, Hkv, hd, window, cap, scale)) return (int)cudaErrorInvalidValue;
+  if (!make_shape(&sh, B, Sq, Sk, Hq, Hkv, hd, rl, cs, r0, window, cap, scale))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DT_F32:

@@ -13,6 +13,15 @@
 // (q . k) * hd^-0.5, then cap * tanh(s / cap) under a cap; key kp live for
 // query qp when kp <= qp (and qp - kp < window); masked probabilities
 // exactly 0, l clamped at 1e-30; lse = m + log l, f32 (B, Hq, S); any S.
+// A query-row map (Shape::rl, cs, r0) puts query row j of q (B, Sq, Hq, hd)
+// at position (j / rl) * cs + r0 + j % rl of k and v (B, Sk, Hkv, hd): one
+// rank's rows of a sequence-parallel split (rl rows of each chunk of cs
+// positions), each causal over the keys up to its position, all of the
+// rank's chunks in one launch.  Without a map rl = cs = Sq, r0 = 0, and row
+// j sits at j.  A tile's key range runs from its first row's position (less
+// the window) to its last row's, a dK/dV key block's query tiles from the
+// map's inverse (rows_before); a tile whose rows span chunks masks each
+// pair by position.
 //
 // What bounds it: operations.  4 * hd flops per live (query, key) pair
 // forward, 2.5x that backward, against q, k, v, o (dO, dq, dk, dv) and lse
@@ -99,17 +108,31 @@ constexpr int kTmaErrorBase = 10000;        // + CUresult of a refused descripto
 constexpr int kAlign = 1024;                // the 128-byte swizzle's atom
 
 struct Shape {
-  int B, S, Hq, Hkv, hd;
-  int window;   // <= 0: no window
-  float cap;    // <= 0: no cap
-  float scale;  // hd^-0.5 of the original hd
+  int B, Sq, Sk, Hq, Hkv, hd;  // Sq query rows, Sk keys
+  int rl, cs, r0;  // query row j at position (j / rl) * cs + r0 + j % rl
+  int window;      // <= 0: no window
+  float cap;       // <= 0: no cap
+  float scale;     // hd^-0.5 of the original hd
 };
 
-// S rounded up to the dK/dV kernel's 64-row query tile
+// Sq rounded up to the dK/dV kernel's 64-row query tile
 int padded_rows(int S) { return (S + 63) / 64 * 64; }
 
-__device__ __forceinline__ bool live(int qp, int kp, const Shape& sh) {
-  return kp <= qp && qp < sh.S && (sh.window <= 0 || qp - kp < sh.window);
+// the position of query row j: row j % rl of chunk j / rl (rows past Sq
+// continue the pattern); without a map (rl = cs = Sq, r0 = 0) j itself
+__device__ __forceinline__ int qpos(int j, const Shape& sh) {
+  return j / sh.rl * sh.cs + sh.r0 + j % sh.rl;
+}
+
+// the map's inverse: the number of query rows at positions below p
+__device__ __forceinline__ int rows_before(int p, const Shape& sh) {
+  const int n = p / sh.cs;
+  return min(sh.Sq, n * sh.rl + min(max(p - n * sh.cs - sh.r0, 0), sh.rl));
+}
+
+// key kp is live for query row j at position qp
+__device__ __forceinline__ bool live(int j, int qp, int kp, const Shape& sh) {
+  return kp <= qp && j < sh.Sq && (sh.window <= 0 || qp - kp < sh.window);
 }
 
 // ---------------------------------------------------------------------------
@@ -444,18 +467,18 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// rows r and r + 8 (global positions ra, ra + 8) of a 64 x HD accumulator,
+// rows r and r + 8 (global rows ra, ra + 8) of a 64 x HD accumulator,
 // times f[0] / f[1], into head h of a (B, S, H, hd) bf16 tensor
 template <int HD>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[HD / 2],
                                            const float (&f)[2], int b, int ra, int h, int H,
-                                           int lane, const Shape& sh) {
+                                           int S, int lane, const Shape& sh) {
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int row = ra + frag_row(i), col = frag_col(i, lane);
-    if (row < sh.S && col < sh.hd) {
+    if (row < S && col < sh.hd) {
       const float s = f[(i >> 1) & 1];
-      *reinterpret_cast<__nv_bfloat162*>(dst + (((int64_t)b * sh.S + row) * H + h) * sh.hd +
+      *reinterpret_cast<__nv_bfloat162*>(dst + (((int64_t)b * S + row) * H + h) * sh.hd +
                                          col) = __floats2bfloat162_rn(acc[i] * s, acc[i + 1] * s);
     }
   }
@@ -504,9 +527,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 
   const int bh = blockIdx.x, b = bh / sh.Hq, h = bh % sh.Hq, kvh = h / (sh.Hq / sh.Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // heaviest tiles first
-  const int q_last = min(q0 + C::BQ, sh.S) - 1;
-  const int t0 = (sh.window > 0 ? max(0, q0 - sh.window + 1) : 0) / BK;
-  const int n_tiles = q_last / BK - t0 + 1;
+  const int q_last = min(q0 + C::BQ, sh.Sq) - 1;
+  // the key tiles between the window's reach from the first row's position
+  // and the last row's position
+  const int t0 = (sh.window > 0 ? max(0, qpos(q0, sh) - sh.window + 1) : 0) / BK;
+  const int n_tiles = qpos(q_last, sh) / BK - t0 + 1;
 
   if (threadIdx.x >= kConsumers) {  // producer: one thread issues every load
     regs_down<kProducerRegs>();
@@ -528,6 +553,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     const int r0 = 64 * wg;                       // this warpgroup's rows in the tile
     const int qw = q0 + r0;                       // its first query
     const int qa = qw + 16 * w4 + lane / 4;       // this thread's rows: qa, qa + 8
+    const int qp[2] = {qpos(qa, sh), qpos(qa + 8, sh)};            // at these positions
+    const int pw0 = qpos(qw, sh), pw1 = qpos(qw + 63, sh);         // the warpgroup's range
     float acc[HD / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
@@ -548,14 +575,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       pin(sc);
 
       // masking only where a pair of this warpgroup's rows and the tile is dead
-      const bool masked = k0 + BK - 1 > qw || qw + 63 >= sh.S ||
-                          (sh.window > 0 && qw + 63 - k0 >= sh.window);
+      const bool masked = k0 + BK - 1 > pw0 || qw + 63 >= sh.Sq ||
+                          (sh.window > 0 && pw1 - k0 >= sh.window);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         float x = sc[i] * sh.scale;
         if (sh.cap > 0.f) x = sh.cap * tanhf(x / sh.cap);
-        if (masked && !live(qa + frag_row(i), k0 + frag_col(i, lane), sh)) x = kNegInf;
+        const int r = (i >> 1) & 1;
+        if (masked && !live(qa + 8 * r, qp[r], k0 + frag_col(i, lane), sh)) x = kNegInf;
         sc[i] = x;
         mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
       }
@@ -598,18 +626,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       l[r] = quad_sum(l[r]);
       inv[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
-    store_rows<HD>(out, acc, inv, b, qa, h, sh.Hq, lane, sh);
+    store_rows<HD>(out, acc, inv, b, qa, h, sh.Hq, sh.Sq, lane, sh);
     if ((lane & 3) == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        if (qa + 8 * r < sh.S) lse[(int64_t)bh * sh.S + qa + 8 * r] = m[r] + logf(l[r]);
+        if (qa + 8 * r < sh.Sq) lse[(int64_t)bh * sh.Sq + qa + 8 * r] = m[r] + logf(l[r]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Backward, rows: delta = rowsum(dO * O), and lse * log2(e), f32, into
-// (B * Hq, Sp) with Sp = S rounded up to 64 and zeros in the pad, so that the
+// (B * Hq, Sp) with Sp = Sq rounded up to 64 and zeros in the pad, so that the
 // dK/dV kernel copies a query tile's values with one aligned bulk copy.  One
 // warp per (b, s, h) of the padded rows.
 // ---------------------------------------------------------------------------
@@ -623,8 +651,8 @@ flash_bwd_rows_sm90_kernel(const bf16* __restrict__ out, const bf16* __restrict_
   const int64_t bs = row / sh.Hq;
   const int h = row % sh.Hq, b = bs / sp, s = bs % sp;
   float acc = 0.f;
-  if (s < sh.S) {
-    const int64_t off = (((int64_t)b * sh.S + s) * sh.Hq + h) * sh.hd;
+  if (s < sh.Sq) {
+    const int64_t off = (((int64_t)b * sh.Sq + s) * sh.Hq + h) * sh.hd;
     for (int d = lane; d < sh.hd; d += 32)
       acc = fmaf(__bfloat162float(out[off + d]), __bfloat162float(dout[off + d]), acc);
 #pragma unroll
@@ -633,7 +661,7 @@ flash_bwd_rows_sm90_kernel(const bf16* __restrict__ out, const bf16* __restrict_
   if (lane == 0) {
     const int64_t dst = ((int64_t)b * sh.Hq + h) * sp + s;
     delta_p[dst] = acc;
-    lse_p[dst] = s < sh.S ? lse[((int64_t)b * sh.Hq + h) * sh.S + s] * kLog2e : 0.f;
+    lse_p[dst] = s < sh.Sq ? lse[((int64_t)b * sh.Hq + h) * sh.Sq + s] * kLog2e : 0.f;
   }
 }
 
@@ -688,9 +716,11 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 
   const int b = blockIdx.x / sh.Hkv, kvh = blockIdx.x % sh.Hkv, G = sh.Hq / sh.Hkv;
   const int k0 = blockIdx.y * C::BK;  // the first key tiles see the most queries
-  const int k_last = min(k0 + C::BK, sh.S) - 1;
-  const int q_begin = (k0 / BQ) * BQ;
-  const int q_end = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
+  const int k_last = min(k0 + C::BK, sh.Sk) - 1;
+  // the query rows whose positions reach these keys: from the first at or
+  // past k0 to the last before k_last + window
+  const int q_begin = rows_before(k0, sh) / BQ * BQ;
+  const int q_end = sh.window > 0 ? rows_before(k_last + sh.window, sh) : sh.Sq;
 
   if (threadIdx.x >= kConsumers) {  // producer: one thread issues every load
     regs_down<kProducerRegs>();
@@ -744,14 +774,14 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         pin(dpt);
 
         // rows are keys, columns queries: dead pairs where a query precedes a key
-        const bool masked = q0 < kw + 63 || q0 + BQ > sh.S || kw + 63 >= sh.S ||
-                            (sh.window > 0 && q0 + BQ - 1 - kw >= sh.window);
+        const bool masked = qpos(q0, sh) < kw + 63 || q0 + BQ > sh.Sq || kw + 63 >= sh.Sk ||
+                            (sh.window > 0 && qpos(q0 + BQ - 1, sh) - kw >= sh.window);
         uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
         for (int i = 0; i < BQ / 2; ++i) {
           const int c = frag_col(i, lane);
           float p = 0.f, pg = 0.f;
-          if (!masked || live(q0 + c, ka + frag_row(i), sh))
+          if (!masked || live(q0 + c, qpos(q0 + c, sh), ka + frag_row(i), sh))
             prob(st[i], Ls[s * BQ + c], sh, p, pg);
           st[i] = p;
           dpt[i] = pg * (dpt[i] - Es[s * BQ + c]);
@@ -773,8 +803,8 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       }
     }
     const float f_k[2] = {sh.scale, sh.scale}, f_v[2] = {1.f, 1.f};
-    store_rows<HD>(dk, gk, f_k, b, ka, kvh, sh.Hkv, lane, sh);
-    store_rows<HD>(dv, gv, f_v, b, ka, kvh, sh.Hkv, lane, sh);
+    store_rows<HD>(dk, gk, f_k, b, ka, kvh, sh.Hkv, sh.Sk, lane, sh);
+    store_rows<HD>(dv, gv, f_v, b, ka, kvh, sh.Hkv, sh.Sk, lane, sh);
   }
 }
 
@@ -810,9 +840,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 
   const int bh = blockIdx.x, b = bh / sh.Hq, h = bh % sh.Hq, kvh = h / (sh.Hq / sh.Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // heaviest tiles first
-  const int q_last = min(q0 + C::BQ, sh.S) - 1;
-  const int t0 = (sh.window > 0 ? max(0, q0 - sh.window + 1) : 0) / BK;
-  const int n_tiles = q_last / BK - t0 + 1;
+  const int q_last = min(q0 + C::BQ, sh.Sq) - 1;
+  const int t0 = (sh.window > 0 ? max(0, qpos(q0, sh) - sh.window + 1) : 0) / BK;
+  const int n_tiles = qpos(q_last, sh) / BK - t0 + 1;
 
   if (threadIdx.x >= kConsumers) {  // producer: one thread issues every load
     regs_down<kProducerRegs>();
@@ -833,6 +863,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, w4 = (threadIdx.x % 128) / 32;
     const int r0 = 64 * wg, qw = q0 + r0;
     const int qa = qw + 16 * w4 + lane / 4;     // this thread's rows: qa, qa + 8
+    const int qp[2] = {qpos(qa, sh), qpos(qa + 8, sh)};          // at these positions
+    const int pw0 = qpos(qw, sh), pw1 = qpos(qw + 63, sh);       // the warpgroup's range
     float lse_l2[2], dlt[2], acc[HD / 2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {  // padded rows: in range for every row of the tile
@@ -861,13 +893,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       pin(sc);
       pin(dp);
 
-      const bool masked = k0 + BK - 1 > qw || qw + 63 >= sh.S ||
-                          (sh.window > 0 && qw + 63 - k0 >= sh.window);
+      const bool masked = k0 + BK - 1 > pw0 || qw + 63 >= sh.Sq ||
+                          (sh.window > 0 && pw1 - k0 >= sh.window);
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int r = (i >> 1) & 1;
         float p = 0.f, pg = 0.f;
-        if (!masked || live(qa + 8 * r, k0 + frag_col(i, lane), sh))
+        if (!masked || live(qa + 8 * r, qp[r], k0 + frag_col(i, lane), sh))
           prob(sc[i], lse_l2[r], sh, p, pg);
         dp[i] = pg * (dp[i] - dlt[r]);
       }
@@ -883,7 +915,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_arrive(&empty[s]);
     }
     const float f[2] = {sh.scale, sh.scale};
-    store_rows<HD>(dq, acc, f, b, qa, h, sh.Hq, lane, sh);
+    store_rows<HD>(dq, acc, f, b, qa, h, sh.Hq, sh.Sq, lane, sh);
   }
 }
 
@@ -940,9 +972,10 @@ flash_bwd_dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 
   const int b = blockIdx.x / sh.Hkv, kvh = blockIdx.x % sh.Hkv, G = sh.Hq / sh.Hkv;
   const int k0 = blockIdx.y * C::BK;  // the first key tiles see the most queries
-  const int k_last = min(k0 + C::BK, sh.S) - 1;
-  const int q_end = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
-  const int n_q = (q_end - k0 + BQ - 1) / BQ;  // live query tiles of one head
+  const int k_last = min(k0 + C::BK, sh.Sk) - 1;
+  const int q_begin = rows_before(k0, sh) / BQ * BQ;
+  const int q_end = sh.window > 0 ? rows_before(k_last + sh.window, sh) : sh.Sq;
+  const int n_q = max(0, (q_end - q_begin + BQ - 1) / BQ);  // live query tiles of one head
   const int n = G * n_q;
 
   if (threadIdx.x >= kConsumers) {  // producer: one thread issues every load
@@ -952,7 +985,7 @@ flash_bwd_dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       tma_tile<C::BK, HD>(Ks, &mk, kv_full, kvh, k0, b);
       tma_tile<C::BK, HD>(Vs, &mv, kv_full, kvh, k0, b);
       for (int j = 0; j < n; ++j) {
-        const int s = j % ST, h = kvh * G + j / n_q, q0 = k0 + (j % n_q) * BQ;
+        const int s = j % ST, h = kvh * G + j / n_q, q0 = q_begin + (j % n_q) * BQ;
         const int64_t rows = ((int64_t)b * sh.Hq + h) * sp;
         mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * C::kQ + 2 * C::kRows);
@@ -975,7 +1008,7 @@ flash_bwd_dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     mbar_wait(kv_full, 0);
 
     for (int j = 0; j < n; ++j) {
-      const int s = j % ST, q0 = k0 + (j % n_q) * BQ, buf = j & 1;
+      const int s = j % ST, q0 = q_begin + (j % n_q) * BQ, buf = j & 1;
       const uint8_t* Qt = Qs + s * C::kQ;
       const uint8_t* Gt = Gs + s * C::kQ;
       float4* pg = Pg + buf * (C::kPg / 16) + t;  // this thread's values, 128 float4 apart
@@ -991,8 +1024,8 @@ flash_bwd_dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 
       if (wg == 0) {
         // rows are keys, columns queries: dead pairs where a query precedes a key
-        const bool masked = q0 < k0 + 63 || q0 + BQ > sh.S || k0 + 63 >= sh.S ||
-                            (sh.window > 0 && q0 + BQ - 1 - k0 >= sh.window);
+        const bool masked = qpos(q0, sh) < k0 + 63 || q0 + BQ > sh.Sq || k0 + 63 >= sh.Sk ||
+                            (sh.window > 0 && qpos(q0 + BQ - 1, sh) - k0 >= sh.window);
         if (j >= 2) bar_sync(kPgFree + buf);  // warpgroup 1 has read tile j - 2's pg
 #pragma unroll
         for (int v = 0; v < BQ / 8; ++v) {
@@ -1001,7 +1034,7 @@ flash_bwd_dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
           for (int e = 0; e < 4; ++e) {
             const int i = 4 * v + e, c = frag_col(i, lane);
             float p = 0.f, g = 0.f;
-            if (!masked || live(q0 + c, ka + frag_row(i), sh))
+            if (!masked || live(q0 + c, qpos(q0 + c, sh), ka + frag_row(i), sh))
               prob(x[i], Ls[s * BQ + c], sh, p, g);
             x[i] = p;
             g4[e] = g;
@@ -1036,7 +1069,7 @@ flash_bwd_dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_arrive(&empty[s]);
     }
     const float f = wg == 0 ? 1.f : sh.scale, fs[2] = {f, f};
-    store_rows<HD>(wg == 0 ? dv : dk, acc, fs, b, ka, kvh, sh.Hkv, lane, sh);
+    store_rows<HD>(wg == 0 ? dv : dk, acc, fs, b, ka, kvh, sh.Hkv, sh.Sk, lane, sh);
   }
 }
 
@@ -1060,12 +1093,12 @@ EncodeTiled encode_tiled() {
 
 // a (B, S, H, hd) bf16 tensor as 4-D (hd, H, S, B); boxes of 64 columns x
 // `rows` rows of one head and batch, 128-byte swizzle, zero fill out of range
-int make_map(CUtensorMap* map, const void* ptr, const Shape& sh, int H, int rows) {
+int make_map(CUtensorMap* map, const void* ptr, const Shape& sh, int H, int S, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t hd = (cuuint64_t)sh.hd;
-  cuuint64_t dims[4] = {hd, (cuuint64_t)H, (cuuint64_t)sh.S, (cuuint64_t)sh.B};
-  cuuint64_t strides[3] = {hd * 2, hd * 2 * H, hd * 2 * H * sh.S};
+  cuuint64_t dims[4] = {hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)sh.B};
+  cuuint64_t strides[3] = {hd * 2, hd * 2 * H, hd * 2 * H * S};
   cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -1103,12 +1136,13 @@ int fwd(const void* q, const void* k, const void* v, void* out, float* lse, cons
   using C = FwdCfg<HD, BK, ST>;
   CUtensorMap mq, mk, mv;
   int rc;
-  if ((rc = make_map(&mq, q, sh, sh.Hq, C::BQ)) || (rc = make_map(&mk, k, sh, sh.Hkv, BK)) ||
-      (rc = make_map(&mv, v, sh, sh.Hkv, BK)))
+  if ((rc = make_map(&mq, q, sh, sh.Hq, sh.Sq, C::BQ)) ||
+      (rc = make_map(&mk, k, sh, sh.Hkv, sh.Sk, BK)) ||
+      (rc = make_map(&mv, v, sh, sh.Hkv, sh.Sk, BK)))
     return rc;
   auto kern = flash_fwd_sm90_kernel<HD, BK, ST>;
   if (cudaError_t e = prepare<C>(kern)) return (int)e;
-  const dim3 grid(sh.B * sh.Hq, (sh.S + C::BQ - 1) / C::BQ);
+  const dim3 grid(sh.B * sh.Hq, (sh.Sq + C::BQ - 1) / C::BQ);
   kern<<<grid, kThreads, C::smem, st>>>(mq, mk, mv, static_cast<bf16*>(out), lse, sh);
   return (int)cudaGetLastError();
 }
@@ -1120,14 +1154,16 @@ int bwd(KvKern kv_kern, QKern q_kern, const void* q, const void* k, const void* 
         void* dv, const Shape& sh, cudaStream_t st) {
   CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
   int rc;
-  if ((rc = make_map(&kq, q, sh, sh.Hq, KV::BQ)) || (rc = make_map(&kk, k, sh, sh.Hkv, KV::BK)) ||
-      (rc = make_map(&kv, v, sh, sh.Hkv, KV::BK)) ||
-      (rc = make_map(&kdo, dout, sh, sh.Hq, KV::BQ)) ||
-      (rc = make_map(&qq, q, sh, sh.Hq, QD::BQ)) || (rc = make_map(&qk, k, sh, sh.Hkv, QD::BK)) ||
-      (rc = make_map(&qv, v, sh, sh.Hkv, QD::BK)) ||
-      (rc = make_map(&qdo, dout, sh, sh.Hq, QD::BQ)))
+  if ((rc = make_map(&kq, q, sh, sh.Hq, sh.Sq, KV::BQ)) ||
+      (rc = make_map(&kk, k, sh, sh.Hkv, sh.Sk, KV::BK)) ||
+      (rc = make_map(&kv, v, sh, sh.Hkv, sh.Sk, KV::BK)) ||
+      (rc = make_map(&kdo, dout, sh, sh.Hq, sh.Sq, KV::BQ)) ||
+      (rc = make_map(&qq, q, sh, sh.Hq, sh.Sq, QD::BQ)) ||
+      (rc = make_map(&qk, k, sh, sh.Hkv, sh.Sk, QD::BK)) ||
+      (rc = make_map(&qv, v, sh, sh.Hkv, sh.Sk, QD::BK)) ||
+      (rc = make_map(&qdo, dout, sh, sh.Hq, sh.Sq, QD::BQ)))
     return rc;
-  const int sp = padded_rows(sh.S);
+  const int sp = padded_rows(sh.Sq);
   float* delta_p = rows;
   float* lse_p = rows + (int64_t)sh.B * sh.Hq * sp;
   const int64_t n_rows = (int64_t)sh.B * sp * sh.Hq;
@@ -1136,39 +1172,42 @@ int bwd(KvKern kv_kern, QKern q_kern, const void* q, const void* k, const void* 
   if (cudaError_t e = cudaGetLastError()) return (int)e;
 
   if (cudaError_t e = prepare<KV>(kv_kern)) return (int)e;
-  const dim3 kv_grid(sh.B * sh.Hkv, (sh.S + KV::BK - 1) / KV::BK);
+  const dim3 kv_grid(sh.B * sh.Hkv, (sh.Sk + KV::BK - 1) / KV::BK);
   kv_kern<<<kv_grid, kThreads, KV::smem, st>>>(kq, kk, kv, kdo, lse_p, delta_p, sp,
                                                static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                                                sh);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
 
   if (cudaError_t e = prepare<QD>(q_kern)) return (int)e;
-  const dim3 q_grid(sh.B * sh.Hq, (sh.S + QD::BQ - 1) / QD::BQ);
+  const dim3 q_grid(sh.B * sh.Hq, (sh.Sq + QD::BQ - 1) / QD::BQ);
   q_kern<<<q_grid, kThreads, QD::smem, st>>>(qq, qk, qv, qdo, lse_p, delta_p, sp,
                                              static_cast<bf16*>(dq), sh);
   return (int)cudaGetLastError();
 }
 
-// the cases ops.route() sends here; anything else is refused, not rerouted
-bool make_shape(Shape* sh, int B, int S, int Hq, int Hkv, int hd, int window, float cap,
-                float scale, int dtype, int max_hd) {
-  if (dtype != 1 || B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv || hd < 8 || hd % 8 ||
-      hd > max_hd)
+// the cases ops.route() sends here, with a query-row map whose rows all sit
+// below Sk; anything else is refused, not rerouted
+bool make_shape(Shape* sh, int B, int Sq, int Sk, int Hq, int Hkv, int hd, int rl, int cs,
+                int r0, int window, float cap, float scale, int dtype, int max_hd) {
+  if (dtype != 1 || B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv || hd < 8 ||
+      hd % 8 || hd > max_hd || rl < 1 || cs < rl || r0 < 0 || r0 > cs - rl ||
+      (int64_t)((Sq - 1) / rl) * cs + r0 + (Sq - 1) % rl >= Sk)
     return false;
-  *sh = Shape{B, S, Hq, Hkv, hd, window, cap, scale};
+  *sh = Shape{B, Sq, Sk, Hq, Hkv, hd, rl, cs, r0, window, cap, scale};
   return true;
 }
 
 }  // namespace
 
-// As flash_attention_fwd_launch, for bf16 (dtype code 1) with hd % 8 == 0,
-// hd <= 256, and 16-byte aligned q, k, v.
+// As flash_attention_fwd_split_tf32_launch, for bf16 (dtype code 1) with
+// hd % 8 == 0, hd <= 256, and 16-byte aligned q, k, v.
 extern "C" int flash_attention_fwd_sm90_launch(const void* q, const void* k, const void* v,
-                                               void* out, float* lse, int B, int S, int Hq,
-                                               int Hkv, int hd, int window, float cap,
-                                               float scale, int dtype, void* stream) {
+                                               void* out, float* lse, int B, int Sq, int Sk,
+                                               int Hq, int Hkv, int hd, int rl, int cs, int r0,
+                                               int window, float cap, float scale, int dtype,
+                                               void* stream) {
   Shape sh;
-  if (!make_shape(&sh, B, S, Hq, Hkv, hd, window, cap, scale, dtype, 256))
+  if (!make_shape(&sh, B, Sq, Sk, Hq, Hkv, hd, rl, cs, r0, window, cap, scale, dtype, 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // ring stages: as many as shared memory holds (224 KB at hd 128, 192 KB at 256)
@@ -1178,16 +1217,17 @@ extern "C" int flash_attention_fwd_sm90_launch(const void* q, const void* k, con
 }
 
 // As flash_attention_bwd_launch, for bf16 with hd % 8 == 0 and hd <= 256,
-// except that `rows` is f32 scratch of 2 * B * Hq * flash_attention_sm90_rows(S)
+// except that `rows` is f32 scratch of 2 * B * Hq * flash_attention_sm90_rows(Sq)
 // (delta and lse * log2(e), padded).  Three launches: rows, dK/dV, dQ.
 extern "C" int flash_attention_bwd_sm90_launch(const void* q, const void* k, const void* v,
                                                const void* out, const void* dout,
                                                const float* lse, float* rows, void* dq,
-                                               void* dk, void* dv, int B, int S, int Hq, int Hkv,
-                                               int hd, int window, float cap, float scale,
-                                               int dtype, void* stream) {
+                                               void* dk, void* dv, int B, int Sq, int Sk, int Hq,
+                                               int Hkv, int hd, int rl, int cs, int r0,
+                                               int window, float cap, float scale, int dtype,
+                                               void* stream) {
   Shape sh;
-  if (!make_shape(&sh, B, S, Hq, Hkv, hd, window, cap, scale, dtype, 256))
+  if (!make_shape(&sh, B, Sq, Sk, Hq, Hkv, hd, rl, cs, r0, window, cap, scale, dtype, 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // ring stages: as many as shared memory holds (dK/dV 231,992 bytes on the

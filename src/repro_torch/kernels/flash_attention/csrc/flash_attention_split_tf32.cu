@@ -13,6 +13,12 @@
 // cap; key kp live for query qp when kp <= qp (and qp - kp < window);
 // NEG_INF = -1e30, masked probabilities exactly 0, l clamped at 1e-30 in the
 // division; lse = m + log l, f32 (B, Hq, S); out in the input dtype; any S.
+// A query-row map (Shape::rl, cs, r0; flash_attention_sm90.cu) puts query
+// row j of q (B, Sq, Hq, hd) at position (j / rl) * cs + r0 + j % rl of k
+// and v (B, Sk, Hkv, hd); without one rl = cs = Sq, r0 = 0 and row j sits
+// at j.  A block's key tiles run from its first row's position (less the
+// window) to its last row's; a warp skips a stage its rows' positions
+// cannot see, and masks by position where its rows span chunks.
 //
 // Split TF32 is an f32-accurate emulation, not TF32: every f32 operand x is
 // split into hi = tf32(x) and lo = tf32(x - hi) (round to nearest), and each
@@ -78,10 +84,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Shape {
-  int B, S, Hq, Hkv, hd;
-  int window;   // <= 0: no window
-  float cap;    // <= 0: no cap
-  float scale;  // hd^-0.5 of the original hd
+  int B, Sq, Sk, Hq, Hkv, hd;  // Sq query rows, Sk keys
+  int rl, cs, r0;  // query row j at position (j / rl) * cs + r0 + j % rl
+  int window;      // <= 0: no window
+  float cap;       // <= 0: no cap
+  float scale;     // hd^-0.5 of the original hd
 };
 
 // Tile geometry of one instantiation.  KS key groups of RG = kWarps / KS
@@ -113,8 +120,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ bool live(int qp, int kp, const Shape& sh) {
-  return kp <= qp && qp < sh.S && (sh.window <= 0 || qp - kp < sh.window);
+// the position of query row j (without a map, j)
+__device__ __forceinline__ int qpos(int j, const Shape& sh) {
+  return j / sh.rl * sh.cs + sh.r0 + j % sh.rl;
+}
+
+// key kp is live for query row j at position qp
+__device__ __forceinline__ bool live(int j, int qp, int kp, const Shape& sh) {
+  return kp <= qp && j < sh.Sq && (sh.window <= 0 || qp - kp < sh.window);
 }
 
 __device__ __forceinline__ float capped(float raw, float cap) {
@@ -165,21 +178,21 @@ __device__ __forceinline__ void mma(float (&c)[4], const float (&a)[4], float b0
 // hd % 4 == 0 and a 16-byte aligned base, so 16-byte cp.async copies.
 template <typename T, int HD>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restrict__ src, int b,
-                                          int h, int H, const Shape& sh, int row0, int rows,
-                                          bool vec) {
+                                          int h, int H, int S, const Shape& sh, int row0,
+                                          int rows, bool vec) {
   if (std::is_same<T, float>::value && vec) {
     const float* base = reinterpret_cast<const float*>(src);
     for (int idx = threadIdx.x; idx < rows * (HD / 4); idx += kThreads) {
       const int r = idx / (HD / 4), c = (idx % (HD / 4)) * 4, s = row0 + r;
-      const bool in = s < sh.S && c < sh.hd;
-      const float* g = in ? base + (((int64_t)b * sh.S + s) * H + h) * sh.hd + c : base;
+      const bool in = s < S && c < sh.hd;
+      const float* g = in ? base + (((int64_t)b * S + s) * H + h) * sh.hd + c : base;
       cp_async16(dst + r * ld + c, g, in ? 16 : 0);
     }
   } else {
     for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
       const int r = idx / HD, d = idx % HD, s = row0 + r;
       float x = 0.f;
-      if (s < sh.S && d < sh.hd) x = to_f32(src[(((int64_t)b * sh.S + s) * H + h) * sh.hd + d]);
+      if (s < S && d < sh.hd) x = to_f32(src[(((int64_t)b * S + s) * H + h) * sh.hd + d]);
       dst[r * ld + d] = x;
     }
   }
@@ -218,20 +231,24 @@ flash_fwd_split_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / sh.Hq, h = bh % sh.Hq, kvh = h / (sh.Hq / sh.Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
   const int qw = q0 + rg * 16;                       // this warp's first row
-  const int q_last = min(q0 + BQ, sh.S) - 1;
-  const int k_first = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
+  const int q_last = min(q0 + BQ, sh.Sq) - 1;
+  const int k_first = sh.window > 0 ? max(0, qpos(q0, sh) - sh.window + 1) : 0;
   const int k_begin = (k_first / BKS) * BKS;
-  const int n_tiles = (q_last - k_begin) / BKS + 1;
+  const int n_tiles = (qpos(q_last, sh) - k_begin) / BKS + 1;
   const int kc_end = (sh.hd + 7) / 8;  // 8-column chunks that hold data
   const float scale2 = sh.scale * kLog2e;
 
   auto load_kv = [&](int stage, int k0) {
     float* Ks = ring + stage * C::STAGE;
-    load_rows<T, HD>(Ks, LDK, k, b, kvh, sh.Hkv, sh, k0, BKS, vec);
-    load_rows<T, HD>(Ks + P * C::KF, LDV, v, b, kvh, sh.Hkv, sh, k0, BKS, vec);
+    load_rows<T, HD>(Ks, LDK, k, b, kvh, sh.Hkv, sh.Sk, sh, k0, BKS, vec);
+    load_rows<T, HD>(Ks + P * C::KF, LDV, v, b, kvh, sh.Hkv, sh.Sk, sh, k0, BKS, vec);
   };
 
-  load_rows<T, HD>(Qs, LDQ, q, b, h, sh.Hq, sh, q0, BQ, vec);
+  load_rows<T, HD>(Qs, LDQ, q, b, h, sh.Hq, sh.Sq, sh, q0, BQ, vec);
+  // the block's rows' positions, read where a stage is skipped or masked
+  // (in shared memory: registers held across the loop made ptxas spill)
+  __shared__ int pos_s[BQ];
+  for (int i = threadIdx.x; i < BQ; i += kThreads) pos_s[i] = qpos(q0 + i, sh);
   cp_async_commit();
 #pragma unroll
   for (int st = 0; st < ST; ++st) {
@@ -293,7 +310,8 @@ flash_fwd_split_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // this warp's keys: the kg-th BK of the stage; skipped where every pair
     // with its rows is masked
     const int kf = k_begin + j * BKS + kg * BK;
-    const bool skip = kf > qw + 15 || (sh.window > 0 && qw - (kf + BK - 1) >= sh.window);
+    const int pw0 = pos_s[rg * 16], pw1 = pos_s[rg * 16 + 15];  // the warp's first and last
+    const bool skip = kf > pw1 || (sh.window > 0 && pw0 - (kf + BK - 1) >= sh.window);
     if (!skip) {
       const float* Kw = Kh + kg * BK * LDK;
       const float* Vw = Vh + kg * BK * LDV;
@@ -356,14 +374,15 @@ flash_fwd_split_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       // online softmax on the accumulator, in log2 units: element e of tile
       // n is row gq + 8 (e / 2), key kf + 8 n + 2 tq + e % 2
-      const bool full = kf + BK - 1 <= qw && (sh.window <= 0 || qw + 15 - kf < sh.window);
+      const bool full = kf + BK - 1 <= pw0 && (sh.window <= 0 || pw1 - kf < sh.window);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qp = qw + gq + 8 * (e / 2), kp = kf + n * 8 + 2 * tq + e % 2;
-          const float x = full || live(qp, kp, sh)
+          const int kp = kf + n * 8 + 2 * tq + e % 2;
+          const int r = gq + 8 * (e / 2);
+          const float x = full || live(qw + r, pos_s[rg * 16 + r], kp, sh)
               ? (sh.cap > 0.f ? capped(s[n][e] * sh.scale, sh.cap) * kLog2e : s[n][e] * scale2)
               : kNegInf;
           s[n][e] = x;
@@ -383,8 +402,9 @@ flash_fwd_split_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qp = qw + gq + 8 * (e / 2), kp = kf + n * 8 + 2 * tq + e % 2;
-          const float p = full || live(qp, kp, sh) ? exp2f(s[n][e] - m[e / 2]) : 0.f;
+          const int kp = kf + n * 8 + 2 * tq + e % 2, r = gq + 8 * (e / 2);
+          const float p =
+              full || live(qw + r, pos_s[rg * 16 + r], kp, sh) ? exp2f(s[n][e] - m[e / 2]) : 0.f;
           s[n][e] = p;
           l[e / 2] += p;
         }
@@ -471,17 +491,17 @@ flash_fwd_split_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qp = qw + gq + 8 * i;
-    if (qp >= sh.S) continue;
+    const int qr = qw + gq + 8 * i;
+    if (qr >= sh.Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = out + (((int64_t)b * sh.S + qp) * sh.Hq + h) * sh.hd;
+    T* orow = out + (((int64_t)b * sh.Sq + qr) * sh.Hq + h) * sh.hd;
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       const int d = n * 8 + 2 * tq;
       if (d < sh.hd) orow[d] = from_f32<T>(o[n][2 * i] * inv);
       if (d + 1 < sh.hd) orow[d + 1] = from_f32<T>(o[n][2 * i + 1] * inv);
     }
-    if (tq == 0) lse[(int64_t)bh * sh.S + qp] = (m[i] + log2f(l[i])) * kLn2;
+    if (tq == 0) lse[(int64_t)bh * sh.Sq + qr] = (m[i] + log2f(l[i])) * kLn2;
   }
 }
 
@@ -503,7 +523,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* l
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec = std::is_same<T, float>::value && sh.hd % 4 == 0 && aligned(q) &&
                    aligned(k) && aligned(v);
-  const dim3 grid(sh.B * sh.Hq, (sh.S + C::BQ - 1) / C::BQ);
+  const dim3 grid(sh.B * sh.Hq, (sh.Sq + C::BQ - 1) / C::BQ);
   kern<<<grid, kThreads, C::smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                         static_cast<const T*>(v), static_cast<T*>(out), lse, sh,
                                         vec);
@@ -526,7 +546,7 @@ cudaError_t fwd_hd(const void* q, const void* k, const void* v, void* out, float
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const bool split_keys = (long long)sh.B * sh.Hq * ((sh.S + 63) / 64) < 2LL * sms;
+  const bool split_keys = (long long)sh.B * sh.Hq * ((sh.Sq + 63) / 64) < 2LL * sms;
   if (split_keys) {
     if (sh.hd <= 64) return fwd<T, 64, 32, 2, 2>(q, k, v, out, lse, sh, st);
     if (sh.hd <= 128) return fwd<T, 128, 32, 1, 2>(q, k, v, out, lse, sh, st);
@@ -539,16 +559,21 @@ cudaError_t fwd_hd(const void* q, const void* k, const void* v, void* out, float
 
 }  // namespace
 
-// out (B, S, Hq, hd) and lse (B, Hq, S) f32 are written; window <= 0 and
-// cap <= 0 mean none; scale is hd^-0.5, rounded to f32 by the caller.
+// out (B, Sq, Hq, hd) and lse (B, Hq, Sq) f32 are written; query row j sits
+// at position (j / rl) * cs + r0 + j % rl of the Sk keys (rl = cs = Sq, r0 =
+// 0 without a map; a map a row of which sits at or past Sk is refused);
+// window <= 0 and cap <= 0 mean none; scale is hd^-0.5, rounded to f32 by
+// the caller.
 extern "C" int flash_attention_fwd_split_tf32_launch(const void* q, const void* k, const void* v,
-                                                     void* out, float* lse, int B, int S, int Hq,
-                                                     int Hkv, int hd, int window, float cap,
-                                                     float scale, int dtype, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv || hd < 1 || hd > 256 ||
-      S > 65535 * 32)
+                                                     void* out, float* lse, int B, int Sq, int Sk,
+                                                     int Hq, int Hkv, int hd, int rl, int cs,
+                                                     int r0, int window, float cap, float scale,
+                                                     int dtype, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv || hd < 1 || hd > 256 ||
+      Sq > 65535 * 32 || rl < 1 || cs < rl || r0 < 0 || r0 > cs - rl ||
+      (int64_t)((Sq - 1) / rl) * cs + r0 + (Sq - 1) % rl >= Sk)
     return (int)cudaErrorInvalidValue;
-  const Shape sh{B, S, Hq, Hkv, hd, window, cap, scale};
+  const Shape sh{B, Sq, Sk, Hq, Hkv, hd, rl, cs, r0, window, cap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DT_F32: return (int)fwd_hd<float>(q, k, v, out, lse, sh, st);

@@ -16,12 +16,10 @@ measured.
 Records (JSON lines with ``--out``) keep the reference's keys, with
 ``fits_16gb`` as ``fits_h100_80gb`` (against ``HW["device_memory"]``),
 ``lower_s`` and ``compile_s`` as one ``trace_s``, and ``attn_impl``, the
-attention that was counted: a head count the model axis does not divide
-(gemma2's 8 heads on 16) runs sequence-parallel, which the flash kernels do
-not take yet (ROADMAP.md §1 item 4, 'flash rows'), so it is traced with
-``attn_impl="plain"``, the blocked form the reference's dry run counts
-too.  A combination that fails is recorded ``ok: false`` with its error,
-and the exit code is 1.
+configuration's attention (``"cuda"``: the flash kernels' work is counted,
+also where a head count the model axis does not divide, gemma2's 8 heads on
+16, runs sequence-parallel through their query-row map).  A combination that
+fails is recorded ``ok: false`` with its error, and the exit code is 1.
 
 Usage::
 
@@ -45,7 +43,7 @@ from ..configs.shapes import SHAPES
 from ..roofline import HW, StepCounter, model_flops, roofline_terms
 from ..roofline.trace import local_bytes
 from ..sharding import distribute_params
-from .mesh import make_production_mesh, mesh_axes_for
+from .mesh import make_production_mesh
 from .steps import build_prefill, build_serve, build_train, default_fl_spec
 
 __all__ = ["run_one", "trace_step", "main"]
@@ -115,11 +113,6 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, fl_impl: str = "dense",
     shape = SHAPES[shape_name]
     mesh = mesh if mesh is not None else make_production_mesh(multi_pod=(mesh_kind == "multi"))
     n_chips = mesh.size()
-    model_size = mesh_axes_for(mesh).model_size
-    if cfg.num_heads and cfg.num_heads % model_size:
-        # sequence-parallel attention: the flash kernels' row split waits
-        # for 'flash rows'; count the blocked form, as the reference does
-        cfg = dataclasses.replace(cfg, attn_impl="plain")
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": n_chips,
         "step": shape.step, "fl_impl": fl_impl if shape.step == "train" else None,

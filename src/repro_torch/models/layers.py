@@ -16,10 +16,10 @@ wrappers only see plain ones: a rank whose q heads are sharded attends with
 the KV heads its heads read (GQA by the heads' global index), and with
 ``shard_chunk`` (a head count the model axis does not divide, gemma2's) each
 model rank takes its own rows of every query chunk against the whole K/V,
-the reference's sequence-parallel attention, in the plain blocked form
-(``_rows_attention``).  The flash kernels take equal query and key lengths,
-so ``impl="cuda"`` there raises ``NotImplementedError`` (ROADMAP.md §1 item
-4, 'flash rows') rather than give way to the plain form.  ``embedding`` looks a
+the reference's sequence-parallel attention: through the flash kernels as
+one call of the rank's rows under their query-row map (``rows``: row ``j``
+at position ``(j // rl) * chunk + r * rl + j % rl``), or in the plain
+blocked form (``_rows_attention``).  ``embedding`` looks a
 vocab-sharded ``DTensor`` table up by rows on each rank and sums the
 partial rows.  Decode attends one new token a row against a KV cache
 (``decode_attention``): plain PyTorch with f32 scores, as the reference has
@@ -166,13 +166,101 @@ def _rows_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: to
     return torch.stack(outs, dim=1).to(q.dtype)
 
 
+def _head_split(q):
+    """(the mesh axes that shard the heads of DTensor ``q`` (B, S, Hq, hd),
+    their number of shards, this rank's first head)."""
+    from torch.distributed.tensor import Shard
+
+    from ..sharding.context import mesh_axis_sizes, mesh_coord
+
+    mesh = q.device_mesh
+    sizes = mesh_axis_sizes(mesh)
+    hq = q.shape[2]
+    axes = [n for n, p in zip(mesh.mesh_dim_names, q.placements)
+            if isinstance(p, Shard) and p.dim == 2 and hq % sizes[n] == 0]
+    heads = 1
+    for n in axes:
+        heads *= sizes[n]
+    return axes, heads, mesh_coord(mesh, axes) * (hq // heads)
+
+
+def rank_kv(x, wk, bk, wv, bv, q, hkv: int):
+    """K and V of the DTensor activation ``x`` (B, S, d) with only the KV
+    heads that each rank's q heads read, where ``q``'s heads shard over mesh
+    axes: ``(B, S, n * L, hd)`` DTensors sharded on dim 2 over those axes, a
+    rank's ``L`` KV heads its q heads' whole KV groups, or the one KV head
+    that ``n // hkv`` ranks share (``whole_kv`` makes the true K and V of
+    them).  Each rank computes only its columns of the two projections, as
+    the reference's partitioner does; ``x``'s and the weights' gradients are
+    the ranks' sums.  ``None`` where ``q``'s heads are whole on each rank,
+    or where a rank's q heads read a number of KV heads that varies from
+    rank to rank: K and V are then computed whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    axes, heads, h0 = _head_split(q)
+    b, s, hq, hd = q.shape
+    g, hq_l = hq // hkv, hq // heads
+    if not axes or (hq_l % g and g % hq_l):
+        return None
+    n_l = max(1, hq_l // g)
+    lo = (h0 // g) * hd
+    hi = lo + n_l * hd
+    mesh = q.device_mesh
+    x_pl, out_pl, x_grad, w_grad = [], [], [], []
+    for n, p in zip(mesh.mesh_dim_names, x.placements):
+        if n in axes:
+            x_pl.append(Replicate()), out_pl.append(Shard(2))
+            x_grad.append(Partial()), w_grad.append(Partial())
+        elif isinstance(p, Shard) and p.dim == 0:
+            x_pl.append(p), out_pl.append(p), x_grad.append(p), w_grad.append(Partial())
+        else:
+            x_pl.append(Replicate()), out_pl.append(Replicate())
+            x_grad.append(Replicate()), w_grad.append(Replicate())
+    w_pl = (Replicate(),) * mesh.ndim
+    b_pl, b_grad = (w_pl, tuple(w_grad)) if bk is not None else (None, None)
+
+    def local(xl, wkl, bkl, wvl, bvl):
+        def proj(w, bias):
+            y = dense(xl, w[:, lo:hi], None if bias is None else bias[lo:hi])
+            return y.reshape(xl.shape[0], s, n_l, hd)
+
+        return proj(wkl, bkl), proj(wvl, bvl)
+
+    return local_map(local, out_placements=(tuple(out_pl), tuple(out_pl)),
+                     in_placements=(tuple(x_pl), w_pl, b_pl, w_pl, b_pl),
+                     in_grad_placements=(tuple(x_grad), tuple(w_grad), b_grad, tuple(w_grad),
+                                         b_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(x, wk, bk, wv, bv)
+
+
+def whole_kv(t, hkv: int):
+    """The true K (or V) ``(B, S, hkv, hd)`` of ``rank_kv``'s per-rank form:
+    gathered over the axes that shard its heads, one of each group of
+    ranks that share a KV head kept.  Anything else passes through."""
+    from ..sharding.context import is_dtensor
+
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    whole = tuple(Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                  for p in t.placements)
+    if whole != tuple(t.placements):
+        t = t.redistribute(t.device_mesh, whole)
+    return t if t.shape[2] == hkv else t[:, :, ::t.shape[2] // hkv]
+
+
 def _attention_on_mesh(q, k, v, attend, *, shard_chunk: bool, chunk: int):
     """Causal attention of DTensor q, k, v, one rank's share under
     ``local_map``.  The batch stays sharded where q's is; q's heads stay
-    sharded where they are (K/V whole there, the rank reading its heads'
-    KV heads); every other dimension is gathered.  With ``shard_chunk`` the
-    context's model axis shards the rows of each query chunk instead, for
-    ``attend.impl == "plain"`` only."""
+    sharded where they are (K/V either the rank's KV heads already,
+    ``rank_kv``, or whole there, the rank reading its heads' KV heads);
+    every other dimension is gathered.  With ``shard_chunk`` the context's
+    model axis shards the rows of each query chunk instead: through the
+    flash kernels one call of the rank's rows under the query-row map
+    (``attend.impl == "cuda"``), or the plain blocked form
+    (``_rows_attention``)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -190,36 +278,30 @@ def _attention_on_mesh(q, k, v, attend, *, shard_chunk: bool, chunk: int):
         c = min(chunk, s)
         if s % c == 0 and c % sizes[ctx["model_axis"]] == 0:
             row_axis = ctx["model_axis"]
-    if row_axis is not None and attend.impl == "cuda":
-        raise NotImplementedError(
-            f"sequence-parallel attention ({hq} heads on a model axis of "
-            f"{sizes[row_axis]}) through the flash kernels, which take equal query and key "
-            f"lengths, is not ported yet (ROADMAP.md §1 item 4, 'Multi-device and launch': "
-            f"'flash rows'); attn_impl='plain' runs it in the reference's blocked form")
-    q_pl, kv_pl, out_pl, kv_grad, head_axes = [], [], [], [], []
+    head_axes, _, h0 = _head_split(q)
+    # K and V already the rank's KV heads (rank_kv), or whole
+    kv_local = bool(head_axes) and all(
+        k.placements[names.index(n)] == Shard(2) for n in head_axes)
+    q_pl, kv_pl, out_pl, kv_grad = [], [], [], []
     for n, p in zip(names, q.placements):
         if n == row_axis:
             q_pl.append(Replicate()), kv_pl.append(Replicate())
             out_pl.append(Shard(2)), kv_grad.append(Partial())
         elif isinstance(p, Shard) and p.dim == 0:
             q_pl.append(p), kv_pl.append(p), out_pl.append(p), kv_grad.append(p)
-        elif isinstance(p, Shard) and p.dim == 2 and hq % sizes[n] == 0:
-            head_axes.append(n)
-            q_pl.append(p), kv_pl.append(Replicate())
-            out_pl.append(Shard(3) if row_axis else p), kv_grad.append(Partial())
+        elif n in head_axes:
+            q_pl.append(p), out_pl.append(Shard(3) if row_axis else p)
+            kv_pl.append(p if kv_local else Replicate())
+            kv_grad.append(p if kv_local else Partial())
         else:
             q_pl.append(Replicate()), kv_pl.append(Replicate())
             out_pl.append(Replicate()), kv_grad.append(Replicate())
     q_grad = [Partial() if n == row_axis else pl for n, pl in zip(names, q_pl)]
-    heads = 1
-    for n in head_axes:
-        heads *= sizes[n]
-    h0 = mesh_coord(mesh, head_axes) * (hq // heads)
     r_idx = mesh_coord(mesh, [row_axis]) if row_axis else 0
 
     def local(ql, kl, vl):
         hq_l = ql.shape[2]
-        if hq_l != hq:
+        if hq_l != hq and not kv_local:
             if hq_l % g == 0:          # whole KV groups
                 kl, vl = (t[:, :, h0 // g:(h0 + hq_l) // g] for t in (kl, vl))
             elif g % hq_l == 0:        # the rank's heads share one KV head
@@ -231,8 +313,17 @@ def _attention_on_mesh(q, k, v, attend, *, shard_chunk: bool, chunk: int):
         c = min(chunk, s)
         m = sizes[row_axis]
         rl = c // m
+        bl = ql.shape[0]
+        qr = ql.reshape(bl, s // c, c, hq_l, hd)[:, :, r_idx * rl:(r_idx + 1) * rl]
+        if attend.impl == "cuda":
+            # the rank's rows of every chunk as one call: row j of it sits at
+            # position (j // rl) * c + r_idx * rl + j % rl
+            from ..kernels import flash_attention
+
+            out = flash_attention(qr.reshape(bl, s // c * rl, hq_l, hd), kl, vl, attend.window,
+                                  attend.cap, rows=(rl, c, r_idx * rl))
+            return out.reshape(bl, s // c, rl, hq_l, hd)
         pos = torch.arange(s, device=ql.device).reshape(s // c, c)[:, r_idx * rl:(r_idx + 1) * rl]
-        qr = ql.reshape(ql.shape[0], s // c, c, hq_l, hd)[:, :, r_idx * rl:(r_idx + 1) * rl]
         return _rows_attention(qr, kl, vl, pos, window=attend.window, logit_cap=attend.cap,
                                chunk=c)
 
@@ -242,10 +333,15 @@ def _attention_on_mesh(q, k, v, attend, *, shard_chunk: bool, chunk: int):
                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
     if row_axis is None:
         return out
-    # the rows gathered back (all-gather over the model axis) before the
-    # chunks merge into the sequence
+    # the rows gathered back (all-gather over the model axis), then the
+    # chunks merged into the sequence on each rank's local tensor: a view of
+    # the DTensor would unflatten the sequence, which the gradient may come
+    # back sharded on unevenly (under remat's recomputation)
     whole = tuple(Replicate() if n == row_axis else p for n, p in zip(names, out.placements))
-    return out.redistribute(mesh, whole).reshape(b, s, hq, hd)
+    merged = tuple(Shard(2) if isinstance(p, Shard) and p.dim == 3 else p for p in whole)
+    return local_map(lambda t: t.reshape(t.shape[0], s, t.shape[3], hd),
+                     out_placements=list(merged), in_placements=(whole,), device_mesh=mesh,
+                     redistribute_inputs=True)(out)
 
 
 class _Attend:
@@ -269,8 +365,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal GQA attention through the flash kernels (``impl="cuda"``) or the
     plain blocked path (``impl="plain"``).  On DTensors each rank computes
     its share (``_attention_on_mesh``); ``shard_chunk`` asks for the
-    sequence-parallel split over the context's model axis, which
-    ``impl="cuda"`` refuses (``NotImplementedError``)."""
+    sequence-parallel split over the context's model axis."""
     if impl not in ("cuda", "plain"):
         raise ValueError(f"attention impl must be 'cuda' or 'plain', got {impl!r}")
     from ..sharding.context import is_dtensor

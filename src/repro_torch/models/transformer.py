@@ -33,9 +33,12 @@ stack with a cluster index a row.
 On a mesh (``launch.steps``: DTensor leaves under
 ``sharding.activation_sharding``) the same code runs as DTensor ops; the
 embedding, attention and MoE take their per-rank forms (``models.layers``,
-``models.moe``), and a head count the model axis does not divide runs the
-attention sequence-parallel (the reference's ``shard_chunk``; with
-``attn_impl="plain"`` only, as 'flash rows' of ROADMAP.md §1 item 4 waits).
+``models.moe``), each sublayer's input and output stay whole over the model
+axis (``sharding.replicate_model``) so that its products run on the rank's
+shards of the weights, K and V hold only the KV heads a rank's q heads read
+(``layers.rank_kv``), and a head count the model axis does not divide runs
+the attention sequence-parallel (the reference's ``shard_chunk``; through
+the flash kernels' query-row map with ``attn_impl="cuda"``).
 ``CausalLM(decode_impl=)`` takes ``sharding.make_decode_impl``'s
 sequence-sharded decode, which writes each rank's cache shard in place; a
 gated or cluster-routed decode through it raises, as no path of the
@@ -48,10 +51,11 @@ from typing import Optional
 
 import torch
 
+from ..sharding.context import is_dtensor, replicate_model
 from .config import ArchConfig
 from .layers import (
-    causal_attention, decode_attention, dense, embedding, gated_mlp, init_dense, rms_norm, rope,
-    saved_products, softcap,
+    causal_attention, decode_attention, dense, embedding, gated_mlp, init_dense, rank_kv,
+    rms_norm, rope, saved_products, softcap, whole_kv,
 )
 from .mamba import init_mamba_cache, init_mamba_params, mamba_decode_step, mamba_forward
 from .moe import init_moe_params, moe_mlp
@@ -127,14 +131,21 @@ def _sub(p: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+         rank_heads: bool = False):
     """q (B, S, Hq, hd), k and v (B, S, Hkv, hd), rotated at ``positions``
-    ((S,) shared or (B, S) a row)."""
+    ((S,) shared or (B, S) a row).  ``rank_heads``: on a mesh whose model
+    axis shards q's heads, k and v hold only the KV heads each rank's q
+    heads read (``layers.rank_kv``'s per-rank form)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(x, p["attn.wq"], p.get("attn.bq")).reshape(b, s, hq, hd)
-    k = dense(x, p["attn.wk"], p.get("attn.bk")).reshape(b, s, hkv, hd)
-    v = dense(x, p["attn.wv"], p.get("attn.bv")).reshape(b, s, hkv, hd)
+    kv = (rank_kv(x, p["attn.wk"], p.get("attn.bk"), p["attn.wv"], p.get("attn.bv"), q, hkv)
+          if rank_heads and is_dtensor(q) else None)
+    if kv is None:
+        kv = (dense(x, p["attn.wk"], p.get("attn.bk")).reshape(b, s, hkv, hd),
+              dense(x, p["attn.wv"], p.get("attn.bv")).reshape(b, s, hkv, hd))
+    k, v = kv
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
@@ -146,7 +157,7 @@ def _attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, window: Optional[in
     from ..sharding.context import model_axis_size
 
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, rank_heads=True)
     # a head count the model axis does not divide shards the query rows
     # instead (sequence-parallel attention, the reference's shard_chunk)
     ms = model_axis_size()
@@ -156,6 +167,7 @@ def _attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, window: Optional[in
     cache = None
     if return_cache:
         sc = min(window, s) if window is not None else s
+        k, v = (whole_kv(t, cfg.num_kv_heads) for t in (k, v))
         cache = {"k": k[:, s - sc:].to(cfg.param_dtype), "v": v[:, s - sc:].to(cfg.param_dtype),
                  "pos": positions[s - sc:].to(torch.int32)}
     return dense(out.reshape(b, s, cfg.num_heads * cfg.head_dim), p["attn.wo"]), cache
@@ -167,16 +179,20 @@ def _finish_layer(p: dict, x: torch.Tensor, mix: torch.Tensor, cfg: ArchConfig,
     experts ``capacity`` slots each) with its norms and residual: (x, router
     aux loss or None)."""
     aux = None
+    # on a mesh each sublayer's input and output are whole over model, and
+    # so are their gradients (sharding.replicate_model)
+    mix = replicate_model(mix)
     if cfg.use_post_norm:
         mix = rms_norm(mix, p["ln_mix_post"], cfg.norm_eps)
     x = x + mix
     if cfg.d_ff:
-        h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+        h = replicate_model(rms_norm(x, p["ln_ffn"], cfg.norm_eps))
         if cfg.is_moe_layer(idx_in_period):
             out, aux = moe_mlp(h, _sub(p, "ffn."), num_experts_per_tok=cfg.num_experts_per_tok,
                                capacity_factor=cfg.moe_capacity_factor, capacity=capacity)
         else:
             out = gated_mlp(h, _sub(p, "ffn."))
+        out = replicate_model(out)
         if cfg.use_post_norm:
             out = rms_norm(out, p["ln_ffn_post"], cfg.norm_eps)
         x = x + out
@@ -188,7 +204,7 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ArchConfig, idx_in_period: int, 
     """One layer (mixer + optional FFN), pre-norm, optional post-norms, over a
     full sequence.  Returns (x, router aux loss or None for a layer without
     MoE, the layer's cache when ``return_cache`` else None)."""
-    h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
+    h = replicate_model(rms_norm(x, p["ln_mix"], cfg.norm_eps))
     if cfg.layer_kind(idx_in_period) == "attn":
         mix, cache = _attention(p, h, cfg, positions=positions, return_cache=return_cache,
                                 window=cfg.window_for_layer(idx_in_period, long_context))
@@ -471,7 +487,7 @@ class CausalLM:
         x = self.embed_tokens(params, tokens, batch.get("frontend_embeds"))
         positions = torch.arange(tokens.shape[-1], device=x.device)
         x, aux, _ = self._run_stack(params, x, positions)
-        x = rms_norm(x, params["ln_final"], self.cfg.norm_eps)
+        x = replicate_model(rms_norm(x, params["ln_final"], self.cfg.norm_eps))
         return self.logits(params, x), aux
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
@@ -480,6 +496,9 @@ class CausalLM:
         ``router_aux_coef`` times the aux loss in a model with MoE layers."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch)
+        # on a mesh the vocabulary gathered here, so that the head's weight
+        # gradient stays the rank's shard
+        logits = replicate_model(logits)
         if _audio(cfg):
             logits = logits.transpose(1, 2)  # (B, S, K, V) -> (B, K, S, V), as labels
         logp = torch.log_softmax(logits[..., : cfg.vocab_size], dim=-1)

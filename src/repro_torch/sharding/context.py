@@ -35,6 +35,8 @@ import contextlib
 import threading
 from typing import Optional
 
+import torch
+
 _STATE = threading.local()
 # implicit replication is one process-wide switch, which its context manager
 # turns off on exit: contexts nested on one thread, or opened by a backward
@@ -44,7 +46,7 @@ _LOCK = threading.Lock()
 
 __all__ = ["activation_sharding", "constrain_batch", "constrain_dim", "current",
            "model_axis_size", "is_dtensor", "on_submesh", "from_local_on", "mesh_axis_sizes",
-           "mesh_coord", "restored"]
+           "mesh_coord", "restored", "replicate_model"]
 
 
 def current():
@@ -165,6 +167,59 @@ def constrain_dim(x, dim: int, axis: Optional[str] = None):
     if ctx is None:
         return x
     return _constrain(x, dim, [axis or ctx["model_axis"]])
+
+
+def replicate_model(x):
+    """``x`` whole over the context's model axis, forward and backward: a
+    ``Partial`` summed or a shard gathered, and the gradient summed (or, for
+    a sharded ``x``, the rank's shard of it); its other placements kept.  The model code puts it around every
+    sublayer of the residual stream (Megatron's ``f`` and ``g``): at its
+    input, where the forward is a no-op and the backward sums the partial
+    gradients of the rank's shards; at its output, where the forward sums
+    the rank's partial results.  A layer's products with its model-sharded
+    weights then run on the rank's shard of the weight and of the hidden
+    activation, forward and backward, never on weights gathered whole (the
+    reference partitioner's plan).  No-op without a context or on a plain
+    tensor."""
+    ctx = current()
+    if ctx is None or not is_dtensor(x):
+        return x
+    names = list(x.device_mesh.mesh_dim_names)
+    if ctx["model_axis"] not in names:
+        return x
+    return _Whole.apply(x, names.index(ctx["model_axis"]))
+
+
+def _whole_on(x, i: int):
+    """``x`` (a DTensor) with mesh dimension ``i`` replicated."""
+    from torch.distributed.tensor import Replicate
+
+    if isinstance(x.placements[i], Replicate):
+        return x
+    want = tuple(Replicate() if j == i else p for j, p in enumerate(x.placements))
+    return x.redistribute(x.device_mesh, want)
+
+
+class _Whole(torch.autograd.Function):
+    """``replicate_model``'s op on mesh dimension ``i`` (fixed at the
+    forward: a backward may run on another thread, outside the context).
+    The gradient of a sharded ``x`` is its shard of the whole gradient (a
+    gathered vocabulary's), any other ``x``'s is whole."""
+
+    @staticmethod
+    def forward(ctx, x, i):
+        from torch.distributed.tensor import Shard
+
+        ctx.i = i
+        ctx.shard = x.placements[i] if isinstance(x.placements[i], Shard) else None
+        return _whole_on(x, i).view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.shard is None:
+            return _whole_on(g, ctx.i), None
+        want = tuple(ctx.shard if j == ctx.i else p for j, p in enumerate(g.placements))
+        return g.redistribute(g.device_mesh, want), None
 
 
 def on_submesh(x, names: tuple):

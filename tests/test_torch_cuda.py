@@ -537,6 +537,78 @@ def test_flash_split_tf32_forward_matches_plain(cuda, dtype, case):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
+# 'flash rows': (dtype, (B, S, Hq, Hkv, hd), chunk, ranks, window, cap) of a
+# sequence-parallel split, each rank's rows one call through the query-row
+# map: gemma2-2b's heads (hd 256, cap 50) on 16 ranks with and without its
+# window, hd 128 on 2 ranks, bf16 hd 96 with a ragged tile (the narrow
+# backward), f32 hd 64 and bf16 hd 100 (split-TF32 forward, CUDA-core
+# backward)
+ROWS_CASES = [
+    (torch.bfloat16, (1, 2048, 8, 4, 256), 512, 16, 1024, 50.0),
+    (torch.bfloat16, (1, 2048, 8, 4, 256), 512, 16, None, 50.0),
+    (torch.bfloat16, (1, 1024, 16, 4, 128), 512, 2, None, None),
+    (torch.bfloat16, (2, 480, 8, 2, 96), 160, 4, 100, None),
+    (torch.float32, (2, 512, 8, 2, 64), 128, 4, 100, None),
+    (torch.bfloat16, (2, 240, 4, 2, 100), 80, 2, None, 20.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,chunk,ranks,window,cap", ROWS_CASES)
+def test_flash_rows_match_plain_and_the_full_kernel(cuda, dtype, shape, chunk, ranks, window,
+                                                    cap):
+    """Each rank's map call against its plain version (the tolerances
+    above), its rows against the same rows of the full kernel, its dQ rows
+    against the full dQ's, and dK and dV summed over the ranks against the
+    full kernel's (gradient tolerances); one launch each way a call."""
+    from repro_torch.kernels.flash_attention.ref import query_positions
+
+    b, s, hq, hkv, hd = shape
+    f_tol, g_tol = (2e-5, 1e-4) if dtype == torch.float32 else (3e-2, 3e-2)
+    q, k, v, dout = _qkvg(cuda, dtype, b, s, hq, hkv, hd)
+    out, lse = flash_attention_fwd(q, k, v, window, cap)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+    dk_sum = torch.zeros(dk.shape, dtype=torch.float32, device=cuda)
+    dv_sum = torch.zeros_like(dk_sum)
+    rl = chunk // ranks
+    for r in range(ranks):
+        rows = (rl, chunk, r * rl)
+        pos = query_positions(s // chunk * rl, rows, cuda)
+        qr, dor = q[:, pos].contiguous(), dout[:, pos].contiguous()
+        n = flash_attention_fwd.launches, flash_attention_bwd.launches
+        o_r, l_r = flash_attention_fwd(qr, k, v, window, cap, rows)
+        grads = flash_attention_bwd(qr, k, v, o_r, l_r, dor, window, cap, rows)
+        assert (flash_attention_fwd.launches - n[0], flash_attention_bwd.launches - n[1]) == (1, 1)
+        ref_o, ref_l = flash_attention_fwd_ref(qr, k, v, window, cap, rows)
+        refs = flash_attention_bwd_ref(qr, k, v, o_r, l_r, dor, window, cap, rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o_r.float(), ref_o.float(), atol=f_tol, rtol=0)
+        torch.testing.assert_close(l_r, ref_l, atol=1e-4, rtol=0)
+        torch.testing.assert_close(o_r.float(), out[:, pos].float(), atol=f_tol, rtol=0)
+        for got, ref in zip(grads, refs):
+            _close(got, ref, g_tol)
+        _close(grads[0], dq[:, pos], g_tol)
+        dk_sum += grads[1].float()
+        dv_sum += grads[2].float()
+    _close(dk_sum, dk, g_tol)
+    _close(dv_sum, dv, g_tol)
+
+
+@pytest.mark.cuda
+def test_flash_rows_keys_past_every_row_get_zero_gradients(cuda):
+    """Under a map whose last row sits far before the last key, the keys
+    past it are read by no row: dK and dV are zero there, on every route."""
+    for dtype, hd in ((torch.bfloat16, 128), (torch.bfloat16, 256), (torch.float32, 64)):
+        q, k, v, dout = _qkvg(cuda, dtype, 1, 512, 4, 2, hd)
+        rows = (32, 128, 0)                 # rows 0..31 of 4 chunks: the last at 415
+        qr, dor = q[:, :128].contiguous(), dout[:, :128].contiguous()
+        o, lse = flash_attention_fwd(qr, k, v, None, None, rows)
+        _, dk, dv = flash_attention_bwd(qr, k, v, o, lse, dor, None, None, rows)
+        torch.cuda.synchronize()
+        assert not dk[:, 416:].any() and not dv[:, 416:].any()
+        assert dk[:, :416].abs().sum() > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_bf16_takes_tensor_cores_and_is_deterministic(cuda, case):

@@ -20,7 +20,13 @@ on ``meta`` local shards over a fake process group
   length).  The decode's products are the reference's exactly; the
   prefill's and the train step's differ by the terms ``TERMS`` names, each
   a substitution of the reference's products by the port's (the totals
-  then agree exactly);
+  then agree exactly): the attention's (the flash kernels' work, not
+  blocked products) and the train step's transition of the replicated K/V
+  weights;
+* a head count the model axis does not divide (3 heads on model = 2)
+  traced through the flash kernels (``attn_impl="cuda"``): each layer's
+  attention one flash call of a rank's rows of every chunk, its counted
+  flops those of the query-row map's live pairs;
 * ``launch.dryrun --arch granite-8b --shape decode_32k --mesh single``
   exits 0 with a full record;
 * a real tensor never takes the kernel wrappers' traced path, and a meta
@@ -57,27 +63,17 @@ TINY_SHAPES = {"train": ("t", 128, 8), "prefill": ("p", 128, 4), "decode": ("d",
 # work, which has no product of its own, under "flash")
 TERMS = {
     "prefill": [
-        ({(8192, 256): 4}, {(16384, 256): 4},
-         "K and V projections whole on each model rank: the rules replicate wk/wv (the "
-         "reference's too), the reference's partitioner computes each rank's KV head only"),
-        ({(16384, 256): 1}, {(32768, 256): 1},
-         "the second layer's q projection with wq all-gathered over model: DTensor's "
-         "sharding propagation, on that layer's input placement"),
         ({(8192, 64): 16}, {"flash": 8454144},
          "attention: the reference's blocked chunk products (every live chunk pair, masked "
          "entries included) against the flash forward's 4 hd flops a live pair (split TF32)"),
     ],
     "train": [
-        ({(16384, 256): 8, (65536, 64): 4}, {(32768, 256): 8, (65536, 128): 4},
-         "K and V projections whole on each model rank, forward, input and weight "
-         "gradients (as in the prefill)"),
         ({(128, 4): 2, (32768, 4): 2}, {(256, 4): 2, (65536, 4): 2},
-         "the transition's rows of wk, wv, bk, bv, which are whole on each model rank"),
-        ({(32768, 256): 6, (65536, 256): 8}, {(131072, 256): 14},
-         "the MLP's products whole on each model rank: DTensor's plan all-gathers the "
-         "model-sharded w_gate/w_up/w_down and runs them at full d_ff on the client's "
-         "replicated activations, forward and backward; the reference's partitioner splits "
-         "them over model"),
+         "the transition's rows of wk, wv, bk, bv, which the rules replicate over model (the "
+         "reference's too): the reference carries each rank's KV-head columns of the "
+         "updated leaf, split as its gradient was, through the transition and gathers them "
+         "after it; the port sums the gradient over model first (rank_kv's Partial), so "
+         "each rank applies the transition to the whole leaf"),
         ({(8192, 128): 16, (16384, 64): 32}, {"flash": 59179008},
          "attention: the reference's blocked chunk products forward and backward against "
          "the flash kernels' 4 hd flops a live pair forward (split TF32) and 2.5x that "
@@ -259,6 +255,41 @@ def test_product_flops_match_the_references_dots_term_by_term(reference_products
     # the totals: the reference's dots plus the terms' differences
     delta = sum(_flops_of(after) - _flops_of(before) for before, after, _ in TERMS[step])
     assert sum(counter.flops.values()) == pytest.approx(ref["dot_flops"] + delta, rel=1e-12)
+
+
+def test_row_split_is_traced_through_the_flash_kernels():
+    """gemma2's shape of attention on the tiny (4, 2) mesh: 3 q heads (1 KV
+    head) that model = 2 does not divide, so each model rank attends its 8
+    of every 16-row chunk; the prefill and the train step trace with
+    ``attn_impl="cuda"``, each layer's forward (and the train step's
+    backward) one flash call whose counted flops are the map's live pairs'."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import FLSpec
+    from repro_torch.kernels.flash_attention.ops import live_pairs
+    from repro_torch.launch import build_prefill, build_train, make_test_mesh
+    from repro_torch.launch.dryrun import _operands, trace_step
+
+    cfg = dataclasses.replace(_tiny_cfg(tconfigs), num_heads=3, num_kv_heads=1, attn_chunk=16)
+    assert cfg.attn_impl == "cuda" and cfg.num_layers == 2
+    hd, seq = cfg.head_dim, 32
+    # rank 0 of the fake world: model coordinate 0, rows 0..7 of each chunk
+    pairs = live_pairs(seq // 16 * 8, None, (8, 16, 0))
+    with _fake_world(8):
+        mesh = make_test_mesh(4, 2, device="cpu")
+        fl = FLSpec(num_clients=4, num_clusters=2, tau1=1, tau2=1, alpha=1)
+        step, abstract = build_prefill(cfg, InputShape("p", seq, 4, "prefill"), mesh)
+        prefill, _, _ = trace_step(step, _operands(step, abstract, "prefill", mesh, seq - 1))
+        step, abstract = build_train(cfg, InputShape("t", seq, 8, "train"), mesh, fl=fl)
+        train, _, _ = trace_step(step, _operands(step, abstract, "train", mesh, 0))
+    # the prefill's batch of 4 over data: 1 a rank; a client's 2 rows in train
+    for counter, b_l, kernels in ((prefill, 1, {"flash_attention_fwd": 2}),
+                                  (train, 2, {"flash_attention_fwd": 2,
+                                              "flash_attention_bwd": 2})):
+        assert dict(counter.kernels) == kernels
+        fwd = 4.0 * hd * pairs * b_l * cfg.num_heads
+        assert counter.flops["split_tf32"] == pytest.approx(2 * fwd, rel=1e-12)
+        if "flash_attention_bwd" in kernels:
+            assert counter.flops["f32"] >= 2 * 2.5 * fwd
 
 
 def _flops_of(products: dict) -> float:

@@ -21,10 +21,12 @@ f32.
   on ``(data=2, model=2)``: one step with remat; ``build_prefill`` of a
   reduced dense config (4 q heads, 2 KV heads, tensor-parallel), of a
   reduced gemma2 with 3 q heads, which ``model=2`` does not divide
-  (sequence-parallel attention, ``attn_impl="plain"``: through the flash
-  kernels it raises 'flash rows'), and of a reduced mixtral through the MoE's
-  per-shard branch (logits, caches and the router's aux loss), against
-  JAX's ``prefill`` within 1e-5;
+  (sequence-parallel attention, ``attn_impl="plain"`` and ``"cuda"``, the
+  latter a rank's rows of every chunk as one flash call through its
+  query-row map), and of a reduced mixtral through the MoE's per-shard
+  branch (logits, caches and the router's aux loss), against JAX's
+  ``prefill`` within 1e-5; one ``build_train`` step of gemma2's first block
+  (``"cuda"``, sequence-parallel) against JAX's dense step within 1e-5;
   every client-mesh operator of ``core.aggregation`` on the ``data``
   subgroup of the ``(2, 2)`` mesh; and ``build_fl_train_step(impl="dense")``
   on a 4-rank client mesh, 10 iterations.
@@ -83,8 +85,11 @@ def _cfg(configs, name: str):
 # the train runs keep the dense config's first layer: a step on a mesh is
 # bound by gloo's latency a collective, and a layer's collectives (forward,
 # backward, its leaves' gradients) are most of a step's
-def _train_cfg(configs):
-    return dataclasses.replace(_cfg(configs, "dense"), num_layers=1)
+def _train_cfg(configs, name: str = "dense"):
+    """``name``'s first block: one layer of the dense config, gemma2's
+    local and global layers."""
+    cfg = _cfg(configs, name)
+    return dataclasses.replace(cfg, num_layers=cfg.scan_period)
 
 
 def _train_params(params: dict) -> dict:
@@ -177,11 +182,12 @@ def _prefill_run(cfg, mesh, params: dict) -> dict:
 
 
 def _recording(module, name: str, log: list, what):
-    """Wrap ``module.name`` so each call appends ``what(args)`` to ``log``."""
+    """Wrap ``module.name`` so each call appends ``what(args, kwargs)`` to
+    ``log``."""
     fn = getattr(module, name)
 
     def wrapped(*args, **kw):
-        log.append(what(args))
+        log.append(what(args, kw))
         return fn(*args, **kw)
 
     setattr(module, name, wrapped)
@@ -253,6 +259,7 @@ def _client_mesh_dense(params: dict) -> dict:
 
 def _w4(rank: int, size: int, out: Path) -> dict:
     import repro_torch.configs as tconfigs
+    import repro_torch.kernels as tkernels
     import repro_torch.models.layers as tlayers
     import repro_torch.models.moe as tmoe
     from repro_torch.launch import make_test_mesh
@@ -270,13 +277,19 @@ def _w4(rank: int, size: int, out: Path) -> dict:
     mesh = make_test_mesh(2, 2, device="cpu")
     res["prefill_dense"] = _prefill_run(_cfg(tconfigs, "dense"), mesh, _params(out, "dense"))
     gemma2 = _cfg(tconfigs, "gemma2")
-    try:
-        _prefill_run(gemma2, mesh, _params(out, "gemma2"))   # attn_impl "cuda"
-        res["gemma2_flash_rows"] = None
-    except NotImplementedError as e:
-        res["gemma2_flash_rows"] = str(e)
+    # attn_impl "cuda": each rank's rows through the flash op's query-row map
+    flash, prefill_calls, train_calls = tkernels.flash_attention, [], []
+    shapes = lambda a, kw: (tuple(a[0].shape), tuple(a[1].shape), kw.get("rows"))
+    _recording(tkernels, "flash_attention", prefill_calls, shapes)
+    res["prefill_gemma2_cuda"] = _prefill_run(gemma2, mesh, _params(out, "gemma2"))
+    tkernels.flash_attention = flash
+    _recording(tkernels, "flash_attention", train_calls, shapes)
+    res["train_gemma2"] = _train_run(_train_cfg(tconfigs, "gemma2"), mesh, FL2, "default",
+                                     _train_params(_params(out, "gemma2")), steps=1)
+    tkernels.flash_attention = flash
+    res["gemma2_flash_calls"], res["gemma2_train_flash_calls"] = prefill_calls, train_calls
     rows = []
-    _recording(tlayers, "_rows_attention", rows, lambda a: tuple(a[0].shape))
+    _recording(tlayers, "_rows_attention", rows, lambda a, kw: tuple(a[0].shape))
     res["prefill_gemma2"] = _prefill_run(dataclasses.replace(gemma2, attn_impl="plain"), mesh,
                                          _params(out, "gemma2"))
     res["seq_parallel_rows"] = rows
@@ -284,7 +297,7 @@ def _w4(rank: int, size: int, out: Path) -> dict:
     res["remat"] = _train_run(dataclasses.replace(train, remat=True), mesh, FL2, "default",
                               train_params, steps=1)
     local_batches = []
-    _recording(tmoe, "_experts", local_batches, lambda a: int(a[0].shape[0]))
+    _recording(tmoe, "_experts", local_batches, lambda a, kw: int(a[0].shape[0]))
     res["prefill_mixtral"] = _prefill_run(_cfg(tconfigs, "mixtral"), mesh,
                                           _params(out, "mixtral"))
     res["moe_local_batches"] = local_batches
@@ -442,6 +455,15 @@ def _jax_references(flat: dict) -> dict:
                 got[it] = flatten_params(jax.tree.map(np.asarray, p))
         got["losses"] = np.asarray(losses)
         refs[key] = got
+    gcfg = _train_cfg(jconfigs, "gemma2")
+    step = jax.jit(jcore.build_fl_train_step(JCausalLM(gcfg), joptim.sgd(LR),
+                                             jcore.FLSpec(**FL2, impl="dense")))
+    p = tree({k: np.broadcast_to(v, (2,) + v.shape)
+              for k, v in _train_params(flat["gemma2"]).items()})
+    batch = {k: jnp.asarray(v) for k, v in _train_batch(gcfg, 2, 0).items()}
+    p, _, loss = step(p, (), batch)
+    refs["train2_gemma2"] = {0: flatten_params(jax.tree.map(np.asarray, p)),
+                             "losses": np.asarray([float(loss)])}
     for name in CONFIGS:
         cfg = _cfg(jconfigs, name)
         model = JCausalLM(cfg)
@@ -515,6 +537,7 @@ def test_build_train_lays_leaves_out_by_the_rules(worlds):
 
 @pytest.mark.parametrize("world,name", [("w4", "dense"), ("w4", "gemma2"), ("w4", "mixtral")])
 def test_build_prefill_matches_jax(worlds, world, name):
+    """(gemma2 with ``attn_impl="plain"``: the cuda impl is held below.)"""
     ranks, refs = worlds
     want = refs[f"prefill_{name}"]
     for r, res in enumerate(ranks[world]):
@@ -536,14 +559,31 @@ def test_gemma2_prefill_runs_sequence_parallel(worlds):
         assert res["seq_parallel_rows"] == [(2, 2, 8, 3, 16)] * layers
 
 
-def test_gemma2_sequence_parallel_through_the_flash_kernels_raises(worlds):
-    ranks, _ = worlds
-    for res in ranks["w4"]:
-        # the flash kernels take equal query and key lengths: the row split
-        # refuses them rather than give way to the plain form
-        assert res["gemma2_flash_rows"] is not None
-        assert "'flash rows'" in res["gemma2_flash_rows"]
-        assert "ROADMAP.md §1 item 4" in res["gemma2_flash_rows"]
+def test_gemma2_sequence_parallel_through_the_flash_kernels_matches_jax(worlds):
+    """gemma2's 3 heads on model=2 with ``attn_impl="cuda"``: each rank's 8
+    of every 16-row query chunk as one flash call through the query-row map
+    (``rows = (8, 16, 8 * model rank)``, one a layer), the prefill's
+    logits and caches and one train step's parameters and loss within 1e-5
+    of JAX."""
+    import repro_torch.configs as tconfigs
+
+    ranks, refs = worlds
+    layers = _cfg(tconfigs, "gemma2").num_layers
+    want = refs["prefill_gemma2"]
+    for r, res in enumerate(ranks["w4"]):
+        m = r % 2  # the (data, model) mesh's model coordinate
+        # (B_l, 2 chunks x 8 rows, Hq, hd) against K of the whole sequence
+        assert res["gemma2_flash_calls"] == [((2, 16, 3, 16), (2, 32, 1, 16),
+                                              (8, 16, 8 * m))] * layers
+        got = res["prefill_gemma2_cuda"]
+        np.testing.assert_allclose(got["logits"], want["logits"], atol=1e-5)
+        _close(got["cache"], want["cache"], 1e-5, f"gemma2 cuda cache rank {r}")
+        # one client's 2 rows of 16 tokens a rank, both layers of the block
+        assert res["gemma2_train_flash_calls"] == [((2, 8, 3, 16), (2, 16, 1, 16),
+                                                    (8, 16, 8 * m))] * 2
+        train = res["train_gemma2"]
+        _close(train[0], refs["train2_gemma2"][0], 1e-5, f"gemma2 train rank {r}")
+        np.testing.assert_allclose(train["losses"], refs["train2_gemma2"]["losses"], atol=1e-5)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
