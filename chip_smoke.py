@@ -350,8 +350,23 @@ Phases, one result line each; any failure exits non-zero without the final
             tensors (each at least half its bytes on ``model``), and
             ``distribute_params`` of the tree onto a 1x1 ``DeviceMesh`` and
             back, bitwise; ``make_concrete_batch`` for granite-8b at the
-            four input shapes on the card.  The group is destroyed at the
-            end of the phase, also when it fails.
+            four input shapes on the card.  Then 'graphs on a mesh': the
+            exchanges the captured mesh steps call (``gather_rows`` into a
+            fixed buffer, ``fleet_weighted_sum``, ``cluster_sums_on_mesh``,
+            ``dense_transition_on_mesh``, ``ppermute`` with the rank its
+            own partner, ``fleet_mean_losses``) on the tree in one
+            ``GraphedStep``: warm-up, capture, three replays, each bitwise
+            an eager run of the body on the same (changed) inputs; one
+            replay's device records against one eager call's (NCCL kernels
+            and copies by name, a padded profiler session), the host's
+            launch calls at a replay (one ``cudaGraphLaunch``), the replay
+            and the eager call timed (CUDA events); and
+            ``core/capture_check.py``'s ``nccl-outstanding`` case in a
+            process of its own, started after the phase's timed sections
+            (beside the untimed input shapes).  A profiler session of the
+            device records that kept none of its pad raises
+            ``ShortSessionError`` (the phase runs again).  The group is
+            destroyed at the end of the phase, also when it fails.
 20. launch   the training CLI through ``repro_torch.launch.train.main``:
             ``--scenario list``; ``mnist-noniid-ring`` 20 iterations on the
             auto backend (SGD and transition kernels launched);
@@ -388,7 +403,12 @@ Phases, one result line each; any failure exits non-zero without the final
             held equal to ``roofline.analysis.HW["device_memory"]``.
 24. mesh-serve ``ContinuousFederatedServer(mesh=)`` on one NCCL rank (D = 1:
             plumbing, no exchange between cards), the reference's check
-            config, tokens equal to the off-mesh server's.
+            config (f32), then one replica of granite-8b at its published
+            widths cut to ``MESH_SERVE_WIDTH["layers"]`` layers (bf16) under
+            deterministic algorithms, each with ``graph=True`` (the chunk's
+            token all-reduce in its graph: one capture, its replays counted)
+            and ``graph=False``, the tokens of both equal to each other and
+            to the off-mesh server's.
 25. flash-rows sequence-parallel attention through the flash kernels'
             query-row map ('flash rows'): at gemma2-2b's published
             attention widths (8/4 heads, hd 256, bf16, cap 50, S 4096,
@@ -599,6 +619,10 @@ SERVE_FAMILIES = ("granite-8b", "mixtral-8x7b", "gemma2-2b", "mamba2-780m",
 SERVE_WIDTH = dict(replicas=2, max_batch=8, buckets=(512, 1024, 2048), gen_cap=256,
                    chunk_steps=8, requests=32, prompt_lens=(512, 1024, 2048))
 SERVE_FULL_CHUNKS = 4  # chunk replays timed with every slot active
+# mesh-serve at published widths: one granite-8b replica of this depth (bf16)
+# on a cluster mesh of one NCCL rank, on a synthetic trace of these prompts
+MESH_SERVE_WIDTH = dict(layers=4, max_batch=4, buckets=(128, 256, 512), gen_cap=32,
+                        chunk_steps=4, requests=8, prompt_lens=(128, 256, 512))
 # the steps phase: granite-8b's decode_32k cut to this batch and these decode
 # steps (from position 32,766: the third wraps the ring), and lm-width's
 # model in C = 4 clients, D = 2 clusters stacked on the rank
@@ -5208,6 +5232,7 @@ class Smoke:
             MeshAxes, describe_sharding, distribute_params, param_pspecs,
         )
 
+        check = None
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
@@ -5271,6 +5296,7 @@ class Smoke:
                                "copy_ms": copy_ms, "gather_rows_ms": gather_ms,
                                "fleet_weighted_sum_ms": reduce_ms,
                                "bound_ms": bnd, "bound_by": "bytes", "bitwise": True}
+            res["graph"] = self.mesh_graph(tree, mesh)
 
             # the sharding rules at published widths, on meta tensors
             rules = {}
@@ -5307,6 +5333,13 @@ class Smoke:
                   f"back: bitwise, {dist_s:.3f} s", flush=True)
             res["distribute_round_trip"] = {"bitwise": True, "seconds": dist_s}
             del laid, back, tree
+            # the capture check's nccl-outstanding case, in a process of its
+            # own, after every timed section: it shares the card only with
+            # the input shapes below
+            check = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.core.capture_check", "--case",
+                 "nccl-outstanding"], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=dict(os.environ, PYTHONPATH=str(SRC)))
 
             # the input shapes at granite-8b's published widths, on the card
             gcfg = get_config("granite-8b")
@@ -5330,9 +5363,110 @@ class Smoke:
             print(f"  make_concrete_batch(granite-8b) on the card: {json.dumps(batches)}",
                   flush=True)
             res["shapes"] = batches
+            res["nccl_outstanding"] = self.nccl_outstanding(check)
             self.detail["mesh"] = res
         finally:
             dist.destroy_process_group()
+            if check is not None and check.poll() is None:
+                check.kill()
+                check.wait()
+
+    def nccl_outstanding(self, check) -> dict:
+        """``core/capture_check.py``'s ``nccl-outstanding`` case (started as
+        ``check``): its trials printed; fails unless the port's
+        ``GraphedStep`` captured with the all-reduce outstanding and replayed
+        it, and a fresh step captured after it."""
+        out, err = check.communicate(timeout=240)
+        try:
+            case = json.loads(out.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            raise AssertionError(f"mesh: the nccl-outstanding case printed no result "
+                                 f"(exit {check.returncode}): {err[-2000:]}") from None
+        brief = {mode: [(t["captured"], t.get("seconds"), t.get("error")) for t in case[mode]]
+                 for mode in ("global", "thread_local")}
+        print(f"  capture_check nccl-outstanding [{self.smi}] (torch {case['torch']}, CUDA "
+              f"{case['cuda']}, NCCL {case['nccl']}): an eager all-reduce outstanding, then at "
+              f"once a capture of an all-reduce held open 0.3 s; (captured, s, error) by "
+              f"mode {json.dumps(brief)}; GraphedStep {json.dumps(case['graphed_step'])}; "
+              f"fresh capture {case['fresh_capture']}", flush=True)
+        if case["graphed_step"] != {"captured": 1, "replays": 3, "value": 6.0} or not case[
+                "fresh_capture"]:
+            raise AssertionError(f"mesh: nccl-outstanding {json.dumps(case)}")
+        return case
+
+    def mesh_graph(self, tree: dict, mesh) -> dict:
+        """The exchanges the captured mesh steps call, in one ``GraphedStep``
+        on one NCCL rank, on the one-client ``tree`` (see the module
+        docstring, phase 19; ``capture_check.hold_mesh_exchanges``); returns
+        the counts and times."""
+        torch = self.torch
+        from repro_torch.core.capture_check import hold_mesh_exchanges
+        from repro_torch.kernels import ShortSessionError
+
+        torch.cuda.empty_cache()
+        # warm-up, capture (and its replay), two replays, each bitwise eager
+        step, body, batch = hold_mesh_exchanges(tree, mesh, 4)
+        if (step.captured, step.replays) != (1, 3):
+            raise AssertionError(f"mesh: {step.captured} captures, {step.replays} replays")
+        (entry,) = step._entries.values()
+
+        def records(fn):
+            """``fn``'s device records by kind in a padded session: copies (a
+            ``Memcpy`` record, or in a graph sometimes a ``memcpy*`` kernel:
+            CUDA may run a graph's copy node as one), the collectives'
+            device annotations (``nccl:*``) and kernels; the pad's records
+            kept, and the host's launch and copy calls."""
+            _, names, pads, host = self.padded_kernel_names(fn)
+            kinds = collections.defaultdict(collections.Counter)
+            for n in names:
+                kind = ("copy" if n.lower().startswith("memcpy")
+                        else "annotation" if n.startswith("nccl:") else "kernel")
+                kinds[kind][n] += 1
+            return kinds, pads, host
+
+        eager, eager_pads, eager_host = records(lambda: body(batch))
+        replay, replay_pads, replay_host = records(entry.graph.replay)
+        if not (eager_pads and replay_pads):
+            # the session lost its first records past the pad: no hold made
+            raise ShortSessionError({"pad, eager session": (eager_pads, FLASH_ROWS_PAD),
+                                     "pad, replay session": (replay_pads, FLASH_ROWS_PAD)})
+        copies = (sum(eager["copy"].values()), sum(replay["copy"].values()))
+        if eager["kernel"] != replay["kernel"] or copies[0] != copies[1]:
+            raise AssertionError(
+                f"mesh: a replay's device work differs from the eager call's: kernels "
+                f"{sorted((eager['kernel'] - replay['kernel']).items())} eager only, "
+                f"{sorted((replay['kernel'] - eager['kernel']).items())} replay only; "
+                f"copies {copies}")
+        if replay_host != collections.Counter({"cudaGraphLaunch": 1}):
+            raise AssertionError(f"mesh: a replay made host launch calls {dict(replay_host)}")
+        nccl = {k: n for k, n in replay["kernel"].items() if "nccl" in k.lower()}
+        # a leaf's all-gather (twice: the fixed buffer and the dense transition's
+        # stack), all-reduce and broadcast, and the losses' all-gather
+        collectives = 4 * len(tree) + 1
+        eager_ms = self.cuda_ms(lambda: body(batch), reps=5, warmup=1)
+        replay_ms = self.cuda_ms(entry.graph.replay, reps=5, warmup=1)
+        print(f"mesh graph [{self.smi}]: the mesh steps' exchanges on the one-client tree in "
+              f"one GraphedStep over NCCL ({collectives} collectives): warm-up, capture, 3 "
+              f"replays, each bitwise its eager run; a replay ran "
+              f"{sum(replay['kernel'].values())} kernels and {copies[1]} copies "
+              f"{json.dumps(replay['copy'])} against the eager call's "
+              f"{sum(eager['kernel'].values())} and {copies[0]} {json.dumps(eager['copy'])} "
+              f"(kernels equal by name; pads kept {eager_pads}/{replay_pads} of "
+              f"{FLASH_ROWS_PAD}); NCCL kernels a replay {sum(nccl.values())}; the eager "
+              f"call's collective annotations {json.dumps(eager['annotation'])}; host launch "
+              f"calls at a replay {json.dumps(dict(replay_host))} (eager "
+              f"{json.dumps(dict(eager_host))}); replay {replay_ms:.4f} ms against the eager "
+              f"call {eager_ms:.4f} ms (CUDA events)", flush=True)
+        del step, entry, body, batch
+        self.torch.cuda.empty_cache()
+        return {"kernels_replay": dict(replay["kernel"]), "kernels_eager": dict(eager["kernel"]),
+                "copies_replay": dict(replay["copy"]), "copies_eager": dict(eager["copy"]),
+                "annotations_eager": dict(eager["annotation"]),
+                "pads_kept": [eager_pads, replay_pads],
+                "nccl_kernels_per_replay": sum(nccl.values()), "collectives_in_body": collectives,
+                "host_launch_calls_replay": dict(replay_host),
+                "host_launch_calls_eager": dict(eager_host), "replay_ms": replay_ms,
+                "eager_ms": eager_ms, "bitwise_calls": 4}
 
     def steps(self):
         """The step builders of ``launch.steps`` on a ``(data=1, model=1)``
@@ -5777,11 +5911,19 @@ class Smoke:
         """``ContinuousFederatedServer(mesh=)`` on one NCCL rank (the group made
         on a free local port with a timeout, destroyed at the end): D = 1, so
         the slot pool's token exchange is an all-reduce over one rank,
-        plumbing, not an exchange between cards.  The reference's check
-        (``tests/spmd_check.py``'s ``check_continuous_mesh_serving``: a
-        2-layer f32 dense model, 12 requests, 4 slots, buckets (8, 16),
-        chunks of 3 steps) with one replica; every request's tokens held
-        equal to the off-mesh server's on the card (graphed chunk)."""
+        plumbing, not an exchange between cards.  Two models, one replica
+        each: the reference's check (``tests/spmd_check.py``'s
+        ``check_continuous_mesh_serving``: a 2-layer f32 dense model, 12
+        requests, 4 slots, buckets (8, 16), chunks of 3 steps), whose
+        prefills take the split-TF32 flash route, and granite-8b at its
+        published widths cut to ``MESH_SERVE_WIDTH["layers"]`` layers, bf16,
+        random weights from a seed, on a synthetic trace (the tensor-core
+        route), under deterministic algorithms.  Each on the mesh with
+        ``graph=True`` (the chunk's token all-reduce captured in its graph)
+        and ``graph=False``; every request's tokens held equal across the two
+        and to the off-mesh server's on the card (graphed chunk); the mesh
+        chunk's graph captured once, its replays counted."""
+        import dataclasses
         import datetime
         import socket
 
@@ -5789,11 +5931,59 @@ class Smoke:
         import torch.distributed as dist
 
         torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data import FederatedLM
+        from repro_torch.kernels import flash_attention_fwd
         from repro_torch.launch.mesh import make_cluster_mesh
         from repro_torch.models import CausalLM
         from repro_torch.models.config import ArchConfig
-        from repro_torch.serving import ContinuousFederatedServer, Request
+        from repro_torch.serving import ContinuousFederatedServer, Request, synthetic_trace
 
+        def serve(model, stack, reqs, mesh, graph, kw):
+            srv = ContinuousFederatedServer(model, stack, mesh=mesh, graph=graph, **kw)
+            batch = [dataclasses.replace(r, output=None) for r in reqs]
+            for r in batch:
+                srv.submit(r)
+            srv.run()
+            return [r.output for r in batch], srv
+
+        def held(label, model, stack, reqs, kw) -> dict:
+            """The requests on the mesh with ``graph=True`` and ``False`` and
+            off the mesh; raises unless every token agrees."""
+            n0 = flash_attention_fwd.launches
+            on, srv = serve(model, stack, reqs, make_cluster_mesh(1), True, kw)
+            prefill_flash = flash_attention_fwd.launches - n0  # the eager prefills'
+            chunk = srv._chunk_p.graphed
+            where = f"{srv.mesh.size} rank over {srv.mesh.backend}"
+            captured, replays = chunk.captured, chunk.replays
+            del srv, chunk
+            eager, esrv = serve(model, stack, reqs, make_cluster_mesh(1), False, kw)
+            if esrv._chunk_p.graphed is not None:
+                raise AssertionError(f"mesh-serve {label}: graph=False replays a graph")
+            del esrv
+            off, _ = serve(model, stack, reqs, None, None, kw)
+            same = all(np.array_equal(a, b) for a, b in zip(on, off))
+            same_eager = all(np.array_equal(a, b) for a, b in zip(on, eager))
+            vocab = model.cfg.vocab_size
+            res = {"requests": len(on), "tokens": sum(len(t) for t in on),
+                   "equal_off_mesh": same, "graph_equal_eager": same_eager,
+                   "captured": captured, "replays": replays,
+                   "prefill_flash_launches": prefill_flash, "mesh": where}
+            print(f"  mesh-serve {label} [{self.smi}]: {res['requests']} requests, "
+                  f"{res['tokens']} tokens; graph=True ({captured} capture, {replays} replays) "
+                  f"equal to graph=False {same_eager} and to the off-mesh server's {same}; mesh "
+                  f"{where}; the prefills' flash forward launches {prefill_flash}", flush=True)
+            if not (same and same_eager):
+                raise AssertionError(f"mesh-serve {label}: the graphed mesh server's tokens "
+                                     f"differ from graph=False's or the off-mesh server's")
+            if captured != 1 or replays < 1:
+                raise AssertionError(f"mesh-serve {label}: the chunk's graph: {captured} "
+                                     f"captures, {replays} replays")
+            if not all(0 <= int(t.min()) and int(t.max()) < vocab for t in on if len(t)):
+                raise AssertionError(f"mesh-serve {label}: a token outside the vocabulary")
+            return res
+
+        # the reference's check config
         cfg = ArchConfig(name="spmd-serve", family="dense", num_layers=2, d_model=32, d_ff=64,
                          vocab_size=64, num_heads=2, num_kv_heads=1, head_dim=16,
                          dtype="float32", remat=False, attn_chunk=16, tie_embeddings=True)
@@ -5801,41 +5991,46 @@ class Smoke:
         stack = {k: v[None].to(self.dev) for k, v in
                  model.init(torch.Generator().manual_seed(0)).items()}
         rng = np.random.default_rng(0)
-        reqs = [dict(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(3, 17))),
-                     max_new_tokens=int(rng.integers(1, 9)),
-                     eos_id=int(rng.integers(0, cfg.vocab_size)),
-                     cluster_id=int(rng.integers(0, 1))) for i in range(12)]
-
-        def serve(mesh):
-            srv = ContinuousFederatedServer(model, stack, mesh=mesh, max_batch=4,
-                                            length_buckets=(8, 16), gen_cap=8, chunk_steps=3)
-            batch = [Request(**r) for r in reqs]
-            for r in batch:
-                srv.submit(r)
-            srv.run()
-            return [r.output for r in batch], srv
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(3, 17))),
+                        max_new_tokens=int(rng.integers(1, 9)),
+                        eos_id=int(rng.integers(0, cfg.vocab_size)),
+                        cluster_id=int(rng.integers(0, 1))) for i in range(12)]
+        kw = dict(max_batch=4, length_buckets=(8, 16), gen_cap=8, chunk_steps=3)
+        # one granite-8b replica at its published widths, depth cut
+        w = MESH_SERVE_WIDTH
+        gcfg = dataclasses.replace(get_config("granite-8b"), num_layers=w["layers"])
+        ds = FederatedLM.generate_clustered(2, 2, max(w["prompt_lens"]), gcfg.vocab_size, 1,
+                                            seed=0)
+        greqs = synthetic_trace(ds, num_requests=w["requests"], prompt_lens=w["prompt_lens"],
+                                max_new_tokens=(1, w["gen_cap"]), seed=0)
+        gkw = dict(max_batch=w["max_batch"], length_buckets=w["buckets"], gen_cap=w["gen_cap"],
+                   chunk_steps=w["chunk_steps"])
 
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
         dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
                                 world_size=1, timeout=datetime.timedelta(seconds=60))
+        out = {}
         try:
-            on, srv = serve(make_cluster_mesh(1))
-            where = f"{srv.mesh.size} rank over {srv.mesh.backend}"
-            off, _ = serve(None)
+            out["check"] = held("check config (f32)", model, stack, reqs, kw)
+            del stack
+            gstack = self.random_stack(gcfg, 1)
+            with self.deterministic() as refused:
+                out["granite"] = held(
+                    f"granite-8b at its published widths, {gcfg.num_layers} of 36 layers, "
+                    f"{gcfg.dtype}", CausalLM(gcfg), gstack, greqs, gkw)
+            del gstack
+            out["granite"].update(
+                config={"num_layers": gcfg.num_layers, "d_model": gcfg.d_model,
+                        "d_ff": gcfg.d_ff, "heads": [gcfg.num_heads, gcfg.num_kv_heads,
+                                                     gcfg.head_dim],
+                        "vocab": gcfg.vocab_size, "dtype": gcfg.dtype},
+                nondeterministic_ops=refused, **gkw)
         finally:
             dist.destroy_process_group()
-        same = all(np.array_equal(a, b) for a, b in zip(on, off))
-        tokens = sum(len(t) for t in on)
-        print(f"mesh-serve [{self.smi}]: ContinuousFederatedServer on a cluster mesh of one "
-              f"NCCL rank (D = 1: the per-step token all-reduce runs over one rank, plumbing, "
-              f"not an exchange between cards), the reference's check config at f32, 12 "
-              f"requests, {tokens} tokens: equal to the off-mesh server's {same}; mesh "
-              f"{where}", flush=True)
-        self.detail["mesh_serve"] = {"requests": len(on), "tokens": tokens, "equal_off_mesh": same}
-        if not same:
-            raise AssertionError("mesh-serve: tokens differ from the off-mesh server's")
+            torch.cuda.empty_cache()
+        self.detail["mesh_serve"] = out
 
     def launch(self):
         """The training CLI on the card through ``repro_torch.launch.train.main``:
@@ -6024,7 +6219,7 @@ class Smoke:
                             flash_attention_bwd(qr, k, v, o_r, l_r, dor, window, cap, rows)
 
                     before = flash_attention_fwd.launches, flash_attention_bwd.launches
-                    _, names, pads = self.padded_kernel_names(map_calls)
+                    _, names, pads, _ = self.padded_kernel_names(map_calls)
                     ran = count_kernels(names)
                     host = {"flash_attention_fwd": flash_attention_fwd.launches - before[0],
                             "flash_attention_bwd": flash_attention_bwd.launches - before[1]}
@@ -6069,21 +6264,24 @@ class Smoke:
                                                     max_abs_err=worst[part])
 
     def padded_kernel_names(self, fn) -> tuple:
-        """``(fn(), the device kernels fn ran, the pad's records kept)`` from
-        one profiler session in which ``FLASH_ROWS_PAD`` spin kernels of no
-        wrapper run first: late in the smoke a session has lost its first
-        few dozen records (ROADMAP.md §3), and the pad takes that loss."""
+        """``(fn(), the device records fn made, the pad's records kept, the
+        host's launch and copy calls fn made)`` from one profiler session
+        (``kernels.device_records``) in which ``FLASH_ROWS_PAD`` spin
+        kernels of no wrapper run first: late in the smoke a session has
+        lost its first few dozen records (ROADMAP.md §3), and the pad takes
+        that loss."""
         torch = self.torch
-        from repro_torch.kernels import device_kernel_names
+        from repro_torch.kernels import device_records
 
         def padded():
             for _ in range(FLASH_ROWS_PAD):
                 torch.cuda._sleep(1)
             return fn()
 
-        out, names = device_kernel_names(padded)
+        out, names, host = device_records(padded)
         pads = sum("spin_kernel" in n for n in names)
-        return out, [n for n in names if "spin_kernel" not in n], pads
+        host["cudaLaunchKernel"] -= FLASH_ROWS_PAD  # the pad's
+        return out, [n for n in names if "spin_kernel" not in n], pads, +host
 
     def flash_rows_parent(self) -> dict:
         """The map-less calls of every route bitwise the parent's kernels

@@ -19,13 +19,25 @@ in its default, global capture mode:
   copy, an allocation of pinned memory;
 * ``raise-then-capture`` and ``illegal-then-capture``: a ``GraphedStep``'s
   body raises on its capturing call (a Python error, then a call the
-  capture forbids), and a fresh ``GraphedStep`` captures after it.
+  capture forbids), and a fresh ``GraphedStep`` captures after it;
+* ``nccl-outstanding``: one NCCL rank (a process group of world size 1 on a
+  free local port); an eager all-reduce is left outstanding (no
+  synchronize), and at once a graph captures an all-reduce and stays open
+  for ``NCCL_HOLD_S`` on the host, past the process group's watchdog
+  polls of the outstanding work's event.  Three trials each of a raw
+  capture in the global mode, one in the ``thread_local`` mode, and a
+  ``GraphedStep`` whose body all-reduces (its warm-up is the uncaptured
+  work, its second call the capture), each replay held to the eager value.
 
 Each case reports whether the capture ended and replayed, the error that
 surfaced, and whether a fresh ``GraphedStep`` captures and replays right
 after it in the same process.  Prints one line a case, writes
 ``chiprun_out/capture_check.json``; exits non-zero if a fresh capture
 failed after any case.
+
+``hold_mesh_exchanges`` is no case: it captures the exchanges of the mesh
+steps' bodies on a mesh of one rank and holds each call to an eager run,
+for ``chip_smoke.py``'s ``mesh`` phase and ``tests/test_torch_cuda.py``.
 """
 from __future__ import annotations
 
@@ -39,8 +51,9 @@ import sys
 import numpy as np
 
 
-def _raw_capture(during) -> dict:
-    """A small graph captured around ``during()``; replayed once."""
+def _raw_capture(during, mode: str = "global") -> dict:
+    """A small graph captured around ``during()`` in capture mode ``mode``;
+    replayed once."""
     import torch
 
     x = torch.ones(1 << 16, device="cuda")
@@ -51,7 +64,7 @@ def _raw_capture(during) -> dict:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             x.add_(1.0)
             during()
             x.mul_(2.0)
@@ -143,6 +156,125 @@ def _dead_run():
     raise AssertionError("the step did not fail")
 
 
+NCCL_HOLD_S = 0.3  # how long a nccl-outstanding capture stays open (the watchdog polls each 0.1 s)
+
+
+def _nccl_outstanding() -> dict:
+    """The ``nccl-outstanding`` case's trials on one NCCL rank, and a fresh
+    ``GraphedStep`` while the group lives; the group is destroyed after."""
+    import datetime
+    import socket
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from .cuda_graph import GraphedStep
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        x = torch.ones(1 << 20, device="cuda")
+        dist.all_reduce(x)  # the communicator exists before any capture
+        torch.cuda.synchronize()
+        out: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
+                     "nccl": str(torch.cuda.nccl.version())}
+
+        def hold(y):
+            dist.all_reduce(y)
+            time.sleep(NCCL_HOLD_S)
+
+        for mode in ("global", "global", "global", "thread_local"):
+            y = torch.full((1 << 10,), 3.0, device="cuda")
+            dist.all_reduce(x)  # left outstanding: no synchronize before the capture
+            t0 = time.perf_counter()
+            res = _raw_capture(lambda: hold(y), mode)
+            res["seconds"] = time.perf_counter() - t0  # the hold, and any wait before capturing
+            res["y"] = float(y[0]) if res["captured"] else None
+            out.setdefault(mode, []).append(res)
+
+        state = {"w": torch.zeros(1 << 10, device="cuda")}
+
+        def body(batch):
+            state["w"].add_(batch["x"])
+            hold(state["w"])
+
+        step = GraphedStep(body, lambda: state, "cuda")
+        try:
+            for i in range(4):  # warm-up, capture at once (its work outstanding), two replays
+                step({"x": torch.full((1 << 10,), float(i), device="cuda")})
+            torch.cuda.synchronize()
+            out["graphed_step"] = {"captured": step.captured, "replays": step.replays,
+                                   "value": float(state["w"][0])}
+        except Exception as err:
+            out["graphed_step"] = {"error": repr(err)[:300]}
+        out.update(_fresh_step())
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def hold_mesh_exchanges(tree: dict, mesh, calls: int) -> tuple:
+    """The exchanges that the captured mesh steps call, in one
+    ``GraphedStep`` on a mesh of one rank (the rank its own partner):
+    ``gather_rows`` into a fixed buffer, ``fleet_weighted_sum``,
+    ``cluster_sums_on_mesh``, ``dense_transition_on_mesh``, ``ppermute``
+    and ``fleet_mean_losses``, over the ``(1, ...)`` ``tree``.  Called
+    ``calls`` times (warm-up, capture, replays) with new inputs each call:
+    the tree negated in place, a new weight and new losses through the
+    static buffers.  Raises ``AssertionError`` unless every call is bitwise
+    an eager run of the body on the same inputs and the gather, the
+    permutation and the losses give back their inputs.  Returns ``(step,
+    body, batch)``: the step, its body and the last call's batch."""
+    import torch
+
+    from .aggregation import (
+        cluster_sums_on_mesh, dense_transition_on_mesh, fleet_mean_losses, fleet_weighted_sum,
+        gather_rows, ppermute,
+    )
+    from .cuda_graph import GraphedStep, copy_into
+
+    dev = mesh.device
+    gathered = {k: torch.empty_like(v) for k, v in tree.items()}
+    out = {"sum": {k: torch.empty(v.shape[1:], device=dev) for k, v in tree.items()},
+           "clusters": {k: torch.empty(v.shape, device=dev) for k, v in tree.items()},
+           "dense": {k: torch.empty_like(v) for k, v in tree.items()},
+           "perm": {k: torch.empty_like(v) for k, v in tree.items()}}
+
+    def body(batch):
+        w = batch["w"]
+        gather_rows(tree, mesh, out=gathered)
+        copy_into(out, {"sum": fleet_weighted_sum(tree, mesh, w),
+                        "clusters": cluster_sums_on_mesh(tree, mesh, 1, w),
+                        "dense": dense_transition_on_mesh(tree, mesh, w.view(1, 1)),
+                        "perm": ppermute(tree, mesh, [(0, 0)])})
+        return fleet_mean_losses(batch["losses"], mesh)
+
+    def results():
+        return [v.clone() for v in (*gathered.values(),
+                                    *(x for d in out.values() for x in d.values()))]
+
+    step = GraphedStep(body, lambda: (tree, gathered, out), dev)
+    for i in range(calls):
+        for v in tree.values():
+            v.neg_()
+        batch = {"w": torch.full((1,), 0.5 + i, device=dev),
+                 "losses": torch.arange(8, dtype=torch.float32, device=dev) * (i + 1)}
+        got_losses, got = step(batch), results()
+        want_losses = body(batch)
+        if not (torch.equal(got_losses, want_losses) and all(
+                torch.equal(a, b) for a, b in zip(got, results()))):
+            raise AssertionError(f"the captured exchanges' call {i} differs from its eager run")
+        if not (torch.equal(got_losses, batch["losses"]) and all(
+                torch.equal(gathered[k], v) and torch.equal(out["perm"][k], v)
+                for k, v in tree.items())):
+            raise AssertionError(f"call {i}: a gather, permutation or mean changed its input")
+    return step, body, batch
+
+
 def _case(name: str) -> dict:
     import torch
 
@@ -192,6 +324,8 @@ def _case(name: str) -> dict:
             out["notes"] = [n[:300] for n in getattr(err, "__notes__", [])]
         out["stream_restored"] = torch.cuda.current_stream() == torch.cuda.default_stream()
         out["captured"] = step.captured
+    elif name == "nccl-outstanding":
+        return {**out, **_nccl_outstanding()}
     else:
         raise KeyError(name)
     out.update(_fresh_step())
@@ -200,7 +334,8 @@ def _case(name: str) -> dict:
 
 CASES = ("free-device-tensor", "free-event", "free-timing-event", "free-pinned", "free-graph",
          "free-graphed-step", "free-copy-stream", "gc-dead-run", "call-synchronize",
-         "call-pageable-copy", "call-pin-memory", "raise-then-capture", "illegal-then-capture")
+         "call-pageable-copy", "call-pin-memory", "raise-then-capture", "illegal-then-capture",
+         "nccl-outstanding")
 
 
 def main(argv=None) -> int:

@@ -45,6 +45,24 @@ A kernel wrapper counts its launch when it is captured and not when a
 replay runs it (see ``kernels``): the replays' kernels are counted on the
 device, ``kernels.device_launches``.
 
+**On a mesh** (a client or cluster mesh over ``torch.distributed``) a body's
+process-group exchanges are captured with it: ProcessGroupNCCL runs each
+on its own stream, which the capture pulls in (its allocations then come
+from the graph's pool), and ``wait()`` makes the current stream wait on
+the exchange's event, no host synchronisation.  The NCCL communicators a
+body uses are created lazily by its first exchange; the key's eager
+warm-up is that first call, so no capture creates one.  Meshes capture in
+the same default global mode: ``core/capture_check.py``'s
+``nccl-outstanding`` case (an eager all-reduce left outstanding, then at
+once a capture held open past the process group's watchdog polls of that
+work's event) captured and replayed in every trial on torch 2.11 with
+CUDA 12.8 and NCCL 2.28.9 on the H100, without a wait before the capture,
+so neither draining the outstanding work nor the ``thread_local`` mode is
+needed (see PERF.md for the card's line).  Every rank must warm up,
+capture and replay at the same calls, so that the replays' collectives
+match across ranks: a step's key changes only where every rank's does
+when its state tensors are allocated alike on every rank.
+
 On the CPU there are no graphs: a CPU ``GraphedStep`` copies its batch into
 the same static buffers and runs the body eagerly, which is how the tests
 reach the captured body without a card.

@@ -34,8 +34,11 @@ matrices stay the fleet's runtime tensors, of which each rank reads its own
 entries.  ``global_params`` (and so evaluation) all-reduces each rank's
 ``m_i w^(i)`` and ``cluster_params`` reduces within each cluster, one model
 a rank, so every rank reports what one process reports; an offload
-store's scatter gathers into the store's buffer, which every rank holds.  A mesh runs eagerly: ``graph=None`` is off there and
-``graph=True`` raises.
+store's scatter gathers into the store's buffer, which every rank holds.  On a
+mesh ``graph`` resolves as off it, by the rank's device: a CUDA rank replays
+its steps from CUDA graphs with their process-group exchanges captured inside
+(``core/cuda_graph.py``), and an offloaded rank copies each round's row into
+the row tensors ``bind`` allocated, so one graph a key serves every round.
 
 Per-round participation weights and faulted mixing matrices are runtime
 operands of fixed shape: the sync and round schedulers stage them with
@@ -371,16 +374,16 @@ def _resolve_mesh(sched, num_clients: int) -> None:
         sched.device = sched.mesh.device
 
 
-def _resolve_mesh_graph(sched) -> bool:
-    """Whether the scheduler replays CUDA graphs: never on a mesh, whose
-    exchanges no graph captures here."""
+def _load_rows(sched, stack: dict) -> None:
+    """An offload store's gathered ``(k_max, ...)`` stack as ``sched.params``:
+    off a mesh the stack itself (the store's fixed buffer), on a mesh the
+    rank's row copied into the ``params`` tensors, which on graphs keep the
+    addresses ``bind`` gave them, so a graph keyed by them serves every
+    round."""
     if sched.mesh is None:
-        return resolve_graph(sched._graph_spec, sched.device)
-    if sched._graph_spec:
-        raise NotImplementedError(
-            "graph=True on a client mesh: capturing the process-group exchanges is not "
-            "ported yet (ROADMAP.md §1 item 4, 'graphs on a mesh'); pass graph=None or False")
-    return False
+        sched.params = stack
+    else:
+        copy_into(sched.params, mesh_rows(stack, sched.mesh))
 
 
 def _stacked(sched, tree: dict) -> dict:
@@ -455,7 +458,8 @@ class SyncScheduler:
     runs the static-weight step.
 
     With a ``host-offload`` store (``fleet.store``) ``self.params`` is the
-    store's fixed ``(k_max, ...)`` buffer: the round's residents are gathered
+    store's fixed ``(k_max, ...)`` buffer (on a mesh, row tensors bound once,
+    into which each round's row is copied): the round's residents are gathered
     into it at the round's first iteration, stepped by the same steps (and
     graphs), bound over the store's sub-fleet, and scattered back at the
     round's inter event.  Each iteration draws its batches for the resident
@@ -514,7 +518,8 @@ class SyncScheduler:
             if self.axes.faults is not None:
                 raise ValueError(_OFFLOAD_FAULTS)
             # the aggregation runs over the store's sub-fleet (same clusters,
-            # slot-sized), on its fixed buffer (on a mesh, the rank's slot of it)
+            # slot-sized), on its fixed buffer (on a mesh, row tensors of the
+            # rank's slot, allocated here once; each round is copied into them)
             self.store.bind(cfg.clusters, model, seed, self.device)
             _resolve_mesh(self, self.store.sub_clusters.num_clients)
             self.params = own_rows(self.store.buffer, self.mesh)
@@ -536,7 +541,8 @@ class SyncScheduler:
         self._m = (torch.as_tensor(cfg.clusters.m(), dtype=torch.float32, device=self.device)
                    if self.store.resident else None)
         self._feed = BatchFeed(self.device, self.prefetch)
-        self._graphs = self._build_graphs() if _resolve_mesh_graph(self) else None
+        graph = resolve_graph(self._graph_spec, self.device)
+        self._graphs = self._build_graphs() if graph else None
 
     def _build_graphs(self) -> dict:
         """One ``GraphedStep`` per event kind over ``_body``, in one memory pool."""
@@ -611,7 +617,7 @@ class SyncScheduler:
             # the round's first iteration: its residents into the buffer
             self._buf_round = self._round_of(k)
             self._res = self._residency_for_round(self._buf_round)
-            self.params = own_rows(self.store.gather(self._res), self.mesh)
+            _load_rows(self, self.store.gather(self._res))
         if self._graphs is None:
             self.params = self._update(event, batch)
         else:
@@ -705,7 +711,9 @@ class RoundScheduler:
 
     With a ``host-offload`` store the round engine is built over the store's
     ``k_max`` slots, always in its participation variant (a padding slot
-    weighs exactly 0), and ``self.params`` is the store's fixed buffer.  One
+    weighs exactly 0), and ``self.params`` is the store's fixed buffer (on a
+    mesh, row tensors bound once, into which each superstep's row is
+    copied).  One
     participation draw a superstep picks the residents
     (``_residency_for_step``); their batches, their slots' weights tiled
     over the R rounds (``WEIGHTS``) and, in client mode, the host rows no
@@ -788,6 +796,7 @@ class RoundScheduler:
                 raise ValueError(_OFFLOAD_FAULTS)
             self.store.bind(clusters, model, seed, self.device)
             _resolve_mesh(self, self.store.sub_clusters.num_clients)
+            # the buffer, or on a mesh the rank's row tensors, allocated once
             self.params = own_rows(self.store.buffer, self.mesh)
             engine_fl = dataclasses.replace(fl, num_clients=self.store.k_max)
             agg_clusters = self.store.sub_clusters
@@ -807,7 +816,8 @@ class RoundScheduler:
         self._m = (torch.as_tensor(clusters.m(), dtype=torch.float32, device=self.device)
                    if self.store.resident else None)  # as SyncScheduler's
         self._feed = BatchFeed(self.device, self.prefetch)
-        self._graph = self._build_graph() if _resolve_mesh_graph(self) else None
+        graph = resolve_graph(self._graph_spec, self.device)
+        self._graph = self._build_graph() if graph else None
 
     def _build_graph(self) -> GraphedStep:
         return GraphedStep(self._body, lambda: (self.params, self.opt_state), self.device)
@@ -913,7 +923,7 @@ class RoundScheduler:
         stacked, staged = _split_store_rows(
             self._feed.get(k, batch_source, functools.partial(self._offload_batch, batch_source)))
         res = self._residency_for_step(k)
-        self.params = own_rows(self.store.gather(res, staged), self.mesh)
+        _load_rows(self, self.store.gather(res, staged))
         # sgd's state is (); a stateful optimizer restarts every superstep
         # under offload, as in the reference
         copy_into(self.opt_state, self.optimizer.init(self.params))

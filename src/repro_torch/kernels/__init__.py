@@ -112,7 +112,13 @@ HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel", "c
 
 
 def device_kernel_names(fn):
-    """``(fn(), [name, ...])``: the device kernels ``fn`` ran, graph replays
+    """``(fn(), [name, ...])``: the device records of ``device_records``."""
+    out, names, _ = device_records(fn)
+    return out, names
+
+
+def device_records(fn):
+    """``(fn(), [name, ...], host)``: the device kernels ``fn`` ran, graph replays
     included, one demangled name per run, from ``torch.profiler``'s CUDA
     records (read raw, without building the event tree).
 
@@ -128,7 +134,10 @@ def device_kernel_names(fn):
     launch made while a stream captures a graph runs nothing, and on the
     H100 one to three others a session, at the same offsets run to run,
     have none where no count falls short.  ``kernels.session_check``
-    counts how often, and ``ROADMAP.md`` §3 keeps the record."""
+    counts how often, and ``ROADMAP.md`` §3 keeps the record.  ``host``
+    counts the session's host calls that launch work or copy by name
+    (``HOST_LAUNCH_CALLS``, ``cudaMemcpy*``, ``cudaMemset*``)."""
+    import collections
     import time
 
     import torch
@@ -147,17 +156,20 @@ def device_kernel_names(fn):
                 if e.device_type() != DeviceType.CUDA and e.name() in HOST_LAUNCH_CALLS]
     t0 = res.trace_start_ns() if hasattr(res, "trace_start_ns") else 0
     at = lambda e: (e.name(), round((e.start_ns() - t0) / 1e6, 3))
+    host = collections.Counter(
+        e.name() for e in events if e.device_type() != DeviceType.CUDA
+        and (e.name() in HOST_LAUNCH_CALLS or e.name().startswith(("cudaMemcpy", "cudaMemset"))))
     if not cuda:
         if launches:
             device_kernel_names.losses.append([at(e) for e in launches])
             raise EmptySessionError([at(e) for e in launches])
-        return out, []
+        return out, [], host
     ran = {e.correlation_id() for e in cuda}
     lost = [at(e) for e in launches
             if e.name() == "cudaGraphLaunch" and e.correlation_id() not in ran]
     if lost:
         device_kernel_names.losses.append(lost)
-    return out, [e.name() for e in cuda]
+    return out, [e.name() for e in cuda], host
 
 
 device_kernel_names.losses = []
@@ -176,6 +188,7 @@ MARGIN_S = 0.05  # device_launches's idle time at each end of a session
 __all__ = [
     "DEVICE_KERNELS", "EmptySessionError", "HOST_LAUNCH_CALLS", "ShortSessionError",
     "check_eager_session", "count_kernels", "device_kernel_names", "device_launches",
+    "device_records",
     "sgd_update", "sgd_update_ref", "sgd_update_tree",
     "normalized_update", "normalized_update_ref", "normalized_update_tree",
     "fused_transition", "fused_transition_ref", "fused_transition_tree",

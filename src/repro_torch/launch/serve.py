@@ -11,8 +11,9 @@ training-to-serving loop of a federated scenario.  Runs on the card unless
 
 With ``--scenario <name> --continuous --mesh auto`` under ``torchrun
 --nproc-per-node D`` (D the scenario's clusters) each rank serves one
-cluster's replica (``ContinuousFederatedServer(mesh=)``); ``--device cpu``
-runs the ranks over gloo::
+cluster's replica (``ContinuousFederatedServer(mesh=)``), a CUDA rank's decode
+chunk replayed from a CUDA graph with its token all-reduce inside;
+``--device cpu`` runs the ranks eagerly over gloo::
 
     OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --scenario lm-serving-continuous --continuous --mesh auto --device cpu

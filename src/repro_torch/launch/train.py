@@ -25,8 +25,9 @@ and says so.  Under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` in the environment) it
 starts the process group, ``nccl`` on CUDA devices and ``gloo`` with
 ``--device cpu``, and trains on the client mesh, one client a rank, on the
-collective backend; rank 0 prints and writes the checkpoints, and the group
-is destroyed at exit::
+collective backend, each rank replaying its steps from CUDA graphs with
+the exchanges captured inside (eager with ``--device cpu``); rank 0 prints
+and writes the checkpoints, and the group is destroyed at exit::
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh auto \
         --backend collective --clients 8 --clusters 4 [--device cpu]

@@ -209,9 +209,12 @@ class ContinuousFederatedServer(_FederatedMixin, ContinuousServer):
     ``(1, ...)`` row of ``sharding.replica_pspecs``), and ``publish`` stages
     each rank's row of the new stack, which every rank checks whole so
     that all decide alike.  Every rank runs the same slot loop on the same
-    requests; see the module docstring.  On a mesh the decode chunk runs
-    eagerly: ``graph=True`` raises (ROADMAP.md §1 item 4, 'graphs on a
-    mesh')."""
+    requests; see the module docstring.  ``graph`` resolves by the rank's
+    device, as off the mesh: on a CUDA rank the decode chunk replays from a
+    CUDA graph with its token all-reduce captured inside, and every rank
+    warms up, captures and replays at the same calls (its pool and replica
+    row are allocated once, alike on every rank, so its chunk's key never
+    changes); prefill and admission stay eager."""
 
     _stacked = True
 
@@ -228,12 +231,7 @@ class ContinuousFederatedServer(_FederatedMixin, ContinuousServer):
         self.mesh = resolve_cluster_mesh(mesh, num_clusters, mesh_axis, device=device)
         share = own = None
         if self.mesh is not None:
-            if graph:
-                raise NotImplementedError(
-                    "graph=True on a cluster mesh: capturing the decode chunk's exchange is "
-                    "not ported yet (ROADMAP.md §1 item 4, 'graphs on a mesh'); pass "
-                    "graph=None or False")
-            graph, own = False, self.mesh.index
+            own = self.mesh.index
             share = functools.partial(_share_tokens, group=self.mesh.group)
         self._buf = ReplicaBuffer(cluster_params, row=own)
         super().__init__(model, None, max_batch=max_batch, length_buckets=length_buckets,

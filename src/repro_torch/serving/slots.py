@@ -40,7 +40,11 @@ chunk's pass for that cluster, so its own slots' rows are those of the
 off-mesh pool bit for bit and the others' are never read.  ``share(tok,
 mine)`` then gives every rank the tokens each slot's own rank drew (one
 collective a decode step and an admission), so every control vector, and
-each rank's own cache rows, follow the off-mesh pool exactly.
+each rank's own cache rows, follow the off-mesh pool exactly.  On a CUDA
+rank the decode steps' all-reduces are captured in the chunk's graph; its
+key (the pool's and the replica row's addresses) is fixed for the server's
+life on every rank, so all ranks warm up, capture and replay at the same
+calls and the replays' collectives match.
 """
 from __future__ import annotations
 

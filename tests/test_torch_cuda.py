@@ -1496,3 +1496,107 @@ def test_collective_transition_on_graphs_equals_eager(cuda, name, steps, kw):
         torch.backends.cudnn.deterministic = deterministic
     for k, v in states[False].items():
         assert torch.equal(v, states[True][k]), k
+
+
+# -- graphs on a mesh: one NCCL rank (the card's machine has one GPU) ------------
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """A process group of one NCCL rank on a free local port (a timeout on
+    its init), destroyed after the test."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_exchanges_replay_bitwise_eager_on_one_nccl_rank(nccl_rank):
+    """The exchanges of the mesh steps' bodies in one ``GraphedStep`` on one
+    NCCL rank (``capture_check.hold_mesh_exchanges``): warm-up, capture,
+    replays, each call bitwise an eager run of the body on the same inputs
+    (new inputs every call: the tree in place, the weight and losses
+    through the static buffers)."""
+    from repro_torch.core.capture_check import hold_mesh_exchanges
+    from repro_torch.launch.mesh import make_client_mesh
+
+    mesh = make_client_mesh(1)
+    assert (mesh.device.type, mesh.backend) == ("cuda", "nccl")
+    gen = torch.Generator(device=nccl_rank).manual_seed(0)
+    tree = {"w": torch.randn((1, 64, 33), generator=gen, device=nccl_rank).bfloat16(),
+            "b": torch.randn((1, 17), generator=gen, device=nccl_rank)}
+    step, _, _ = hold_mesh_exchanges(tree, mesh, calls=5)
+    torch.cuda.synchronize()
+    assert step.captured == 1 and step.replays == 4
+
+
+@pytest.mark.cuda
+def test_mesh_server_graph_equals_eager_on_one_nccl_rank(nccl_rank):
+    """``ContinuousFederatedServer`` on a cluster mesh of one NCCL rank with
+    ``graph=True``: the chunk's token all-reduce captured in its graph, one
+    capture, the tokens those of ``graph=False`` on the mesh and of the
+    off-mesh server."""
+    from repro_torch.launch.mesh import make_cluster_mesh
+    from repro_torch.models import CausalLM
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.serving import ContinuousFederatedServer, Request
+
+    cfg = ArchConfig(name="spmd-serve", family="dense", num_layers=2, d_model=32, d_ff=64,
+                     vocab_size=64, num_heads=2, num_kv_heads=1, head_dim=16, dtype="float32",
+                     remat=False, attn_chunk=16, tie_embeddings=True)
+    model = CausalLM(cfg)
+    stack = {k: v[None].to(nccl_rank) for k, v in
+             model.init(torch.Generator().manual_seed(0)).items()}
+    rng = np.random.default_rng(0)
+    reqs = [dict(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(3, 17))),
+                 max_new_tokens=int(rng.integers(1, 9)), eos_id=int(rng.integers(0, 64)),
+                 cluster_id=0) for i in range(12)]
+    tokens, servers = {}, {}
+    for label, mesh, graph in (("graph", make_cluster_mesh(1), True),
+                               ("eager", make_cluster_mesh(1), False), ("off", None, None)):
+        srv = ContinuousFederatedServer(model, stack, mesh=mesh, graph=graph, max_batch=4,
+                                        length_buckets=(8, 16), gen_cap=8, chunk_steps=3)
+        batch = [Request(**r) for r in reqs]
+        for r in batch:
+            srv.submit(r)
+        srv.run()
+        tokens[label], servers[label] = [r.output for r in batch], srv
+    for label in ("eager", "off"):
+        for a, b in zip(tokens["graph"], tokens[label]):
+            np.testing.assert_array_equal(a, b, err_msg=label)
+    graphed = servers["graph"]._chunk_p.graphed
+    assert servers["graph"].mesh is not None and servers["eager"]._chunk_p.graphed is None
+    assert graphed.captured == 1 and graphed.replays >= 1
+
+
+@pytest.mark.cuda
+def test_nccl_outstanding_capture(cuda):
+    """``core/capture_check.py``'s ``nccl-outstanding`` case in its own
+    process: with an eager all-reduce outstanding, the port's
+    ``GraphedStep`` captures an all-reduce at once and replays it, and a
+    fresh step captures after it."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.core.capture_check", "--case",
+                           "nccl-outstanding"], capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["graphed_step"] == {"captured": 1, "replays": 3, "value": 6.0}, res
+    assert res["fresh_capture"] is True, res

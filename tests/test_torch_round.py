@@ -93,8 +93,8 @@ def test_round_engine_refuses_unported_variants():
     # the participation and mixing operands are ported (test_torch_participation.py,
     # test_torch_faults.py) and so are client-state stores (test_torch_state.py);
     # a mixing stack without weights has no caller, as in the reference; the
-    # gossip engine is ported (the collective backend), and so is a client mesh
-    # (test_torch_mesh.py), but not graphs on a mesh
+    # gossip engine is ported (the collective backend), and so are a client mesh
+    # (test_torch_mesh.py) and graphs on it (test_torch_mesh_graphs.py)
     fl = tcore.FLSpec(num_clients=4, num_clusters=2)
     with pytest.raises(ValueError, match="requires participation=True"):
         tcore.build_fl_round_step(tmodels.MnistCNN(), toptim.sgd(0.1), fl,
@@ -110,14 +110,18 @@ def test_round_engine_refuses_unported_variants():
     with pytest.raises(ValueError, match="mesh must be None, 'auto', or a ClientMesh"):
         tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
                         "backend": None, "impl": "gossip", "mesh": object()}, device="cpu")
-    # binding exchanges nothing, so a mesh without its group reaches the refusal
+    # binding exchanges nothing, so a mesh without its group reaches the graph
+    # rule: on a mesh `graph` resolves by the rank's device, as off it, so a
+    # CPU rank's graph=True raises and graph=None is eager
     from repro_torch.launch.mesh import ClientMesh
 
     mesh = ClientMesh(group=None, axis_name="data", size=8, index=0, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4, 'graphs on a mesh'"):
-        tcore.make_run({"scenario": "round-compiled-ring", "num_samples": 400,
-                        "backend": None, "impl": "gossip", "mesh": mesh, "graph": True},
-                       device="cpu")
+    spec = {"scenario": "round-compiled-ring", "num_samples": 400, "backend": None,
+            "impl": "gossip", "mesh": mesh}
+    with pytest.raises(ValueError, match="graph=True needs a CUDA device"):
+        tcore.make_run({**spec, "graph": True}, device="cpu")
+    rt = tcore.make_run({**spec, "graph": None}, device="cpu")
+    assert rt.scheduler.mesh is mesh and rt.scheduler._graph is None
 
 
 LM_SMALL = dict(arch_overrides=dict(d_model=64, d_ff=128), seq_len=16, num_samples=64)

@@ -18,7 +18,10 @@ initialized by JAX and passed through ``repro_torch.convert``:
 * a hot swap through ``publish`` on the mesh stages each rank's row of the
   new stack, and the requests served after it equal the off-mesh server's
   after the same swap;
-* on a mesh the decode chunk runs eagerly: ``graph=True`` raises;
+* ``graph`` resolves by the rank's device, as off the mesh: on a CPU rank
+  ``graph=True`` raises "graph=True needs a CUDA device" and ``graph=None``
+  runs the chunk eagerly (the graphed chunk's body on a mesh is
+  ``tests/test_torch_mesh_graphs.py``'s);
 * ``launch.serve --scenario lm-serving-continuous --continuous --mesh
   auto`` on 4 ranks under torchrun's variables serves on the cluster mesh
   (rank 0 prints, the others do not) the tokens one process serves.
@@ -107,8 +110,10 @@ def _serve4(rank: int, size: int, out: Path) -> dict:
         ContinuousFederatedServer(CausalLM(ArchConfig(**ARCH)), stacks[0], mesh=mesh,
                                   graph=True, **SERVER)
         res["graph"] = None
-    except NotImplementedError as e:
+    except ValueError as e:
         res["graph"] = str(e)
+    res["graph_none_eager"] = ContinuousFederatedServer(
+        CausalLM(ArchConfig(**ARCH)), stacks[0], mesh=mesh, **SERVER)._chunk_p.graphed is None
     return res
 
 
@@ -195,7 +200,8 @@ def test_hot_swap_on_the_mesh_stages_each_ranks_row(served):
 def test_graph_on_a_cluster_mesh_raises(served):
     ranks, _, _ = served
     for rank in ranks:
-        assert rank["graph"] and "'graphs on a mesh'" in rank["graph"]
+        assert rank["graph"] and "graph=True needs a CUDA device" in rank["graph"]
+        assert rank["graph_none_eager"]
 
 
 def _tokens_line(lines) -> str:
