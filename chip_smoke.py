@@ -120,8 +120,9 @@ Phases, one result line each; any failure exits non-zero without the final
             three sync graphs share one), and the runs' differences,
             reported.
 5. cifar    ``cifar-dirichlet-torus`` with the kernel backend: the same
-            eager-vs-graph A/B over 30 iterations (6 inter events), and the
-            split of one iteration.
+            eager-vs-graph A/B over 30 iterations (6 inter events), its
+            timed pass after the held one only, and the split of one
+            iteration.
 6. async    asynchronous SD-FEEL: ``straggler-bimodal-async`` through
             ``build_scenario`` on the default device, backend auto -> cuda,
             on its CUDA graph (the default: one ``GraphedStep`` over the
@@ -181,8 +182,9 @@ Phases, one result line each; any failure exits non-zero without the final
             on the card (graph) and on the CPU (eager) (1e-4 max abs on
             parameters and per-iteration losses, 1e-4 relative on the eval
             loss).  The split of one iteration, then the eager-vs-graph A/B
-            of the main phase over 4 supersteps a run (tokens/s too; the
-            kernel runs by flash route held exactly on both sides).
+            of the main phase over 4 supersteps a run, its timed pass after
+            the held one only (tokens/s too; the kernel runs by flash route
+            held exactly on both sides).
 9. lm-width eager (``graph=False``): the same scenario at granite-8b's
             published widths (d_model
             4096, d_ff 14336, 32 heads, 8 KV heads of 128, vocab 49152,
@@ -425,6 +427,20 @@ Phases, one result line each; any failure exits non-zero without the final
             its bound from the map's live pairs, the plain version, and
             ``scaled_dot_product_attention`` with the map's boolean mask
             where no cap or window bites.
+26. optim   (run after lm-width) the stateful optimizers, the transition,
+            SGD and flash counters set to 0 just before and read just after
+            (the transition and both flash wrappers must launch): momentum on
+            ``round-superstep-ring``'s graph and eagerly (turns eager, graph,
+            graph, eager; graph = eager at 0.0, one capture, the momentum
+            buffers at fixed addresses, the transition's device runs a
+            superstep equal to SGD's, no ``sgd_update`` run, within 1e-4 of
+            the CPU); momentum on ``million-client-ring`` at 10^6 clients (the
+            state zero before each superstep's body, moved after it); and
+            lm-width's model on ``build_fl_round_step`` (C = 4 in D = 2)
+            with SGD, momentum (f32 state) and Adam (bf16 state, per client
+            from ``torch.func.vmap(opt.init)``): peak memory, warm
+            supersteps/s, flash and transition device runs, and the update
+            alone against its bytes bound.  ``Smoke.optim``.
 
 The smoke's total time, build included, and each phase's are printed
 before the kernels line.
@@ -462,7 +478,9 @@ steps phase's train step, the
 transition's ``offload_maxd8`` its D = 8 numbers, gossip_mix's
 ``by_value_ab`` its A/B against the by-value kernel at MNIST, and the flash
 entries' ``flash_rows`` (the map call timed at gemma2-2b's rank-1 shape)
-and ``flash_rows_launches`` (host launches in the flash-rows phase)); the async
+and ``flash_rows_launches`` (host launches in the flash-rows phase), and
+the transition and flash entries' ``optim`` (host launches in the optim
+phase, device runs a superstep of each lm-width optimizer run)); the async
 kernels' ``launches`` are their runs on the device in the async phase's
 graphed run, ``host_launches`` the wrappers' counts there; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -681,6 +699,11 @@ LM_WIDTH = dict(
     graph=False,  # stays eager: 99% busy, and its 61 GiB peak leaves no room for a pool
 )
 ASYNC_KERNELS = ("normalized_update", "cluster_agg", "gossip_mix")
+# the optim phase: round-superstep-ring with momentum (supersteps a run), and
+# lm-width's model on build_fl_round_step (C clients in D clusters, one
+# iteration a superstep; supersteps timed warm, and update calls timed alone)
+OPTIM_ROUND, OPTIM_STEPS, OPTIM_SAMPLES = "round-superstep-ring", 3, 400
+OPTIM_WIDTH = dict(clients=4, clusters=2, timed=3, update_reps=3, adam_lr=1e-4)
 # the async phase's A/B: events a run, warm events timed after it, events profiled
 ASYNC_WARM, ASYNC_PROFILED = 48, 12
 # the examples phase: each example's arguments on the card, cut in run length
@@ -2443,9 +2466,10 @@ class Smoke:
         """cifar-dirichlet-torus, eager against graph: its leaves are where
         bytes matter and its device is busy most of the time already."""
         name = "cifar-dirichlet-torus"
+        # one timed pass, after the held one (the one before it: PRs 18-30)
         ab = self.graph_ab("cifar", lambda graph: self.sync_values(name, graph),
                            lambda sched, host: self.sync_launches(sched, SYNC_ITERS, host),
-                           SYNC_ITERS, warm=20, profile=5)
+                           SYNC_ITERS, warm=20, profile=5, timed=("after",))
         run, _, (loss, acc) = self.run_scenario(name, 1)
         sched = run.runtime.scheduler
         if sched.backend.name != "cuda":
@@ -2880,18 +2904,23 @@ class Smoke:
     def lm_counters(self) -> dict:
         """The LM path's wrappers, their launch counts (and the flash
         wrappers' counts by route) set to 0."""
+        counters = self.lm_counters_view()
+        for fn in counters.values():
+            fn.launches = 0
+        for k in ("flash_attention", "flash_attention_backward"):
+            counters[k].routes = dict.fromkeys(counters[k].routes, 0)
+        return counters
+
+    @staticmethod
+    def lm_counters_view() -> dict:
+        """The LM path's wrappers by the names the kernels line gives them."""
         from repro_torch.kernels import (
             flash_attention_bwd, flash_attention_fwd, fused_transition, sgd_update,
         )
 
-        counters = {"flash_attention": flash_attention_fwd,
-                    "flash_attention_backward": flash_attention_bwd,
-                    "fused_transition": fused_transition, "sgd_update": sgd_update}
-        for fn in counters.values():
-            fn.launches = 0
-        for fn in (flash_attention_fwd, flash_attention_bwd):
-            fn.routes = dict.fromkeys(fn.routes, 0)
-        return counters
+        return {"flash_attention": flash_attention_fwd,
+                "flash_attention_backward": flash_attention_bwd,
+                "fused_transition": fused_transition, "sgd_update": sgd_update}
 
     @staticmethod
     def check_routes(counters, want: dict, what: str) -> dict:
@@ -3023,15 +3052,14 @@ class Smoke:
             return self.by_wrapper(self.lm_launches(sched, cfg, LM_STEPS, False, host),
                                    "split_tf32", "cuda_core")
 
+        # one timed pass, after the held one (the one before it: PRs 18-30)
         ab = self.graph_ab("lm", drive, window_launches, LM_STEPS * ips, warm=8, profile=2,
-                           per_step=ips)
-        for timed in (ab["before_held_pass"], ab):
-            for side in timed["eager"] + timed["graph"]:
-                side["tokens_per_s_warm"] = side["it_per_s_warm"] * c * b * s
-        print("  lm tokens/s warm, before and after the held pass: eager " + ", ".join(
-            f"{r['tokens_per_s_warm']:.1f}" for r in ab["before_held_pass"]["eager"] + ab["eager"])
-            + "; graph " + ", ".join(f"{r['tokens_per_s_warm']:.1f}" for r in
-                                     ab["before_held_pass"]["graph"] + ab["graph"]), flush=True)
+                           per_step=ips, timed=("after",))
+        for side in ab["eager"] + ab["graph"]:
+            side["tokens_per_s_warm"] = side["it_per_s_warm"] * c * b * s
+        print("  lm tokens/s warm, after the held pass: eager " + ", ".join(
+            f"{r['tokens_per_s_warm']:.1f}" for r in ab["eager"]) + "; graph " + ", ".join(
+            f"{r['tokens_per_s_warm']:.1f}" for r in ab["graph"]), flush=True)
         self.detail["lm"] = {"launches": ran, "host_launches": launches, "flash_routes": routes,
                              "graph_replays": replays,
                              "it_per_s_cold": iters / dt, "split": split,
@@ -3787,6 +3815,321 @@ class Smoke:
             self.record[kname][what.replace("-", "_")] = {
                 k: v for k, v in out.items() if not k.startswith(
                     "sgd" if kname == "fused_transition" else "fused")}
+        return out
+
+    def optim(self):
+        """The stateful optimizers on every path that takes one, with the
+        counters of the transition, SGD and flash wrappers set to 0 just
+        before the phase and read just after (the transition and both flash
+        wrappers must have launched): (a) ``round-superstep-ring`` with
+        ``optim.momentum`` on the round's graph and eagerly, in turns eager,
+        graph, graph, eager under cuDNN's deterministic algorithms: graph =
+        eager at 0.0 on parameters, momentum buffers and losses, one capture
+        whose buffers keep their addresses over every replay, the
+        ``fused_transition`` device runs of each superstep equal to the same
+        SGD run's, no ``sgd_update`` run, and the parameters within 1e-4 of
+        the same run on the CPU; (b) ``million-client-ring`` at 10^6 clients
+        with momentum on its graph: before every superstep's body the state
+        is all zeros (the restart), after it every buffer has moved, at fixed
+        addresses, one capture, finite cluster models; (c) lm-width's model
+        (granite-8b widths, 2 layers, bf16, S = 2048, b = 1) on
+        ``build_fl_round_step`` with C = 4 in D = 2 and the ``cuda``
+        backend: SGD (the ``sgd_update`` kernel), momentum (f32 state from
+        ``opt.init``) and Adam (bf16 state from ``torch.func.vmap(opt.init)``)
+        in turns in this process, each with its peak memory above the turn's
+        start, warm supersteps/s, device runs of flash (tensor-core route)
+        and ``fused_transition``, finite parameters and state, and its
+        optimizer update alone timed with CUDA events beside its bytes bound
+        (each input read once, each output written once)."""
+        counters = self.lm_counters()
+        out, seconds = {}, {}
+        for part, fn in (("round", self.optim_round), ("offload", self.optim_offload),
+                         ("width", self.optim_width)):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            seconds[part] = time.perf_counter() - t0
+        host = {k: fn.launches for k, fn in counters.items()}
+        if not all(host[k] for k in ("fused_transition", "flash_attention",
+                                     "flash_attention_backward")):
+            raise AssertionError(f"optim path: a kernel never launched: {host}")
+        print(f"optim path host launches (counters zeroed before it, read after; sgd_update "
+              f"only in the SGD rows beside the stateful runs): {json.dumps(host)}; seconds "
+              f"by part {json.dumps({k: round(v, 1) for k, v in seconds.items()})} "
+              f"[{self.smi}]", flush=True)
+        runs = out["width"].pop("device_runs")
+        for k in ("fused_transition", "flash_attention", "flash_attention_backward"):
+            self.record[k]["optim"] = {"host_launches": host[k],
+                                       "lm_width_device_runs": runs[k]}
+        self.record["fused_transition"]["optim"]["round_device_runs"] = \
+            out["round"]["fused_transition_runs"]
+        out["host_launches"], out["seconds"] = host, seconds
+        self.detail["optim"] = out
+
+    def optim_round_run(self, graph, opt, device=None, backend="cuda") -> dict:
+        """``OPTIM_STEPS`` supersteps of ``OPTIM_ROUND`` with ``opt`` (on the
+        card ``backend`` is "auto"'s choice; on the CPU the kernels' plain
+        versions run): each superstep's kernel runs on the device (the
+        profiler; none on the CPU), the momentum buffers' addresses at bind
+        and after, the graph's counts, and the parameters, state and losses
+        on the host."""
+        from repro_torch.kernels import device_launches
+        from repro_torch.scenarios import build_scenario
+
+        run = build_scenario(OPTIM_ROUND, device=device, graph=graph, backend=backend,
+                             num_samples=OPTIM_SAMPLES, optimizer=opt)
+        sched, src = run.runtime.scheduler, run.batch_source()
+        ptrs = {k: v.data_ptr() for k, v in (sched.opt_state or {}).items()}  # SGD's is ()
+        ran, losses = [], []
+        for _ in range(OPTIM_STEPS):
+            if device != "cpu":
+                ev, r = device_launches(lambda: run.runtime.step(src))
+            else:
+                ev, r = run.runtime.step(src), {}
+            ran.append(r)
+            losses.append(ev.losses)
+        g, state = sched._graph, sched.opt_state or {}
+        host = lambda t: {k: v.float().cpu() for k, v in t.items()}
+        return {"ran": ran, "backend": sched.backend.name,
+                "graph": None if g is None else (g.captured, len(g._entries), g.replays),
+                "ptrs_fixed": {k: v.data_ptr() for k, v in state.items()} == ptrs,
+                "params": host(sched.params), "state": host(state),
+                "losses": self.torch.cat(losses).float().cpu()}
+
+    def optim_round(self) -> dict:
+        """(a) of the phase."""
+        import gc
+
+        torch = self.torch
+        from repro_torch.optim import momentum, sgd
+
+        runs = {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for label, graph, opt in (("eager", False, momentum(LR)), ("graph", True, momentum(LR)),
+                                      ("graph2", True, momentum(LR)),
+                                      ("eager2", False, momentum(LR)),
+                                      ("sgd_graph", True, sgd(LR))):
+                gc.collect()
+                runs[label] = self.optim_round_run(graph, opt)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        cpu = {be: self.optim_round_run(False, momentum(LR), device="cpu", backend=be)
+               for be in ("dense", "cuda")}
+
+        def full(a, b):
+            """Max abs difference of two runs' parameters, state and losses."""
+            trees = [(a[t][k] - v).abs().max().item() for t in ("params", "state")
+                     for k, v in b[t].items()]
+            return max(trees + [(a["losses"] - b["losses"]).abs().max().item()])
+
+        ee = full(runs["eager"], runs["eager2"])
+        ge = max(full(runs[g], runs[e]) for g in ("graph", "graph2") for e in ("eager", "eager2"))
+        params = lambda a, b: max((a["params"][k] - v).abs().max().item()
+                                  for k, v in b["params"].items())
+        vs_cpu = params(runs["eager"], cpu["dense"])
+        # the run's own sensitivity: the same run on the CPU in two summation
+        # orders (dense products, the kernels' plain versions)
+        orders = params(cpu["dense"], cpu["cuda"])
+        per_step = lambda run, k: [r.get(k, 0) for r in run["ran"]]
+        mom = {label: per_step(runs[label], "fused_transition")
+               for label in ("eager", "graph", "graph2", "eager2")}
+        sgd_tr = per_step(runs["sgd_graph"], "fused_transition")
+        sgd_runs = {label: sum(per_step(runs[label], "sgd_update"))
+                    for label in ("eager", "graph", "graph2", "eager2")}
+        problems = []
+        if not ge == ee == 0.0:
+            problems.append(f"graph vs eager {ge}, eager vs eager {ee} (want 0.0)")
+        if any(runs[label]["backend"] != "cuda" for label in runs):
+            problems.append(f"backends {[r['backend'] for r in runs.values()]}")
+        for label in ("graph", "graph2"):
+            if runs[label]["graph"] != (1, 1, OPTIM_STEPS - 1) or not runs[label]["ptrs_fixed"]:
+                problems.append(f"{label}: graph (captures, keys, replays) "
+                                f"{runs[label]['graph']}, state addresses fixed "
+                                f"{runs[label]['ptrs_fixed']}")
+        if any(v != sgd_tr for v in mom.values()) or not all(sgd_tr):
+            problems.append(f"fused_transition runs a superstep {mom} against SGD's {sgd_tr}")
+        if any(sgd_runs.values()) or not sum(per_step(runs["sgd_graph"], "sgd_update")):
+            problems.append(f"sgd_update runs under momentum {sgd_runs}")
+        if not vs_cpu <= 10 * max(orders, 1e-4):
+            problems.append(f"card vs CPU {vs_cpu} (want <= 10x the CPU's two orders' "
+                            f"{orders}, or 1e-3)")
+        if not all(bool(v.abs().max() > 0) for v in runs["graph"]["state"].values()):
+            problems.append("the momentum buffers never moved")
+        if problems:
+            raise AssertionError(f"optim {OPTIM_ROUND}: " + "; ".join(problems))
+        print(f"optim {OPTIM_ROUND} with momentum({LR}) ({OPTIM_STEPS} supersteps a run, turns "
+              f"eager, graph, graph, eager under deterministic cuDNN): graph vs eager {ge:.1e}, "
+              f"eager vs eager {ee:.1e} (held to 0.0); graph (captures, keys, replays) "
+              f"{runs['graph']['graph']}, momentum buffers at fixed addresses; fused_transition "
+              f"device runs a superstep {mom['graph']} = SGD's {sgd_tr}; sgd_update device runs "
+              f"{json.dumps(sgd_runs)} (SGD's graph run: "
+              f"{sum(per_step(runs['sgd_graph'], 'sgd_update'))}); parameters card vs CPU "
+              f"max abs {vs_cpu:.3e}, the CPU's dense vs kernels' plain versions "
+              f"{orders:.3e} (held to 10x that, or 1e-3: at momentum's effective rate a "
+              f"rounding difference grows about 10^3-fold a superstep) [{self.smi}]",
+              flush=True)
+        return {"graph_vs_eager": ge, "eager_vs_eager": ee, "card_vs_cpu": vs_cpu,
+                "cpu_orders": orders,
+                "graph": runs["graph"]["graph"], "fused_transition_runs": mom["graph"],
+                "sgd_fused_transition_runs": sgd_tr, "sgd_update_runs": sgd_runs}
+
+    def optim_offload(self) -> dict:
+        """(b) of the phase: the restart and the buffers' addresses, checked
+        around the round scheduler's ``_run`` (after its restart, before and
+        after the superstep's body)."""
+        torch = self.torch
+        from repro_torch.optim import momentum
+        from repro_torch.scenarios import build_scenario
+
+        run = build_scenario(OFFLOAD, graph=True, optimizer=momentum(LR))
+        sched, src = run.runtime.scheduler, run.batch_source()
+        ptrs = {k: v.data_ptr() for k, v in sched.opt_state.items()}
+        body, seen = sched._run, []
+
+        def checked(stacked):
+            zero = all(not bool(v.any()) for v in sched.opt_state.values())
+            losses = body(stacked)
+            moved = all(bool(v.any()) for v in sched.opt_state.values())
+            seen.append((zero, moved))
+            return losses
+
+        sched._run = checked
+        t0 = time.perf_counter()
+        losses = torch.cat([run.runtime.step(src).losses for _ in range(OFFLOAD_STEPS)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        g = sched._graph
+        fixed = {k: v.data_ptr() for k, v in sched.opt_state.items()} == ptrs
+        if not (seen == [(True, True)] * OFFLOAD_STEPS and fixed
+                and (g.captured, len(g._entries), g.replays) == (1, 1, OFFLOAD_STEPS - 1)
+                and bool(torch.isfinite(losses).all())):
+            raise AssertionError(f"optim {OFFLOAD}: (zero before, moved after) a superstep "
+                                 f"{seen}, addresses fixed {fixed}, graph {g.captured} "
+                                 f"captures, {len(g._entries)} keys, {g.replays} replays")
+        self.check_finite(sched.store.cluster_models, f"optim {OFFLOAD}")
+        print(f"optim {OFFLOAD} (10^6 clients, k_max {sched.store.k_max}) with momentum({LR}) "
+              f"on its graph: the state zero before each of {OFFLOAD_STEPS} supersteps' body "
+              f"and moved after it, at fixed addresses; 1 capture, {g.replays} replays; cluster "
+              f"models finite; {OFFLOAD_STEPS / dt:.3f} supersteps/s cold [{self.smi}]",
+              flush=True)
+        return {"restarts": len(seen), "supersteps_per_s_cold": OFFLOAD_STEPS / dt}
+
+    def optim_width(self) -> dict:
+        """(c) of the phase."""
+        import dataclasses
+        import gc
+
+        import numpy as np
+
+        torch = self.torch
+        from torch.utils._pytree import tree_leaves
+
+        from repro_torch.configs import get_config
+        from repro_torch.core import FLSpec, build_fl_round_step, resolve_backend
+        from repro_torch.core.local_update import per_client_update
+        from repro_torch.kernels import device_launches
+        from repro_torch.models import CausalLM
+        from repro_torch.optim import adam, momentum, sgd
+
+        ow = LM_WIDTH["arch_overrides"]
+        cfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                                  vocab_size=LM_WIDTH["vocab_size"], **ow)
+        model = CausalLM(cfg)
+        c, d = OPTIM_WIDTH["clients"], OPTIM_WIDTH["clusters"]
+        s, b = LM_WIDTH["seq_len"], LM_WIDTH["batch_size"]
+        fl = FLSpec(c, d, tau1=1, tau2=1, alpha=1, learning_rate=LR)
+        proto = fl.protocol()
+        backend = resolve_backend("cuda", proto.clusters, proto.P(), fl.alpha, device=self.dev)
+        w0 = model.init(torch.Generator().manual_seed(0))  # one client's leaves, on the host
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, c, b, s + 1))).to(self.dev)
+        batch = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+        del toks
+        n_params = sum(v.numel() for v in w0.values())
+        out, runs = {}, {}
+        for label, opt in (("sgd", sgd(LR)), ("momentum", momentum(LR)),
+                           ("adam", adam(OPTIM_WIDTH["adam_lr"], state_dtype=torch.bfloat16))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = {k: fn.launches for k, fn in self.lm_counters_view().items()}
+            params = {k: v.to(self.dev)[None].expand((c,) + tuple(v.shape)).contiguous()
+                      for k, v in w0.items()}
+            if label == "adam":
+                state = torch.func.vmap(opt.init)(params)
+                if any(0 in x.stride() or not x.is_contiguous() for x in tree_leaves(state)):
+                    raise AssertionError("optim lm-width: vmap(adam.init) gave a leaf that is "
+                                         "not owned contiguous memory")
+            else:
+                state = opt.init(params)
+            step = build_fl_round_step(model, opt, fl, backend=backend)
+            params, state, _ = step(params, state, batch)  # warm-up
+            (params, state, losses), ran = device_launches(lambda: step(params, state, batch))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OPTIM_WIDTH["timed"]):
+                params, state, losses = step(params, state, batch)
+            torch.cuda.synchronize()
+            rate = OPTIM_WIDTH["timed"] / (time.perf_counter() - t0)
+            host = {k: fn.launches - before[k] for k, fn in self.lm_counters_view().items()}
+            self.check_finite(params, f"optim lm-width {label}")
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError(f"optim lm-width {label}: losses {losses.tolist()}")
+            leaves = tree_leaves(state)
+            if any(not bool(torch.isfinite(x.float()).all()) for x in leaves if x.is_floating_point()):
+                raise AssertionError(f"optim lm-width {label}: non-finite state")
+            upd = {}
+            if leaves:
+                # the update alone on the run's tree (the parameters as gradients)
+                update = per_client_update(opt)
+                start_ev = torch.cuda.Event(enable_timing=True)
+                end_ev = torch.cuda.Event(enable_timing=True)
+                update(params, params, state)
+                torch.cuda.synchronize()
+                start_ev.record()
+                for _ in range(OPTIM_WIDTH["update_reps"]):
+                    update(params, params, state)
+                end_ev.record()
+                torch.cuda.synchronize()
+                nb = lambda ts: sum(x.numel() * x.element_size() for x in ts)
+                pb, sb = nb(params.values()), nb(leaves)
+                byts = (2 * pb + sb) + (pb + sb)  # read p, g, state; write p, state
+                bound_ms, _ = self.bound(byts, 0)
+                upd = {"ms": start_ev.elapsed_time(end_ev) / OPTIM_WIDTH["update_reps"],
+                       "bound_ms": bound_ms, "bytes": byts}
+            peak = torch.cuda.max_memory_allocated() - start
+            want = {"flash_attention_fwd.tensor_core": cfg.num_layers,
+                    "flash_attention_bwd.tensor_core": cfg.num_layers,
+                    "fused_transition": (fl.tau2 + 1) * self.launch_groups(params)}
+            got = {k: ran.get(k, 0) for k in want}
+            sgd_runs = ran.get("sgd_update", 0)
+            if got != want or (sgd_runs == 0) != (label != "sgd"):
+                raise AssertionError(f"optim lm-width {label}: device runs {ran}, expected "
+                                     f"{want} and sgd_update only under SGD")
+            runs[label] = got
+            out[label] = {"peak_bytes_above_start": peak, "supersteps_per_s_warm": rate,
+                          "device_runs": dict(got, sgd_update=sgd_runs), "host_launches": host,
+                          "state_bytes": sum(x.numel() * x.element_size() for x in leaves),
+                          "update": upd, "losses": losses.tolist()}
+            print(f"optim lm-width {label} (granite-8b widths, {cfg.num_layers} of 36 layers, "
+                  f"{cfg.dtype}, S={s}, b={b}; {n_params} params a client x {c} clients, C={c} "
+                  f"in D={d}, tau1=tau2=1, cuda backend; state "
+                  f"{out[label]['state_bytes'] / 1e9:.2f} GB): peak {peak / 2**30:.2f} GiB "
+                  f"above the turn's start; warm {rate:.4f} supersteps/s; device runs a "
+                  f"superstep {json.dumps(out[label]['device_runs'])}; params finite"
+                  + (f"; the update alone {upd['ms']:.3f} ms against a {upd['bound_ms']:.3f} ms "
+                     f"bytes bound ({upd['bytes'] / 1e9:.2f} GB)" if upd else "")
+                  + f" [{self.smi}]", flush=True)
+            del params, state, step, leaves, losses
+        out["device_runs"] = {
+            "fused_transition": {label: r["fused_transition"] for label, r in runs.items()},
+            "flash_attention": {label: r["flash_attention_fwd.tensor_core"]
+                                for label, r in runs.items()},
+            "flash_attention_backward": {label: r["flash_attention_bwd.tensor_core"]
+                                         for label, r in runs.items()}}
         return out
 
     def gemma2_width(self):
@@ -6419,6 +6762,7 @@ class Smoke:
             self.phase("fleet", self.fleet)
             self.phase("lm", self.lm_path)
             self.phase("lm-width", self.lm_width)
+            self.phase("optim", self.optim)
             self.phase("gemma2-width", self.gemma2_width)
             self.phase("families", self.families)
             self.phase("moe-width", self.moe_width)
@@ -6461,7 +6805,7 @@ class Smoke:
                           "gemma2_global", "gemma2_width_launches", "gemma2_width",
                           "serve_width", "collective_width_launches", "collective_width",
                           "launch_host_launches", "steps_launches", "flash_rows",
-                          "flash_rows_launches"):
+                          "flash_rows_launches", "optim"):
                 if extra in self.record[entry["name"]]:
                     entry[extra] = self.record[entry["name"]][extra]
         print(self.smi)

@@ -9,9 +9,11 @@ disk (numpy has no bf16), as the reference does.
 Leaf names and leaf order are the JAX package's: a dict's keys are taken in
 sorted order (JAX's pytree order), a dotted key of the port's flat trees
 (``"blocks.pos0.attn.wq"``, see ``repro_torch.convert``) is the nested path
-``blocks/pos0/attn/wq``, sequence entries are named by index, and path parts
-join with ``/``.  So a checkpoint the reference wrote restores into the port
-and one the port wrote restores in the reference, leaf for leaf.  The
+``blocks/pos0/attn/wq``, sequence entries are named by index, a
+``NamedTuple``'s (an ``optim.AdamState``) by ``.field`` in field order
+(``opt/.step``, ``opt/.m/w``), and path parts join with ``/``.  So a
+checkpoint the reference wrote restores into the port and one the port
+wrote restores in the reference, leaf for leaf.  The
 manifest's ``treedef`` is a string of the port's, which neither side reads
 back: restore rebuilds the structure of the template it is given.
 """
@@ -56,6 +58,10 @@ def _nest(tree: dict) -> dict:
     return out
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _walk(tree, path: tuple, out: list) -> None:
     if _is_leaf(tree):
         out.append((path, tree))
@@ -63,6 +69,9 @@ def _walk(tree, path: tuple, out: list) -> None:
         nested = _nest(tree)
         for k in sorted(nested):
             _walk(nested[k], path + (str(k),), out)
+    elif _is_namedtuple(tree):
+        for f in tree._fields:
+            _walk(getattr(tree, f), path + ("." + f,), out)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             _walk(v, path + (str(i),), out)
@@ -165,6 +174,8 @@ def _rebuild(tmpl, it):
                 node = node[p]
             flat[name] = node
         return flat
+    if _is_namedtuple(tmpl):
+        return type(tmpl)(*[_rebuild(v, it) for v in tmpl])
     if isinstance(tmpl, (list, tuple)):
         return type(tmpl)(_rebuild(v, it) for v in tmpl)
     return tmpl

@@ -11,8 +11,10 @@ from __future__ import annotations
 import importlib
 
 from ..models.config import ArchConfig
+from .shapes import SHAPES, InputShape, input_specs, make_concrete_batch
 
-__all__ = ["ARCH_NAMES", "get_config"]
+__all__ = ["ARCH_NAMES", "get_config", "all_configs", "SHAPES", "InputShape", "input_specs",
+           "make_concrete_batch"]
 
 _MODULES = {
     "grok-1-314b": "grok_1_314b",
@@ -35,3 +37,7 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
     mod = importlib.import_module(f"{__name__}.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    return {name: get_config(name) for name in ARCH_NAMES}

@@ -9,7 +9,9 @@ nested tree crosses as dotted names: ``flatten_params`` turns
 a}``, the port's layout, and ``unflatten_params`` undoes it.
 ``store_from_numpy`` loads a reference ``HostOffloadStore``'s state (its
 cluster stack and its host rows) into a bound port store, so both stores
-hold the same clients' states.
+hold the same clients' states.  ``opt_state_from_numpy`` carries an
+optimizer's state: SGD's ``()``, momentum's tree, or an ``AdamState`` (the
+reference's, leaves as numpy arrays) into the port's ``optim.AdamState``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_numpy", "params_to_numpy", "flatten_params", "unflatten_params",
-           "store_from_numpy"]
+           "store_from_numpy", "opt_state_from_numpy"]
 
 
 def _leaf(v, device) -> torch.Tensor:
@@ -81,3 +83,23 @@ def store_from_numpy(store, cluster_models: dict, host_rows: dict | None = None)
         dst.copy_(_leaf(v, dst.device).to(dst.dtype))
     for c, leaves in (host_rows or {}).items():
         store._host.put(int(c), [np.asarray(x) for x in leaves])
+
+
+def opt_state_from_numpy(state, device):
+    """A reference optimizer state as numpy (``jax.tree.map(np.asarray,
+    state)``) -> the port's: ``()`` stays ``()``, a (nested) dict of arrays
+    becomes the port's flat ``{dotted name: tensor}``, and an ``AdamState``
+    (any tuple with fields ``step``, ``m``, ``v``) ``optim.AdamState``, its
+    step an int32 tensor; every dtype kept (bf16 moments stay bf16)."""
+    if isinstance(state, dict):
+        return params_from_numpy(flatten_params(state), device)
+    if getattr(state, "_fields", None) == ("step", "m", "v"):
+        from .optim import AdamState
+
+        return AdamState(step=_leaf(state.step, device),
+                         m=opt_state_from_numpy(state.m, device),
+                         v=opt_state_from_numpy(state.v, device))
+    if isinstance(state, tuple) and not state:
+        return ()
+    raise TypeError(f"an optimizer state is (), a dict of arrays or an AdamState; got "
+                    f"{type(state).__name__}")

@@ -2,8 +2,11 @@
 
 The client models are stacked along a leading ``(C, ...)`` axis of every
 parameter tensor, and ``torch.func.vmap(torch.func.grad_and_value(loss))``
-computes every client's gradient in one batched pass.  The update that
-follows is elementwise over the stacked tensors, so it needs no vmap.
+computes every client's gradient in one batched pass.  The optimizer's
+update follows, mapped over the client axis as the reference's
+``vmap(opt.update)`` maps it (``per_client_update``): each client keeps its
+own state.  A stateless update (SGD's ``()``) is elementwise over the
+stacked tensors and runs on them as they are.
 
 ``build_sequential_local_update`` is the per-client loop reference the
 batched stage is tested against.
@@ -18,11 +21,13 @@ every leaf goes through it.
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 __all__ = [
     "build_local_update",
     "build_sequential_local_update",
     "fused_sgd_applicable",
+    "per_client_update",
 ]
 
 
@@ -42,6 +47,23 @@ def fused_sgd_applicable(opt, backend) -> bool:
     )
 
 
+def per_client_update(opt):
+    """``opt.update`` over stacked ``(C, ...)`` trees, each client with its own
+    state: the reference's ``vmap(opt.update)``.  Every state leaf carries
+    the client axis: a stateful ``opt.init`` of the stack (momentum), or
+    ``torch.func.vmap(opt.init)`` (Adam, whose step is then ``(C,)``); a
+    0-d leaf, as ``adam().init`` of the stack gives, raises ``ValueError``,
+    as in the reference.  A state with no tensors needs no map."""
+    mapped = torch.func.vmap(opt.update)
+
+    def update(params, grads, state):
+        if not tree_leaves(state):
+            return opt.update(params, grads, state)
+        return mapped(params, grads, state)
+
+    return update
+
+
 def build_local_update(model, opt, *, backend=None):
     """Returns ``local_update(params, opt_state, batch) -> (params,
     opt_state, losses)`` over stacked ``(C, ...)`` client dicts.
@@ -52,6 +74,7 @@ def build_local_update(model, opt, *, backend=None):
     """
     use_fused = fused_sgd_applicable(opt, backend)
     grads_and_losses = torch.func.vmap(torch.func.grad_and_value(model.loss))
+    update = per_client_update(opt)
 
     def local_update(params, opt_state, batch):
         grads, losses = grads_and_losses(params, batch)
@@ -63,7 +86,7 @@ def build_local_update(model, opt, *, backend=None):
             grads = {k: g.contiguous() for k, g in grads.items()}
             params = sgd_update_tree(params, grads, opt.lr, inplace=True)
         else:
-            params, opt_state = opt.update(params, grads, opt_state)
+            params, opt_state = update(params, grads, opt_state)
         return params, opt_state, losses
 
     return local_update
@@ -72,21 +95,24 @@ def build_local_update(model, opt, *, backend=None):
 def build_sequential_local_update(model, opt):
     """Per-client loop reference: ``C`` gradient passes per micro-step.
 
-    Same signature and stacked operands as ``build_local_update``, for
-    stateless optimizers (``opt_state`` is passed through unchanged).
+    Same signature and stacked operands as ``build_local_update``: client
+    ``i`` steps on row ``i`` of every state leaf, and the clients' states
+    are stacked back, as the reference indexes and restacks them.
     """
     grad_and_loss = torch.func.grad_and_value(model.loss)
 
     def sequential_update(params, opt_state, batch):
         num_clients = next(iter(params.values())).shape[0]
-        new, losses = [], []
+        new, states, losses = [], [], []
         for i in range(num_clients):
             p = {k: v[i] for k, v in params.items()}
             g, loss = grad_and_loss(p, {k: v[i] for k, v in batch.items()})
-            p, _ = opt.update(p, g, opt_state)
+            p, s = opt.update(p, g, tree_map(lambda x: x[i], opt_state))
             new.append(p)
+            states.append(s)
             losses.append(loss)
         params = {k: torch.stack([p[k] for p in new]) for k in params}
+        opt_state = tree_map(lambda *xs: torch.stack(xs), *states)
         return params, opt_state, torch.stack(losses)
 
     return sequential_update

@@ -21,7 +21,8 @@ import numpy as np
 
 from .topology import Topology, mixing_matrix, zeta as _zeta
 
-__all__ = ["ClusterSpec", "SDFEELConfig", "transition_matrix", "AggregationEvent"]
+__all__ = ["ClusterSpec", "SDFEELConfig", "transition_matrix", "AggregationEvent",
+           "schedule_event"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,11 +158,7 @@ class SDFEELConfig:
         With ``tau2 == 1`` every ``tau1``-th step is ``inter`` and ``intra``
         never fires.
         """
-        if k % (self.tau1 * self.tau2) == 0:
-            return "inter"
-        if k % self.tau1 == 0:
-            return "intra"
-        return "local"
+        return schedule_event(k, self.tau1, self.tau2)
 
 
 def transition_matrix(cfg: SDFEELConfig, event: AggregationEvent) -> np.ndarray:
@@ -174,3 +171,12 @@ def transition_matrix(cfg: SDFEELConfig, event: AggregationEvent) -> np.ndarray:
         return v @ b
     p = np.linalg.matrix_power(cfg.P(), cfg.alpha)
     return v @ p @ b
+
+
+def schedule_event(k: int, tau1: int, tau2: int) -> AggregationEvent:
+    """Which aggregation fires after local step ``k`` (``SDFEELConfig.event_at``)."""
+    if k % (tau1 * tau2) == 0:
+        return "inter"
+    if k % tau1 == 0:
+        return "intra"
+    return "local"

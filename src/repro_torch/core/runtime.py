@@ -63,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import heapq
+import warnings
 from typing import Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
@@ -119,6 +120,20 @@ THETA = "async.theta"
 M_HAT = "async.m_hat"
 STEP_MASK = "async.step_mask"
 _EVENT_OPERANDS = (CLUSTER, INV_THETA, THETA, M_HAT, STEP_MASK, MIXING)
+
+_UNSET = object()
+
+
+def _fleet_from_legacy(fleet: Optional[FleetSpec], owner: str, **legacy) -> FleetSpec:
+    """Fold the deprecated ``profile=``/``participation=`` keywords into a
+    ``FleetSpec``, with a ``DeprecationWarning``, as the reference does; the
+    factories pass ``fleet=`` and never take this path."""
+    used = {k: v for k, v in legacy.items() if v is not _UNSET}
+    if used:
+        warnings.warn(f"{owner}({'/'.join(sorted(used))}=...) keywords are deprecated; "
+                      f"pass fleet=FleetSpec(...) instead", DeprecationWarning, stacklevel=3)
+        fleet = dataclasses.replace(fleet or FleetSpec(), **used)
+    return fleet if fleet is not None else FleetSpec()
 
 
 class FleetAxes:
@@ -478,7 +493,8 @@ class SyncScheduler:
 
     def __init__(self, cfg: SDFEELConfig, latency: Optional[LatencyModel] = None,
                  backend=None, prefetch: bool = True, graph: Optional[bool] = None,
-                 fleet: Optional[FleetSpec] = None, mesh=None):
+                 fleet: Optional[FleetSpec] = None, mesh=None, *, profile=_UNSET,
+                 participation=_UNSET):
         self.cfg = cfg
         self.latency = latency
         self.prefetch = prefetch
@@ -486,7 +502,8 @@ class SyncScheduler:
         self._backend_spec = backend
         self._graph_spec = graph
         self._mesh_spec = mesh
-        self.fleet = fleet if fleet is not None else FleetSpec()
+        self.fleet = _fleet_from_legacy(fleet, "SyncScheduler", profile=profile,
+                                        participation=participation)
         self.profile = self.fleet.resolve_profile(cfg.clusters.num_clients)
         self.axes: Optional[FleetAxes] = None
         self._round_cache = None    # (round, pacing mask, uplink penalty, trace round, {event: dt})
@@ -721,13 +738,24 @@ class RoundScheduler:
     of the step.  A step gathers, resets the optimizer state, runs the
     superstep (replayed from one graph for every residency) and scatters, so
     device memory is bounded by ``k_max`` whatever the fleet's size.
+
+    ``optimizer`` (default ``optim.sgd(fl.learning_rate)``) may keep state:
+    ``self.opt_state`` is ``optimizer.init(self.params)``, allocated once at
+    ``bind`` (on a mesh the rank's ``(1, ...)`` row), each client's rows
+    of it stepped by that client's updates (``local_update.per_client_update``)
+    and, on a graph, captured and written back into at fixed addresses.
+    Under offload it restarts every superstep, as in the reference.  Adam's
+    scalar step over the stack raises at the first step, as the reference's
+    ``vmap`` does.  The deprecated ``profile=``/``participation=`` keywords
+    (also on the sync and async schedulers) warn and fold into ``fleet``.
     """
 
     name = "round"
 
     def __init__(self, fl, optimizer=None, latency: Optional[LatencyModel] = None,
                  backend=None, rounds_per_step: int = 1, prefetch: bool = True,
-                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None, mesh=None):
+                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None, mesh=None,
+                 *, profile=_UNSET, participation=_UNSET):
         if rounds_per_step < 1:
             raise ValueError(f"rounds_per_step must be >= 1, got {rounds_per_step}")
         self.fl = fl
@@ -740,7 +768,8 @@ class RoundScheduler:
         self._backend_spec = backend
         self._graph_spec = graph
         self._mesh_spec = mesh
-        self.fleet = fleet if fleet is not None else FleetSpec()
+        self.fleet = _fleet_from_legacy(fleet, "RoundScheduler", profile=profile,
+                                        participation=participation)
         self.profile = self.fleet.resolve_profile(fl.num_clients)
         self.axes: Optional[FleetAxes] = None
         self._proto = fl.protocol()
@@ -1030,12 +1059,13 @@ class AsyncScheduler:
     name = "async"
 
     def __init__(self, cfg, backend=None, prefetch: bool = True,
-                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None):
+                 graph: Optional[bool] = None, fleet: Optional[FleetSpec] = None, *,
+                 participation=_UNSET):
         self.cfg = cfg
         self.prefetch = prefetch
         self._backend_spec = backend
         self._graph_spec = graph
-        self.fleet = fleet if fleet is not None else FleetSpec()
+        self.fleet = _fleet_from_legacy(fleet, "AsyncScheduler", participation=participation)
         self.axes: Optional[FleetAxes] = None
         self._prefetched = None
 

@@ -117,7 +117,7 @@ def build_fl_train_step(model, opt, fl: FLSpec, event: str = "inter", mesh=None,
     from .aggregation import fleet_mean_losses, mesh_rows
     from .backends import DenseBackend, resolve_backend
     from .device import resolve_device
-    from .local_update import build_local_update
+    from .local_update import build_local_update, per_client_update
 
     if isinstance(mesh, DeviceMesh):
         return _build_on_device_mesh(model, opt, fl, event, mesh, client_axis, microbatch,
@@ -157,10 +157,11 @@ def build_fl_train_step(model, opt, fl: FLSpec, event: str = "inter", mesh=None,
             return {k: v * scale for k, v in acc.items()}, loss * scale
 
         vgrads = torch.func.vmap(client_grads)
+        update = per_client_update(opt)
 
         def local_update(params, opt_state, batch):
             grads, loss = vgrads(params, batch)
-            params, opt_state = opt.update(params, grads, opt_state)
+            params, opt_state = update(params, grads, opt_state)
             return params, opt_state, loss
     else:
         # one micro-batch: the shared batched stage
@@ -218,6 +219,7 @@ def _build_on_device_mesh(model, opt, fl: FLSpec, event: str, mesh, client_axis:
                           microbatch: int, participation: bool):
     """``build_fl_train_step`` on a ``DeviceMesh`` (the module docstring)."""
     from torch.distributed.tensor import DTensor, Shard
+    from torch.utils._pytree import tree_leaves, tree_map
 
     from ..launch.mesh import ClientMesh, on_fake_group
     from .aggregation import fleet_mean_losses
@@ -255,31 +257,50 @@ def _build_on_device_mesh(model, opt, fl: FLSpec, event: str, mesh, client_axis:
         cmesh = ClientMesh.from_device_mesh(mesh, client_axis)
         backend = DenseBackend(proto.clusters, proto.P(), fl.alpha, mesh=cmesh)
 
+    def row_placements(x):
+        """A stacked DTensor leaf's placements without the client dimension, on
+        the sub-mesh of the other axes (a dimension index one lower)."""
+        pl = [p for i, p in enumerate(x.placements) if i != ci]
+        return tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in pl)
+
     def client_view(x, row):
         """Client ``row`` of a stacked DTensor leaf's local shard, as a DTensor
-        on the sub-mesh of the other axes (a dimension index one lower)."""
-        pl = [p for i, p in enumerate(x.placements) if i != ci]
-        pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in pl)
-        return DTensor.from_local(x.to_local()[row], sub, pl, run_check=False)
+        on the sub-mesh of the other axes."""
+        return DTensor.from_local(x.to_local()[row], sub, row_placements(x), run_check=False)
+
+    def stacked_local(x, *rows):
+        """The rank's clients' ``rows`` back in the layout of ``x``'s local
+        shard (a gradient may come back Partial)."""
+        pl = row_placements(x)
+        return torch.stack([r.redistribute(sub, pl).to_local() for r in rows])
+
+    def as_stacked(x, local):
+        return DTensor.from_local(local.contiguous(), mesh, x.placements, run_check=False)
 
     def train_step_p(params, opt_state, batch, weights=None):
         first = next(iter(params.values()))
         n_local = first.to_local().shape[0]
-        new_rows = {k: [] for k in params}
+        if any(x.ndim == 0 for x in tree_leaves(opt_state)):
+            raise ValueError("a 0-d optimizer state leaf has no client axis to map over: "
+                             "init the state per client (torch.func.vmap(opt.init)), as "
+                             "the reference's vmap(opt.update) requires")
+        new_rows, states = [], []
         losses = []
         for r in range(n_local):
             p = {k: client_view(v, r) for k, v in params.items()}
             b = {k: client_view(v, r) for k, v in batch.items()}
             grads, loss = _client_grads(model, p, b, microbatch)
-            new, opt_state = opt.update(p, grads, opt_state)
-            for k, v in new.items():
-                # back to the leaf's layout (a gradient may come back Partial)
-                new_rows[k].append(v.redistribute(sub, p[k].placements).to_local())
+            # client r's own row of every state leaf, as the reference's vmap
+            new, state = opt.update(p, grads, tree_map(lambda x: client_view(x, r), opt_state))
+            new_rows.append(new)
+            states.append(state)
             losses.append(loss.full_tensor() if isinstance(loss, DTensor) else loss)
-        local = backend.transition({k: torch.stack(v) for k, v in new_rows.items()}, event,
-                                   weights=weights)
-        out = {k: DTensor.from_local(v.contiguous(), mesh, params[k].placements,
-                                     run_check=False) for k, v in local.items()}
+        local = backend.transition(
+            {k: stacked_local(v, *[row[k] for row in new_rows]) for k, v in params.items()},
+            event, weights=weights)
+        out = {k: as_stacked(params[k], v) for k, v in local.items()}
+        opt_state = tree_map(lambda x, *rs: as_stacked(x, stacked_local(x, *rs)), opt_state,
+                             *states)
         losses = torch.stack(losses).float()
         loss = (losses.mean() if n == 1 else fleet_mean_losses(losses, cmesh)[0])
         return out, opt_state, loss

@@ -54,6 +54,11 @@ class FederatedDataset:
         idx = p[rng.integers(0, len(p), size=batch_size)]
         return {"x": self.data.x[idx], "y": self.data.y[idx]}
 
+    def eval_batch(self, test: SyntheticClassification, max_samples: int = 2048) -> dict:
+        """The first ``max_samples`` examples of ``test`` (all, if fewer)."""
+        n = min(max_samples, len(test))
+        return {"x": test.x[:n], "y": test.y[:n]}
+
 
 class ClientBatcher:
     """Stateful per-client mini-batch streams (the async scheduler's source)."""

@@ -992,6 +992,50 @@ def test_graph_replays_match_eager(cuda, name, steps, kw):
 
 
 @pytest.mark.cuda
+def test_momentum_on_the_round_graph_equals_eager(cuda):
+    """``round-superstep-ring`` with ``optim.momentum``: turns eager, graph,
+    graph, eager under cuDNN's deterministic algorithms, graph = eager at
+    0.0 (parameters, momentum buffers, losses); one capture whose momentum
+    buffers keep the addresses ``bind`` gave them over every replay; the
+    transition kernel runs, and ``sgd_update`` never launches (momentum is
+    not plain SGD)."""
+    from repro_torch.optim import momentum
+
+    steps, runs = 3, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, graph in (("eager", False), ("graph", True), ("graph2", True),
+                             ("eager2", False)):
+            run = build_scenario("round-superstep-ring", device=cuda, graph=graph,
+                                 num_samples=400, optimizer=momentum(0.05))
+            sched, src = run.runtime.scheduler, run.batch_source()
+            state_ptrs = {k: v.data_ptr() for k, v in sched.opt_state.items()}
+            before = (sgd_update.launches, fused_transition.launches)
+            losses = torch.cat([run.runtime.step(src).losses for _ in range(steps)])
+            torch.cuda.synchronize()
+            assert sgd_update.launches == before[0]
+            assert fused_transition.launches > before[1]
+            if graph:
+                g = sched._graph
+                assert (g.captured, len(g._entries), g.replays) == (1, 1, steps - 1)
+                assert {k: v.data_ptr() for k, v in sched.opt_state.items()} == state_ptrs
+            assert all(bool(v.abs().max() > 0) for v in sched.opt_state.values())
+            runs[label] = ({k: v.clone() for k, v in sched.params.items()},
+                           {k: v.clone() for k, v in sched.opt_state.items()}, losses)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def diff(a, b):
+        return max(max((x - b[i][k]).abs().max().item() for k, x in a[i].items())
+                   for i in (0, 1)) + (a[2] - b[2]).abs().max().item()
+
+    ee = diff(runs["eager"], runs["eager2"])
+    ge = max(diff(runs[g], runs[e]) for g in ("graph", "graph2") for e in ("eager", "eager2"))
+    assert ge == ee == 0.0, (ge, ee)
+
+
+@pytest.mark.cuda
 def test_graph_recaptures_on_a_new_batch_shape(cuda):
     run = build_scenario("mnist-noniid-ring", device=cuda, tau2=2)
     rng = np.random.default_rng(0)

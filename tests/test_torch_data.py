@@ -51,3 +51,18 @@ def test_stacked_batch_identical():
     np.testing.assert_array_equal(
         tds.stacked_batch(5, tr, clients=[3, 1])["y"], jds.stacked_batch(5, jr, clients=[3, 1])["y"]
     )
+
+
+@pytest.mark.parametrize("max_samples", [None, 50, 10_000])
+def test_eval_batch_identical(max_samples):
+    data = jdata.mnist_like(400, seed=0)
+    test = jdata.mnist_like(300, seed=1)
+    parts = jdata.skewed_label_partition(data.y, 8, seed=0)
+    jds = jdata.FederatedDataset(data, parts)
+    tds = tdata.FederatedDataset(tdata.SyntheticClassification(data.x, data.y, 10), parts)
+    ttest = tdata.SyntheticClassification(test.x, test.y, 10)
+    kw = {} if max_samples is None else {"max_samples": max_samples}
+    jb, tb = jds.eval_batch(test, **kw), tds.eval_batch(ttest, **kw)
+    assert len(tb["y"]) == min(max_samples or 2048, 300)
+    for k in ("x", "y"):
+        np.testing.assert_array_equal(tb[k], jb[k])

@@ -54,6 +54,17 @@ def test_event_at_agrees(tau1, tau2):
     assert [tc.event_at(k) for k in range(1, 40)] == [jc.event_at(k) for k in range(1, 40)]
 
 
+@pytest.mark.parametrize("tau1,tau2", [(5, 1), (5, 2), (2, 3), (1, 1)])
+def test_schedule_event_agrees(tau1, tau2):
+    from repro.core.protocol import schedule_event as jschedule
+    from repro_torch.core.protocol import schedule_event
+
+    tc = tcore.SDFEELConfig(tcore.ClusterSpec.uniform(8, 4), tcore.ring(4), tau1=tau1, tau2=tau2)
+    events = [schedule_event(k, tau1, tau2) for k in range(1, 40)]
+    assert events == [jschedule(k, tau1, tau2) for k in range(1, 40)]
+    assert events == [tc.event_at(k) for k in range(1, 40)]
+
+
 def test_tau2_one_never_fires_intra():
     tc = tcore.SDFEELConfig(tcore.ClusterSpec.uniform(8, 4), tcore.ring(4), tau1=5, tau2=1)
     assert "intra" not in {tc.event_at(k) for k in range(1, 50)}

@@ -7,8 +7,9 @@ and inter events) agree within 1e-4 max abs on the parameters and 1e-4
 relative on the eval loss — XLA and oneDNN reduce convolutions in different
 orders, and the difference compounds over the steps.
 """
-import os
 import ast
+import dataclasses
+import os
 import pathlib
 
 import jax
@@ -198,6 +199,30 @@ def test_fleet_axes_are_taken_by_every_scheduler(scenario, extra, axis):
         axis.get("profile"), axis.get("participation"), axis.get("faults"))
     assert (sched.axes.plan is not None) == ("participation" in axis)
     assert (sched.axes.faults is not None) == ("faults" in axis)
+
+
+@pytest.mark.parametrize("owner", ["SyncScheduler", "RoundScheduler", "AsyncScheduler"])
+def test_deprecated_fleet_keywords_warn_and_fold_into_the_fleet_spec(owner):
+    legacy = {"participation": {"strategy": "uniform-k", "k": 2}}
+    if owner != "AsyncScheduler":  # the reference's async scheduler takes no profile
+        legacy["profile"] = {"kind": "uniform", "heterogeneity": 2.0}
+
+    def make(mod, **kw):
+        first = (mod.FLSpec(8, 4) if owner == "RoundScheduler"
+                 else mod.SDFEELConfig(mod.ClusterSpec.uniform(8, 4), mod.ring(4)))
+        return getattr(mod, owner)(first, **legacy, **kw)
+
+    with pytest.warns(DeprecationWarning, match="keywords are deprecated") as jw:
+        jsched = make(jcore)
+    with pytest.warns(DeprecationWarning, match="keywords are deprecated") as tw:
+        tsched = make(tcore)
+    assert [str(w.message) for w in tw] == [str(w.message) for w in jw]
+    assert tsched.fleet == tcore.FleetSpec(**legacy)
+    assert dataclasses.asdict(tsched.fleet) == dataclasses.asdict(jsched.fleet)
+    # folded into a given fleet, whose other axes stay
+    fleet = tcore.FleetSpec(store="host-offload")
+    with pytest.warns(DeprecationWarning):
+        assert make(tcore, fleet=fleet).fleet == dataclasses.replace(fleet, **legacy)
 
 
 def test_store_refusal_names_its_roadmap_item():

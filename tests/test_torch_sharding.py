@@ -188,6 +188,25 @@ def test_shapes_and_input_specs_equal_reference():
         input_specs(get_config("granite-8b"), SHAPES["train_4k"], 3)
 
 
+def test_configs_export_all_configs_and_the_shapes_as_the_reference():
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    from repro_torch.configs import shapes
+
+    assert sorted(tconfigs.__all__) == sorted(jconfigs.__all__)
+    tall, jall = tconfigs.all_configs(), jconfigs.all_configs()
+    assert list(tall) == list(jall) == list(ARCH_NAMES)
+    for name, cfg in tall.items():
+        assert cfg == get_config(name)
+        # every width and option as the reference's; the attention route is
+        # named by each package's own kernels
+        t, j = dataclasses.asdict(cfg), dataclasses.asdict(jall[name])
+        assert (t.pop("attn_impl"), j.pop("attn_impl")) == ("cuda", "xla")
+        assert t == j, name
+    for name in ("SHAPES", "InputShape", "input_specs", "make_concrete_batch"):
+        assert getattr(tconfigs, name) is getattr(shapes, name)
+
+
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_concrete_batch_equals_reference(name):
     from repro.configs import get_config as jget
