@@ -24,12 +24,13 @@ from typing import Any, Optional
 
 __all__ = ["ModelSpec", "DataSpec", "FleetSpec", "ExecSpec", "RunConfig", "MODEL_KINDS"]
 
-MODEL_KINDS = ("mnist-cnn", "cifar-cnn")
+MODEL_KINDS = ("mnist-cnn", "cifar-cnn", "causal-lm")
+
 
 def _model_registry() -> dict:
-    from ..models import CifarCNN, MnistCNN
+    from ..models import CausalLM, CifarCNN, MnistCNN
 
-    return {"mnist-cnn": MnistCNN, "cifar-cnn": CifarCNN}
+    return {"mnist-cnn": MnistCNN, "cifar-cnn": CifarCNN, "causal-lm": CausalLM}
 
 
 @dataclasses.dataclass

@@ -48,7 +48,7 @@ DEVICE_KERNELS = {
     "gossip_mix_kernel": "gossip_mix",
     "flash_fwd_split_tf32_kernel": "flash_attention_fwd.split_tf32",
     "flash_fwd_sm90_kernel": "flash_attention_fwd.tensor_core",
-    "flash_bwd_dq_kernel": "flash_attention_bwd.cuda_core",
+    "flash_bwd_dq_split_tf32_kernel": "flash_attention_bwd.split_tf32",
     "flash_bwd_dq_sm90_kernel": "flash_attention_bwd.tensor_core",
 }
 _KERNEL_NAME = re.compile(r"\b(" + "|".join(DEVICE_KERNELS) + r")\b")

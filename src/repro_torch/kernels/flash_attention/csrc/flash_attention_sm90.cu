@@ -6,9 +6,9 @@
 // flash_attention_pallas) for bf16 inputs with hd % 8 == 0 and hd <= 256.
 // Backward: no TPU counterpart (the reference differentiates its plain
 // attention through XLA); here for bf16 with hd % 8 == 0 and hd <= 256.
-// Every other forward (f32, hd % 8 != 0) runs in split TF32
-// (flash_attention_split_tf32.cu), every other backward (f32, hd % 8 != 0)
-// on the CUDA cores (flash_attention.cu); ops.py picks by dtype and hd,
+// Every other call (f32, hd % 8 != 0) runs in split TF32
+// (flash_attention_split_tf32.cu forward, flash_attention_bwd_split_tf32.cu
+// backward); ops.py picks by dtype and hd,
 // never by a failure.  The function is the one of ref.py: scores
 // (q . k) * hd^-0.5, then cap * tanh(s / cap) under a cap; key kp live for
 // query qp when kp <= qp (and qp - kp < window); masked probabilities

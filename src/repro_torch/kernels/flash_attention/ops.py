@@ -16,16 +16,15 @@ differentiable, vmappable op the model calls.
   -> (C*B, S, H, hd)``, so a vmapped fleet is one launch per layer, forward
   and backward alike.
 
-Three routes, chosen by ``route(dtype, hd, backward)`` alone, never by a
+Two routes, chosen by ``route(dtype, hd, backward)`` alone, never by a
 failure: ``"tensor_core"`` (``csrc/flash_attention_sm90.cu``: wgmma and
 TMA, bf16 with ``hd % 8 == 0`` and hd <= 256, forward and backward; the
 backward's kernels up to hd 128 hold dK and dV in each thread, its wide
-ones (tiles of 160 and 256 columns) split them over two warpgroups),
-``"split_tf32"`` (``csrc/flash_attention_split_tf32.cu``: every other
-forward, f32 and bf16 with ``hd % 8 != 0``, on the tensor cores in split
-TF32, an f32-accurate emulation) and ``"cuda_core"``
-(``csrc/flash_attention.cu``: every other backward, f32 and bf16 with
-``hd % 8 != 0``, f32 math on the CUDA cores).  Bound by operations at the
+ones (tiles of 160 and 256 columns) split them over two warpgroups) and
+``"split_tf32"`` (every other call, f32 and bf16 with ``hd % 8 != 0``, on
+the tensor cores in split TF32, an f32-accurate emulation:
+``csrc/flash_attention_split_tf32.cu`` forward,
+``csrc/flash_attention_bwd_split_tf32.cu`` backward).  Bound by operations at the
 path's shapes: ``4 * hd`` flops per live (query, key) pair forward (``S (S
 + 1) / 2`` pairs per head causally, fewer under a window), about 2.5x that
 backward, against q, k, v, out (dO, dq, dk, dv) and lse of traffic.
@@ -59,7 +58,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "MAX
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256  # widest tile the kernels are built for
-ROUTES = ("tensor_core", "split_tf32", "cuda_core")
+ROUTES = ("tensor_core", "split_tf32")
 
 
 def route(dtype: torch.dtype, hd: int, backward: bool = False) -> str:
@@ -67,10 +66,12 @@ def route(dtype: torch.dtype, hd: int, backward: bool = False) -> str:
     ``"tensor_core"`` for bf16 with ``hd % 8 == 0`` (TMA's 16-byte strides)
     up to 256, forward and backward (past hd 128 the backward's dK and dV
     sit in the two consumer warpgroups, one each, as a thread has no room
-    for both); else ``"split_tf32"`` forward and ``"cuda_core"`` backward."""
+    for both); else ``"split_tf32"``, forward and backward.  ``backward``
+    is kept for the callers that name the pass: both passes take the same
+    route."""
     if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= MAX_HEAD_DIM:
         return "tensor_core"
-    return "cuda_core" if backward else "split_tf32"
+    return "split_tf32"
 
 
 @functools.cache
@@ -83,11 +84,9 @@ def _bind():
     for rname, suffix in (("split_tf32", "_split_tf32"), ("tensor_core", "_sm90")):
         fwd[rname] = getattr(lib, f"flash_attention_fwd{suffix}_launch")
         fwd[rname].argtypes = [ctypes.c_void_p] * 5 + tail
-        fwd[rname].restype = ctypes.c_int
-    for rname, suffix in (("cuda_core", ""), ("tensor_core", "_sm90")):
         bwd[rname] = getattr(lib, f"flash_attention_bwd{suffix}_launch")
         bwd[rname].argtypes = [ctypes.c_void_p] * 10 + tail
-        bwd[rname].restype = ctypes.c_int
+        fwd[rname].restype = bwd[rname].restype = ctypes.c_int
     return lib, fwd, bwd
 
 
@@ -157,7 +156,7 @@ def _scale(hd: int) -> float:
 
 
 # the peak each route's products run at (roofline.analysis.PEAK_FLOPS)
-_CLASS = {"tensor_core": "bf16", "split_tf32": "split_tf32", "cuda_core": "f32"}
+_CLASS = {"tensor_core": "bf16", "split_tf32": "split_tf32"}
 
 
 def live_pairs(s: int, window: Optional[int], rows: Optional[tuple] = None) -> int:
@@ -252,7 +251,7 @@ def _bwd_launch(way, q, k, v, out, lse, dout, window, logit_cap, rows=None):
     lib, _, fns = _bind()
     # f32 scratch: delta (B, Hq, S); on the tensor cores delta and lse log2(e)
     # in rows padded to the dK/dV kernel's query tile
-    n_rows = s if way == "cuda_core" else 2 * lib.flash_attention_sm90_rows(s)
+    n_rows = s if way == "split_tf32" else 2 * lib.flash_attention_sm90_rows(s)
     delta = torch.empty((b, hq, n_rows), dtype=torch.float32, device=q.device)
     rc = fns[way](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

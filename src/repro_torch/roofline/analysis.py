@@ -13,7 +13,7 @@ v5e's)::
 Peaks (``PEAK_FLOPS``, dense, no sparsity): bf16 989 TFLOP/s on the tensor
 cores; f32 67 TFLOP/s on the CUDA cores (the port runs f32 products with
 TF32 off, so an f32 product is charged here, not at a TF32 rate); split TF32
-165 TFLOP/s (three TF32 products a product, the flash forward's f32 route).
+165 TFLOP/s (three TF32 products a product, the flash kernels' f32 route).
 One peak for every product, as the reference's single bf16 rate, would
 misstate an f32 step by 15x.  Links: NVLink 450 GB/s a direction between
 the 8 GPUs of a node; the network 50 GB/s a GPU (one 400 Gb/s NIC) between

@@ -537,12 +537,110 @@ def test_flash_split_tf32_forward_matches_plain(cuda, dtype, case):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
+# the split-TF32 backward: SPLIT_CASES (small grids: two groups of 2 warps
+# split each stage), 64-row blocks (grids that fill the card twice over) at
+# hd 64 and 128 in f32 and at bf16 hd 100, and the hd-256 tile's two column
+# groups at hd 256 and 200
+SPLIT_BWD_CASES = SPLIT_CASES + [
+    (torch.float32, (4, 1024, 16, 8, 64, None, None)),
+    (torch.float32, (4, 1024, 16, 8, 128, 300, 30.0)),
+    (torch.bfloat16, (4, 1024, 16, 8, 100, None, None)),
+    (torch.float32, (2, 160, 8, 2, 256, 48, 50.0)),
+    (torch.float32, (2, 90, 4, 4, 200, None, None)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case", SPLIT_BWD_CASES)
+def test_flash_split_tf32_backward_matches_plain(cuda, dtype, case):
+    """The split-TF32 backward against the plain version: 1e-4 (f32) and
+    3e-2 (bf16) of the largest reference entry, one launch on its route."""
+    b, s, hq, hkv, hd, window, cap = case
+    q, k, v, dout = _qkvg(cuda, dtype, b, s, hq, hkv, hd)
+    assert route(dtype, hd, backward=True) == "split_tf32"
+    out, lse = flash_attention_fwd(q, k, v, window, cap)
+    n = flash_attention_bwd.routes["split_tf32"]
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, window, cap)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.routes["split_tf32"] == n + 1
+    for got, ref in zip(grads, refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        _close(got, ref, 1e-4 if dtype == torch.float32 else 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case", SPLIT_BWD_CASES)
+def test_flash_split_tf32_backward_is_bitwise_deterministic(cuda, dtype, case):
+    """Two calls of the split-TF32 backward on the same inputs are bitwise
+    equal: no atomics, and the warp groups' sums merge in a fixed order."""
+    b, s, hq, hkv, hd, window, cap = case
+    q, k, v, dout = _qkvg(cuda, dtype, b, s, hq, hkv, hd)
+    out, lse = flash_attention_fwd(q, k, v, window, cap)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+    second = flash_attention_bwd(q, k, v, out, lse, dout, window, cap)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk,ranks,window", [
+    ((2, 512, 8, 2, 64), 128, 4, None),  # ROWS_CASES holds it with window 100
+    ((16, 64, 4, 4, 64), 32, 2, None),   # federated-lm-ring's heads: the small grids
+])
+def test_flash_split_tf32_backward_map_calls_match_plain(cuda, shape, chunk, ranks, window):
+    """f32 hd 64 map calls (each rank's rows of a sequence-parallel split)
+    of the split-TF32 backward against the plain version, 1e-4 of the
+    largest reference entry, one launch on its route a call."""
+    from repro_torch.kernels.flash_attention.ref import query_positions
+
+    b, s, hq, hkv, hd = shape
+    q, k, v, dout = _qkvg(cuda, torch.float32, b, s, hq, hkv, hd)
+    rl = chunk // ranks
+    for r in range(ranks):
+        rows = (rl, chunk, r * rl)
+        pos = query_positions(s // chunk * rl, rows, cuda)
+        qr, dor = q[:, pos].contiguous(), dout[:, pos].contiguous()
+        o_r, l_r = flash_attention_fwd(qr, k, v, window, None, rows)
+        n = flash_attention_bwd.routes["split_tf32"]
+        grads = flash_attention_bwd(qr, k, v, o_r, l_r, dor, window, None, rows)
+        refs = flash_attention_bwd_ref(qr, k, v, o_r, l_r, dor, window, None, rows)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.routes["split_tf32"] == n + 1
+        for got, ref in zip(grads, refs):
+            _close(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_split_tf32_kernels_do_not_spill(cuda):
+    """ptxas's report of the flash library: every instantiation of the
+    split-TF32 kernels (forward, dK/dV, dQ) has no spill stores."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    _build.load("flash_attention")
+    spills, cur = {}, None
+    for ln in _build.build_logs["flash_attention"].splitlines():
+        found = re.search(r"Function properties for (\S+)", ln)
+        if found:
+            cur = found.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores", ln)
+        if found and cur and "split_tf32_kernel" in cur:
+            spills[cur] = int(found.group(1))
+    names = ("flash_fwd_split_tf32_kernel", "flash_bwd_dkdv_split_tf32_kernel",
+             "flash_bwd_dq_split_tf32_kernel")
+    assert all(any(name in sym for sym in spills) for name in names), sorted(spills)
+    assert not any(spills.values()), {sym: n for sym, n in spills.items() if n}
+
+
 # 'flash rows': (dtype, (B, S, Hq, Hkv, hd), chunk, ranks, window, cap) of a
 # sequence-parallel split, each rank's rows one call through the query-row
 # map: gemma2-2b's heads (hd 256, cap 50) on 16 ranks with and without its
 # window, hd 128 on 2 ranks, bf16 hd 96 with a ragged tile (the narrow
-# backward), f32 hd 64 and bf16 hd 100 (split-TF32 forward, CUDA-core
-# backward)
+# backward), f32 hd 64 and bf16 hd 100 (split-TF32 forward and backward)
 ROWS_CASES = [
     (torch.bfloat16, (1, 2048, 8, 4, 256), 512, 16, 1024, 50.0),
     (torch.bfloat16, (1, 2048, 8, 4, 256), 512, 16, None, 50.0),
@@ -813,7 +911,7 @@ def _wide_grads(device, hd, case, window, cap):
 @pytest.mark.parametrize("window,cap", WIDE_MASKS)
 def test_flash_wide_bf16_backward_matches_plain(cuda, hd, case, window, cap):
     """The bf16 backward past hd 128 on the tensor cores (one count on the
-    route, none on the CUDA cores) against ``flash_attention_bwd_ref``: 3e-2
+    route, none on the split-TF32 route) against ``flash_attention_bwd_ref``: 3e-2
     of the largest reference entry."""
     args = _wide_grads(cuda, hd, case, window, cap)
     n = dict(flash_attention_bwd.routes)
@@ -821,7 +919,7 @@ def test_flash_wide_bf16_backward_matches_plain(cuda, hd, case, window, cap):
     refs = flash_attention_bwd_ref(*args, window, cap)
     torch.cuda.synchronize()
     assert {r: c - n[r] for r, c in flash_attention_bwd.routes.items()} == {
-        "tensor_core": 1, "split_tf32": 0, "cuda_core": 0}
+        "tensor_core": 1, "split_tf32": 0}
     for got, ref in zip(grads, refs):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         _close(got, ref, 3e-2)
@@ -845,14 +943,16 @@ def test_flash_wide_bf16_backward_is_bitwise_deterministic(cuda, hd, window, cap
 @pytest.mark.parametrize("hd", WIDE_HDS)
 @pytest.mark.parametrize("window,cap", WIDE_MASKS)
 def test_flash_wide_bf16_backward_matches_cuda_core_kernel(cuda, hd, window, cap):
-    """The wide tensor-core backward against the CUDA-core kernel that took
-    these widths before it, called directly on the same inputs: 3e-2 of the
-    largest entry of the CUDA-core gradient."""
+    """The wide tensor-core backward against a second kernel of the same
+    function, called directly on the same inputs: the split-TF32 backward,
+    which took over from the CUDA-core kernel that held these widths before
+    the tensor-core one (f32 arithmetic on bf16 inputs); 3e-2 of the largest
+    entry of its gradient."""
     from repro_torch.kernels.flash_attention.ops import _bwd_launch
 
     args = _wide_grads(cuda, hd, (1, 300, 8, 2), window, cap)
     grads = flash_attention_bwd(*args, window, cap)
-    olds = _bwd_launch("cuda_core", *args, window, cap)
+    olds = _bwd_launch("split_tf32", *args, window, cap)
     torch.cuda.synchronize()
     for got, old in zip(grads, olds):
         _close(got, old, 3e-2)

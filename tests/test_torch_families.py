@@ -354,3 +354,29 @@ def test_round_graph_body_equals_eager_bitwise(lane):
     np.testing.assert_array_equal(graphed[0], eager[0])
     for k, v in graphed[1].items():
         np.testing.assert_array_equal(v, eager[1][k], err_msg=k)
+
+
+def test_model_spec_builds_the_causal_lm_of_the_reference():
+    """``ModelSpec(kind="causal-lm", params={"cfg": ...}).build()`` of both
+    packages on the same reduced config: a ``CausalLM`` with the same leaves
+    (names and shapes) and, on the reference's weights carried over, the
+    same loss within 1e-5."""
+    from repro.core.config import MODEL_KINDS as JKINDS
+    from repro.core.config import ModelSpec as JSpec
+    from repro_torch.core.config import MODEL_KINDS as TKINDS
+    from repro_torch.core.config import ModelSpec as TSpec
+
+    assert TKINDS == JKINDS
+    jmodel = JSpec(kind="causal-lm",
+                   params={"cfg": jconfigs.get_config("granite-8b").reduced()}).build()
+    tmodel = TSpec(kind="causal-lm",
+                   params={"cfg": tconfigs.get_config("granite-8b").reduced()}).build()
+    assert isinstance(tmodel, tmodels.CausalLM)
+    flat = flatten_params(_np(jmodel.init(jax.random.PRNGKey(0))))
+    shapes = {k: tuple(v.shape) for k, v in tmodel.param_shapes().items()}
+    assert shapes == {k: tuple(v.shape) for k, v in flat.items()}
+    batch = _batch(tmodel.cfg, 16)
+    jloss = jmodel.loss(jax.tree.map(jnp.asarray, unflatten_params(flat)),
+                        {k: jnp.asarray(v) for k, v in batch.items()})
+    tloss = tmodel.loss(params_from_numpy(flat, "cpu"), _t(batch))
+    np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-5)

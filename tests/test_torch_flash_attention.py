@@ -191,15 +191,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     (torch.bfloat16, 256, True, "tensor_core"),  # dK and dV in one warpgroup each
     (torch.bfloat16, 160, True, "tensor_core"),  # on the hd-160 tile
     (torch.bfloat16, 136, True, "tensor_core"),
-    (torch.bfloat16, 132, True, "cuda_core"),    # hd % 8 != 0
+    (torch.bfloat16, 132, True, "split_tf32"),   # hd % 8 != 0
     (torch.bfloat16, 100, False, "split_tf32"),  # hd % 8 != 0: no 16-byte TMA strides
-    (torch.bfloat16, 100, True, "cuda_core"),
+    (torch.bfloat16, 100, True, "split_tf32"),
     (torch.float32, 128, False, "split_tf32"),   # f32 stays f32-accurate: split TF32
-    (torch.float32, 64, True, "cuda_core"),
+    (torch.float32, 64, True, "split_tf32"),
     (torch.float32, 256, False, "split_tf32"),
     (torch.float32, 30, False, "split_tf32"),
     (torch.bfloat16, 30, False, "split_tf32"),
-    (torch.float32, 256, True, "cuda_core"),
+    (torch.float32, 256, True, "split_tf32"),
 ])
 def test_route_by_dtype_and_head_width(dtype, hd, backward, want):
     assert route(dtype, hd, backward=backward) == want
@@ -317,3 +317,56 @@ def test_split_tf32_arithmetic_within_card_tolerances(hd, window, cap):
     plain_tf32 = torch.einsum("bhgqk,bkhd->bqhgd", _tf32(p), _tf32(v))
     assert not np.allclose((plain_tf32 / l.permute(0, 3, 1, 2)[..., None]).reshape(b, s, hq, hd)
                            .numpy(), out.numpy(), atol=2e-5)
+
+
+def _backward_by_products(q, k, v, out, lse, dout, window, cap, product):
+    """The backward's five products, S = Q K^T, dP = dO V^T, dV = P^T dO,
+    dQ = dS K and dK = dS^T Q, each formed by ``product(eq, a, b)``; the rest
+    (P from lse, delta, dS and the cap's derivative) in f32, as the kernels
+    form it."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = hd ** -0.5
+    qg, dog = q.reshape(b, s, hkv, g, hd), dout.reshape(b, s, hkv, g, hd)
+    raw = product("bqhgd,bkhd->bhgqk", qg, k) * scale
+    sc = raw if cap is None else cap * torch.tanh(raw / cap)
+    pos = torch.arange(s)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    p = torch.where(mask, torch.exp(sc - lse.reshape(b, hkv, g, s)[..., None]), 0.0)
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", dog, out.reshape(b, s, hkv, g, hd))
+    ds = p * (product("bqhgd,bkhd->bhgqk", dog, v) - delta[..., None])
+    if cap is not None:
+        ds = ds * (1.0 - torch.tanh(raw / cap) ** 2)
+    dv = product("bhgqk,bqhgd->bkhd", p, dog)
+    dq = product("bhgqk,bkhd->bqhgd", ds, k) * scale
+    dk = product("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return dq.reshape(b, s, hq, hd), dk, dv
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (48, 30.0)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_split_tf32_backward_arithmetic_within_card_tolerances(hd, window, cap):
+    """The split-TF32 backward forms its five products in split TF32 (P and
+    dS split as Q, K, V and dO are; lo.lo dropped): with those splits the
+    plain formulas still meet the card tests' f32 gradient tolerance, 1e-4
+    of the largest entry of ``flash_attention_bwd_ref``'s dQ, dK and dV, at
+    every head width the kernels are built for, under GQA, with and without
+    a window and a cap.  TF32 alone (hi.hi) misses it."""
+    b, s, hq, hkv = 1, 160, 4, 2
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, s, hq, hkv, hd))
+    dout = torch.from_numpy(_arr((b, s, hq, hd)))
+    out, lse = flash_attention_fwd_ref(q, k, v, window, cap)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, window, cap)
+    args = (q, k, v, out, lse, dout, window, cap)
+    for got, ref in zip(_backward_by_products(*args, _split_tf32_product), refs):
+        scale = max(1.0, ref.abs().max().item())
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4 * scale)
+    # the splits matter: TF32 alone misses the gradient tolerance
+    tf32_only = lambda eq, a, c: torch.einsum(eq, _tf32(a).double(), _tf32(c).double()).float()
+    misses = [not np.allclose(got.numpy(), ref.numpy(),
+                              atol=1e-4 * max(1.0, ref.abs().max().item()), rtol=0)
+              for got, ref in zip(_backward_by_products(*args, tf32_only), refs)]
+    assert all(misses)

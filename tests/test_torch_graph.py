@@ -89,9 +89,9 @@ def test_count_kernels_maps_device_kernels_to_wrappers():
     names = ["void (anonymous namespace)::sgd_update_kernel<float>(LeafTable, float)"] * 3 + [
         "void fused_transition_kernel<4>(LeafTable, float const*, float const*)",
         "void flash_fwd_split_tf32_kernel<float, 64>(float const*)",
-        "void flash_bwd_delta_kernel<float>(float const*)",  # the backward's other two
-        "void flash_bwd_dkdv_kernel<float, 64>(float const*)",
-        "void flash_bwd_dq_kernel<float, 64>(float const*)",
+        "void flash_bwd_delta_split_tf32_kernel<float>(float const*)",  # the backward's
+        "void flash_bwd_dkdv_split_tf32_kernel<float, 64>(float const*)",  # other two
+        "void flash_bwd_dq_split_tf32_kernel<float, 64>(float const*)",
         "flash_bwd_dq_sm90_kernel(CUtensorMap)",
         "void flash_bwd_dkdv_wide_sm90_kernel<256, 2>(CUtensorMap)",  # hd > 128: dK/dV,
         "void flash_bwd_dq_sm90_kernel<256, 3, 32>(CUtensorMap)",     # then dQ once
@@ -100,7 +100,7 @@ def test_count_kernels_maps_device_kernels_to_wrappers():
     assert tkernels.count_kernels(names) == {
         "sgd_update": 3, "fused_transition": 1, "flash_attention_fwd": 1,
         "flash_attention_fwd.split_tf32": 1, "flash_attention_bwd": 3,
-        "flash_attention_bwd.cuda_core": 1, "flash_attention_bwd.tensor_core": 2}
+        "flash_attention_bwd.split_tf32": 1, "flash_attention_bwd.tensor_core": 2}
     assert tkernels.count_kernels([]) == {}
 
 
